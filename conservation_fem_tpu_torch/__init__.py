@@ -35,10 +35,12 @@ assert_no_tf32()
 
 
 def get_device(device=None) -> torch.device:
-    """Resolve a device argument. "cuda" without a card raises — nothing
-    here falls back to the CPU."""
-    dev = torch.device(device if device is not None else "cpu")
+    """Resolve a device argument: None is the card ("cuda"); the CPU only
+    when asked for ("cpu"). "cuda" without a card raises — nothing here
+    falls back to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available")
+        raise RuntimeError(f"device {str(dev)!r} requested but no CUDA "
+                           "device is available (pass device='cpu' to run "
+                           "on the CPU)")
     return dev

@@ -7,7 +7,8 @@ Runs the KPP workload of the port with KPPConfig overrides, e.g.::
         --cg_iters 6 --newton_iters 2 --newton_linear_iters 4 \\
         --modified_newton true --device cuda
 
-Prints a one-line JSON result. Per-step metrics are recorded, as in the
+Runs on the card unless ``--device cpu`` is given. Prints a one-line JSON
+result. Per-step metrics are recorded, as in the
 JAX package's CLI, so the run takes the composed step (the fused kernel
 records none).
 """
@@ -28,9 +29,9 @@ _CASTERS = {"int": int, "float": float, "str": str,
 
 def _parse(cfg_cls, args_list):
     """--key value pairs against a dataclass config's fields, plus
-    --device."""
+    --device (default: the card)."""
     parser = argparse.ArgumentParser(prog="conservation_fem_tpu_torch kpp")
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda")
     for f in dataclasses.fields(cfg_cls):
         parser.add_argument(f"--{f.name}", default=None,
                             type=_CASTERS.get(str(f.type), str))

@@ -1,5 +1,5 @@
-// Shared device code of the structured-grid kernels (stencil.cu,
-// fused_step.cu): grid offsets, the 7-plane stencil application, and the
+// Shared device code of the structured-grid kernels (stencil.cu and the
+// step kernels of fused_step.cuh): grid offsets, the 7-plane stencil application, and the
 // deterministic block/grid reductions of the cooperative kernels.
 //
 // Layout: a field is an (n1x, n1y) row-major grid, node n = i * n1y + j;
@@ -148,13 +148,16 @@ template <typename T> struct GridReducer {
   }
 };
 
-// Grid size of a cooperative kernel: every block resident at once.
+// Grid size of a cooperative kernel: every block resident at once, no
+// more blocks than n_nodes / kBlock; smem is the dynamic shared memory
+// per block.
 template <typename Kernel>
-inline int coop_grid(Kernel kernel, int n_nodes) {
+inline int coop_grid(Kernel kernel, int n_nodes, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                smem);
   int grid = per_sm * sms;
   const int need = (n_nodes + kBlock - 1) / kBlock;
   if (grid > need) grid = need;

@@ -77,7 +77,8 @@ FLUX = Flux(name="kpp", fprime_xy=flux_prime_xy, fprime2_xy=flux_prime2_xy,
 
 
 def build(cfg: KPPConfig | None = None, device=None, **kw):
-    """The KPP problem on the structured stencil backend, on ``device``."""
+    """The KPP problem on the structured stencil backend, on ``device``
+    (None: the card; raises without one. device="cpu" for the CPU)."""
     if cfg is None:
         cfg = KPPConfig(**kw)
     if cfg.mesh_source != "structured" or cfg.backend not in ("auto",

@@ -4,11 +4,13 @@ conservation_fem_tpu/models/structured_hyperbolic.py.
 Same pipeline as the JAX model — BDF2 residual projection, RV epsilon,
 stabilised CN Newton — with every operator a 7-plane stencil
 (ops/structured.py). With ``use_kernels`` and fixed iteration counts each
-step is one call of ops/fused_step.fused_rv_step (one kernel launch on
-the card); with ``use_kernels`` and adaptive solvers the mass solve is
-ops/stencil_kernels.cg_solve. Unlike the JAX model there is no size
-limit on the fused step: the TPU kernel's VMEM thresholds
-(single/split/tiled) have no counterpart on the card.
+step is one of three whole-step kernels, chosen by ``_fused_mode`` with
+the JAX package's rule and thresholds so that a configuration launches
+the counterpart of the kernel the JAX package launches: "single"
+(ops/fused_step.fused_rv_step, one launch), "split"
+(ops/fused_step.fused_rv_step_split, 1 + newton_iters launches) or
+"tiled" (ops/tiled_step.tiled_rv_step, one launch). With ``use_kernels``
+and adaptive solvers the mass solve is ops/stencil_kernels.cg_solve.
 """
 
 from __future__ import annotations
@@ -103,18 +105,35 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
 
     # -- fused whole-step path ------------------------------------------------
 
-    def _fused_ok(self):
-        """Fused-step eligibility (the JAX rule without its VMEM gates):
-        kernels on, fixed iteration counts, rv or gfem, no smoothing."""
+    def _fused_mode(self):
+        """The whole-step kernel of this problem, by the JAX package's rule
+        (models/structured_hyperbolic._fused_mode): with kernels on, fixed
+        iteration counts, rv or gfem and no smoothing, "single" up to 270
+        KiB per field, "split" up to 1100 KiB, "tiled" beyond for the cheby
+        or bicgstab inner solver; otherwise None. The thresholds are the
+        TPU's VMEM gates, kept so that both packages pick counterpart
+        kernels."""
         cfg = self.cfg
-        return (cfg.use_kernels
+        if not (cfg.use_kernels
                 and cfg.cg_iters is not None and cfg.newton_iters is not None
                 and cfg.stabilization in ("rv", "gfem")
-                and cfg.smooth_l == 0)
+                and cfg.smooth_l == 0):
+            return None
+        per_field = ((self.sd.nx + 1) * (self.sd.ny + 1)
+                     * self.u0.element_size())
+        if per_field <= 270 * 2**10:
+            return "single"
+        if per_field <= 1100 * 2**10:
+            return "split"
+        if cfg.inner_solver in ("cheby", "bicgstab"):
+            return "tiled"
+        return None
 
     def fused_step_kwargs(self):
-        """Keyword arguments of ops/fused_step.fused_rv_step for this
-        problem (everything but the fields and ``n_substeps``)."""
+        """Keyword arguments of the three whole-step kernels
+        (ops/fused_step.fused_rv_step, fused_rv_step_split,
+        ops/tiled_step.tiled_rv_step) for this problem: everything but the
+        fields, ``n_substeps`` (single) and ``tile_rows`` (tiled)."""
         cfg, sd, fs = self.cfg, self.sd, self._fused_static
         return dict(
             nx=sd.nx, ny=sd.ny, dt=self.dt, area=fs["area"], h=fs["h"],
@@ -137,12 +156,24 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
 
     def _step_fused(self, carry, t):
         g2 = self.bc_value(self.points, t).reshape(self._shape2)
-        return self._fused_call(carry, g2, 1), None
+        mode = self._fused_mode()
+        if mode == "single":
+            return self._fused_call(carry, g2, 1), None
+        from conservation_fem_tpu_torch.ops.fused_step import (
+            fused_rv_step_split)
+        from conservation_fem_tpu_torch.ops.tiled_step import tiled_rv_step
+
+        step_fn = fused_rv_step_split if mode == "split" else tiled_rv_step
+        u2, uo2, uoo2 = (v.reshape(self._shape2) for v in carry)
+        uh = step_fn(u2, uo2, uoo2, g2, self.sd.M_coef,
+                     **self.fused_step_kwargs())
+        return (uh.reshape(-1), carry[0], carry[1]), None
 
     def _fused_multistep_ok(self):
-        """K steps per launch: fused path, time-independent Dirichlet data
-        (g is formed once), no per-step metrics."""
-        return (self.cfg.fused_substeps > 1 and self._fused_ok()
+        """K steps per launch: the single kernel, time-independent
+        Dirichlet data (g is formed once), no per-step metrics."""
+        return (self.cfg.fused_substeps > 1
+                and self._fused_mode() == "single"
                 and getattr(self, "bc_static", False)
                 and not self.cfg.record_metrics)
 
@@ -159,7 +190,7 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
                            num_steps=self.num_steps)
 
     def step(self, carry, t):
-        if self._fused_ok() and not self.cfg.record_metrics:
+        if self._fused_mode() is not None and not self.cfg.record_metrics:
             return self._step_fused(carry, t)
         u_n = carry[0]
         u2, uo2, uoo2 = (v.reshape(self._shape2) for v in carry)

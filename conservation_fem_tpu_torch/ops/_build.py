@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` sources compile, with nvcc and a plain C interface,
-into one shared library that is loaded with ctypes (no PyTorch headers,
-so a build takes seconds, not minutes):
+Each ``csrc/*.cu`` source compiles, with nvcc and a plain C interface,
+to an object file — one nvcc process per source, all started together —
+and the objects link into one shared library that is loaded with ctypes
+(no PyTorch headers, so a build takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libcft_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o _build/obj/<name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libcft_kernels.so _build/obj/*.o
 
 The build runs at first use into ``_build/`` beside this package (listed
 in .gitignore) and again whenever the SHA-256 of the sources changes.
@@ -46,6 +49,9 @@ _SIGNATURES = {
     "cft_cg_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _P],
     "cft_fused_rv_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cft_split_setup": [_P] * 12 + [_I] * 6 + [_P],
+    "cft_split_newton": [_P] * 13 + [_I] * 4 + [_P],
+    "cft_tiled_rv_step": [_P] * 9 + [_I] * 11 + [_P],
 }
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x
 # kMaxGrid (csrc/stencil.cuh)
@@ -53,6 +59,7 @@ PART_SIZE = 2 * 4 * 2048
 
 _lock = threading.Lock()
 _lib = None
+build_log = ""   # compiler output of the last build (-Xptxas -v when verbose)
 
 
 def _sources():
@@ -78,7 +85,9 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into BUILD_DIR/LIB_NAME unless a library built
-    from the same sources is there; returns its path."""
+    from the same sources is there; returns its path. The sources compile
+    in parallel, one nvcc each; ``build_log`` keeps the compiler output."""
+    global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
@@ -87,16 +96,36 @@ def build(verbose: bool = False) -> str:
         with open(stamp) as fh:
             if fh.read().strip() == digest:
                 return lib_path
+    nvcc = _nvcc()
+    obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    procs = []
+    for src in [path for path in _sources() if path.endswith(".cu")]:
+        obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
+        cmd = ([nvcc] + ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c"]
+               + (["-Xptxas", "-v"] if verbose else []) + ["-o", obj, src])
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    outputs, failed = [], False
+    for _, proc in procs:
+        out, _ = proc.communicate()
+        outputs.append(out)
+        failed |= proc.returncode != 0
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + ARCH_FLAGS
-           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-           + (["-Xptxas", "-v"] if verbose else [])
-           + ["-o", tmp] + [s for s in _sources() if s.endswith(".cu")])
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode:
-        print(res.stdout + res.stderr, flush=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}")
+    if not failed:
+        res = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
+                             + [obj for obj, _ in procs],
+                             capture_output=True, text=True)
+        outputs.append(res.stdout + res.stderr)
+        failed = res.returncode != 0
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    build_log = "".join(outputs)
+    if verbose or failed:
+        print(build_log, flush=True)
+    if failed:
+        raise RuntimeError("nvcc failed: the CUDA kernels did not build")
     os.replace(tmp, lib_path)
     with open(stamp, "w") as fh:
         fh.write(digest)

@@ -1,17 +1,26 @@
-"""Whole stabilised time step: the Hopper kernel (csrc/fused_step.cu) and
-its plain PyTorch version.
+"""Whole stabilised time step: the Hopper kernels (csrc/fused_step.cu,
+csrc/split_step.cu) and their plain PyTorch versions.
 
-Port of conservation_fem_tpu/ops/pallas_fused.fused_rv_step. One step is
-the BDF1/BDF2 residual projection (fixed CG or Chebyshev mass solve), the
-RV epsilon, the eps-stiffness planes and a CN Newton solve with a frozen
-or fresh Jacobian (fixed BiCGStab or Chebyshev). ``fused_rv_step`` runs
-``n_substeps`` such steps and returns the last three states.
+Port of conservation_fem_tpu/ops/pallas_fused.fused_rv_step and
+fused_rv_step_split. One step is the BDF1/BDF2 residual projection (fixed
+CG or Chebyshev mass solve), the RV epsilon, the eps-stiffness planes and
+a CN Newton solve with a frozen or fresh Jacobian (fixed BiCGStab or
+Chebyshev). ``fused_rv_step`` runs ``n_substeps`` such steps in one
+launch and returns the last three states; ``fused_rv_step_split`` runs one
+step as a setup launch (``split_setup``) and one launch per Newton
+iteration (``split_newton``) and returns the new state.
 
-The plain version is a transcription of the JAX ``_step_body`` on whole
-grids, built from the port's stencil ops and fixed-iteration solvers. The
-wrapper runs it for CPU tensors and launches the CUDA kernel for CUDA
-tensors. The kernel compiles the flux in: it knows KPP only, and any
-other flux raises on the card.
+The plain versions are a transcription of the JAX ``_step_body`` (and of
+the split kernels' two stages) on whole grids, built from the port's
+stencil ops and fixed-iteration solvers. The wrappers run them for CPU
+tensors and launch the CUDA kernels for CUDA tensors. The kernels compile
+the flux in: they know KPP only, and any other flux raises on the card.
+
+The step's keyword arguments (``step`` below) are those of
+``fused_rv_step`` without ``n_substeps``: nx, ny, dt, area, h, grads,
+phi, qw, Cvel, CRV, flux, cg_iters, newton_iters, lin_iters,
+freeze_jacobian, and optionally residual_scheme, stabilization,
+inner_solver, mass_bounds, lin_bounds.
 """
 
 from __future__ import annotations
@@ -23,12 +32,36 @@ import torch
 
 from conservation_fem_tpu_torch.ops import _build
 from conservation_fem_tpu_torch.ops import structured as st
-from conservation_fem_tpu_torch.ops.krylov import (cg_fixed,
+from conservation_fem_tpu_torch.ops.krylov import (bicgstab_fixed, cg_fixed,
                                                    chebyshev_fixed,
                                                    jacobi_preconditioner)
 from conservation_fem_tpu_torch.ops.newton import newton_fixed
 
-N_WORK_FIELDS = 31   # csrc/fused_step.cu Field::N_FIELDS
+N_WORK_FIELDS = 29   # csrc/fused_step.cuh Field::N_FIELDS
+
+_GEOMETRY = ("nx", "ny", "area", "h", "grads", "phi", "qw")
+_REQUIRED = _GEOMETRY + ("dt", "Cvel", "CRV", "flux", "cg_iters",
+                         "newton_iters", "lin_iters", "freeze_jacobian")
+_DEFAULTS = dict(residual_scheme="bdf2", stabilization="rv",
+                 inner_solver="bicgstab", mass_bounds=(0.5, 2.0),
+                 lin_bounds=(0.4, 2.2))
+
+
+def step_args(name, step, **defaults):
+    """The step's keyword arguments with the defaults filled in (``defaults``
+    override the module's); raises TypeError for a missing or unknown one."""
+    out = {**_DEFAULTS, **defaults, **step}
+    missing = [k for k in _REQUIRED if k not in out]
+    unknown = [k for k in out if k not in _REQUIRED and k not in _DEFAULTS]
+    if missing or unknown:
+        raise TypeError(f"{name}: missing arguments {missing}, unknown "
+                        f"arguments {unknown}")
+    return out
+
+
+def _body_kw(s):
+    """The step arguments other than the geometry (which goes into sd)."""
+    return {k: v for k, v in s.items() if k not in _GEOMETRY}
 
 
 def _frame(n1x, n1y, device):
@@ -38,85 +71,141 @@ def _frame(n1x, n1y, device):
     return bc
 
 
-def _step_body_plain(sd, u, uo, uoo, g, *, dt, Cvel, CRV, flux, cg_iters,
-                     newton_iters, lin_iters, freeze_jacobian,
-                     residual_scheme, stabilization, inner_solver,
-                     mass_bounds, lin_bounds):
-    """One stabilised step on whole (n1x, n1y) grids (JAX _step_body)."""
-    bc, Mc = sd.bc2, sd.M_coef
-    cheby = inner_solver == "cheby"
+def _plain_data(u2, Mc2, s):
+    """StructuredData of the plain versions from the step's geometry."""
+    dtype, dev = u2.dtype, u2.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                  device=dev)
+    nx, ny = s["nx"], s["ny"]
+    return st.StructuredData(
+        nx=nx, ny=ny, grads=t(s["grads"]), area=t(s["area"]),
+        bc2=_frame(nx + 1, ny + 1, dev), phi=t(s["phi"]), qw=t(s["qw"]),
+        M_coef=Mc2,
+        h_cg2=torch.full((nx + 1, ny + 1), float(s["h"]), dtype=dtype,
+                         device=dev),
+        diagM2=Mc2[0])
 
-    # 1. residual projection
+
+def _projection_plain(sd, u, uo, uoo, N_un, *, dt, cg_iters,
+                      residual_scheme, inner_solver, mass_bounds):
+    """RH with M RH = where(bc, 0, M du + N(u)), fixed CG or Chebyshev."""
+    bc, Mc = sd.bc2, sd.M_coef
     if residual_scheme == "bdf1":
         du = (u - uo) / dt
     else:
         du = (3.0 * u - 4.0 * uo + uoo) / (2.0 * dt)
-    N_un = st.nonlinear_rhs(sd, u, flux)
     rhs = torch.where(bc, 0.0, st.matvec(sd, Mc, du) + N_un)
     mass_op = lambda v: st.constrained_matvec(sd, Mc, v)
     pre = jacobi_preconditioner(torch.where(bc, 1.0, Mc[0]))
-    if cheby:
-        RH = chebyshev_fixed(mass_op, rhs, iters=cg_iters, lmin=mass_bounds[0],
-                             lmax=mass_bounds[1], precond=pre).x
-    else:
-        RH = cg_fixed(mass_op, rhs, iters=cg_iters, precond=pre).x
+    if inner_solver == "cheby":
+        return chebyshev_fixed(mass_op, rhs, iters=cg_iters,
+                               lmin=mass_bounds[0], lmax=mass_bounds[1],
+                               precond=pre).x
+    return cg_fixed(mass_op, rhs, iters=cg_iters, precond=pre).x
 
-    # 2. RV epsilon
+
+def _eps_plain(sd, u, RH, *, Cvel, CRV, flux, stabilization):
     if stabilization == "rv":
-        eps = st.rv_epsilon(sd, Cvel, CRV, u, RH, flux.fprime_norm)
-    else:
-        eps = torch.zeros_like(u)
+        return st.rv_epsilon(sd, Cvel, CRV, u, RH, flux.fprime_norm)
+    return torch.zeros_like(u)
 
-    # 3. CN Newton
+
+def _residual_plain(sd, v, u, g, Kc, N_un, K_un, *, dt, flux):
+    """CN residual F(v), v - g on the frame."""
+    F = (st.matvec(sd, sd.M_coef, v - u)
+         + 0.5 * dt * (st.nonlinear_rhs(sd, v, flux) + N_un)
+         + 0.5 * dt * (st.matvec(sd, Kc, v) + K_un))
+    return torch.where(sd.bc2, v - g, F)
+
+
+def _linearize_plain(sd, Kc, w, *, dt, flux):
+    """(pinned J matvec, Jacobi preconditioner) of J = M + dt/2 (K + C(w))."""
+    J = sd.M_coef + 0.5 * dt * (Kc + st.flux_jacobian_coef(sd, w, flux))
+    return ((lambda v: st.constrained_matvec(sd, J, v)),
+            jacobi_preconditioner(torch.where(sd.bc2, 1.0, J[0])))
+
+
+def _frozen_terms_plain(sd, u, uo, uoo, *, dt, Cvel, CRV, flux, cg_iters,
+                        residual_scheme, stabilization, inner_solver,
+                        mass_bounds, **_newton):
+    """(Kc, N(u), K u) of a step: projection, RV epsilon, eps planes."""
+    N_un = st.nonlinear_rhs(sd, u, flux)
+    RH = _projection_plain(sd, u, uo, uoo, N_un, dt=dt, cg_iters=cg_iters,
+                           residual_scheme=residual_scheme,
+                           inner_solver=inner_solver,
+                           mass_bounds=mass_bounds)
+    eps = _eps_plain(sd, u, RH, Cvel=Cvel, CRV=CRV, flux=flux,
+                     stabilization=stabilization)
     Kc = st.keps_coef(sd, eps)
-    K_un = st.matvec(sd, Kc, u)
-
-    def residual(v):
-        F = (st.matvec(sd, Mc, v - u)
-             + 0.5 * dt * (st.nonlinear_rhs(sd, v, flux) + N_un)
-             + 0.5 * dt * (st.matvec(sd, Kc, v) + K_un))
-        return torch.where(bc, v - g, F)
-
-    def linearize(w):
-        J = Mc + 0.5 * dt * (Kc + st.flux_jacobian_coef(sd, w, flux))
-        return ((lambda v: st.constrained_matvec(sd, J, v)),
-                jacobi_preconditioner(torch.where(bc, 1.0, J[0])))
-
-    return newton_fixed(residual, torch.where(bc, g, u), iters=newton_iters,
-                        linear_iters=lin_iters, jacobian_fn=linearize,
-                        freeze_jacobian=freeze_jacobian,
-                        linear_solver=inner_solver, cheby_bounds=lin_bounds,
-                        final_residual=False).u
+    return Kc, N_un, st.matvec(sd, Kc, u)
 
 
-def fused_rv_step_plain(u2, uo2, uoo2, g2, Mc2, *, nx, ny, dt, area, h,
-                        grads, phi, qw, Cvel, CRV, flux, cg_iters,
-                        newton_iters, lin_iters, freeze_jacobian,
-                        residual_scheme="bdf2", stabilization="rv",
-                        n_substeps=1, inner_solver="bicgstab",
-                        mass_bounds=(0.5, 2.0), lin_bounds=(0.4, 2.2)):
+def _step_body_plain(sd, u, uo, uoo, g, **kw):
+    """One stabilised step on whole (n1x, n1y) grids (JAX _step_body);
+    ``kw``: the step arguments other than the geometry."""
+    dt, flux = kw["dt"], kw["flux"]
+    Kc, N_un, K_un = _frozen_terms_plain(sd, u, uo, uoo, **kw)
+    return newton_fixed(
+        lambda v: _residual_plain(sd, v, u, g, Kc, N_un, K_un, dt=dt,
+                                  flux=flux),
+        torch.where(sd.bc2, g, u), iters=kw["newton_iters"],
+        linear_iters=kw["lin_iters"],
+        jacobian_fn=lambda w: _linearize_plain(sd, Kc, w, dt=dt, flux=flux),
+        freeze_jacobian=kw["freeze_jacobian"],
+        linear_solver=kw["inner_solver"], cheby_bounds=kw["lin_bounds"],
+        final_residual=False).u
+
+
+def _split_setup_plain(sd, u, uo, uoo, g, **kw):
+    """The split setup stage: (Kc (7, n1x, n1y), aux = (N(u), K u)
+    (2, n1x, n1y), uk0 = where(bc, g, u), F(uk0))."""
+    Kc, N_un, K_un = _frozen_terms_plain(sd, u, uo, uoo, **kw)
+    uk = torch.where(sd.bc2, g, u)
+    F = _residual_plain(sd, uk, u, g, Kc, N_un, K_un, dt=kw["dt"],
+                        flux=kw["flux"])
+    return Kc, torch.stack([N_un, K_un]), uk, F
+
+
+def _split_newton_plain(sd, uk, F, u, g, Kc, aux, w, **kw):
+    """One split Newton stage: the Jacobian at w, the fixed inner solve of
+    J dx = -F, uk + dx and its residual; returns (uk', F(uk'))."""
+    dt, flux = kw["dt"], kw["flux"]
+    jmv, pre = _linearize_plain(sd, Kc, w, dt=dt, flux=flux)
+    if kw["inner_solver"] == "cheby":
+        lo, hi = kw["lin_bounds"]
+        du = chebyshev_fixed(jmv, -F, iters=kw["lin_iters"], lmin=lo,
+                             lmax=hi, precond=pre).x
+    else:
+        du = bicgstab_fixed(jmv, -F, iters=kw["lin_iters"], precond=pre).x
+    uk = uk + du
+    return uk, _residual_plain(sd, uk, u, g, Kc, aux[0], aux[1], dt=dt,
+                               flux=flux)
+
+
+def fused_rv_step_plain(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
     """``n_substeps`` stabilised steps in plain PyTorch; returns
     (u_K, u_{K-1}, u_{K-2})."""
-    dtype, dev = u2.dtype, u2.device
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
-                                  device=dev)
-    sd = st.StructuredData(
-        nx=nx, ny=ny, grads=t(grads), area=t(area),
-        bc2=_frame(nx + 1, ny + 1, dev), phi=t(phi), qw=t(qw), M_coef=Mc2,
-        h_cg2=torch.full((nx + 1, ny + 1), float(h), dtype=dtype,
-                         device=dev),
-        diagM2=Mc2[0])
+    s = step_args("fused_rv_step", step)
+    sd = _plain_data(u2, Mc2, s)
     u, uo, uoo = u2, uo2, uoo2
     for _ in range(n_substeps):
-        uh = _step_body_plain(
-            sd, u, uo, uoo, g2, dt=dt, Cvel=Cvel, CRV=CRV, flux=flux,
-            cg_iters=cg_iters, newton_iters=newton_iters,
-            lin_iters=lin_iters, freeze_jacobian=freeze_jacobian,
-            residual_scheme=residual_scheme, stabilization=stabilization,
-            inner_solver=inner_solver, mass_bounds=mass_bounds,
-            lin_bounds=lin_bounds)
+        uh = _step_body_plain(sd, u, uo, uoo, g2, **_body_kw(s))
         u, uo, uoo = uh, u, uo
     return u, uo, uoo
+
+
+def fused_rv_step_split_plain(u2, uo2, uoo2, g2, Mc2, **step):
+    """One stabilised step through the split stages in plain PyTorch;
+    returns u_{n+1}. The linearisation point is uk0 for a frozen Jacobian
+    and the current iterate otherwise."""
+    s = step_args("fused_rv_step_split", step)
+    sd, kw = _plain_data(u2, Mc2, s), _body_kw(s)
+    Kc, aux, uk, F = _split_setup_plain(sd, u2, uo2, uoo2, g2, **kw)
+    w0 = uk
+    for _ in range(s["newton_iters"]):
+        w = w0 if s["freeze_jacobian"] else uk
+        uk, F = _split_newton_plain(sd, uk, F, u2, g2, Kc, aux, w, **kw)
+    return uk
 
 
 def _step_constants(dtype, dt, area, h, grads, phi, qw, Cvel, CRV,
@@ -152,11 +241,11 @@ def _constants_on(device, table_bytes):
 
 def _check_kernel_options(flux, residual_scheme, stabilization,
                           inner_solver):
-    """Raise for what the CUDA step does not compile in."""
+    """Raise for what the CUDA step kernels do not compile in."""
     if flux.name != "kpp":
         raise NotImplementedError(
-            f"fused_rv_step: the CUDA step compiles in the KPP flux only, "
-            f"not {flux.name!r}")
+            f"the CUDA step kernels compile in the KPP flux only, not "
+            f"{flux.name!r}")
     if residual_scheme not in ("bdf1", "bdf2"):
         raise ValueError(f"residual_scheme {residual_scheme!r}")
     if stabilization not in ("rv", "gfem"):
@@ -165,49 +254,136 @@ def _check_kernel_options(flux, residual_scheme, stabilization,
         raise ValueError(f"inner_solver {inner_solver!r}")
 
 
-def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, nx, ny, dt, area, h, grads,
-                  phi, qw, Cvel, CRV, flux, cg_iters, newton_iters,
-                  lin_iters, freeze_jacobian, residual_scheme="bdf2",
-                  stabilization="rv", n_substeps=1, inner_solver="bicgstab",
-                  mass_bounds=(0.5, 2.0), lin_bounds=(0.4, 2.2)):
+def _launch_prep(name, s, tensors, shapes):
+    """Checks and the device constant table of a step-kernel launch;
+    returns (dtype, consts)."""
+    _check_kernel_options(s["flux"], s["residual_scheme"],
+                          s["stabilization"], s["inner_solver"])
+    dtype = _build.check_cuda_args(name, *tensors, shapes=shapes)
+    table = _step_constants(dtype, float(s["dt"]), float(s["area"]),
+                            float(s["h"]), s["grads"], s["phi"], s["qw"],
+                            float(s["Cvel"]), float(s["CRV"]),
+                            s["mass_bounds"], s["lin_bounds"])
+    return dtype, _constants_on(tensors[0].device, table.tobytes())
+
+
+def new_scratch(dtype, device, n1x, n1y):
+    """(work fields, reduction partials) of a step-kernel launch."""
+    return (torch.empty((N_WORK_FIELDS, n1x, n1y), dtype=dtype,
+                        device=device),
+            torch.empty(_build.PART_SIZE, dtype=dtype, device=device))
+
+
+def _flags(s):
+    """(bdf2, rv, freeze, cheby) as the kernels' int flags."""
+    return (int(s["residual_scheme"] == "bdf2"),
+            int(s["stabilization"] == "rv"),
+            int(bool(s["freeze_jacobian"])),
+            int(s["inner_solver"] == "cheby"))
+
+
+def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
     """``n_substeps`` stabilised steps; replaces pallas_fused.fused_rv_step.
 
     u2/uo2/uoo2: (n1x, n1y) history; g2: Dirichlet data (time-independent
     when n_substeps > 1); Mc2: (7, n1x, n1y) mass stencil. On the card the
     whole call is one cooperative kernel launch."""
     if _build.on_cpu("fused_rv_step", u2, uo2, uoo2, g2, Mc2):
-        return fused_rv_step_plain(
-            u2, uo2, uoo2, g2, Mc2, nx=nx, ny=ny, dt=dt, area=area, h=h,
-            grads=grads, phi=phi, qw=qw, Cvel=Cvel, CRV=CRV, flux=flux,
-            cg_iters=cg_iters, newton_iters=newton_iters,
-            lin_iters=lin_iters, freeze_jacobian=freeze_jacobian,
-            residual_scheme=residual_scheme, stabilization=stabilization,
-            n_substeps=n_substeps, inner_solver=inner_solver,
-            mass_bounds=mass_bounds, lin_bounds=lin_bounds)
-    _check_kernel_options(flux, residual_scheme, stabilization,
-                          inner_solver)
-    n1x, n1y = nx + 1, ny + 1
-    dtype = _build.check_cuda_args(
-        "fused_rv_step", u2, uo2, uoo2, g2, Mc2,
-        shapes=[(n1x, n1y)] * 4 + [(7, n1x, n1y)])
+        return fused_rv_step_plain(u2, uo2, uoo2, g2, Mc2,
+                                   n_substeps=n_substeps, **step)
+    s = step_args("fused_rv_step", step)
+    n1x, n1y = s["nx"] + 1, s["ny"] + 1
+    dtype, consts = _launch_prep("fused_rv_step", s,
+                                 [u2, uo2, uoo2, g2, Mc2],
+                                 [(n1x, n1y)] * 4 + [(7, n1x, n1y)])
     dev = u2.device
-    table = _step_constants(dtype, float(dt), float(area), float(h), grads,
-                            phi, qw, float(Cvel), float(CRV), mass_bounds,
-                            lin_bounds)
-    consts = _constants_on(dev, table.tobytes())
     ring = torch.empty((4, n1x, n1y), dtype=dtype, device=dev)
-    work = torch.empty((N_WORK_FIELDS, n1x, n1y), dtype=dtype, device=dev)
-    part = torch.empty(_build.PART_SIZE, dtype=dtype, device=dev)
+    work, part = new_scratch(dtype, dev, n1x, n1y)
+    bdf2, rv, freeze, cheby = _flags(s)
     with torch.cuda.device(dev):
         code = _build.entry("cft_fused_rv_step", dtype)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), ring.data_ptr(), work.data_ptr(),
             part.data_ptr(), consts.data_ptr(), n1x, n1y, int(n_substeps),
-            int(cg_iters), int(newton_iters), int(lin_iters),
-            int(residual_scheme == "bdf2"), int(stabilization == "rv"),
-            int(bool(freeze_jacobian)), int(inner_solver == "cheby"),
-            _build.stream_ptr(u2))
+            int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
+            bdf2, rv, freeze, cheby, _build.stream_ptr(u2))
     _build.launches["fused_rv_step"] += 1
     _build.check(code, "fused_rv_step")
     K = int(n_substeps)
     return ring[(K + 2) % 4], ring[(K + 1) % 4], ring[K % 4]
+
+
+def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, **step):
+    """The setup launch of the split step (pallas_fused.fused_rv_step_split
+    setup_kernel): returns (Kc (7, n1x, n1y), aux = (N(u), K u)
+    (2, n1x, n1y), uk0, F(uk0)). scratch: (work, partials) from
+    ``new_scratch`` (None: new ones)."""
+    s = step_args("split_setup", step)
+    if _build.on_cpu("split_setup", u2, uo2, uoo2, g2, Mc2):
+        return _split_setup_plain(_plain_data(u2, Mc2, s), u2, uo2, uoo2,
+                                  g2, **_body_kw(s))
+    n1x, n1y = s["nx"] + 1, s["ny"] + 1
+    dtype, consts = _launch_prep("split_setup", s, [u2, uo2, uoo2, g2, Mc2],
+                                 [(n1x, n1y)] * 4 + [(7, n1x, n1y)])
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=u2.device)
+    Kc, aux = new(7, n1x, n1y), new(2, n1x, n1y)
+    uk, F = new(n1x, n1y), new(n1x, n1y)
+    work, part = scratch or new_scratch(dtype, u2.device, n1x, n1y)
+    bdf2, rv, _, cheby = _flags(s)
+    with torch.cuda.device(u2.device):
+        code = _build.entry("cft_split_setup", dtype)(
+            u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
+            Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), uk.data_ptr(),
+            F.data_ptr(), work.data_ptr(), part.data_ptr(),
+            consts.data_ptr(), n1x, n1y, int(s["cg_iters"]), bdf2, rv,
+            cheby, _build.stream_ptr(u2))
+    _build.launches["split_setup"] += 1
+    _build.check(code, "split_setup")
+    return Kc, aux, uk, F
+
+
+def split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, *, scratch=None,
+                 **step):
+    """One Newton launch of the split step (pallas_fused.fused_rv_step_split
+    newton_kernel): the Jacobian at w, the inner solve, uk + dx; returns
+    (uk', F(uk')). scratch: as for split_setup."""
+    s = step_args("split_newton", step)
+    if _build.on_cpu("split_newton", uk, F, u2, g2, Mc2, Kc, aux, w):
+        return _split_newton_plain(_plain_data(u2, Mc2, s), uk, F, u2, g2,
+                                   Kc, aux, w, **_body_kw(s))
+    n1x, n1y = s["nx"] + 1, s["ny"] + 1
+    fld = (n1x, n1y)
+    dtype, consts = _launch_prep(
+        "split_newton", s, [uk, F, u2, g2, Mc2, Kc, aux, w],
+        [fld] * 4 + [(7, n1x, n1y), (7, n1x, n1y), (2, n1x, n1y), fld])
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=u2.device)
+    uk_out, F_out = new(n1x, n1y), new(n1x, n1y)
+    work, part = scratch or new_scratch(dtype, u2.device, n1x, n1y)
+    *_, cheby = _flags(s)
+    with torch.cuda.device(u2.device):
+        code = _build.entry("cft_split_newton", dtype)(
+            uk.data_ptr(), F.data_ptr(), u2.data_ptr(), g2.data_ptr(),
+            Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), w.data_ptr(),
+            uk_out.data_ptr(), F_out.data_ptr(), work.data_ptr(),
+            part.data_ptr(), consts.data_ptr(), n1x, n1y,
+            int(s["lin_iters"]), cheby, _build.stream_ptr(u2))
+    _build.launches["split_newton"] += 1
+    _build.check(code, "split_newton")
+    return uk_out, F_out
+
+
+def fused_rv_step_split(u2, uo2, uoo2, g2, Mc2, **step):
+    """One stabilised step in 1 + newton_iters launches; replaces
+    pallas_fused.fused_rv_step_split. Returns u_{n+1} (n1x, n1y). The
+    launches share one scratch."""
+    s = step_args("fused_rv_step_split", step)
+    if _build.on_cpu("fused_rv_step_split", u2, uo2, uoo2, g2, Mc2):
+        return fused_rv_step_split_plain(u2, uo2, uoo2, g2, Mc2, **s)
+    scr = new_scratch(u2.dtype, u2.device, s["nx"] + 1, s["ny"] + 1)
+    Kc, aux, uk, F = split_setup(u2, uo2, uoo2, g2, Mc2, scratch=scr, **s)
+    w0 = uk
+    for _ in range(s["newton_iters"]):
+        w = w0 if s["freeze_jacobian"] else uk
+        uk, F = split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, scratch=scr,
+                             **s)
+    return uk

@@ -2,11 +2,15 @@
 card, with the launch counters. Marked ``cuda``: every test takes the
 ``cuda`` fixture, which skips when no CUDA device is present (the card
 is looked for when a test runs, never at import). On a machine with a
-card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+card: ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m
+cuda`` (the suite's conftest imports JAX, which that machine need not
+have).
 
 f64 bound 1e-11: kernel and plain version sum in different orders (the
-bound of the JAX package's own fused identity tests); f32 is checked
-loosely (1e-3 relative) since reduction order is chaotic there."""
+bound of the JAX package's own fused identity tests); 1e-10 for the tiled
+kernel (the JAX package's bound for its tiled BiCGStab kernel,
+test_pallas_tiled.py); f32 is checked loosely (1e-3 relative) since
+reduction order is chaotic there."""
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from conservation_fem_tpu_torch.models import kpp
 from conservation_fem_tpu_torch.ops import _build
 from conservation_fem_tpu_torch.ops import fused_step as fs
 from conservation_fem_tpu_torch.ops import stencil_kernels as sk
+from conservation_fem_tpu_torch.ops import tiled_step as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +129,109 @@ def test_kernels_repeat_bit_for_bit(cuda):
     x1 = sk.cg_solve(sd.M_coef, rhs, sd.bc2, sd.diagM2, rtol=1e-5)
     x2 = sk.cg_solve(sd.M_coef, rhs, sd.bc2, sd.diagM2, rtol=1e-5)
     assert torch.equal(x1, x2)
+
+
+def _state(cuda, mesh_size):
+    """A mid-trajectory f64 history at mesh_size: (problem, u, u_old,
+    u_old_old, g)."""
+    p = _problem(cuda, mesh_size, "float64", T=0.2)
+    carry = (p.solve().u,) * 3
+    for _ in range(2):
+        carry, _ = p.step(carry, p.dt)
+    u2, uo2, uoo2 = (v.reshape(p._shape2) for v in carry)
+    return p, u2, uo2, uoo2, torch.full_like(u2, np.pi / 4)
+
+
+@pytest.mark.parametrize("solver,frozen", [("bicgstab", True),
+                                           ("cheby", False)])
+def test_split_kernels_match_plain_stages(cuda, solver, frozen):
+    """Each split kernel against its plain stage on the same inputs, and
+    the whole split step against the single kernel; 1 + newton_iters
+    launches per step."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, 8)
+    kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+              freeze_jacobian=frozen, newton_iters=3,
+              cg_iters=6 if solver == "bicgstab" else 10,
+              lin_iters=4 if solver == "bicgstab" else 16)
+    s = fs.step_args("test", kw)
+    sd, body = fs._plain_data(u2, p.sd.M_coef, s), fs._body_kw(s)
+    before = dict(_build.launches)
+    setup = fs.split_setup(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)
+    for a, b in zip(setup, fs._split_setup_plain(sd, u2, uo2, uoo2, g2,
+                                                 **body)):
+        torch.testing.assert_close(a, b, rtol=0, atol=F64_TOL)
+    Kc, aux, uk, F = setup
+    new = fs.split_newton(uk, F, u2, g2, p.sd.M_coef, Kc, aux, uk, **kw)
+    for a, b in zip(new, fs._split_newton_plain(sd, uk, F, u2, g2, Kc, aux,
+                                                uk, **body)):
+        torch.testing.assert_close(a, b, rtol=0, atol=F64_TOL)
+    out = fs.fused_rv_step_split(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)
+    assert _build.launches["split_setup"] == before.get("split_setup", 0) + 2
+    assert (_build.launches["split_newton"]
+            == before.get("split_newton", 0) + 1 + kw["newton_iters"])
+    single = fs.fused_rv_step(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)[0]
+    torch.testing.assert_close(out, single, rtol=0, atol=F64_TOL)
+
+
+@pytest.mark.parametrize("solver,frozen,newton,stabilization,scheme", [
+    ("bicgstab", True, 2, "rv", "bdf2"), ("bicgstab", False, 3, "rv", "bdf2"),
+    ("cheby", True, 3, "rv", "bdf2"), ("cheby", False, 2, "rv", "bdf2"),
+    ("bicgstab", True, 3, "gfem", "bdf2"), ("cheby", True, 2, "rv", "bdf1")])
+def test_tiled_kernel_matches_plain(cuda, solver, frozen, newton,
+                                    stabilization, scheme):
+    """Mesh 4 (17 rows: two 8-row tiles and a ragged one-row tile) and
+    mesh 16 with the default tiles: the tiled kernel against its plain
+    version and against the single kernel."""
+    for mesh in (4, 16):
+        p, u2, uo2, uoo2, g2 = _state(cuda, mesh)
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, newton_iters=newton,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16,
+                  stabilization=stabilization, residual_scheme=scheme)
+        args = (u2, uo2, uoo2, g2, p.sd.M_coef)
+        before = _build.launches["tiled_rv_step"]
+        out = ts.tiled_rv_step(*args, tile_rows=8 if mesh == 4 else None,
+                               **kw)
+        assert _build.launches["tiled_rv_step"] == before + 1
+        torch.testing.assert_close(out, ts.tiled_rv_step_plain(*args, **kw),
+                                   rtol=0, atol=1e-10)
+        torch.testing.assert_close(out, fs.fused_rv_step(*args, **kw)[0],
+                                   rtol=0, atol=1e-10)
+
+
+def test_step_kernels_refuse_bad_arguments(cuda):
+    """On CUDA tensors: tiled block mode and bf16 planes, and a flux other
+    than KPP for every step kernel, raise before a launch."""
+    p = _problem(cuda, 4, "float64", T=0.0)
+    u2 = p.u0.reshape(p._shape2)
+    args = (u2, u2, u2, u2, p.sd.M_coef)
+    kw = p.fused_step_kwargs()
+    for bad in (dict(row0_base=0, n_rows=17, abs_term=0.0),
+                dict(bf16_planes=True)):
+        with pytest.raises(NotImplementedError):
+            ts.tiled_rv_step(*args, **kw, **bad)
+    other = dict(kw, flux=kw["flux"]._replace(name="burgers"))
+    before = sum(_build.launches.values())
+    for fn in (fs.fused_rv_step, fs.fused_rv_step_split, fs.split_setup,
+               ts.tiled_rv_step):
+        with pytest.raises(NotImplementedError, match="KPP"):
+            fn(*args, **other)
+    assert sum(_build.launches.values()) == before
+
+
+@pytest.mark.parametrize("mode", ["split", "tiled"])
+def test_main_path_dispatches_to_the_mode_kernel(cuda, monkeypatch, mode):
+    """With the mode forced on a mesh-16 f32 bench problem, each step
+    launches that mode's kernels, and the result stays within 1e-3 of the
+    plain composed path after 10 steps."""
+    p = _problem(cuda, 16, "float32", T=0.1, use_kernels=True)
+    monkeypatch.setattr(type(p), "_fused_mode", lambda self: mode)
+    _build.launches.clear()
+    u = p.solve().u
+    n = p.num_steps
+    want = ({"split_setup": n, "split_newton": 2 * n} if mode == "split"
+            else {"tiled_rv_step": n})
+    assert dict(_build.launches) == want
+    v = _problem(cuda, 16, "float32", T=0.1).solve().u
+    assert float((u - v).norm() / v.norm()) < 1e-3

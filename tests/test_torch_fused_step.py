@@ -29,7 +29,7 @@ BENCH = dict(cg_iters=6, newton_iters=2, newton_linear_iters=4,
 def state():
     """A mid-trajectory history (u_n, u_old, u_old_old) at mesh 4: 20
     steps of the port's plain path, then the two steps after it."""
-    p = tkpp.build(tkpp.KPPConfig(mesh_size=4, T=0.2, **BENCH))
+    p = tkpp.build(tkpp.KPPConfig(mesh_size=4, T=0.2, **BENCH), device="cpu")
     carry = (p.solve().u,) * 3
     for _ in range(2):
         carry, _ = p.step(carry, p.dt)
@@ -86,7 +86,7 @@ def test_plain_fused_step_matches_jax_fixed_step(stabilization, scheme):
     pj = jkpp.build(jkpp.KPPConfig(**cfg))
     pj.cfg = dataclasses.replace(pj.cfg, residual_scheme=scheme)
     (ref, _, _), _ = pj.step((pj.u0,) * 3, jnp.asarray(pj.dt))
-    pt = tkpp.build(tkpp.KPPConfig(**cfg))
+    pt = tkpp.build(tkpp.KPPConfig(**cfg), device="cpu")
     sh = pt._shape2
     u2 = pt.u0.reshape(sh)
     got = fs.fused_rv_step_plain(

@@ -53,7 +53,7 @@ def _one_torch_thread():
 def _port(name, **over):
     kernels = "kernels" in name
     cfg = tkpp.KPPConfig(**{**CONFIGS[name], **over}, use_kernels=kernels)
-    return tkpp.build(cfg)
+    return tkpp.build(cfg, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,8 +118,8 @@ def test_f32_bench_config_meets_the_anchor_gate():
     the kernel wrappers (plain versions on CPU): L2rel <= 1e-2 against the
     committed f64 anchor, the bench's own gate."""
     p = tkpp.build(tkpp.KPPConfig(mesh_size=32, dtype="float32", dt=0.01,
-                                  use_kernels=True, **BENCH))
-    assert p._fused_ok() and p.num_steps == 100
+                                  use_kernels=True, **BENCH), device="cpu")
+    assert p._fused_mode() == "single" and p.num_steps == 100
     u = p.solve().u.double().numpy()
     ref = np.load(os.path.join(REPO, "golden",
                                "kpp_rv_anchor_mesh32.npy")).astype(np.float64)
@@ -141,7 +141,8 @@ def test_multistep_solve_matches_step_by_step():
 def test_record_metrics_and_cli(capsys):
     """record_metrics stacks one entry per step; the CLI prints one JSON
     line for the kpp subcommand."""
-    p = tkpp.build(tkpp.KPPConfig(mesh_size=2, T=0.03, record_metrics=True))
+    p = tkpp.build(tkpp.KPPConfig(mesh_size=2, T=0.03, record_metrics=True),
+                   device="cpu")
     res = p.solve()
     assert res.metrics["newton_converged"].shape == (3,)
     assert bool(res.metrics["newton_converged"].all())
@@ -158,7 +159,7 @@ def test_record_metrics_and_cli(capsys):
     dict(tiled_bf16_planes=True), dict(backend="ell")])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkpp.build(tkpp.KPPConfig(mesh_size=2, **over))
+        tkpp.build(tkpp.KPPConfig(mesh_size=2, **over), device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():
@@ -166,6 +167,17 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tkpp.build(tkpp.KPPConfig(mesh_size=2), device="cuda")
+
+
+def test_build_targets_the_card_by_default():
+    """No device given means the card: without one, build raises rather
+    than falling back to the CPU; so does the CLI without --device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkpp.build(tkpp.KPPConfig(mesh_size=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.main(["kpp", "--mesh_size", "2", "--T", "0.02"])
 
 
 def test_package_imports_without_jax():
