@@ -31,8 +31,30 @@ exits non-zero:
      the plain-torch composed path (gated, timed) and the unprofiled device
      idle share; then, as a run of its own, 5 steps of the adaptive f64
      config with kernels on (cg_solve mass solve), checked against the
-     same steps without kernels.
-The second-to-last line is the per-kernel JSON summary (all six ported
+     same steps without kernels;
+  5. the sharded fused structured path (parallel/): both block-mode
+     kernels, fused_rv_block_step and tiled_rv_step with row0_base, against
+     their plain version on the card on every row of a first, an interior
+     and a last deep-halo block (rows above the grid; none; padding rows
+     below it) and, on the owned rows, against the single kernel on the
+     whole grid — f64 at mesh 16 (2 blocks, trimmed counts, 8-row tiles),
+     64 and 256 (4 blocks), rv and gfem, frozen and fresh Jacobian; f32 at
+     mesh 64 and 256; timed on an interior block of 4 at mesh 64, 128, 256
+     and 512. Then the path itself through kpp.build(cfg) and
+     ShardedFusedStructured(p, LocalBlocks(n, "cuda")).solve(), f32, the
+     Chebyshev configuration (SHARDED below), launch counts zeroed just
+     before each solve and read just after: SHARDED_PATHS, each beside the
+     single-device kernel path of the same configuration and gated against
+     it (L2rel against the anchor within 1e-3 of each other — this
+     configuration alone misses the 1e-2 anchor gate from mesh 64 up on
+     any path, so that gate is printed, not applied; u in [0.5, 12], or
+     where the single-device run itself leaves that range, min and max
+     within 1e-2 of its); the same in f64
+     for 5 steps at mesh 64 and 256, through either kernel, against the
+     single kernel (1e-11); and one
+     ProcessGroupBlocks run on a one-rank NCCL group against LocalBlocks(1),
+     bit for bit.
+The second-to-last line is the per-kernel JSON summary (all eight ported
 kernels, each with its bound); the last line is {"ok": true, "device":
 {...}}.
 
@@ -50,15 +72,18 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 F64_TOL = 1e-11          # kernel vs plain, f64
 TILED_F64_TOL = 1e-10    # tiled kernel vs plain / single kernel, f64
 F32_TOL = 1e-4           # kernel vs plain, f32
 ACCURACY_GATE = 1e-2     # L2rel vs the committed f64 anchor (bench.py)
+SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
 # (mesh, T, expected whole-step kernel, anchor); T None: the bench's 1.0
@@ -66,6 +91,34 @@ MAIN_PATHS = ((64, None, "single", "kpp_rv_anchor_mesh64.npy"),
               (128, None, "split", "kpp_rv_anchor_mesh128.npy"),
               (256, None, "tiled", "kpp_rv_anchor_mesh256.npy"),
               (512, 0.1, "tiled", "kpp_rv_anchor_mesh512_T0.1.npy"))
+# The sharded path's configuration: the JAX package's own on-chip probe of
+# it (scripts/probe_sharded_onchip.py), dt = 0.01 min(1, 64 / mesh); the
+# halo is required_halo(10, 2, 16) = 62 rows.
+SHARDED = dict(inner_solver="cheby", cg_iters=10, newton_iters=2,
+               newton_linear_iters=16, modified_newton=True)
+# (mesh, T, blocks, kernel asked for, kernel expected, (L, B), anchor). The
+# auto rule picks the block kernel while a field of the extended block is at
+# most 270 KiB: mesh 64 x 4 (189 x 257 x 4 B = 194,292 B); the tiled kernel's
+# block mode beyond: mesh 128 x 4 (253 x 513 x 4 B = 519,156 B), 256 x 4 and
+# 512 x 4. Mesh 64 x 1 is the one-block form of the JAX probe, which asks
+# for the block kernel (381 x 257 x 4 B: auto would pick tiled). The kernels
+# line takes each kernel's launch count from the first run that launches it:
+# mesh 64 x 4 and mesh 256 x 4, the blocks its times are taken on.
+SHARDED_PATHS = (
+    (64, None, 4, "auto", "block", (65, 189), "kpp_rv_anchor_mesh64.npy"),
+    (256, None, 4, "auto", "tiled", (257, 381), "kpp_rv_anchor_mesh256.npy"),
+    (128, None, 4, "auto", "tiled", (129, 253), "kpp_rv_anchor_mesh128.npy"),
+    (512, 0.1, 4, "auto", "tiled", (513, 637),
+     "kpp_rv_anchor_mesh512_T0.1.npy"),
+    (64, None, 1, "block", "block", (257, 381), "kpp_rv_anchor_mesh64.npy"),
+)
+SHARDED_VS_SINGLE = 1e-3   # |L2rel sharded - L2rel single device|, f32
+# Where the single-device path of this configuration itself leaves
+# SANITY_RANGE (mesh 512, T = 0.1: min u 0.493 on every path, the anchor's
+# is 0.588), the sharded run's min and max are held to the single-device
+# run's within this much instead.
+SHARDED_RANGE_SLACK = 1e-2
+SHARDED_F64_STEPS = 5
 
 # The least time of a kernel's work: max(bytes / HBM rate, operations /
 # peak rate), H100 SXM data sheet (700 W): 3.35 TB/s; 67 TFLOP/s f32 and
@@ -631,17 +684,42 @@ def check_tiled(summary, states):
         bound_ms_mesh512=times[512]["bound"][0])
 
 
-def _gate(u, mesh_size, anchor):
+def _field_stats(u, mesh_size, anchor):
+    """(L2rel against the anchor, min, max) of a finite solution."""
     ref = np.load(os.path.join(REPO, "golden", anchor))
     u = u.double().cpu().numpy()
-    if not np.isfinite(u).all() or u.min() < 0.5 or u.max() > 12.0:
+    if not np.isfinite(u).all():
+        raise AssertionError(f"mesh {mesh_size}: solution not finite")
+    rel = float(np.linalg.norm(u - ref) / np.linalg.norm(ref))
+    return rel, float(u.min()), float(u.max())
+
+
+def _in_range(lo, hi):
+    return lo >= SANITY_RANGE[0] and hi <= SANITY_RANGE[1]
+
+
+def _gate(u, mesh_size, anchor):
+    rel, lo, hi = _field_stats(u, mesh_size, anchor)
+    if not _in_range(lo, hi):
         raise AssertionError(
             f"mesh {mesh_size}: solution outside the sanity range [0.5, 12]")
-    rel = float(np.linalg.norm(u - ref) / np.linalg.norm(ref))
     if not rel <= ACCURACY_GATE:
         raise AssertionError(f"mesh {mesh_size}: L2rel {rel:.3e} > "
                              f"{ACCURACY_GATE}")
     return rel
+
+
+def _timed(fn, steps):
+    """(result, microseconds per step) of fn() on CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) * 1e3 / steps
 
 
 def _timed_solve(p):
@@ -651,13 +729,7 @@ def _timed_solve(p):
 
     p.solve()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    res = p.solve()
-    end.record()
-    end.synchronize()
-    return res.u, start.elapsed_time(end) * 1e3 / p.num_steps
+    return _timed(lambda: p.solve().u, p.num_steps)
 
 
 def _counted_solve(p):
@@ -676,18 +748,15 @@ def _counted_solve(p):
 def _single_kernel_solve(p):
     """(solution, microseconds per step) of p's trajectory with one
     fused_rv_step launch per step whatever p's mode, CUDA events."""
-    import torch
-
     g2 = p.bc_value(p.points, p.dt).reshape(p._shape2)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    carry = p._initial_carry()
-    start.record()
-    for _ in range(p.num_steps):
-        carry = p._fused_call(carry, g2, 1)
-    end.record()
-    end.synchronize()
-    return carry[0], start.elapsed_time(end) * 1e3 / p.num_steps
+
+    def run():
+        carry = p._initial_carry()
+        for _ in range(p.num_steps):
+            carry = p._fused_call(carry, g2, 1)
+        return carry[0]
+
+    return _timed(run, p.num_steps)
 
 
 def _expected_launches(mode, steps, newton_iters):
@@ -773,6 +842,321 @@ def run_adaptive_path(mesh_size):
     if not da <= ADAPTIVE_TOL:
         raise AssertionError(f"adaptive path differs by {da}")
     return counts
+
+
+def _sharded_cfg(kpp, mesh_size, dtype, **kw):
+    return kpp.KPPConfig(mesh_size=mesh_size, dtype=dtype,
+                         dt=0.01 * min(1.0, 64.0 / mesh_size), **SHARDED,
+                         **kw)
+
+
+def _deep_halo_blocks(fields, Mc, n_blocks, D):
+    """[(row0, [u, uo, uoo, g, Mc] extended)] of a split of the grid's rows
+    into n_blocks, with L and the grid's row count."""
+    import torch
+
+    n1x = fields[0].shape[0]
+    L = -(-n1x // n_blocks)
+    pad = (0, 0, D, L * n_blocks - n1x + D)
+    ext = [torch.nn.functional.pad(a, pad) for a in list(fields) + [Mc]]
+    return [(d * L - D, [a[..., d * L:d * L + L + 2 * D, :].contiguous()
+                         for a in ext]) for d in range(n_blocks)], L
+
+
+def check_block_kernels(summary, states):
+    """fused_rv_block_step and block-mode tiled_rv_step against the plain
+    version (every row) and the single kernel on the whole grid (owned
+    rows), then timed on an interior block of 4."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
+
+    errs = {"fused_rv_block_step": {}, "tiled_rv_step_block": {}}
+    vs_single = {"fused_rv_block_step": {}, "tiled_rv_step_block": {}}
+
+    def kernels(ext, row0, abs_term, n1x, bkw, tile_rows):
+        n1y = ext[0].shape[1]
+        return {
+            "fused_rv_block_step": lambda: fs.fused_rv_block_step(
+                *ext, row0, abs_term, n_rows=n1x, n_cols=n1y, **bkw),
+            "tiled_rv_step_block": lambda: ts.tiled_rv_step(
+                *ext, row0_base=row0, n_rows=n1x, abs_term=abs_term,
+                tile_rows=tile_rows, **bkw)}
+
+    def compare(mesh, fields, Mc, kw, dn, n_blocks, which, tile_rows=None,
+                single=True):
+        u2 = fields[0]
+        n1x = u2.shape[0]
+        D = fs.required_halo(kw["cg_iters"], kw["newton_iters"],
+                             kw["lin_iters"])
+        blocks, L = _deep_halo_blocks(fields, Mc, n_blocks, D)
+        abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+        whole = (fs.fused_rv_step(*fields, Mc, **kw)[0] if single else None)
+        bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+        worst = {}
+        for d in which:
+            row0, ext = blocks[d]
+            ref = fs.fused_rv_block_step_plain(
+                *ext, row0, abs_term, n_rows=n1x, n_cols=u2.shape[1], **bkw)
+            lo, hi = fs.block_rows(L + 2 * D, row0, n1x)
+            own = slice(D, D + min(L, n1x - d * L))
+            for name, fn in kernels(ext, row0, abs_term, n1x, bkw,
+                                    tile_rows).items():
+                out = fn()
+                torch.cuda.synchronize()
+                e = max_err(out, ref)
+                if bool(out[:lo].any()) or bool(out[hi:].any()):
+                    raise AssertionError(f"{name}: rows outside the grid "
+                                         f"are not zero (block {d})")
+                _gated(name, e, dn, errs[name])
+                worst[name] = max(worst.get(name, 0.0), e)
+                if single:
+                    e1 = max_err(out[own], whole[d * L:d * L + own.stop - D])
+                    _gated(f"{name} vs single kernel", e1, dn,
+                           vs_single[name])
+                    worst[name + " vs single"] = max(
+                        worst.get(name + " vs single", 0.0), e1)
+        log(f"block kernels mesh {mesh} {dn} {n_blocks} blocks (L {L}, D {D}),"
+            f" blocks {list(which)}, {kw['stabilization']} frozen="
+            f"{kw['freeze_jacobian']}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items()))
+
+    def cheby_kw(p, trimmed, **over):
+        return dict(p.fused_step_kwargs(), inner_solver="cheby",
+                    cg_iters=4 if trimmed else 10,
+                    lin_iters=4 if trimmed else 16, newton_iters=2, **over)
+
+    for mesh, n_blocks, which, tile_rows in ((16, 2, (0, 1), 8),
+                                             (64, 4, (0, 1, 3), None)):
+        p, *fields = states[mesh]
+        for stab, frozen in (("rv", True), ("rv", False), ("gfem", True),
+                             ("gfem", False)):
+            compare(mesh, fields, p.sd.M_coef,
+                    cheby_kw(p, mesh == 16, stabilization=stab,
+                             freeze_jacobian=frozen),
+                    "f64", n_blocks, which, tile_rows)
+    p, *fields = states[256]
+    compare(256, fields, p.sd.M_coef, cheby_kw(p, False), "f64", 4,
+            (0, 1, 3))
+    for mesh in (64, 256):
+        p, f32, _ = _bench_f32(states[mesh])
+        compare(mesh, f32[:4], f32[4], cheby_kw(p, False), "f32", 4,
+                (0, 1, 3), single=False)
+
+    # timed: interior block 1 of 4, f32, the sharded path's counts
+    times = {}
+    for mesh in (64, 128, 256, 512):
+        p, f32, _ = _bench_f32(states[mesh])
+        kw = cheby_kw(p, False)
+        u2 = f32[0]
+        n1x, n1y = u2.shape
+        blocks, L = _deep_halo_blocks(f32[:4], f32[4], 4, 62)
+        row0, ext = blocks[1]
+        B = L + 124
+        abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+        bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+        fns = kernels(ext, row0, abs_term, n1x, bkw, None)
+        ops = step_ops(fs.step_args("", kw))
+        t = dict(
+            L=L, B=B, n1y=n1y,
+            plain_ms=cuda_ms(lambda: fs.fused_rv_block_step_plain(
+                *ext, row0, abs_term, n_rows=n1x, n_cols=n1y, **bkw), 2),
+            single_whole_grid_ms=cuda_ms(
+                lambda: fs.fused_rv_step(*f32, **kw), 10),
+            bound=bound(12 * B * n1y * 4, B * n1y * ops, "f32"),
+            bound_owned=bound(12 * L * n1y * 4, L * n1y * ops, "f32"))
+        for name, fn in fns.items():
+            t[name] = cuda_ms(fn, 20)
+        times[mesh] = t
+        log(f"block kernels mesh {mesh} f32, interior block of 4 (L {L}, B "
+            f"{B}, {B * n1y * 4} B per field): fused_rv_block_step "
+            f"{t['fused_rv_block_step']:.4f} ms, tiled_rv_step block mode "
+            f"{t['tiled_rv_step_block']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms; bound over the {B} rows swept {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]}), over the {L} owned rows "
+            f"{t['bound_owned'][0]:.5f} ms (B/L = {B / L:.3f}); the single "
+            f"kernel on the whole grid, same configuration "
+            f"{t['single_whole_grid_ms']:.4f} ms")
+    for name, mesh, case in (
+            ("fused_rv_block_step", 64, "block kernel by the auto rule"),
+            ("tiled_rv_step_block", 256, "tiled block mode by the auto rule")):
+        t = times[mesh]
+        summary[name] = dict(
+            max_abs_err=errs[name]["f64"],
+            err_case="f64 one step against the plain version on every row: "
+                     "mesh 16 (2 blocks, trimmed counts, 8-row tiles) and "
+                     "64 (4 blocks) rv/gfem x frozen/fresh, mesh 256 (4 "
+                     "blocks); first, interior and last block",
+            max_abs_err_f32=errs[name]["f32"],
+            f32_case="f32 mesh 64 and 256, 4 blocks, first/interior/last",
+            vs_single_kernel_owned_rows_f64=vs_single[name]["f64"],
+            ms=t[name], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], library_ms=None,
+            bound_ms_owned_rows=t["bound_owned"][0],
+            rows_swept_over_owned=t["B"] / t["L"],
+            timed_case=f"mesh-{mesh} f32 Chebyshev 10/2x16, interior block "
+                       f"of 4, {t['B']} x {t['n1y']} ({case})",
+            ms_by_mesh={str(m): times[m][name] for m in times},
+            bound_ms_by_mesh={str(m): times[m]["bound"][0] for m in times},
+            single_whole_grid_ms_by_mesh={
+                str(m): times[m]["single_whole_grid_ms"] for m in times})
+
+
+def run_sharded_path(mesh, T, n_blocks, kernel, expect, geometry, anchor,
+                     card):
+    """ShardedFusedStructured over LocalBlocks at full width, f32: the
+    kernel chosen, exact launch counts of its own run, the range gate, and
+    the single-device kernel path of the same configuration beside it."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    extra = {} if T is None else dict(T=T)
+    p = kpp.build(_sharded_cfg(kpp, mesh, "float32", **extra))
+    sh = ShardedFusedStructured(p, LocalBlocks(n_blocks, "cuda"),
+                                kernel=kernel)
+    if (sh.kernel, (sh.L, sh.B), sh.D) != (expect, geometry, 62):
+        raise AssertionError(
+            f"sharded mesh {mesh} x {n_blocks}: kernel {sh.kernel}, L "
+            f"{sh.L}, B {sh.B}, D {sh.D}; expected {expect}, {geometry}, 62")
+    steps, n = p.num_steps, int(p.u0.numel())
+    _build.launches.clear()
+    u = sh.solve()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    name = ("fused_rv_block_step" if expect == "block"
+            else "tiled_rv_step_block")
+    if counts != {name: steps * n_blocks}:
+        raise AssertionError(f"sharded mesh {mesh} x {n_blocks}: launched "
+                             f"{counts}, expected {name}: {steps * n_blocks}")
+    rel, lo, hi = _field_stats(u, mesh, anchor)
+    u_again, us = _timed(sh.solve, steps)
+    if not torch.equal(u_again, u):
+        raise AssertionError(f"sharded mesh {mesh}: repeated solves differ")
+    q = kpp.build(_sharded_cfg(kpp, mesh, "float32", use_kernels=True,
+                               **extra))
+    u_single, us_single = _timed_solve(q)
+    rel_single, lo_single, hi_single = _field_stats(u_single, mesh, anchor)
+    log(f"sharded path mesh {mesh} x {n_blocks} blocks ({sh.kernel} kernel, "
+        f"L {sh.L}, B {sh.B}, {sh.B * sh.n1y * 4} B per field), f32 "
+        f"Chebyshev 10/2x16, {steps} steps: launches {counts}; "
+        f"{us:.1f} us/step, {n / us * 1e6:.4g} DOF-steps/s; single-device "
+        f"{q._fused_mode()} kernel path {us_single:.1f} us/step "
+        f"(ratio {us / us_single:.3f}; rows swept / rows owned "
+        f"{sh.B / sh.L:.3f}); L2rel vs anchor sharded {rel:.4e}, single "
+        f"device {rel_single:.4e}; max|sharded - single| "
+        f"{max_err(u, u_single):.3e}; u in [{lo:.4f}, {hi:.4f}], single "
+        f"device [{lo_single:.4f}, {hi_single:.4f}]; repeated solves "
+        f"identical ({card})")
+    if _in_range(lo_single, hi_single):
+        if not _in_range(lo, hi):
+            raise AssertionError(f"sharded mesh {mesh}: solution outside "
+                                 f"the sanity range {SANITY_RANGE}")
+    else:
+        log(f"sharded path mesh {mesh}: this configuration leaves the "
+            f"sanity range {SANITY_RANGE} on the single-device path too; "
+            f"the sharded run's range is held to the single-device run's "
+            f"within {SHARDED_RANGE_SLACK}")
+        if not max(abs(lo - lo_single),
+                   abs(hi - hi_single)) <= SHARDED_RANGE_SLACK:
+            raise AssertionError(f"sharded mesh {mesh}: range [{lo}, {hi}] "
+                                 f"against [{lo_single}, {hi_single}]")
+    if not abs(rel - rel_single) <= SHARDED_VS_SINGLE:
+        raise AssertionError(
+            f"sharded mesh {mesh}: L2rel {rel:.4e} against the single "
+            f"device's {rel_single:.4e}: further apart than "
+            f"{SHARDED_VS_SINGLE}")
+    return counts
+
+
+def run_sharded_f64(mesh, n_blocks, kernel):
+    """SHARDED_F64_STEPS steps in f64 through ``kernel`` against the single
+    kernel, one fused_rv_step launch per step on the whole grid: the
+    full-width correctness gate of the sharded path."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    dt = 0.01 * min(1.0, 64.0 / mesh)
+    cfg = _sharded_cfg(kpp, mesh, "float64", T=SHARDED_F64_STEPS * dt)
+    p = kpp.build(cfg)
+    if p.num_steps != SHARDED_F64_STEPS:
+        raise AssertionError(f"{p.num_steps} steps")
+    sh = ShardedFusedStructured(p, LocalBlocks(n_blocks, "cuda"),
+                                kernel=kernel)
+    u = sh.solve()
+    u_single, _ = _single_kernel_solve(kpp.build(cfg))
+    torch.cuda.synchronize()
+    e = max_err(u, u_single)
+    log(f"sharded path mesh {mesh} x {n_blocks} blocks ({sh.kernel} kernel) "
+        f"f64, {SHARDED_F64_STEPS} steps: max|sharded - single kernel| = "
+        f"{e:.3e} (gate {F64_TOL})")
+    if not e <= F64_TOL:
+        raise AssertionError(f"sharded f64 mesh {mesh} differs by {e}")
+
+
+def run_process_group_path():
+    """ProcessGroupBlocks on a one-rank NCCL group (file-store rendezvous in
+    a temporary directory) against LocalBlocks(1), mesh 64, 5 steps, bit for
+    bit. One card cannot host two NCCL ranks, so the exchange between ranks
+    is held to LocalBlocks on the CPU (gloo) by the test suite, not here."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ProcessGroupBlocks,
+                                                     ShardedFusedStructured)
+
+    cfg = _sharded_cfg(kpp, 64, "float32", T=0.05)
+    local = ShardedFusedStructured(kpp.build(cfg), LocalBlocks(1, "cuda"))
+    u_local = local.solve()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+        try:
+            sh = ShardedFusedStructured(kpp.build(cfg),
+                                        ProcessGroupBlocks(dist.group.WORLD))
+            _build.launches.clear()
+            u = sh.solve()
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+        finally:
+            dist.destroy_process_group()
+    same = torch.equal(u, u_local)
+    log(f"ProcessGroupBlocks, one NCCL rank, mesh 64 f32, {local.p.num_steps}"
+        f" steps ({sh.kernel} kernel): launches {counts}; equal to "
+        f"LocalBlocks(1) bit for bit: {same}")
+    if not same:
+        raise AssertionError("ProcessGroupBlocks differs from LocalBlocks(1)")
+
+
+def sharded_paths(card, counts, runs):
+    """The sharded path's runs; each kernel's launch count, and the run it
+    comes from, go into counts and runs."""
+    for mesh, T, n_blocks, kernel, expect, geometry, anchor in SHARDED_PATHS:
+        c = run_sharded_path(mesh, T, n_blocks, kernel, expect, geometry,
+                             anchor, card)
+        run = (f"sharded path mesh {mesh} x {n_blocks} blocks, f32 Chebyshev"
+               + ("" if T is None else f", T = {T}"))
+        for name, k in c.items():
+            counts.setdefault(name, k)
+            runs.setdefault(name, run)
+    for mesh in (64, 256):
+        for kernel in ("block", "tiled"):
+            run_sharded_f64(mesh, 4, kernel)
+    run_process_group_path()
 
 
 def _busy_us(events):
@@ -884,6 +1268,7 @@ def smoke(card):
     check_fused_step(summary, states)
     check_split(summary, states)
     check_tiled(summary, states)
+    check_block_kernels(summary, states)
     states.clear()
     counts, runs = {}, {}
     for mesh, T, mode, anchor in MAIN_PATHS:
@@ -897,6 +1282,7 @@ def smoke(card):
     counts["cg_solve"] = adaptive_counts.get("cg_solve", 0)
     runs["cg_solve"] = f"mesh-64 adaptive f64 config, {ADAPTIVE_STEPS} steps"
     runs["stencil_matvec"] = "none: no main path launches it"
+    sharded_paths(card, counts, runs)
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -905,6 +1291,8 @@ def smoke(card):
         "split_setup": ("split_step.cu", "ops/pallas_fused.py:585"),
         "split_newton": ("split_step.cu", "ops/pallas_fused.py:634"),
         "tiled_rv_step": ("tiled_step.cu", "ops/pallas_tiled.py:120"),
+        "tiled_rv_step_block": ("tiled_step.cu", "ops/pallas_tiled.py:135"),
+        "fused_rv_block_step": ("block_step.cu", "ops/pallas_fused.py:491"),
     }
     rows = []
     for name, (src, tpu) in sources.items():
@@ -914,6 +1302,7 @@ def smoke(card):
             replaces=f"conservation_fem_tpu/{tpu}",
             launches=counts.get(name, 0), launches_run=runs[name],
             **summary[name]))
+    log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
     log(card)
     log(json.dumps({"kernels": rows}))
 

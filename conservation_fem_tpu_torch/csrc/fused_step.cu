@@ -85,7 +85,7 @@ fused_rv_step_kernel(StepParams<T> P) {
     const T* uoo = P.ring + (size_t)(sub & 3) * N;
     T* uk = P.ring + (size_t)((sub + 3) & 3) * N;
     const T mean_u = S.project(u, uo, uoo, P.bdf2, P.cg_iters);
-    S.rv_eps(u, mean_u, P.rv);
+    S.rv_eps(u, P.rv ? S.abs_term_of(u, mean_u) : T(0), P.rv);
     S.planes(u, uk, P.newton_iters > 0 ? S.F : nullptr);
     S.newton(u, uk, P.newton_iters, P.lin_iters, P.freeze);
   }
@@ -99,7 +99,7 @@ int fused_rv_step(const void* u, const void* uo, const void* uoo,
                   int bdf2, int rv, int freeze, int cheby, void* stream) {
   StepParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo, (const T*)gvals,
                   (const T*)Mc, (T*)ring, (T*)work, (T*)part,
-                  (const double*)consts, GridShape{n1x, n1y}, n_sub,
+                  (const double*)consts, GridShape::whole(n1x, n1y), n_sub,
                   cg_iters, newton_iters, lin_iters, bdf2, rv, freeze,
                   cheby};
   void* args[] = {&P};

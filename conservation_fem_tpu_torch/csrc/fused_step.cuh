@@ -92,12 +92,12 @@ __device__ void load_consts(StepConsts<T>& C, const double* k) {
 }
 
 // Corner values, gradient of triangle (t, ci, cj); false if the cell is
-// outside the (nx, ny) cell grid.
+// not a cell of the grid held in the buffer.
 template <typename T, typename X>
 __device__ __forceinline__ bool cell_load(const StepConsts<T>& C, GridShape g,
                                           int t, int ci, int cj, X x,
                                           T (&c)[3], T& gux, T& guy) {
-  if (ci < 0 || ci >= g.n1x - 1 || cj < 0 || cj >= g.n1y - 1) return false;
+  if (!g.cell(ci, cj)) return false;
 #pragma unroll
   for (int b = 0; b < 3; ++b)
     c[b] = x(ci + corner_i(t, b), cj + corner_j(t, b));
@@ -184,7 +184,7 @@ __device__ __forceinline__ void keps_planes_node(const StepConsts<T>& C,
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const int ci = i - corner_i(t, a), cj = j - corner_j(t, a);
-      if (ci < 0 || ci >= g.n1x - 1 || cj < 0 || cj >= g.n1y - 1) continue;
+      if (!g.cell(ci, cj)) continue;
       T e = T(0);
 #pragma unroll
       for (int b = 0; b < 3; ++b) e += eps(ci + corner_i(t, b), cj + corner_j(t, b));
@@ -294,7 +294,8 @@ __device__ __forceinline__ T cheby_next(T rho, T two_sigma, T delta, T& c1,
 }
 
 // Sweeps. sweep.run<NS>(stage, body) runs body(i, j, n, st) once at every
-// node, where st[s] is an (i, j) accessor of the s-th of the NS values that
+// node of the grid (a row block's rows outside the grid are never computed
+// and never read), where st[s] is an (i, j) accessor of the s-th of the NS values that
 // stage(i, j, n, v) forms at a node; a stage reads nothing its body writes,
 // because other threads read those values at neighbours meanwhile.
 
@@ -323,8 +324,8 @@ template <typename T> struct GridSweep {
   template <int NS, typename Stage, typename Body>
   __device__ __forceinline__ void run(Stage stage, Body body) const {
     const Formed<T, NS, Stage> st{&stage, g.n1y};
-    const int N = g.size();
-    for (int n = blockIdx.x * kBlock + threadIdx.x; n < N;
+    const int hi = g.n_hi();
+    for (int n = g.n_lo() + blockIdx.x * kBlock + threadIdx.x; n < hi;
          n += gridDim.x * kBlock)
       body(n / g.n1y, n % g.n1y, n, st);
   }
@@ -337,28 +338,35 @@ template <typename T> struct GridSweep {
 // Ping-pong buffers keep a sweep from writing what it reads at neighbours:
 // the directions cd0 / p2 and cd1 / v2, the Chebyshev direction cd0 / cd1
 // and the Newton iterate uk / uk2.
+//
+// Block mode (`external`): the buffer is a row block of a taller grid
+// (GridShape::block), the step's one global reduction, abs_term = max|u -
+// mean u|, comes from the caller, and the inner solver is Chebyshev, so no
+// phase reduces over the grid: where the whole-grid step combines a sum and
+// a barrier, block mode takes the barrier alone. Pointwise passes, like the
+// sweeps, visit only the rows in the grid.
 template <typename T, typename Sweep> struct StepPhases {
   cg::grid_group& grid;
   RedScratch<T>& scratch;
   GridReducer<T> red;
   const StepConsts<T>& C;
   GridShape g;
-  int N, first, stride;
+  int N, first, last, stride;
   Sweep sweep;
   const T* Mc;
   const T* gv;
-  bool cheby;
+  bool cheby, external;
   T *nun, *kun, *eps, *cx, *cr, *cd0, *cd1, *p2, *v2, *dj, *F, *bs, *bt,
       *rhat, *uk2, *kc, *jc;
 
   __device__ StepPhases(cg::grid_group& grid_, RedScratch<T>& scratch_,
                         T* part, const StepConsts<T>& C_, GridShape g_,
                         Sweep sweep_, const T* Mc_, const T* gv_,
-                        bool cheby_, T* work)
+                        bool cheby_, T* work, bool external_ = false)
       : grid(grid_), scratch(scratch_), red{part, 0}, C(C_), g(g_),
-        N(g_.size()), first(blockIdx.x * kBlock + threadIdx.x),
-        stride(gridDim.x * kBlock), sweep(sweep_), Mc(Mc_), gv(gv_),
-        cheby(cheby_) {
+        N(g_.size()), first(g_.n_lo() + blockIdx.x * kBlock + threadIdx.x),
+        last(g_.n_hi()), stride(gridDim.x * kBlock), sweep(sweep_), Mc(Mc_),
+        gv(gv_), cheby(cheby_), external(external_) {
     auto field = [&](int f) { return work + (size_t)f * N; };
     nun = field(NUN); kun = field(KUN); eps = field(EPS); cx = field(CX);
     cr = field(CR); cd0 = field(CD0); cd1 = field(CD1); p2 = field(P2);
@@ -371,9 +379,26 @@ template <typename T, typename Sweep> struct StepPhases {
     return T(1) / (g.frame(i, j) ? T(1) : Mc[n]);
   }
 
+  // Block mode: zero `out` on the buffer's rows outside the grid, which no
+  // pass visits.
+  __device__ void zero_outside(T* out) const {
+    for (int n = blockIdx.x * kBlock + threadIdx.x; n < N; n += stride)
+      if (n < g.n_lo() || n >= last) out[n] = T(0);
+  }
+
+  // The grid-wide sums of a phase, which also end it; block mode has no
+  // sums to take (Chebyshev, abs_term from the caller) and only ends it.
+  template <int K> __device__ void sum_all(T (&v)[K]) {
+    if (external) {
+      grid.sync();
+    } else {
+      red.template run<SumOp>(grid, scratch, v);
+    }
+  }
+
   // 1. residual projection: RH (in cx) solves M RH = where(bc, 0, M du +
   // N(u)) by fixed Jacobi-PCG or Chebyshev; N(u) goes to nun. Returns
-  // mean(u).
+  // mean(u) (nothing of use in block mode, which takes no sums).
   __device__ T project(const T* u, const T* uo, const T* uoo, bool bdf2,
                        int cg_iters) {
     T acc[2] = {T(0), T(0)};  // rz of CG init, sum(u)
@@ -399,7 +424,7 @@ template <typename T, typename Sweep> struct StepPhases {
           }
           acc[1] += u[n];
         });
-    red.template run<SumOp>(grid, scratch, acc);
+    sum_all(acc);
     if (cheby) {
       cheby_solve(Mc, [&](int i, int j, int n) { return dminv(i, j, n); },
                   C.m_rho0, C.m_two_sigma, C.m_delta, cg_iters);
@@ -463,7 +488,7 @@ template <typename T, typename Sweep> struct StepPhases {
       T alpha = rz / (fabs(pap[0]) > T(0) ? pap[0] : C.tiny);
       alpha = rz > T(0) ? alpha : T(0);
       T rzn[1] = {T(0)};
-      for (int n = first; n < N; n += stride) {
+      for (int n = first; n < last; n += stride) {
         const int i = n / g.n1y, j = n % g.n1y;
         cx[n] += alpha * p_cur[n];
         const T r = cr[n] - alpha * cd1[n];
@@ -476,14 +501,18 @@ template <typename T, typename Sweep> struct StepPhases {
     }
   }
 
-  // 2. RV epsilon from u and RH (cx); zero for gfem.
-  __device__ void rv_eps(const T* u, T mean_u, bool rv) {
+  // max|u - mean u|, the step's one global reduction beside the dots.
+  __device__ T abs_term_of(const T* u, T mean_u) {
+    T mx[1] = {MaxOp::identity<T>()};
+    for (int n = first; n < last; n += stride)
+      mx[0] = fmax(mx[0], fabs(u[n] - mean_u));
+    red.template run<MaxOp>(grid, scratch, mx);
+    return mx[0];
+  }
+
+  // 2. RV epsilon from u, RH (cx) and abs_term; zero for gfem.
+  __device__ void rv_eps(const T* u, T abs_term, bool rv) {
     if (rv) {
-      T mx[1] = {MaxOp::identity<T>()};
-      for (int n = first; n < N; n += stride)
-        mx[0] = fmax(mx[0], fabs(u[n] - mean_u));
-      red.template run<MaxOp>(grid, scratch, mx);
-      const T abs_term = mx[0];
       sweep.template run<2>(
           [&](int i, int j, int n, T (&v)[2]) {
             v[0] = u[n];
@@ -493,7 +522,7 @@ template <typename T, typename Sweep> struct StepPhases {
             eps[n] = rv_eps_node(C, g, i, j, s[0], s[1], abs_term);
           });
     } else {
-      for (int n = first; n < N; n += stride) eps[n] = T(0);
+      for (int n = first; n < last; n += stride) eps[n] = T(0);
     }
     grid.sync();
   }
@@ -548,15 +577,16 @@ template <typename T, typename Sweep> struct StepPhases {
           dj[n] = jacobian_node(C, g, Mc, kc, jc, i, j, n, s[0]);
           solver_init(n, -Fi[n], rho[0]);
         });
-    red.template run<SumOp>(grid, scratch, rho);
+    sum_all(rho);
     return rho[0];
   }
 
   // 4b. a frozen Jacobian after the first iteration: the state alone.
   __device__ T reinit(const T* Fi) {
     T rho[1] = {T(0)};
-    for (int n = first; n < N; n += stride) solver_init(n, -Fi[n], rho[0]);
-    red.template run<SumOp>(grid, scratch, rho);
+    for (int n = first; n < last; n += stride)
+      solver_init(n, -Fi[n], rho[0]);
+    sum_all(rho);
     return rho[0];
   }
 
@@ -619,7 +649,7 @@ template <typename T, typename Sweep> struct StepPhases {
       red.template run<SumOp>(grid, scratch, ts);
       omega = safe_div(ts[0], ts[1], C.tiny);
       T rn[1] = {T(0)};
-      for (int n = first; n < N; n += stride) {
+      for (int n = first; n < last; n += stride) {
         cx[n] = cx[n] + alpha * (dj[n] * p_cur[n]) + omega * (dj[n] * bs[n]);
         const T r = bs[n] - omega * bt[n];
         cr[n] = r;
@@ -659,7 +689,7 @@ template <typename T, typename Sweep> struct StepPhases {
       const T rho = (it == 0 || !freeze) ? linearize(cur, F) : reinit(F);
       inner_solve(rho, lin_iters);
       if (it + 1 == iters) {
-        for (int n = first; n < N; n += stride) uk[n] = cur[n] + cx[n];
+        for (int n = first; n < last; n += stride) uk[n] = cur[n] + cx[n];
         grid.sync();
       } else {
         update(u, cur, nxt, F);

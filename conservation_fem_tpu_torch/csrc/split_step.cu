@@ -62,7 +62,7 @@ split_setup_kernel(SplitSetupParams<T> P) {
   S.nun = P.aux;
   S.kun = P.aux + S.N;
   const T mean_u = S.project(P.u, P.uo, P.uoo, P.bdf2, P.cg_iters);
-  S.rv_eps(P.u, mean_u, P.rv);
+  S.rv_eps(P.u, P.rv ? S.abs_term_of(P.u, mean_u) : T(0), P.rv);
   S.planes(P.u, P.uk, P.F);
 }
 
@@ -106,7 +106,7 @@ int split_setup(const void* u, const void* uo, const void* uoo,
   SplitSetupParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo,
                         (const T*)gvals, (const T*)Mc, (T*)Kc, (T*)aux,
                         (T*)uk, (T*)F, (T*)work, (T*)part,
-                        (const double*)consts, GridShape{n1x, n1y},
+                        (const double*)consts, GridShape::whole(n1x, n1y),
                         cg_iters, bdf2, rv, cheby};
   return launch_coop(split_setup_kernel<T>, P, n1x * n1y, stream);
 }
@@ -121,7 +121,7 @@ int split_newton(const void* uk, const void* F, const void* u,
                          (const T*)gvals, (const T*)Mc, (const T*)Kc,
                          (const T*)aux, (const T*)w, (T*)uk_out, (T*)F_out,
                          (T*)work, (T*)part, (const double*)consts,
-                         GridShape{n1x, n1y}, lin_iters, cheby};
+                         GridShape::whole(n1x, n1y), lin_iters, cheby};
   return launch_coop(split_newton_kernel<T>, P, n1x * n1y, stream);
 }
 

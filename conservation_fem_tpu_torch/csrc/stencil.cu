@@ -108,7 +108,7 @@ cg_solve_kernel(const T* __restrict__ coef, const T* __restrict__ b,
 template <typename T>
 int stencil_matvec(const void* coef, const void* x, void* y, int n1x,
                    int n1y, void* stream) {
-  GridShape g{n1x, n1y};
+  GridShape g = GridShape::whole(n1x, n1y);
   const int n = n1x * n1y;
   stencil_matvec_kernel<T><<<(n + kBlock - 1) / kBlock, kBlock, 0,
                              (cudaStream_t)stream>>>(
@@ -120,7 +120,7 @@ template <typename T>
 int cg_solve(const void* coef, const void* b, const void* bc,
              const void* diag, void* x, void* work, void* part, int n1x,
              int n1y, double rtol, int maxiter, void* stream) {
-  GridShape g{n1x, n1y};
+  GridShape g = GridShape::whole(n1x, n1y);
   const T* coef_ = (const T*)coef;
   const T* b_ = (const T*)b;
   const unsigned char* bc_ = (const unsigned char*)bc;

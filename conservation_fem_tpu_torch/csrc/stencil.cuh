@@ -52,14 +52,39 @@ __host__ __device__ constexpr int pair_plane(int t, int a, int b) {
                   corner_j(t, b) - corner_j(t, a));
 }
 
+// An (n1x, n1y) buffer of nodes. It is either a whole grid or a row block
+// of a taller (n_rows, n1y) grid whose buffer row 0 is global row row0
+// (negative above the grid's first row): the block kernels of the sharded
+// path. Rows [i_lo, i_hi) of the buffer lie in the grid; the Dirichlet
+// frame is the grid's first and last row (buffer rows top and bot, which
+// may lie outside the buffer) and the first and last column. A block edge
+// that is not a grid edge is not a frame: the nodes beyond it are simply
+// not there, as beyond a grid edge.
 struct GridShape {
   int n1x, n1y;
+  int i_lo, i_hi, top, bot;
+  __host__ __device__ static GridShape whole(int n1x, int n1y) {
+    return GridShape{n1x, n1y, 0, n1x, 0, n1x - 1};
+  }
+  __host__ __device__ static GridShape block(int n1x, int n1y, int row0,
+                                             int n_rows) {
+    const int lo = row0 < 0 ? -row0 : 0;
+    const int hi = n_rows - row0 < n1x ? n_rows - row0 : n1x;
+    return GridShape{n1x, n1y, lo, hi, -row0, n_rows - 1 - row0};
+  }
   __device__ int size() const { return n1x * n1y; }
+  // first node and one past the last node of the rows in the grid
+  __device__ int n_lo() const { return i_lo * n1y; }
+  __device__ int n_hi() const { return i_hi * n1y; }
   __device__ bool inside(int i, int j) const {
-    return i >= 0 && i < n1x && j >= 0 && j < n1y;
+    return i >= i_lo && i < i_hi && j >= 0 && j < n1y;
+  }
+  // (ci, cj) is the lower-left node of a cell of the grid held here
+  __device__ bool cell(int ci, int cj) const {
+    return ci >= i_lo && ci < i_hi - 1 && cj >= 0 && cj < n1y - 1;
   }
   __device__ bool frame(int i, int j) const {
-    return i == 0 || i == n1x - 1 || j == 0 || j == n1y - 1;
+    return i == top || i == bot || j == 0 || j == n1y - 1;
   }
 };
 

@@ -1,7 +1,7 @@
 // Hopper kernel for the stabilised KPP-RV time step swept in tiles.
 //
 // Replaces pallas_tiled.tiled_rv_step (conservation_fem_tpu/ops/
-// pallas_tiled.py:120) in its single-device modes: the phases of the
+// pallas_tiled.py:120), whole-grid and block mode: the phases of the
 // single kernel (fused_step.cuh StepPhases, in the same order) with every
 // field in device memory, each phase that reads neighbours run as a sweep
 // over tiles (TileSweep) — residual-projection rhs, the mass solve
@@ -34,6 +34,15 @@
 // sums its nodes over its block's tiles and the deterministic two-level
 // reduction of stencil.cuh combines them in a fixed order.
 //
+// Block mode (the sharded path, parallel/structured_fused_sharded.py): the
+// buffer is a deep-halo row block of a taller grid that starts at global
+// row row0 (negative above the grid). Tiles cover the block's rows inside
+// the grid only; neighbour, cell and Dirichlet-frame tests go by global
+// rows (stencil.cuh GridShape); abs_term = max|u - mean u|, the step's one
+// global reduction, is read from a one-element device tensor; the inner
+// solver is Chebyshev, so the launch reduces nothing over the grid. The
+// output holds the whole block, zero on the rows outside the grid.
+//
 // What bounds it on the H100: like the single step, a chain of dependent
 // sweeps (grid-sync latency) and, beyond the 50 MB L2 (mesh 256 and up),
 // device-memory latency per sweep; a sweep moves at most the 7 Jacobian
@@ -49,10 +58,11 @@ constexpr int kStaged = 3;  // values a sweep stages together at most
 template <typename T> struct TiledParams {
   const T *u, *uo, *uoo, *g, *Mc;
   T *out, *work, *part;
+  const T* abs_term;  // block mode with rv: one element; else unused
   const double* consts;
   GridShape gs;
   int tile_rows, tile_cols;
-  int cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby;
+  int cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, external;
 };
 
 struct TileGrid {
@@ -61,7 +71,7 @@ struct TileGrid {
   __device__ TileGrid(GridShape g_, int rows_, int cols_)
       : g(g_), rows(rows_), cols(cols_),
         tiles_y((g_.n1y + cols_ - 1) / cols_),
-        count(((g_.n1x + rows_ - 1) / rows_) * tiles_y) {}
+        count(((g_.i_hi - g_.i_lo + rows_ - 1) / rows_) * tiles_y) {}
 };
 
 // A staged field as an (i, j) accessor in grid coordinates.
@@ -93,7 +103,7 @@ template <typename T> struct TileSweep {
     const GridShape g = tg.g;
     const int hc = tg.cols + 2, hs = (tg.rows + 2) * hc;
     for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
-      const int r0 = (t / tg.tiles_y) * tg.rows;
+      const int r0 = g.i_lo + (t / tg.tiles_y) * tg.rows;
       const int c0 = (t % tg.tiles_y) * tg.cols;
       for (int l = threadIdx.x; l < hs; l += kBlock) {
         const int i = r0 - 1 + l / hc, j = c0 - 1 + l % hc;
@@ -111,7 +121,7 @@ template <typename T> struct TileSweep {
       const StagedTile<T> st{buf, r0 - 1, c0 - 1, hc, hs};
       for (int l = threadIdx.x; l < tg.rows * tg.cols; l += kBlock) {
         const int i = r0 + l / tg.cols, j = c0 + l % tg.cols;
-        if (i < g.n1x && j < g.n1y) body(i, j, i * g.n1y + j, st);
+        if (i < g.i_hi && j < g.n1y) body(i, j, i * g.n1y + j, st);
       }
       __syncthreads();  // the buffer is free for the next tile
     }
@@ -130,9 +140,13 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   const TileSweep<T> sweep{TileGrid(P.gs, P.tile_rows, P.tile_cols),
                            reinterpret_cast<T*>(stage_raw)};
   StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
-                                P.g, P.cheby, P.work);
+                                P.g, P.cheby, P.work, P.external);
+  if (P.external) S.zero_outside(P.out);
   const T mean_u = S.project(P.u, P.uo, P.uoo, P.bdf2, P.cg_iters);
-  S.rv_eps(P.u, mean_u, P.rv);
+  const T abs_term = !P.rv ? T(0)
+                     : P.external ? *P.abs_term
+                                  : S.abs_term_of(P.u, mean_u);
+  S.rv_eps(P.u, abs_term, P.rv);
   S.planes(P.u, P.out, P.newton_iters > 0 ? S.F : nullptr);
   S.newton(P.u, P.out, P.newton_iters, P.lin_iters, P.freeze);
 }
@@ -140,22 +154,26 @@ tiled_rv_step_kernel(TiledParams<T> P) {
 template <typename T>
 int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* out, void* work,
-                  void* part, const void* consts, int n1x, int n1y,
+                  void* part, const void* abs_term, const void* consts,
+                  int n1x, int n1y, int row0, int n_rows, int external,
                   int tile_rows, int tile_cols, int cg_iters,
                   int newton_iters, int lin_iters, int bdf2, int rv,
                   int freeze, int cheby, void* stream) {
+  const GridShape gs = external ? GridShape::block(n1x, n1y, row0, n_rows)
+                                : GridShape::whole(n1x, n1y);
+  if (gs.i_hi - gs.i_lo < 1) return (int)cudaErrorInvalidValue;
   TiledParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo,
                    (const T*)gvals, (const T*)Mc, (T*)out, (T*)work,
-                   (T*)part, (const double*)consts, GridShape{n1x, n1y},
+                   (T*)part, (const T*)abs_term, (const double*)consts, gs,
                    tile_rows, tile_cols, cg_iters, newton_iters, lin_iters,
-                   bdf2, rv, freeze, cheby};
+                   bdf2, rv, freeze, cheby, external};
   const size_t smem =
       (size_t)kStaged * (tile_rows + 2) * (tile_cols + 2) * sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)tiled_rv_step_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((n1x + tile_rows - 1) / tile_rows) *
+  const int tiles = ((gs.i_hi - gs.i_lo + tile_rows - 1) / tile_rows) *
                     ((n1y + tile_cols - 1) / tile_cols);
   void* args[] = {&P};
   const int grid = coop_grid(tiled_rv_step_kernel<T>, tiles * kBlock, smem);
@@ -171,27 +189,31 @@ extern "C" {
 
 int cft_tiled_rv_step_f32(const void* u, const void* uo, const void* uoo,
                           const void* g, const void* Mc, void* out,
-                          void* work, void* part, const void* consts,
-                          int n1x, int n1y, int tile_rows, int tile_cols,
-                          int cg_iters, int newton_iters, int lin_iters,
-                          int bdf2, int rv, int freeze, int cheby,
-                          void* stream) {
+                          void* work, void* part, const void* abs_term,
+                          const void* consts, int n1x, int n1y, int row0,
+                          int n_rows, int external, int tile_rows,
+                          int tile_cols, int cg_iters, int newton_iters,
+                          int lin_iters, int bdf2, int rv, int freeze,
+                          int cheby, void* stream) {
   return cft::tiled_rv_step<float>(u, uo, uoo, g, Mc, out, work, part,
-                                   consts, n1x, n1y, tile_rows, tile_cols,
-                                   cg_iters, newton_iters, lin_iters, bdf2,
-                                   rv, freeze, cheby, stream);
+                                   abs_term, consts, n1x, n1y, row0, n_rows,
+                                   external, tile_rows, tile_cols, cg_iters,
+                                   newton_iters, lin_iters, bdf2, rv,
+                                   freeze, cheby, stream);
 }
 int cft_tiled_rv_step_f64(const void* u, const void* uo, const void* uoo,
                           const void* g, const void* Mc, void* out,
-                          void* work, void* part, const void* consts,
-                          int n1x, int n1y, int tile_rows, int tile_cols,
-                          int cg_iters, int newton_iters, int lin_iters,
-                          int bdf2, int rv, int freeze, int cheby,
-                          void* stream) {
+                          void* work, void* part, const void* abs_term,
+                          const void* consts, int n1x, int n1y, int row0,
+                          int n_rows, int external, int tile_rows,
+                          int tile_cols, int cg_iters, int newton_iters,
+                          int lin_iters, int bdf2, int rv, int freeze,
+                          int cheby, void* stream) {
   return cft::tiled_rv_step<double>(u, uo, uoo, g, Mc, out, work, part,
-                                    consts, n1x, n1y, tile_rows, tile_cols,
-                                    cg_iters, newton_iters, lin_iters, bdf2,
-                                    rv, freeze, cheby, stream);
+                                    abs_term, consts, n1x, n1y, row0, n_rows,
+                                    external, tile_rows, tile_cols, cg_iters,
+                                    newton_iters, lin_iters, bdf2, rv,
+                                    freeze, cheby, stream);
 }
 
 }  // extern "C"

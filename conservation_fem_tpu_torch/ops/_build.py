@@ -18,7 +18,8 @@ without nvcc or a GPU.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero code. ``launches``
 counts kernel launches by wrapper name — the wrappers add one exactly
-where they launch.
+where they launch (the tiled kernel's block-mode launches count as
+``tiled_rv_step_block``, apart from its whole-grid ones).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cft_split_setup": [_P] * 12 + [_I] * 6 + [_P],
     "cft_split_newton": [_P] * 13 + [_I] * 4 + [_P],
-    "cft_tiled_rv_step": [_P] * 9 + [_I] * 11 + [_P],
+    "cft_tiled_rv_step": [_P] * 10 + [_I] * 14 + [_P],
+    "cft_fused_rv_block_step": [_P] * 9 + [_I] * 10 + [_P],
 }
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x
 # kMaxGrid (csrc/stencil.cuh)

@@ -1,14 +1,17 @@
 """Whole stabilised time step: the Hopper kernels (csrc/fused_step.cu,
-csrc/split_step.cu) and their plain PyTorch versions.
+csrc/split_step.cu, csrc/block_step.cu) and their plain PyTorch versions.
 
-Port of conservation_fem_tpu/ops/pallas_fused.fused_rv_step and
-fused_rv_step_split. One step is the BDF1/BDF2 residual projection (fixed
+Port of conservation_fem_tpu/ops/pallas_fused.fused_rv_step,
+fused_rv_step_split and fused_rv_block_step. One step is the BDF1/BDF2 residual projection (fixed
 CG or Chebyshev mass solve), the RV epsilon, the eps-stiffness planes and
 a CN Newton solve with a frozen or fresh Jacobian (fixed BiCGStab or
 Chebyshev). ``fused_rv_step`` runs ``n_substeps`` such steps in one
 launch and returns the last three states; ``fused_rv_step_split`` runs one
 step as a setup launch (``split_setup``) and one launch per Newton
-iteration (``split_newton``) and returns the new state.
+iteration (``split_newton``) and returns the new state;
+``fused_rv_block_step`` runs one Chebyshev step on a deep-halo row block
+of a taller grid (the sharded path, parallel/structured_fused_sharded.py)
+and returns the block.
 
 The plain versions are a transcription of the JAX ``_step_body`` (and of
 the split kernels' two stages) on whole grids, built from the port's
@@ -71,15 +74,17 @@ def _frame(n1x, n1y, device):
     return bc
 
 
-def _plain_data(u2, Mc2, s):
-    """StructuredData of the plain versions from the step's geometry."""
+def _plain_data(u2, Mc2, s, bc2=None):
+    """StructuredData of the plain versions from the step's geometry; bc2:
+    the Dirichlet mask (None: the frame of the grid)."""
     dtype, dev = u2.dtype, u2.device
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                   device=dev)
     nx, ny = s["nx"], s["ny"]
     return st.StructuredData(
         nx=nx, ny=ny, grads=t(s["grads"]), area=t(s["area"]),
-        bc2=_frame(nx + 1, ny + 1, dev), phi=t(s["phi"]), qw=t(s["qw"]),
+        bc2=_frame(nx + 1, ny + 1, dev) if bc2 is None else bc2,
+        phi=t(s["phi"]), qw=t(s["qw"]),
         M_coef=Mc2,
         h_cg2=torch.full((nx + 1, ny + 1), float(s["h"]), dtype=dtype,
                          device=dev),
@@ -104,9 +109,10 @@ def _projection_plain(sd, u, uo, uoo, N_un, *, dt, cg_iters,
     return cg_fixed(mass_op, rhs, iters=cg_iters, precond=pre).x
 
 
-def _eps_plain(sd, u, RH, *, Cvel, CRV, flux, stabilization):
+def _eps_plain(sd, u, RH, *, Cvel, CRV, flux, stabilization, abs_term=None):
     if stabilization == "rv":
-        return st.rv_epsilon(sd, Cvel, CRV, u, RH, flux.fprime_norm)
+        return st.rv_epsilon(sd, Cvel, CRV, u, RH, flux.fprime_norm,
+                             abs_term=abs_term)
     return torch.zeros_like(u)
 
 
@@ -127,22 +133,24 @@ def _linearize_plain(sd, Kc, w, *, dt, flux):
 
 def _frozen_terms_plain(sd, u, uo, uoo, *, dt, Cvel, CRV, flux, cg_iters,
                         residual_scheme, stabilization, inner_solver,
-                        mass_bounds, **_newton):
-    """(Kc, N(u), K u) of a step: projection, RV epsilon, eps planes."""
+                        mass_bounds, abs_term=None, **_newton):
+    """(Kc, N(u), K u) of a step: projection, RV epsilon (abs_term: see
+    structured.rv_epsilon), eps planes."""
     N_un = st.nonlinear_rhs(sd, u, flux)
     RH = _projection_plain(sd, u, uo, uoo, N_un, dt=dt, cg_iters=cg_iters,
                            residual_scheme=residual_scheme,
                            inner_solver=inner_solver,
                            mass_bounds=mass_bounds)
     eps = _eps_plain(sd, u, RH, Cvel=Cvel, CRV=CRV, flux=flux,
-                     stabilization=stabilization)
+                     stabilization=stabilization, abs_term=abs_term)
     Kc = st.keps_coef(sd, eps)
     return Kc, N_un, st.matvec(sd, Kc, u)
 
 
 def _step_body_plain(sd, u, uo, uoo, g, **kw):
     """One stabilised step on whole (n1x, n1y) grids (JAX _step_body);
-    ``kw``: the step arguments other than the geometry."""
+    ``kw``: the step arguments other than the geometry, and optionally
+    abs_term."""
     dt, flux = kw["dt"], kw["flux"]
     Kc, N_un, K_un = _frozen_terms_plain(sd, u, uo, uoo, **kw)
     return newton_fixed(
@@ -387,3 +395,141 @@ def fused_rv_step_split(u2, uo2, uoo2, g2, Mc2, **step):
         uk, F = split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, scratch=scr,
                              **s)
     return uk
+
+
+# ---------------------------------------------------------------------------
+# block mode: one step on a deep-halo row block of a taller grid
+# ---------------------------------------------------------------------------
+
+
+def required_halo(cg_iters, newton_iters, lin_iters):
+    """Rows of each neighbour a block needs so that one whole step can run
+    on it alone (pallas_fused.required_halo): every pass of the step reads
+    neighbours one row away, so an error at the block's edge moves in one
+    row per pass. Counted: rhs 2 + cg_iters mass-Chebyshev passes + the
+    eps / Kc chain 4 + per Newton iteration lin_iters Chebyshev passes and
+    the Jacobian and residual 4 + slack 6."""
+    return cg_iters + newton_iters * (lin_iters + 4) + 12
+
+
+def block_rows(B, row0, n_rows):
+    """(lo, hi): the rows of a B-row block starting at global row row0 that
+    lie inside the (n_rows)-row grid."""
+    lo, hi = max(0, -row0), min(B, n_rows - row0)
+    if hi - lo < 2:
+        raise ValueError(f"block of {B} rows at global row {row0} holds "
+                         f"fewer than 2 rows of the {n_rows}-row grid")
+    return lo, hi
+
+
+def block_step_args(name, u2, n_cols, step, **defaults):
+    """``step_args`` of a block-mode call: the geometry nx, ny is the
+    block's own, (B - 1, n1y - 1), whatever the caller's says."""
+    B, n1y = u2.shape
+    if n_cols != n1y:
+        raise ValueError(f"{name}: n_cols {n_cols} != the block's {n1y} "
+                         "columns (the TPU kernel's lane padding has no "
+                         "counterpart)")
+    return step_args(name, {**step, "nx": B - 1, "ny": n1y - 1}, **defaults)
+
+
+def block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s):
+    """The plain version of both block-mode kernels: ``_step_body_plain`` on
+    the block cropped to its rows inside the grid, the Dirichlet mask taken
+    from global rows (a crop edge that is a block edge is no Dirichlet row:
+    the nodes beyond it are missing, as for the kernels), abs_term passed
+    in; pasted back into a zero block. s: block_step_args."""
+    B, n1y = u2.shape
+    row0 = int(row0)
+    lo, hi = block_rows(B, row0, n_rows)
+    rows = torch.arange(row0 + lo, row0 + hi, device=u2.device)[:, None]
+    cols = torch.arange(n1y, device=u2.device)[None, :]
+    bc2 = ((rows == 0) | (rows == n_rows - 1) | (cols == 0)
+           | (cols == n1y - 1))
+    crop = lambda a: a[..., lo:hi, :]
+    sd = _plain_data(crop(u2), crop(Mc2), {**s, "nx": hi - lo - 1}, bc2=bc2)
+    kw = _body_kw(s)
+    if s["stabilization"] == "rv":
+        kw["abs_term"] = torch.as_tensor(abs_term, dtype=u2.dtype,
+                                         device=u2.device).reshape(())
+    out = torch.zeros_like(u2)
+    out[lo:hi] = _step_body_plain(sd, crop(u2), crop(uo2), crop(uoo2),
+                                  crop(g2), **kw)
+    return out
+
+
+def check_block_options(name, s, abs_term):
+    """The refusals of block mode (pallas_fused.fused_rv_block_step,
+    pallas_tiled.tiled_rv_step): Chebyshev only — CG and BiCGStab take dot
+    products over the whole grid, which a block cannot — and abs_term for
+    rv."""
+    if s["inner_solver"] != "cheby":
+        raise NotImplementedError(
+            f"{name}: block mode takes its global reductions outside the "
+            "kernel; the CG / BiCGStab dots are single-device only — use "
+            "inner_solver='cheby' for the sharded block path")
+    if s["stabilization"] == "rv" and abs_term is None:
+        raise ValueError(f"{name}: block mode needs the abs_term scalar, "
+                         "max|u - mean u| over the whole grid")
+
+
+def abs_term_ptr(abs_term, s, dtype, device):
+    """(tensor kept alive, pointer) of abs_term as one element on the
+    device; a null pointer for gfem, which never reads it."""
+    if s["stabilization"] != "rv":
+        return None, 0
+    t = torch.as_tensor(abs_term, dtype=dtype, device=device).reshape(1)
+    return t, t.data_ptr()
+
+
+def fused_rv_block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *,
+                              n_rows, n_cols, **step):
+    """One Chebyshev step on a deep-halo block in plain PyTorch; returns the
+    (B, n1y) block, zero on rows outside the grid."""
+    s = block_step_args("fused_rv_block_step", u2, n_cols, step,
+                        inner_solver="cheby")
+    check_block_options("fused_rv_block_step", s, abs_term)
+    return block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows,
+                            s)
+
+
+def fused_rv_block_step(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *, n_rows,
+                        n_cols, **step):
+    """One stabilised step on a deep-halo row block of an (n_rows, n_cols)
+    grid, one launch; replaces pallas_fused.fused_rv_block_step.
+
+    u2/uo2/uoo2/g2: (B, n1y) block, owned rows plus at least
+    ``required_halo`` rows of each neighbour; Mc2: (7, B, n1y) mass planes
+    of the same rows; row0: global row of block row 0 (an int, negative
+    above the grid); abs_term: max|u - mean u| over the whole grid, a
+    one-element tensor (read on the device, never by the host) or a float;
+    ``step``: as fused_rv_step, with inner_solver="cheby" (the default
+    here, and the only one); nx, ny, if given, give way to the block's. Returns the whole block; only
+    the owned rows equal the whole-grid step's, rows outside the grid are
+    zero."""
+    s = block_step_args("fused_rv_block_step", u2, n_cols, step,
+                        inner_solver="cheby")
+    check_block_options("fused_rv_block_step", s, abs_term)
+    if _build.on_cpu("fused_rv_block_step", u2, uo2, uoo2, g2, Mc2):
+        return block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term,
+                                n_rows, s)
+    B, n1y = u2.shape
+    block_rows(B, int(row0), n_rows)
+    dtype, consts = _launch_prep("fused_rv_block_step", s,
+                                 [u2, uo2, uoo2, g2, Mc2],
+                                 [(B, n1y)] * 4 + [(7, B, n1y)])
+    dev = u2.device
+    out = torch.empty((B, n1y), dtype=dtype, device=dev)
+    work = torch.empty((N_WORK_FIELDS, B, n1y), dtype=dtype, device=dev)
+    keep, abs_ptr = abs_term_ptr(abs_term, s, dtype, dev)
+    bdf2, rv, freeze, _ = _flags(s)
+    with torch.cuda.device(dev):
+        code = _build.entry("cft_fused_rv_block_step", dtype)(
+            u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
+            Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), abs_ptr,
+            consts.data_ptr(), B, n1y, int(row0), int(n_rows),
+            int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
+            bdf2, rv, freeze, _build.stream_ptr(u2))
+    _build.launches["fused_rv_block_step"] += 1
+    _build.check(code, "fused_rv_block_step")
+    return out

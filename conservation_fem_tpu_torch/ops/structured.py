@@ -271,9 +271,14 @@ def _patch_reduce(x2, reducer, pad_val):
     return acc
 
 
-def rv_epsilon(sd: StructuredData, Cvel, Crv, u2, Rh2, fprime_norm):
-    """Grid version of stabilization.rv_epsilon_nonlinear."""
-    abs_term = (u2 - u2.mean()).abs().max()
+def rv_epsilon(sd: StructuredData, Cvel, Crv, u2, Rh2, fprime_norm,
+               abs_term=None):
+    """Grid version of stabilization.rv_epsilon_nonlinear. abs_term =
+    max|u - mean u| is the one global reduction; a caller that holds only a
+    row block of the grid (ops/fused_step.fused_rv_block_step) passes it
+    in."""
+    if abs_term is None:
+        abs_term = (u2 - u2.mean()).abs().max()
     u_max = _patch_reduce(u2, torch.maximum, -np.inf)
     u_min = _patch_reduce(u2, torch.minimum, np.inf)
     n_i = ((u_max - u_min) - abs_term).abs()

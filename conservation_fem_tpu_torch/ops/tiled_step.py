@@ -8,14 +8,22 @@ by tile, in shared memory; it returns u_{n+1}. The plain version is the
 fused step's plain version (``fused_step._step_body_plain``): the tiling
 changes where the work runs, not what it computes.
 
+Block mode (``row0_base`` given): the fields are a deep-halo row block of
+a taller (n_rows, n1y) grid that starts at global row ``row0_base``, the
+per-block kernel of parallel/structured_fused_sharded.py for blocks of
+any size. ``abs_term`` = max|u - mean u| over the whole grid comes from
+the caller, the inner solver is Chebyshev, and the whole block comes
+back (zero on rows outside the grid; only the owned rows equal the
+whole-grid step's). Its plain version is ``fused_step.block_step_plain``,
+that of fused_rv_block_step.
+
 Tile geometry is chosen here, where the CPU tests reach it: a tile is
 ``tile_rows`` rows (the JAX meaning) by at most MAX_TILE_COLS columns,
 fewer when the staged fields would not fit STAGE_BYTES of shared memory.
 The TPU kernel's Mosaic geometry (8-row halo alignment, 128-lane padding,
 HBM pad rows, the 24 MB VMEM budget of its default_tile_rows, the
-CFT_TILE_ROWS override) has no counterpart and is not ported. Not ported
-yet: block mode (``row0_base``/``n_rows``/``abs_term``, the sharded path)
-and ``bf16_planes``.
+CFT_TILE_ROWS override) has no counterpart and is not ported. Not ported:
+``bf16_planes``.
 """
 
 from __future__ import annotations
@@ -60,26 +68,40 @@ def default_tile_rows(n1x, n1y, itemsize, n_sm):
     return min((64, 32, 16, 8), key=cost)
 
 
-def _check_tiled_options(inner_solver, row0_base, n_rows, abs_term,
-                         bf16_planes):
+def _check_tiled_options(inner_solver, bf16_planes):
     if inner_solver not in ("cheby", "bicgstab"):
         raise NotImplementedError(
             "tiled_rv_step inner_solver must be 'cheby' or 'bicgstab'")
-    if row0_base is not None or n_rows is not None or abs_term is not None:
-        raise NotImplementedError(
-            "tiled_rv_step block mode (row0_base / n_rows / abs_term, the "
-            "sharded path) is not ported yet (ROADMAP queue 1 item 15)")
     if bf16_planes:
         raise NotImplementedError(
             "tiled_rv_step bf16_planes is not ported (ROADMAP queue 2 item "
             "5, only if the H100 measures a reason)")
 
 
+def _args(u2, step, inner_solver, row0_base, n_rows, abs_term):
+    """The step arguments of a call, checked; block mode when row0_base is
+    given (n_rows None: the block's own row count)."""
+    if row0_base is None:
+        if n_rows is not None or abs_term is not None:
+            raise ValueError("tiled_rv_step: n_rows and abs_term belong to "
+                             "block mode, which row0_base selects")
+        return fs.step_args("tiled_rv_step", step,
+                            inner_solver=inner_solver), None
+    s = fs.block_step_args("tiled_rv_step", u2, u2.shape[1], step,
+                           inner_solver=inner_solver)
+    fs.check_block_options("tiled_rv_step", s, abs_term)
+    return s, int(u2.shape[0] if n_rows is None else n_rows)
+
+
 def tiled_rv_step_plain(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
-                        inner_solver="cheby", **step):
+                        inner_solver="cheby", row0_base=None, n_rows=None,
+                        abs_term=None, **step):
     """One stabilised step in plain PyTorch (tile_rows is ignored);
-    returns u_{n+1}."""
-    s = fs.step_args("tiled_rv_step", step, inner_solver=inner_solver)
+    returns u_{n+1}, in block mode the whole block."""
+    s, n_rows = _args(u2, step, inner_solver, row0_base, n_rows, abs_term)
+    if row0_base is not None:
+        return fs.block_step_plain(u2, uo2, uoo2, g2, Mc2, row0_base,
+                                   abs_term, n_rows, s)
     return fs._step_body_plain(fs._plain_data(u2, Mc2, s), u2, uo2, uoo2,
                                g2, **fs._body_kw(s))
 
@@ -90,32 +112,45 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
     """One stabilised step, one launch; replaces pallas_tiled.tiled_rv_step.
 
     Arguments as ops/fused_step.fused_rv_step (``step``), plus tile_rows
-    (None: default_tile_rows). Returns u_{n+1} (n1x, n1y)."""
-    _check_tiled_options(inner_solver, row0_base, n_rows, abs_term,
-                         bf16_planes)
-    s = fs.step_args("tiled_rv_step", step, inner_solver=inner_solver)
+    (None: default_tile_rows). Returns u_{n+1} (n1x, n1y). Block mode:
+    row0_base (an int, the global row of block row 0), n_rows (rows of the
+    whole grid) and abs_term (a one-element tensor, read on the device, or
+    a float; not needed for gfem) as ops/fused_step.fused_rv_block_step;
+    nx, ny in ``step`` are the block's, (B - 1, n1y - 1)."""
+    _check_tiled_options(inner_solver, bf16_planes)
+    s, n_rows = _args(u2, step, inner_solver, row0_base, n_rows, abs_term)
+    block = row0_base is not None
     if _build.on_cpu("tiled_rv_step", u2, uo2, uoo2, g2, Mc2):
-        return tiled_rv_step_plain(u2, uo2, uoo2, g2, Mc2, **s)
+        return tiled_rv_step_plain(u2, uo2, uoo2, g2, Mc2, row0_base=row0_base,
+                                   n_rows=n_rows, abs_term=abs_term, **s)
     n1x, n1y = s["nx"] + 1, s["ny"] + 1
     dtype, consts = fs._launch_prep("tiled_rv_step", s,
                                     [u2, uo2, uoo2, g2, Mc2],
                                     [(n1x, n1y)] * 4 + [(7, n1x, n1y)])
     itemsize, dev = u2.element_size(), u2.device
+    if block:
+        lo, hi = fs.block_rows(n1x, int(row0_base), n_rows)
+    else:
+        lo, hi = 0, n1x
     if tile_rows is None:
         tile_rows = default_tile_rows(
-            n1x, n1y, itemsize,
+            hi - lo, n1y, itemsize,
             torch.cuda.get_device_properties(dev).multi_processor_count)
-    rows, cols = tile_geometry(n1x, n1y, itemsize, tile_rows)
+    rows, cols = tile_geometry(hi - lo, n1y, itemsize, tile_rows)
     out = torch.empty((n1x, n1y), dtype=dtype, device=dev)
     work, part = fs.new_scratch(dtype, dev, n1x, n1y)
+    keep, abs_ptr = (fs.abs_term_ptr(abs_term, s, dtype, dev) if block
+                     else (None, 0))
     bdf2, rv, freeze, cheby = fs._flags(s)
     with torch.cuda.device(dev):
         code = _build.entry("cft_tiled_rv_step", dtype)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), part.data_ptr(),
-            consts.data_ptr(), n1x, n1y, rows, cols, int(s["cg_iters"]),
+            abs_ptr, consts.data_ptr(), n1x, n1y,
+            int(row0_base) if block else 0, n_rows if block else n1x,
+            int(block), rows, cols, int(s["cg_iters"]),
             int(s["newton_iters"]), int(s["lin_iters"]), bdf2, rv, freeze,
             cheby, _build.stream_ptr(u2))
-    _build.launches["tiled_rv_step"] += 1
+    _build.launches["tiled_rv_step_block" if block else "tiled_rv_step"] += 1
     _build.check(code, "tiled_rv_step")
     return out

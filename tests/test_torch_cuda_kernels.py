@@ -4,13 +4,17 @@ card, with the launch counters. Marked ``cuda``: every test takes the
 is looked for when a test runs, never at import). On a machine with a
 card: ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m
 cuda`` (the suite's conftest imports JAX, which that machine need not
-have).
+have). The block-mode kernels of the sharded path are here too: against
+their plain version on every row of a block, against the single kernel on
+the owned rows, and through ShardedFusedStructured.
 
 f64 bound 1e-11: kernel and plain version sum in different orders (the
 bound of the JAX package's own fused identity tests); 1e-10 for the tiled
 kernel (the JAX package's bound for its tiled BiCGStab kernel,
 test_pallas_tiled.py); f32 is checked loosely (1e-3 relative) since
 reduction order is chaotic there."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -201,23 +205,117 @@ def test_tiled_kernel_matches_plain(cuda, solver, frozen, newton,
 
 
 def test_step_kernels_refuse_bad_arguments(cuda):
-    """On CUDA tensors: tiled block mode and bf16 planes, and a flux other
-    than KPP for every step kernel, raise before a launch."""
+    """On CUDA tensors: bf16 planes, block mode with BiCGStab or (rv)
+    without abs_term, and a flux other than KPP for every step kernel,
+    raise before a launch."""
     p = _problem(cuda, 4, "float64", T=0.0)
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
     kw = p.fused_step_kwargs()
+    before = sum(_build.launches.values())
     for bad in (dict(row0_base=0, n_rows=17, abs_term=0.0),
                 dict(bf16_planes=True)):
         with pytest.raises(NotImplementedError):
             ts.tiled_rv_step(*args, **kw, **bad)
+    with pytest.raises(ValueError, match="abs_term"):
+        ts.tiled_rv_step(*args, **dict(kw, inner_solver="cheby"),
+                         row0_base=0, n_rows=17)
     other = dict(kw, flux=kw["flux"]._replace(name="burgers"))
-    before = sum(_build.launches.values())
     for fn in (fs.fused_rv_step, fs.fused_rv_step_split, fs.split_setup,
                ts.tiled_rv_step):
         with pytest.raises(NotImplementedError, match="KPP"):
             fn(*args, **other)
+    block_kw = {k: v for k, v in dict(other, inner_solver="cheby").items()
+                if k not in ("nx", "ny")}
+    with pytest.raises(NotImplementedError, match="KPP"):
+        fs.fused_rv_block_step(*args, 0, 1.0, n_rows=17, n_cols=17,
+                               **block_kw)
     assert sum(_build.launches.values()) == before
+
+
+CHEBY = dict(inner_solver="cheby", cg_iters=4, newton_linear_iters=4)
+
+
+def _blocks(p, fields, n_blocks):
+    """The deep-halo blocks of a decomposition of p's grid into n_blocks:
+    [(row0, extended fields + mass planes)], L, D."""
+    n1x = p._shape2[0]
+    cfg = p.cfg
+    L = -(-n1x // n_blocks)
+    D = fs.required_halo(cfg.cg_iters, cfg.newton_iters,
+                         cfg.newton_linear_iters)
+    pad = (0, 0, D, L * n_blocks - n1x + D)
+    ext = [torch.nn.functional.pad(a, pad)
+           for a in list(fields) + [p.sd.M_coef]]
+    return [(d * L - D, [a[..., d * L:d * L + L + 2 * D, :].contiguous()
+                         for a in ext]) for d in range(n_blocks)], L, D
+
+
+@pytest.mark.parametrize("stabilization,frozen,scheme", [
+    ("rv", True, "bdf2"), ("rv", False, "bdf2"), ("gfem", True, "bdf2"),
+    ("rv", True, "bdf1")])
+def test_block_kernels_match_plain_and_single(cuda, stabilization, frozen,
+                                              scheme):
+    """Mesh 16 in 3 uneven blocks (rows above the grid, an interior block,
+    padding rows below it), D = 32: both block-mode kernels against the
+    plain version on every row, zero outside the grid, and their owned rows
+    against the single kernel on the whole grid."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, 16)
+    p.cfg = dataclasses.replace(p.cfg, **CHEBY)
+    kw = dict(p.fused_step_kwargs(), stabilization=stabilization,
+              freeze_jacobian=frozen, residual_scheme=scheme)
+    whole = fs.fused_rv_step(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, (u2, uo2, uoo2, g2), 3)
+    n1x, n1y = p._shape2
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    for d, (row0, ext) in enumerate(blocks):
+        before = dict(_build.launches)
+        got_b = fs.fused_rv_block_step(*ext, row0, abs_term, n_rows=n1x,
+                                       n_cols=n1y, **bkw)
+        got_t = ts.tiled_rv_step(*ext, row0_base=row0, n_rows=n1x,
+                                 abs_term=abs_term, tile_rows=8, **bkw)
+        assert (_build.launches["fused_rv_block_step"]
+                == before.get("fused_rv_block_step", 0) + 1)
+        assert (_build.launches["tiled_rv_step_block"]
+                == before.get("tiled_rv_step_block", 0) + 1)
+        assert (_build.launches["tiled_rv_step"]
+                == before.get("tiled_rv_step", 0))
+        ref = fs.fused_rv_block_step_plain(*ext, row0, abs_term, n_rows=n1x,
+                                           n_cols=n1y, **bkw)
+        own = slice(D, D + min(L, n1x - d * L))
+        for got in (got_b, got_t):
+            torch.testing.assert_close(got, ref, rtol=0, atol=F64_TOL)
+            torch.testing.assert_close(got[own],
+                                       whole[d * L:d * L + own.stop - D],
+                                       rtol=0, atol=F64_TOL)
+        outside = torch.ones(L + 2 * D, dtype=torch.bool)
+        outside[max(0, -row0):min(L + 2 * D, n1x - row0)] = False
+        assert outside.any()
+        assert not got_b[outside].any() and not got_t[outside].any()
+
+
+@pytest.mark.parametrize("kernel,n_blocks", [("block", 2), ("tiled", 2),
+                                             ("block", 1), ("auto", 3)])
+def test_sharded_path_launches_block_kernels(cuda, kernel, n_blocks):
+    """ShardedFusedStructured over LocalBlocks on the card, mesh 16, f64, 5
+    steps: one launch of the chosen kernel per block and step, none of the
+    other, and the single kernel's trajectory to 1e-11."""
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    over = dict(CHEBY, T=0.05, modified_newton=True)
+    p = _problem(cuda, 16, "float64", use_kernels=True, **over)
+    ref = p.solve().u
+    sh = ShardedFusedStructured(_problem(cuda, 16, "float64", **over),
+                                LocalBlocks(n_blocks, cuda), kernel=kernel,
+                                tile_rows=8 if kernel == "tiled" else None)
+    _build.launches.clear()
+    got = sh.solve()
+    name = ("fused_rv_block_step" if sh.kernel == "block"
+            else "tiled_rv_step_block")
+    assert dict(_build.launches) == {name: p.num_steps * n_blocks}
+    torch.testing.assert_close(got, ref, rtol=0, atol=F64_TOL)
 
 
 @pytest.mark.parametrize("mode", ["split", "tiled"])

@@ -6,8 +6,10 @@ mesh 6 (a 25-row grid: with 8-row tiles the last tile is ragged, 3 x 8 +
 with PCG/BiCGStab (their dots are summed in another order). The JAX tiled
 kernel itself takes minutes in interpret mode and is not run here.
 
-Also: the card-side tile geometry, the refusals of what is not ported, and
-the model's dispatch to the split and tiled wrappers."""
+Also: the card-side tile geometry, the refusals of what is not ported or
+not possible in block mode, and the model's dispatch to the split and tiled
+wrappers. Block mode itself is held to the JAX package in
+test_torch_sharded_fused.py."""
 
 import dataclasses
 
@@ -85,18 +87,27 @@ def test_tile_geometry():
 
 
 def test_tiled_refuses_what_is_not_ported():
-    """Block mode (the sharded path) and bf16 planes raise, naming their
-    ROADMAP item, before any device dispatch; so does an inner solver the
-    TPU kernel does not have."""
+    """bf16 planes raise, naming their ROADMAP item, before any device
+    dispatch; so do block mode with BiCGStab (its dots span the grid) or,
+    for rv, without abs_term, and an inner solver the TPU kernel does not
+    have. Block mode itself is ported: on the whole grid it is the step."""
     p = tkpp.build(tkpp.KPPConfig(mesh_size=2, cg_iters=6, newton_iters=2),
                    device="cpu")
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
     kw = p.fused_step_kwargs()
-    for bad in (dict(row0_base=0, n_rows=9, abs_term=0.0),
-                dict(bf16_planes=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.tiled_rv_step(*args, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.tiled_rv_step(*args, **kw, bf16_planes=True)
+    with pytest.raises(NotImplementedError, match="cheby"):
+        ts.tiled_rv_step(*args, **kw, row0_base=0, n_rows=9, abs_term=0.0)
+    cheby = dict(kw, inner_solver="cheby")
+    with pytest.raises(ValueError, match="abs_term"):
+        ts.tiled_rv_step(*args, **cheby, row0_base=0, n_rows=9)
+    abs_term = (u2 - u2.mean()).abs().max()
+    torch.testing.assert_close(
+        ts.tiled_rv_step(*args, **cheby, row0_base=0, n_rows=9,
+                         abs_term=abs_term),
+        ts.tiled_rv_step(*args, **cheby), rtol=0, atol=1e-13)
     with pytest.raises(NotImplementedError):
         ts.tiled_rv_step(*args, **dict(kw, inner_solver="gmres"))
     with pytest.raises(TypeError):
