@@ -1,23 +1,24 @@
-// Device phases of the stabilised KPP-RV time step, shared by the three
-// step kernels: the single cooperative step (fused_step.cu), the split
-// setup and Newton kernels (split_step.cu) and the tiled step
-// (tiled_step.cu).
+// Device phases of the stabilised KPP-RV time step, shared by the step
+// kernels: the single cooperative step (fused_step.cu), the split setup
+// and Newton kernels (split_step.cu), the block kernel (block_step.cu) and
+// the tiled step (tiled_step.cu).
 //
 // Two levels:
 //   * node functions (nl_rhs_node, conv_planes_node, keps_planes_node,
-//     rv_eps_node, residual_node, pinned_apply) compute one node's value
-//     from field accessors x(i, j), so the same arithmetic reads global
-//     memory in the single and split kernels and a staged shared-memory
-//     tile in the tiled kernel;
-//   * StepPhases, the grid-wide phases of all three kernels (grid.sync()
+//     rv_eps_node, residual_node, pinned_apply, jacobian_node) compute one
+//     node's value from field accessors x(i, j) and operator accessors
+//     a(k), so the same arithmetic reads device memory in the grid-stride
+//     kernels and a staged shared-memory tile in the tiled kernel;
+//   * StepPhases, the grid-wide phases of every step kernel (grid.sync()
 //     between phases, deterministic two-level reductions from
 //     stencil.cuh): residual projection with its mass solve, RV epsilon,
 //     eps-stiffness planes, Newton linearisation, the fixed BiCGStab or
 //     Chebyshev inner solve and the update with its residual. A phase
 //     that reads values at neighbours runs as a sweep over a sweep
-//     policy: GridSweep (here; single and split kernels) visits the nodes
-//     in a grid-stride loop and forms those values where they are read,
-//     TileSweep (tiled_step.cu) stages them in shared memory tile by tile.
+//     policy, and declares the raw fields and operators it reads (Reads):
+//     GridSweep (here) visits the nodes in a grid-stride loop and reads
+//     them from device memory, TileSweep (tiled_step.cu) copies them into
+//     shared memory tile by tile, the next tile while this one computes.
 // The flux is compiled in: KPP, f = (sin u, cos u), f' = (cos u, -sin u),
 // f'' = (-sin u, -cos u), |f'| = 1. sincos is the accurate libdevice one
 // (no fast-math): quadrature arguments reach 14 pi / 4.
@@ -195,19 +196,6 @@ __device__ __forceinline__ void keps_planes_node(const StepConsts<T>& C,
   }
 }
 
-// K x at node (i, j) for K's planes held at that node.
-template <typename T, typename X>
-__device__ __forceinline__ T local_apply(const T (&pl)[7], GridShape g, int i,
-                                         int j, X x) {
-  T acc = pl[0] * x(i, j);
-#pragma unroll
-  for (int k = 1; k < 7; ++k) {
-    const int ii = i + off_i(k), jj = j + off_j(k);
-    if (g.inside(ii, jj)) acc += pl[k] * x(ii, jj);
-  }
-  return acc;
-}
-
 // RV epsilon at node (i, j) (structured.rv_epsilon; |f'| = 1 for KPP):
 // patch max/min of u and patch max of |RH| with -inf / +inf fills outside
 // the grid, abs_term = max |u - mean u|.
@@ -230,38 +218,40 @@ __device__ __forceinline__ T rv_eps_node(const StepConsts<T>& C, GridShape g,
 }
 
 // CN residual at node (i, j): F(v) = M(v-u) + dt/2 (N(v)+N(u)) + dt/2 (K v
-// + K u), v - g on the frame; kv = (K v)(i, j), nun = N(u)(i, j), kun =
-// (K u)(i, j).
-template <typename T, typename V, typename U>
+// + K u), v - g on the frame; mc(k) the mass planes at the node, kv = (K
+// v)(i, j), nun = N(u)(i, j), kun = (K u)(i, j).
+template <typename T, typename A, typename V, typename U>
 __device__ __forceinline__ T residual_node(const StepConsts<T>& C,
-                                           GridShape g, const T* Mc, int i,
-                                           int j, V v, U u, T kv, T nun,
-                                           T kun, T gval) {
+                                           GridShape g, A mc, int i, int j,
+                                           V v, U u, T kv, T nun, T kun,
+                                           T gval) {
   if (g.frame(i, j)) return v(i, j) - gval;
-  const T mv = stencil_apply(Mc, g, i, j, [&](int ii, int jj) {
+  const T mv = stencil_apply(mc, g, i, j, [&](int ii, int jj) {
     return v(ii, jj) - u(ii, jj);
   });
   const T nl = nl_rhs_node(C, g, i, j, v);
   return mv + C.half_dt * (nl + nun) + C.half_dt * (kv + kun);
 }
 
-// Pinned operator (_make_lib.pinned): identity rows/cols on the frame.
-template <typename T, typename X>
-__device__ __forceinline__ T pinned_apply(const T* coef, GridShape g, int i,
-                                          int j, X x) {
+// Pinned operator (_make_lib.pinned): identity rows/cols on the frame;
+// a(k) the operator's planes at (i, j).
+template <typename A, typename X>
+__device__ __forceinline__ auto pinned_apply(A a, GridShape g, int i, int j,
+                                             X x) {
+  using T = decltype(x(i, j));
   if (g.frame(i, j)) return x(i, j);
-  return stencil_apply(coef, g, i, j, [&](int ii, int jj) {
+  return stencil_apply(a, g, i, j, [&](int ii, int jj) {
     return g.frame(ii, jj) ? T(0) : x(ii, jj);
   });
 }
 
-// Jacobian planes M + dt/2 (K + C(w)) at node n = (i, j) into jc; returns
-// the Jacobi preconditioner 1 / J_00 (1 on the frame).
-template <typename T, typename W>
+// Jacobian planes M + dt/2 (K + C(w)) at node n = (i, j) into jc, from the
+// mass and eps-stiffness planes mc(k), kc(k) at the node; returns the
+// Jacobi preconditioner 1 / J_00 (1 on the frame).
+template <typename T, typename A, typename K, typename W>
 __device__ __forceinline__ T jacobian_node(const StepConsts<T>& C,
-                                           GridShape g, const T* Mc,
-                                           const T* kc, T* jc, int i, int j,
-                                           int n, W w) {
+                                           GridShape g, A mc, K kc, T* jc,
+                                           int i, int j, int n, W w) {
   const int N = g.size();
   T cc[7];
   conv_planes_node(C, g, i, j, w, cc);
@@ -269,7 +259,7 @@ __device__ __forceinline__ T jacobian_node(const StepConsts<T>& C,
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
     const size_t o = (size_t)k * N + n;
-    const T v = Mc[o] + C.half_dt * (kc[o] + cc[k]);
+    const T v = mc(k) + C.half_dt * (kc(k) + cc[k]);
     jc[o] = v;
     if (k == 0) j0 = v;
   }
@@ -293,48 +283,84 @@ __device__ __forceinline__ T cheby_next(T rho, T two_sigma, T delta, T& c1,
   return rho_new;
 }
 
-// Sweeps. sweep.run<NS>(stage, body) runs body(i, j, n, st) once at every
-// node of the grid (a row block's rows outside the grid are never computed
-// and never read), where st[s] is an (i, j) accessor of the s-th of the NS values that
-// stage(i, j, n, v) forms at a node; a stage reads nothing its body writes,
-// because other threads read those values at neighbours meanwhile.
+// Sweeps. sweep.run<NS>(reads, stage, body) runs body(i, j, n, st, f, ops)
+// once at every node (i, j), n = i * n1y + j, of the grid held in the
+// buffer (a row block's rows outside the grid are never computed and never
+// read). `reads` declares the raw values the sweep reads (Reads): fields
+// f[0, H) at the node and its six neighbours, fields f[H, H + M) at the
+// node only, and the 7 planes of operators op[0, P) at the node; a null
+// field or operator is not read. In the body, f(k) is raw field k at the
+// node, ops[p](k) plane k of operator p there, and st[s] an (i, j) accessor
+// of the s-th of the NS values that stage(i, j, h, v) forms from the raw
+// values h(k), k < H, of node (i, j) — formed where they are read, from
+// device memory (GridSweep) or from a shared-memory tile (TileSweep,
+// tiled_step.cu). Nothing a sweep reads at neighbours is written by it,
+// because other threads read those values meanwhile; a field read at the
+// node only may be updated there.
+template <typename T, int H, int M, int P> struct Reads {
+  static constexpr int kHalo = H, kNode = M, kOps = P;
+  const T* f[H + M];
+  const T* op[P > 0 ? P : 1];
+};
 
-// The values of a stage, formed at the node they are read at.
+// Raw fields at node n in device memory.
+template <typename T> struct GlobalAt {
+  const T* const* f;
+  int n;
+  __device__ __forceinline__ T operator()(int k) const { return f[k][n]; }
+};
+
+// Operators at node n in device memory.
+template <typename T> struct GlobalOps {
+  const T* const* op;
+  int n, N;
+  __device__ __forceinline__ PlanesAt<T> operator[](int p) const {
+    return PlanesAt<T>{op[p], n, N};
+  }
+};
+
+// The values of a stage, formed from device memory where they are read.
 template <typename T, int NS, typename Stage> struct FormedField {
   const Stage* stage;
+  const T* const* f;
   int n1y, s;
   __device__ __forceinline__ T operator()(int i, int j) const {
     T v[NS];
-    (*stage)(i, j, i * n1y + j, v);
+    (*stage)(i, j, GlobalAt<T>{f, i * n1y + j}, v);
     return v[s];
   }
 };
 template <typename T, int NS, typename Stage> struct Formed {
   const Stage* stage;
+  const T* const* f;
   int n1y;
   __device__ __forceinline__ FormedField<T, NS, Stage> operator[](
       int s) const {
-    return FormedField<T, NS, Stage>{stage, n1y, s};
+    return FormedField<T, NS, Stage>{stage, f, n1y, s};
   }
 };
 
-// Grid-stride sweep of the single and split kernels.
+// Grid-stride sweep of the single, split and block kernels: every value is
+// read from device memory where it is needed.
 template <typename T> struct GridSweep {
   GridShape g;
-  template <int NS, typename Stage, typename Body>
-  __device__ __forceinline__ void run(Stage stage, Body body) const {
-    const Formed<T, NS, Stage> st{&stage, g.n1y};
-    const int hi = g.n_hi();
+  template <int NS, typename R, typename Stage, typename Body>
+  __device__ __forceinline__ void run(const R& in, Stage stage,
+                                      Body body) const {
+    const Formed<T, NS, Stage> st{&stage, in.f, g.n1y};
+    const int hi = g.n_hi(), N = g.size();
     for (int n = g.n_lo() + blockIdx.x * kBlock + threadIdx.x; n < hi;
          n += gridDim.x * kBlock)
-      body(n / g.n1y, n % g.n1y, n, st);
+      body(n / g.n1y, n % g.n1y, n, st, GlobalAt<T>{in.f, n},
+           GlobalOps<T>{in.op, n, N});
   }
 };
 
 // The grid-wide phases of a step. Every block runs every phase, so every
 // thread computes the same scalars (a diverging branch would deadlock the
-// grid barrier). Fields are addressed by node n = i * n1y + j; pointwise
-// passes are grid-stride loops, passes that read neighbours are sweeps.
+// grid barrier). Fields are addressed by node n = i * n1y + j; passes that
+// read neighbours are sweeps, and passes that read fields at the node only
+// run over the same sweep policy (pointwise).
 // Ping-pong buffers keep a sweep from writing what it reads at neighbours:
 // the directions cd0 / p2 and cd1 / v2, the Chebyshev direction cd0 / cd1
 // and the Newton iterate uk / uk2.
@@ -375,8 +401,21 @@ template <typename T, typename Sweep> struct StepPhases {
     jc = field(JC);
   }
 
-  __device__ T dminv(int i, int j, int n) const {
-    return T(1) / (g.frame(i, j) ? T(1) : Mc[n]);
+  // Jacobi preconditioner 1 / d of a pinned operator's diagonal d
+  __device__ T inv_diag(int i, int j, T d) const {
+    return T(1) / (g.frame(i, j) ? T(1) : d);
+  }
+
+  // A pass that reads only at the node: body(i, j, n, f) at every node of
+  // the sweep, f(k) raw field k of `in` there (GridSweep: the grid-stride
+  // loop of first, last and stride; TileSweep: the tile pipeline).
+  template <int M, typename Body>
+  __device__ void pointwise(const Reads<T, 0, M, 0>& in, Body body) {
+    sweep.template run<1>(
+        in, [](int, int, const auto&, T (&v)[1]) { v[0] = T(0); },
+        [&](int i, int j, int n, const auto&, const auto& f, const auto&) {
+          body(i, j, n, f);
+        });
   }
 
   // Block mode: zero `out` on the buffer's rows outside the grid, which no
@@ -403,31 +442,33 @@ template <typename T, typename Sweep> struct StepPhases {
                        int cg_iters) {
     T acc[2] = {T(0), T(0)};  // rz of CG init, sum(u)
     sweep.template run<2>(
-        [&](int i, int j, int n, T (&v)[2]) {
-          v[0] = bdf2 ? (T(3) * u[n] - T(4) * uo[n] + uoo[n]) / C.two_dt
-                      : (u[n] - uo[n]) / C.dt;
-          v[1] = u[n];
+        Reads<T, 3, 0, 1>{{u, uo, bdf2 ? uoo : nullptr}, {Mc}},
+        [&](int i, int j, const auto& h, T (&v)[2]) {
+          v[0] = bdf2 ? (T(3) * h(0) - T(4) * h(1) + h(2)) / C.two_dt
+                      : (h(0) - h(1)) / C.dt;
+          v[1] = h(0);
         },
-        [&](int i, int j, int n, const auto& s) {
-          const T mv = stencil_apply(Mc, g, i, j, s[0]);
+        [&](int i, int j, int n, const auto& s, const auto& f,
+            const auto& ops) {
+          const T mv = stencil_apply(ops[0], g, i, j, s[0]);
           const T nl = nl_rhs_node(C, g, i, j, s[1]);
           nun[n] = nl;
           const T rhs = g.frame(i, j) ? T(0) : mv + nl;
           cx[n] = T(0);
           cr[n] = rhs;
-          const T z = dminv(i, j, n) * rhs;
+          const T z = inv_diag(i, j, ops[0](0)) * rhs;
           if (cheby) {
             cd0[n] = z / C.m_theta;
           } else {
             cd0[n] = z;
             acc[0] += rhs * z;
           }
-          acc[1] += u[n];
+          acc[1] += f(0);
         });
     sum_all(acc);
     if (cheby) {
-      cheby_solve(Mc, [&](int i, int j, int n) { return dminv(i, j, n); },
-                  C.m_rho0, C.m_two_sigma, C.m_delta, cg_iters);
+      cheby_solve(Mc, nullptr, C.m_rho0, C.m_two_sigma, C.m_delta,
+                  cg_iters);
     } else {
       mass_cg(acc[0], cg_iters);
     }
@@ -435,22 +476,25 @@ template <typename T, typename Sweep> struct StepPhases {
   }
 
   // Fixed Chebyshev on the pinned operator A from the state cx, cr, d = cd0:
-  // per iteration x += d, r -= A d, d' = c1 d + c2 pre r, in one sweep.
-  template <typename Pre>
-  __device__ void cheby_solve(const T* A, Pre pre, T rho, T two_sigma,
+  // per iteration x += d, r -= A d, d' = c1 d + c2 pre r, in one sweep;
+  // pre is the preconditioner field, or null for 1 / A_00.
+  __device__ void cheby_solve(const T* A, const T* pre, T rho, T two_sigma,
                               T delta, int iters) {
     T *d_in = cd0, *d_out = cd1;
     for (int it = 0; it < iters; ++it) {
       T c1, c2;
       const T rho_new = cheby_next(rho, two_sigma, delta, c1, c2);
       sweep.template run<1>(
-          [&](int i, int j, int n, T (&v)[1]) { v[0] = d_in[n]; },
-          [&](int i, int j, int n, const auto& s) {
-            const T d = d_in[n];
-            cx[n] += d;
-            const T r = cr[n] - pinned_apply(A, g, i, j, s[0]);
+          Reads<T, 1, 3, 1>{{d_in, cx, cr, pre}, {A}},
+          [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
+          [&](int i, int j, int n, const auto& s, const auto& f,
+              const auto& ops) {
+            const T d = f(0);
+            cx[n] = f(1) + d;
+            const T r = f(2) - pinned_apply(ops[0], g, i, j, s[0]);
             cr[n] = r;
-            d_out[n] = c1 * d + c2 * (pre(i, j, n) * r);
+            const T z = pre ? f(3) : inv_diag(i, j, ops[0](0));
+            d_out[n] = c1 * d + c2 * (z * r);
           });
       grid.sync();
       rho = rho_new;
@@ -468,14 +512,18 @@ template <typename T, typename Sweep> struct StepPhases {
       const bool first_it = it == 0;
       T* p_out = first_it ? p_cur : p_alt;
       T pap[1] = {T(0)};
+      // the direction from p, r and the mass diagonal M_00 (plane 0)
       sweep.template run<1>(
-          [&](int i, int j, int n, T (&v)[1]) {
-            v[0] = first_it ? p_cur[n]
-                            : dminv(i, j, n) * cr[n] + beta * p_cur[n];
+          Reads<T, 3, 0, 1>{{p_cur, first_it ? nullptr : cr,
+                             first_it ? nullptr : Mc}, {Mc}},
+          [&](int i, int j, const auto& h, T (&v)[1]) {
+            v[0] = first_it ? h(0)
+                            : inv_diag(i, j, h(2)) * h(1) + beta * h(0);
           },
-          [&](int i, int j, int n, const auto& s) {
+          [&](int i, int j, int n, const auto& s, const auto& f,
+              const auto& ops) {
             const T p = s[0](i, j);
-            const T q = pinned_apply(Mc, g, i, j, s[0]);
+            const T q = pinned_apply(ops[0], g, i, j, s[0]);
             if (!first_it) p_out[n] = p;
             cd1[n] = q;
             pap[0] += p * q;
@@ -488,13 +536,13 @@ template <typename T, typename Sweep> struct StepPhases {
       T alpha = rz / (fabs(pap[0]) > T(0) ? pap[0] : C.tiny);
       alpha = rz > T(0) ? alpha : T(0);
       T rzn[1] = {T(0)};
-      for (int n = first; n < last; n += stride) {
-        const int i = n / g.n1y, j = n % g.n1y;
-        cx[n] += alpha * p_cur[n];
-        const T r = cr[n] - alpha * cd1[n];
-        cr[n] = r;
-        rzn[0] += r * (dminv(i, j, n) * r);
-      }
+      pointwise(Reads<T, 0, 5, 0>{{cx, p_cur, cr, cd1, Mc}, {}},
+                [&](int i, int j, int n, const auto& f) {
+                  cx[n] = f(0) + alpha * f(1);
+                  const T r = f(2) - alpha * f(3);
+                  cr[n] = r;
+                  rzn[0] += r * (inv_diag(i, j, f(4)) * r);
+                });
       red.template run<SumOp>(grid, scratch, rzn);
       beta = rzn[0] / (rz > T(0) ? rz : C.tiny);
       rz = rzn[0];
@@ -504,8 +552,10 @@ template <typename T, typename Sweep> struct StepPhases {
   // max|u - mean u|, the step's one global reduction beside the dots.
   __device__ T abs_term_of(const T* u, T mean_u) {
     T mx[1] = {MaxOp::identity<T>()};
-    for (int n = first; n < last; n += stride)
-      mx[0] = fmax(mx[0], fabs(u[n] - mean_u));
+    pointwise(Reads<T, 0, 1, 0>{{u}, {}},
+              [&](int i, int j, int n, const auto& f) {
+                mx[0] = fmax(mx[0], fabs(f(0) - mean_u));
+              });
     red.template run<MaxOp>(grid, scratch, mx);
     return mx[0];
   }
@@ -514,11 +564,13 @@ template <typename T, typename Sweep> struct StepPhases {
   __device__ void rv_eps(const T* u, T abs_term, bool rv) {
     if (rv) {
       sweep.template run<2>(
-          [&](int i, int j, int n, T (&v)[2]) {
-            v[0] = u[n];
-            v[1] = cx[n];
+          Reads<T, 2, 0, 0>{{u, cx}, {}},
+          [&](int i, int j, const auto& h, T (&v)[2]) {
+            v[0] = h(0);
+            v[1] = h(1);
           },
-          [&](int i, int j, int n, const auto& s) {
+          [&](int i, int j, int n, const auto& s, const auto& f,
+              const auto& ops) {
             eps[n] = rv_eps_node(C, g, i, j, s[0], s[1], abs_term);
           });
     } else {
@@ -531,34 +583,38 @@ template <typename T, typename Sweep> struct StepPhases {
   // uk and, unless Fo is null, F(uk0) into Fo.
   __device__ void planes(const T* u, T* uk, T* Fo) {
     sweep.template run<3>(
-        [&](int i, int j, int n, T (&v)[3]) {
-          v[0] = eps[n];
-          v[1] = u[n];
-          v[2] = g.frame(i, j) ? gv[n] : u[n];
+        Reads<T, 3, 1, 1>{{eps, u, gv, Fo ? nun : nullptr},
+                          {Fo ? Mc : nullptr}},
+        [&](int i, int j, const auto& h, T (&v)[3]) {
+          v[0] = h(0);
+          v[1] = h(1);
+          v[2] = g.frame(i, j) ? h(2) : h(1);
         },
-        [&](int i, int j, int n, const auto& s) {
+        [&](int i, int j, int n, const auto& s, const auto& f,
+            const auto& ops) {
           T pl[7];
           keps_planes_node(C, g, i, j, s[0], pl);
 #pragma unroll
           for (int k = 0; k < 7; ++k) kc[(size_t)k * N + n] = pl[k];
-          const T ku = local_apply(pl, g, i, j, s[1]);
+          const auto K = [&](int k) { return pl[k]; };
+          const T ku = stencil_apply(K, g, i, j, s[1]);
           kun[n] = ku;
           uk[n] = s[2](i, j);
           if (Fo)
-            Fo[n] = residual_node(C, g, Mc, i, j, s[2], s[1],
-                                  local_apply(pl, g, i, j, s[2]), nun[n], ku,
-                                  gv[n]);
+            Fo[n] = residual_node(C, g, ops[0], i, j, s[2], s[1],
+                                  stencil_apply(K, g, i, j, s[2]), f(3), ku,
+                                  f(2));
         });
     grid.sync();
   }
 
   // Inner-solver initial state from -F at node n: x = 0, r = rhat = p = -F
-  // (the Chebyshev direction dJinv (-F) / theta).
-  __device__ void solver_init(int n, T mF, T& rho) {
+  // (the Chebyshev direction dJinv (-F) / theta, djn = dJinv at n).
+  __device__ void solver_init(int n, T mF, T djn, T& rho) {
     cx[n] = T(0);
     cr[n] = mF;
     if (cheby) {
-      cd0[n] = dj[n] * mF / C.l_theta;
+      cd0[n] = djn * mF / C.l_theta;
     } else {
       cd0[n] = mF;
       rhat[n] = mF;
@@ -572,10 +628,13 @@ template <typename T, typename Sweep> struct StepPhases {
   __device__ T linearize(const T* w, const T* Fi) {
     T rho[1] = {T(0)};
     sweep.template run<1>(
-        [&](int i, int j, int n, T (&v)[1]) { v[0] = w[n]; },
-        [&](int i, int j, int n, const auto& s) {
-          dj[n] = jacobian_node(C, g, Mc, kc, jc, i, j, n, s[0]);
-          solver_init(n, -Fi[n], rho[0]);
+        Reads<T, 1, 1, 2>{{w, Fi}, {Mc, kc}},
+        [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
+        [&](int i, int j, int n, const auto& s, const auto& f,
+            const auto& ops) {
+          const T d = jacobian_node(C, g, ops[0], ops[1], jc, i, j, n, s[0]);
+          dj[n] = d;
+          solver_init(n, -f(1), d, rho[0]);
         });
     sum_all(rho);
     return rho[0];
@@ -584,8 +643,10 @@ template <typename T, typename Sweep> struct StepPhases {
   // 4b. a frozen Jacobian after the first iteration: the state alone.
   __device__ T reinit(const T* Fi) {
     T rho[1] = {T(0)};
-    for (int n = first; n < last; n += stride)
-      solver_init(n, -Fi[n], rho[0]);
+    pointwise(Reads<T, 0, 2, 0>{{Fi, dj}, {}},
+              [&](int i, int j, int n, const auto& f) {
+                solver_init(n, -f(0), f(1), rho[0]);
+              });
     sum_all(rho);
     return rho[0];
   }
@@ -594,8 +655,7 @@ template <typename T, typename Sweep> struct StepPhases {
   // (dx in cx), from the state of solver_init.
   __device__ void inner_solve(T rho, int lin_iters) {
     if (cheby) {
-      cheby_solve(jc, [&](int i, int j, int n) { return dj[n]; }, C.l_rho0,
-                  C.l_two_sigma, C.l_delta, lin_iters);
+      cheby_solve(jc, dj, C.l_rho0, C.l_two_sigma, C.l_delta, lin_iters);
     } else {
       bicgstab(rho, lin_iters);
     }
@@ -612,18 +672,23 @@ template <typename T, typename Sweep> struct StepPhases {
       const bool first_it = li == 0;
       T* p_out = first_it ? p_cur : p_alt;
       T* v_out = first_it ? v_cur : v_alt;
-      auto p_at = [&](int n) {
-        return first_it ? p_cur[n]
-                        : cr[n] + beta * (p_cur[n] - omega * v_cur[n]);
+      // raw fields: dJinv, p, r, v, rhat
+      auto p_at = [&](const auto& h) {
+        return first_it ? h(1) : h(2) + beta * (h(1) - omega * h(3));
       };
       T rv[1] = {T(0)};
       sweep.template run<1>(
-          [&](int i, int j, int n, T (&v)[1]) { v[0] = dj[n] * p_at(n); },
-          [&](int i, int j, int n, const auto& s) {
-            const T vv = pinned_apply(jc, g, i, j, s[0]);
-            if (!first_it) p_out[n] = p_at(n);
+          Reads<T, 4, 1, 1>{{dj, p_cur, first_it ? nullptr : cr,
+                             first_it ? nullptr : v_cur, rhat}, {jc}},
+          [&](int i, int j, const auto& h, T (&v)[1]) {
+            v[0] = h(0) * p_at(h);
+          },
+          [&](int i, int j, int n, const auto& s, const auto& f,
+              const auto& ops) {
+            const T vv = pinned_apply(ops[0], g, i, j, s[0]);
+            if (!first_it) p_out[n] = p_at(f);
             v_out[n] = vv;
-            rv[0] += rhat[n] * vv;
+            rv[0] += f(4) * vv;
           });
       red.template run<SumOp>(grid, scratch, rv);
       if (!first_it) {
@@ -635,12 +700,14 @@ template <typename T, typename Sweep> struct StepPhases {
       alpha = safe_div(rho, rv[0], C.tiny);
       T ts[2] = {T(0), T(0)};
       sweep.template run<1>(
-          [&](int i, int j, int n, T (&v)[1]) {
-            v[0] = dj[n] * (cr[n] - alpha * v_cur[n]);
+          Reads<T, 3, 0, 1>{{dj, cr, v_cur}, {jc}},
+          [&](int i, int j, const auto& h, T (&v)[1]) {
+            v[0] = h(0) * (h(1) - alpha * h(2));
           },
-          [&](int i, int j, int n, const auto& s) {
-            const T sv = cr[n] - alpha * v_cur[n];
-            const T tv = pinned_apply(jc, g, i, j, s[0]);
+          [&](int i, int j, int n, const auto& s, const auto& f,
+              const auto& ops) {
+            const T sv = f(1) - alpha * f(2);
+            const T tv = pinned_apply(ops[0], g, i, j, s[0]);
             bs[n] = sv;
             bt[n] = tv;
             ts[0] += tv * sv;
@@ -649,12 +716,14 @@ template <typename T, typename Sweep> struct StepPhases {
       red.template run<SumOp>(grid, scratch, ts);
       omega = safe_div(ts[0], ts[1], C.tiny);
       T rn[1] = {T(0)};
-      for (int n = first; n < last; n += stride) {
-        cx[n] = cx[n] + alpha * (dj[n] * p_cur[n]) + omega * (dj[n] * bs[n]);
-        const T r = bs[n] - omega * bt[n];
-        cr[n] = r;
-        rn[0] += rhat[n] * r;
-      }
+      pointwise(Reads<T, 0, 6, 0>{{cx, dj, p_cur, bs, bt, rhat}, {}},
+                [&](int i, int j, int n, const auto& f) {
+                  cx[n] = f(0) + alpha * (f(1) * f(2)) +
+                          omega * (f(1) * f(3));
+                  const T r = f(3) - omega * f(4);
+                  cr[n] = r;
+                  rn[0] += f(5) * r;
+                });
       red.template run<SumOp>(grid, scratch, rn);
       beta = safe_div(rn[0], rho, C.tiny) * safe_div(alpha, omega, C.tiny);
       rho = rn[0];
@@ -664,14 +733,16 @@ template <typename T, typename Sweep> struct StepPhases {
   // 6. uk_new = uk + dx and F(uk_new) into Fo (uk_new is not uk).
   __device__ void update(const T* u, const T* uk, T* uk_new, T* Fo) {
     sweep.template run<2>(
-        [&](int i, int j, int n, T (&v)[2]) {
-          v[0] = uk[n] + cx[n];
-          v[1] = u[n];
+        Reads<T, 3, 3, 2>{{uk, cx, u, nun, kun, gv}, {Mc, kc}},
+        [&](int i, int j, const auto& h, T (&v)[2]) {
+          v[0] = h(0) + h(1);
+          v[1] = h(2);
         },
-        [&](int i, int j, int n, const auto& s) {
-          Fo[n] = residual_node(C, g, Mc, i, j, s[0], s[1],
-                                stencil_apply(kc, g, i, j, s[0]), nun[n],
-                                kun[n], gv[n]);
+        [&](int i, int j, int n, const auto& s, const auto& f,
+            const auto& ops) {
+          Fo[n] = residual_node(C, g, ops[0], i, j, s[0], s[1],
+                                stencil_apply(ops[1], g, i, j, s[0]), f(3),
+                                f(4), f(5));
           uk_new[n] = s[0](i, j);
         });
     grid.sync();
@@ -689,7 +760,10 @@ template <typename T, typename Sweep> struct StepPhases {
       const T rho = (it == 0 || !freeze) ? linearize(cur, F) : reinit(F);
       inner_solve(rho, lin_iters);
       if (it + 1 == iters) {
-        for (int n = first; n < last; n += stride) uk[n] = cur[n] + cx[n];
+        pointwise(Reads<T, 0, 2, 0>{{cur, cx}, {}},
+                  [&](int i, int j, int n, const auto& f) {
+                    uk[n] = f(0) + f(1);
+                  });
         grid.sync();
       } else {
         update(u, cur, nxt, F);

@@ -30,7 +30,7 @@ stencil_matvec_kernel(const T* __restrict__ coef, const T* __restrict__ x,
   const int n = blockIdx.x * kBlock + threadIdx.x;
   if (n >= g.size()) return;
   const int i = n / g.n1y, j = n % g.n1y;
-  y[n] = stencil_apply(coef, g, i, j,
+  y[n] = stencil_apply(PlanesAt<T>{coef, n, g.size()}, g, i, j,
                        [&](int ii, int jj) { return x[ii * g.n1y + jj]; });
 }
 
@@ -55,10 +55,11 @@ cg_solve_kernel(const T* __restrict__ coef, const T* __restrict__ b,
   auto pinned_mv = [&](const T* v, int i, int j) {
     const int n = i * g.n1y + j;
     if (bc[n]) return v[n];
-    return stencil_apply(coef, g, i, j, [&](int ii, int jj) {
-      const int m = ii * g.n1y + jj;
-      return bc[m] ? T(0) : v[m];
-    });
+    return stencil_apply(PlanesAt<T>{coef, n, N}, g, i, j,
+                         [&](int ii, int jj) {
+                           const int m = ii * g.n1y + jj;
+                           return bc[m] ? T(0) : v[m];
+                         });
   };
 
   // x0 = where(bc, b, 0); r = b - A x0 with the pinned A: A x0 is b on bc

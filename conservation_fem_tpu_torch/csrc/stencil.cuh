@@ -1,5 +1,6 @@
 // Shared device code of the structured-grid kernels (stencil.cu and the
-// step kernels of fused_step.cuh): grid offsets, the 7-plane stencil application, and the
+// step kernels of fused_step.cuh): grid offsets, the 7-plane stencil
+// application over a coefficient accessor, and the
 // deterministic block/grid reductions of the cooperative kernels.
 //
 // Layout: a field is an (n1x, n1y) row-major grid, node n = i * n1y + j;
@@ -88,19 +89,29 @@ struct GridShape {
   }
 };
 
-// y(i, j) = sum_k coef[k](i, j) * x(i + di_k, j + dj_k), with x = 0 outside
-// the grid; x(ii, jj) is a functor so callers can form the operand on the
-// fly (pinned rows, preconditioned vectors). Planes are summed in order
-// k = 0..6, as ops/structured.matvec does.
-template <typename T, typename X>
-__device__ __forceinline__ T stencil_apply(const T* coef, GridShape g, int i,
-                                           int j, X x) {
-  const int n = i * g.n1y + j, N = g.size();
-  T acc = coef[n] * x(i, j);
+// The 7 coefficients of an operator at node n, read from device memory:
+// plane k at k * N + n.
+template <typename T> struct PlanesAt {
+  const T* coef;
+  int n, N;
+  __device__ __forceinline__ T operator()(int k) const {
+    return coef[k * N + n];
+  }
+};
+
+// y(i, j) = sum_k a(k) * x(i + di_k, j + dj_k), with x = 0 outside the
+// grid; a(k) is plane k of the operator at (i, j) (PlanesAt, a shared-memory
+// tile, or a node's own planes) and x(ii, jj) a functor, so callers can form
+// the operand on the fly (pinned rows, preconditioned vectors). Planes are
+// summed in order k = 0..6, as ops/structured.matvec does.
+template <typename A, typename X>
+__device__ __forceinline__ auto stencil_apply(A a, GridShape g, int i, int j,
+                                              X x) {
+  auto acc = a(0) * x(i, j);
 #pragma unroll
   for (int k = 1; k < 7; ++k) {
     const int ii = i + off_i(k), jj = j + off_j(k);
-    if (g.inside(ii, jj)) acc += coef[k * N + n] * x(ii, jj);
+    if (g.inside(ii, jj)) acc += a(k) * x(ii, jj);
   }
   return acc;
 }

@@ -3,36 +3,64 @@
 // Replaces pallas_tiled.tiled_rv_step (conservation_fem_tpu/ops/
 // pallas_tiled.py:120), whole-grid and block mode: the phases of the
 // single kernel (fused_step.cuh StepPhases, in the same order) with every
-// field in device memory, each phase that reads neighbours run as a sweep
-// over tiles (TileSweep) — residual-projection rhs, the mass solve
+// field in device memory, each pass run over tiles (TileSweep): the sweeps
+// that read neighbours — residual-projection rhs, the mass solve
 // (Jacobi-PCG, 1 sweep and 1 pointwise pass per iteration, or Chebyshev,
 // 1), the RV epsilon, the eps-stiffness planes with the frozen terms, uk0
 // and F0, then per Newton iteration the linearisation (or, for a frozen
 // Jacobian after the first iteration, a solver re-initialisation), the
 // inner solve (BiCGStab, 2 sweeps and 1 pointwise pass per iteration, or
-// Chebyshev, 1) and the update uk' = uk + dx with F' = F(uk'). The result
-// u_{n+1} goes to its own output. One cooperative launch per step, as on
-// the TPU.
+// Chebyshev, 1) and the update uk' = uk + dx with F' = F(uk') — and the
+// pointwise passes between them. The result u_{n+1} goes to its own
+// output. One cooperative launch per step, as on the TPU.
 //
-// Tiles: a tile is tile_rows rows (the TPU kernel's meaning) by tile_cols
-// columns of the grid; block b sweeps tiles b, b + gridDim.x, ... so a
-// block loops over its tiles where there are more tiles than resident
-// blocks, and the ragged last row and column of tiles are masked. A sweep
-// stages the fields it reads at neighbours — or the combination it needs
-// there, such as the new BiCGStab direction dJinv (r + beta (p - omega
-// v)) — over the tile plus a one-node halo into shared memory, then
-// computes every interior node from the staged values; fields read only
-// at the node itself and the stencil planes stream from device memory.
-// The halo is one node deep: each node gathers its six triangles and its
-// six neighbours directly, so no sweep chains two shifts (the TPU kernel's
-// 3-row chains come from whole-array rolls). Sweeps are separated by
-// grid.sync(); a sweep never writes what it stages (the direction and
-// solution ping-pong buffers p / p2, v / v2, uk / uk2, and the Chebyshev
-// direction cd0 / cd1, exist for that), because other blocks read halo
-// nodes while this one writes its interior. The TPU kernel accumulates its
-// dots in SMEM scalars across sequential tile sweeps; here every thread
-// sums its nodes over its block's tiles and the deterministic two-level
-// reduction of stencil.cuh combines them in a fixed order.
+// What bounds it on the H100: a step is a chain of ~45 dependent passes
+// (grid.sync() between them, a grid reduction after most), and from mesh
+// 256 up a pass's fields and planes (8 to 20 values per node, up to ~90 MB
+// at mesh 512 in f32) no longer stay in the 50 MB L2, so each sweep
+// streams them from device memory. At 183 registers per thread one
+// 256-thread block fits an SM: 8 warps, too few to keep enough loads in
+// flight with plain loads, which a thread must wait for before it can use
+// or store them. So a sweep is bound by device-memory latency, not by its
+// bytes (a single-kernel sweep at mesh 256 reaches ~17% of the HBM rate)
+// nor by its operations (< 1% of the f32 peak). Two blocks per SM would
+// need 128 registers, and ptxas then spills (40 B in f32, 176 B in f64),
+// so the kernel keeps one block per SM and hides the latency instead.
+//
+// The pipeline: every pass declares the raw values it reads (Reads in
+// fused_step.cuh): fields at the node and its neighbours, fields at the
+// node only, and the 7 planes of each operator (mass, eps-stiffness or
+// Jacobian). Block b walks tiles b, b + gridDim.x, ... through two
+// shared-memory stages. Before it computes tile t it has already started
+// the asynchronous copies of tile t + gridDim.x into the other stage, and
+// right after tile t it starts those of tile t + 2 gridDim.x in the stage
+// it frees, so one tile's copies are in flight while another computes, and
+// no register holds data in flight. A stage holds the neighbour fields over
+// the tile and a one-node halo, zero outside the rows [i_lo, i_hi) and
+// columns in the grid, and the node fields and planes over the tile.
+// Combinations such as the BiCGStab direction dJinv (r + beta (p - omega
+// v)) are formed from the staged raw values where the body reads them,
+// with the expressions of GridSweep. Writes go straight to device memory,
+// coalesced along the tile's rows.
+//
+// Copy route: cp.async (4-byte copies in f32, 8-byte in f64; a source size
+// of 0 fills the halo outside the grid with zeros) in commit groups, one
+// group per tile, waited on with wait_group 1 and a __syncthreads(). TMA is
+// not used: cuTensorMapEncodeTiled needs global row strides in multiples
+// of 16 bytes, and a row here is mesh + 1 nodes (1028 B at mesh 256 in
+// f32), so TMA would need padded copies of u, uo, uoo, g and the mass
+// planes, and a link against libcuda for cuTensorMapEncodeTiled.
+//
+// Tiles are tile_rows rows by tile_cols columns; the ragged last row and
+// column of tiles are masked. ops/tiled_step.py picks them so that two
+// stages fit the shared memory a block may use and the rounds of tiles over
+// the resident blocks cost least; the launch takes every block that can be
+// resident with that shared memory (coop_grid). Sweeps are separated by
+// grid.sync(); a sweep never writes what it reads at neighbours (the
+// ping-pong buffers p / p2, v / v2, uk / uk2 and cd0 / cd1 exist for that).
+// Dots are per-thread partial sums over the block's tiles, combined by the
+// deterministic two-level reduction of stencil.cuh, so results repeat bit
+// for bit from run to run.
 //
 // Block mode (the sharded path, parallel/structured_fused_sharded.py): the
 // buffer is a deep-halo row block of a taller grid that starts at global
@@ -42,18 +70,21 @@
 // global reduction, is read from a one-element device tensor; the inner
 // solver is Chebyshev, so the launch reduces nothing over the grid. The
 // output holds the whole block, zero on the rows outside the grid.
-//
-// What bounds it on the H100: like the single step, a chain of dependent
-// sweeps (grid-sync latency) and, beyond the 50 MB L2 (mesh 256 and up),
-// device-memory latency per sweep; a sweep moves at most the 7 Jacobian
-// planes and a handful of fields. The staging adds a second __syncthreads
-// per tile and a halo of 2 (tile_rows + tile_cols) + 4 nodes per tile.
 
 #include "fused_step.cuh"
 
 namespace cft {
 
-constexpr int kStaged = 3;  // values a sweep stages together at most
+// A stage holds at most kStageHalo fields over the tile and its halo and
+// kStageNode values per node over the tile (node fields + 7 per operator):
+// the BiCGStab direction sweep reads 4 fields at neighbours, the update 3
+// node fields and 2 operators (ops/tiled_step.py STAGE_HALO, STAGE_NODE).
+constexpr int kStageHalo = 4;
+constexpr int kStageNode = 17;
+
+__host__ __device__ inline int stage_elems(int rows, int cols) {
+  return kStageHalo * (rows + 2) * (cols + 2) + kStageNode * rows * cols;
+}
 
 template <typename T> struct TiledParams {
   const T *u, *uo, *uoo, *g, *Mc;
@@ -72,59 +103,161 @@ struct TileGrid {
       : g(g_), rows(rows_), cols(cols_),
         tiles_y((g_.n1y + cols_ - 1) / cols_),
         count(((g_.i_hi - g_.i_lo + rows_ - 1) / rows_) * tiles_y) {}
+  __device__ int row0(int t) const { return g.i_lo + (t / tiles_y) * rows; }
+  __device__ int col0(int t) const { return (t % tiles_y) * cols; }
 };
 
-// A staged field as an (i, j) accessor in grid coordinates.
-template <typename T> struct Staged {
+// Asynchronous copy of one value from device to shared memory; a source
+// size of 0 (valid false) writes a zero and reads nothing.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"((int)sizeof(T)),
+               "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Raw field k of a staged tile at one node: k < H at halo index h of the
+// neighbour region, else at tile index q of the node region.
+template <typename T, int H> struct TileAt {
+  const T *halo, *node;
+  int hs, rc, h, q;
+  __device__ __forceinline__ T operator()(int k) const {
+    return k < H ? halo[k * hs + h] : node[(k - H) * rc + q];
+  }
+};
+
+// Plane k of a staged operator at one node.
+template <typename T> struct TilePlanes {
   const T* p;
-  int i0, j0, hc;
-  __device__ T operator()(int i, int j) const {
-    return p[(i - i0) * hc + (j - j0)];
+  int rc;
+  __device__ __forceinline__ T operator()(int k) const { return p[k * rc]; }
+};
+template <typename T, int M> struct TileOps {
+  const T* node;
+  int rc, q;
+  __device__ __forceinline__ TilePlanes<T> operator[](int p) const {
+    return TilePlanes<T>{node + (M + 7 * p) * rc + q, rc};
   }
 };
 
-template <typename T> struct StagedTile {
-  const T* buf;
+// The values of a stage, formed from the staged tile where they are read;
+// (i0, j0) is the grid node of the halo region's first element.
+template <typename T, int H, int NS, typename Stage> struct TileFormedField {
+  const Stage* stage;
+  const T* halo;
+  int i0, j0, hc, hs, s;
+  __device__ __forceinline__ T operator()(int i, int j) const {
+    T v[NS];
+    (*stage)(i, j,
+             TileAt<T, H>{halo, halo, hs, 0, (i - i0) * hc + (j - j0), 0},
+             v);
+    return v[s];
+  }
+};
+template <typename T, int H, int NS, typename Stage> struct TileFormed {
+  const Stage* stage;
+  const T* halo;
   int i0, j0, hc, hs;
-  __device__ Staged<T> operator[](int s) const {
-    return Staged<T>{buf + s * hs, i0, j0, hc};
+  __device__ __forceinline__ TileFormedField<T, H, NS, Stage> operator[](
+      int s) const {
+    return TileFormedField<T, H, NS, Stage>{stage, halo, i0, j0, hc, hs, s};
   }
 };
 
-// The sweep of the tiled kernel (fused_step.cuh): over this block's tiles,
-// stage the NS values of stage(i, j, n, v) over the tile and its one-node
-// halo (zero outside the grid), then run body(i, j, n, st) at each node of
-// the tile with st[s] the staged value s.
+// The sweep of the tiled kernel (fused_step.cuh): this block's tiles in
+// turn through two shared-memory stages of `stage` values each.
 template <typename T> struct TileSweep {
   TileGrid tg;
   T* buf;
-  template <int NS, typename Stage, typename Body>
-  __device__ void run(Stage stage, Body body) const {
+  int hc, hs, rc, stage;
+
+  __device__ TileSweep(TileGrid tg_, T* buf_)
+      : tg(tg_), buf(buf_), hc(tg_.cols + 2), hs((tg_.rows + 2) * hc),
+        rc(tg_.rows * tg_.cols), stage(stage_elems(tg_.rows, tg_.cols)) {}
+
+  // Start the copies of tile t's raw values into dst (no commit).
+  template <typename R>
+  __device__ void fetch(const R& in, int t, T* dst) const {
+    constexpr int H = R::kHalo, M = R::kNode, P = R::kOps;
     const GridShape g = tg.g;
-    const int hc = tg.cols + 2, hs = (tg.rows + 2) * hc;
-    for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
-      const int r0 = g.i_lo + (t / tg.tiles_y) * tg.rows;
-      const int c0 = (t % tg.tiles_y) * tg.cols;
-      for (int l = threadIdx.x; l < hs; l += kBlock) {
-        const int i = r0 - 1 + l / hc, j = c0 - 1 + l % hc;
-        T v[NS];
-        if (g.inside(i, j)) {
-          stage(i, j, i * g.n1y + j, v);
-        } else {
+    const int r0 = tg.row0(t), c0 = tg.col0(t), N = g.size();
+    if (H > 0) {
+      for (int q = threadIdx.x; q < hs; q += kBlock) {
+        const int a = q / hc;
+        const int i = r0 - 1 + a, j = c0 - 1 + (q - a * hc);
+        const bool ok = g.inside(i, j);
+        const int n = ok ? i * g.n1y + j : 0;
 #pragma unroll
-          for (int s = 0; s < NS; ++s) v[s] = T(0);
-        }
-#pragma unroll
-        for (int s = 0; s < NS; ++s) buf[s * hs + l] = v[s];
+        for (int h = 0; h < H; ++h)
+          if (in.f[h]) cp_async(dst + h * hs + q, in.f[h] + n, ok);
       }
-      __syncthreads();
-      const StagedTile<T> st{buf, r0 - 1, c0 - 1, hc, hs};
-      for (int l = threadIdx.x; l < tg.rows * tg.cols; l += kBlock) {
-        const int i = r0 + l / tg.cols, j = c0 + l % tg.cols;
-        if (i < g.i_hi && j < g.n1y) body(i, j, i * g.n1y + j, st);
-      }
-      __syncthreads();  // the buffer is free for the next tile
     }
+    T* node = dst + kStageHalo * hs;
+    if (M + P > 0) {
+      for (int q = threadIdx.x; q < rc; q += kBlock) {
+        const int a = q / tg.cols;
+        const int i = r0 + a, j = c0 + (q - a * tg.cols);
+        const bool ok = i < g.i_hi && j < g.n1y;
+        const int n = ok ? i * g.n1y + j : 0;
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          if (in.f[H + m]) cp_async(node + m * rc + q, in.f[H + m] + n, ok);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (!in.op[p]) continue;
+#pragma unroll
+          for (int k = 0; k < 7; ++k)
+            cp_async(node + (M + 7 * p + k) * rc + q, in.op[p] + k * N + n,
+                     ok);
+        }
+      }
+    }
+  }
+
+  template <int NS, typename R, typename Stage, typename Body>
+  __device__ void run(const R& in, Stage stage_fn, Body body) const {
+    constexpr int H = R::kHalo, M = R::kNode;
+    static_assert(H <= kStageHalo && M + 7 * R::kOps <= kStageNode,
+                  "a sweep reads more than a stage holds");
+    const GridShape g = tg.g;
+    const int step = gridDim.x;
+    // prologue: the block's first two tiles, one commit group each (a
+    // group may be empty, so the wait below always counts tiles)
+    for (int s = 0; s < 2; ++s) {
+      const int t = blockIdx.x + s * step;
+      if (t < tg.count) fetch(in, t, buf + s * stage);
+      cp_async_commit();
+    }
+    int k = 0;
+    for (int t = blockIdx.x; t < tg.count; t += step, ++k) {
+      T* cur = buf + (k & 1) * stage;
+      cp_async_wait<1>();  // tile t's group is done; t + step may fly
+      __syncthreads();
+      const int r0 = tg.row0(t), c0 = tg.col0(t);
+      const TileFormed<T, H, NS, Stage> st{&stage_fn, cur, r0 - 1, c0 - 1,
+                                           hc, hs};
+      const T* node = cur + kStageHalo * hs;
+      for (int q = threadIdx.x; q < rc; q += kBlock) {
+        const int a = q / tg.cols, b = q - a * tg.cols;
+        const int i = r0 + a, j = c0 + b;
+        if (i < g.i_hi && j < g.n1y)
+          body(i, j, i * g.n1y + j, st,
+               TileAt<T, H>{cur, node, hs, rc, (a + 1) * hc + b + 1, q},
+               TileOps<T, M>{node, rc, q});
+      }
+      __syncthreads();  // every thread is done with this stage
+      if (t + 2 * step < tg.count) fetch(in, t + 2 * step, cur);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
   }
 };
 
@@ -137,8 +270,8 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  const TileSweep<T> sweep{TileGrid(P.gs, P.tile_rows, P.tile_cols),
-                           reinterpret_cast<T*>(stage_raw)};
+  const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
+                           reinterpret_cast<T*>(stage_raw));
   StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
                                 P.g, P.cheby, P.work, P.external);
   if (P.external) S.zero_outside(P.out);
@@ -151,6 +284,37 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   S.newton(P.u, P.out, P.newton_iters, P.lin_iters, P.freeze);
 }
 
+// Dynamic shared memory of a launch with (rows, cols) tiles: two stages.
+template <typename T> size_t tile_smem(int rows, int cols) {
+  return 2 * (size_t)stage_elems(rows, cols) * sizeof(T);
+}
+
+// What the card gives the kernel with `smem` bytes of dynamic shared
+// memory: out = {resident blocks per SM, registers per thread, local
+// memory per thread in bytes (spills), static shared memory per block,
+// the most dynamic shared memory a block may take}.
+template <typename T> int tiled_occupancy(int smem, int* out) {
+  const void* kernel = (const void*)tiled_rv_step_kernel<T>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)a.sharedSizeBytes;
+  out[4] = optin - (int)a.sharedSizeBytes;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0],
+                                                    tiled_rv_step_kernel<T>,
+                                                    kBlock, smem);
+  return (int)e;
+}
+
 template <typename T>
 int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* out, void* work,
@@ -161,14 +325,14 @@ int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                   int freeze, int cheby, void* stream) {
   const GridShape gs = external ? GridShape::block(n1x, n1y, row0, n_rows)
                                 : GridShape::whole(n1x, n1y);
-  if (gs.i_hi - gs.i_lo < 1) return (int)cudaErrorInvalidValue;
+  if (gs.i_hi - gs.i_lo < 1 || tile_rows < 1 || tile_cols < 1)
+    return (int)cudaErrorInvalidValue;
   TiledParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo,
                    (const T*)gvals, (const T*)Mc, (T*)out, (T*)work,
                    (T*)part, (const T*)abs_term, (const double*)consts, gs,
                    tile_rows, tile_cols, cg_iters, newton_iters, lin_iters,
                    bdf2, rv, freeze, cheby, external};
-  const size_t smem =
-      (size_t)kStaged * (tile_rows + 2) * (tile_cols + 2) * sizeof(T);
+  const size_t smem = tile_smem<T>(tile_rows, tile_cols);
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)tiled_rv_step_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -214,6 +378,12 @@ int cft_tiled_rv_step_f64(const void* u, const void* uo, const void* uoo,
                                     external, tile_rows, tile_cols, cg_iters,
                                     newton_iters, lin_iters, bdf2, rv,
                                     freeze, cheby, stream);
+}
+int cft_tiled_occupancy_f32(int smem, int* out) {
+  return cft::tiled_occupancy<float>(smem, out);
+}
+int cft_tiled_occupancy_f64(int smem, int* out) {
+  return cft::tiled_occupancy<double>(smem, out);
 }
 
 }  // extern "C"

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "cft_split_setup": [_P] * 12 + [_I] * 6 + [_P],
     "cft_split_newton": [_P] * 13 + [_I] * 4 + [_P],
     "cft_tiled_rv_step": [_P] * 10 + [_I] * 14 + [_P],
+    "cft_tiled_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 10 + [_P],
 }
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x

@@ -133,12 +133,22 @@ def test_kernels_repeat_bit_for_bit(cuda):
     x1 = sk.cg_solve(sd.M_coef, rhs, sd.bc2, sd.diagM2, rtol=1e-5)
     x2 = sk.cg_solve(sd.M_coef, rhs, sd.bc2, sd.diagM2, rtol=1e-5)
     assert torch.equal(x1, x2)
+    # the tiled kernel, its two stages wrapping over many tiles per block
+    q = _problem(cuda, 64, "float32", T=0.0)
+    u2 = q.u0.reshape(q._shape2)
+    args = (u2, u2, u2, torch.full_like(u2, np.pi / 4), q.sd.M_coef)
+    kw = q.fused_step_kwargs()
+    t1 = ts.tiled_rv_step(*args, tile_rows=1, **kw)
+    t2 = ts.tiled_rv_step(*args, tile_rows=1, **kw)
+    assert torch.equal(t1, t2)
 
 
 def _state(cuda, mesh_size):
     """A mid-trajectory f64 history at mesh_size: (problem, u, u_old,
-    u_old_old, g)."""
-    p = _problem(cuda, mesh_size, "float64", T=0.2)
+    u_old_old, g); dt = 0.01 min(1, 64 / mesh_size), the bench's CFL-matched
+    step (0.01 up to mesh 64)."""
+    p = _problem(cuda, mesh_size, "float64", T=0.2,
+                 dt=0.01 * min(1.0, 64 / mesh_size))
     carry = (p.solve().u,) * 3
     for _ in range(2):
         carry, _ = p.step(carry, p.dt)
@@ -202,6 +212,53 @@ def test_tiled_kernel_matches_plain(cuda, solver, frozen, newton,
                                    rtol=0, atol=1e-10)
         torch.testing.assert_close(out, fs.fused_rv_step(*args, **kw)[0],
                                    rtol=0, atol=1e-10)
+
+
+# (name, mesh, tile_rows, dtype): the tile plans the tiled kernel's
+# pipeline must get right
+TILE_CASES = [
+    # mesh 64 is a 257 x 257 grid. 257 rows of 1 by 5 columns of 52: 1285
+    # tiles, more than twice the resident blocks, so each block's two
+    # stages wrap
+    ("stages wrap", 64, 1, "float64"),
+    # 257 rows: 32 tiles of 8 and a ragged one; 257 columns: 5 tiles of
+    # 52, the last ragged
+    ("ragged row and column", 64, 8, "float64"),
+    # f64 64-row tiles: two stages of 52 columns would not fit the shared
+    # memory, so the tile narrows
+    ("f64 narrowed", 64, 64, "float64"),
+    ("f32 default", 64, None, "float32"),
+]
+
+
+@pytest.mark.parametrize("name,mesh,tile_rows,dtype", TILE_CASES,
+                         ids=[c[0] for c in TILE_CASES])
+def test_tiled_kernel_tile_plans(cuda, name, mesh, tile_rows, dtype):
+    """The tiled kernel against its plain version and the single kernel on
+    a mid-trajectory state, BiCGStab and Chebyshev, for each tile plan."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, mesh)
+    dt = getattr(torch, dtype)
+    args = [a.to(dt) for a in (u2, uo2, uoo2, g2, p.sd.M_coef)]
+    n1 = p._shape2[0]
+    plan = ts.card_plan(n1, n1, dt, tile_rows)
+    if name == "stages wrap":
+        assert plan["tiles"] > 2 * plan["blocks"]
+    if name == "ragged row and column":
+        assert n1 % plan["rows"] and n1 % plan["cols"]
+    if name == "f64 narrowed":
+        assert plan["cols"] < -(-n1 // -(-n1 // ts.MAX_TILE_COLS))
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    for solver in ("bicgstab", "cheby"):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16)
+        before = _build.launches["tiled_rv_step"]
+        out = ts.tiled_rv_step(*args, tile_rows=tile_rows, **kw)
+        assert _build.launches["tiled_rv_step"] == before + 1
+        torch.testing.assert_close(out, ts.tiled_rv_step_plain(*args, **kw),
+                                   rtol=0, atol=tol)
+        torch.testing.assert_close(out, fs.fused_rv_step(*args, **kw)[0],
+                                   rtol=0, atol=tol)
 
 
 def test_step_kernels_refuse_bad_arguments(cuda):
@@ -293,6 +350,33 @@ def test_block_kernels_match_plain_and_single(cuda, stabilization, frozen,
         outside[max(0, -row0):min(L + 2 * D, n1x - row0)] = False
         assert outside.any()
         assert not got_b[outside].any() and not got_t[outside].any()
+
+
+@pytest.mark.parametrize("tile_rows", [None, 1])
+def test_tiled_block_mode_first_and_last_block(cuda, tile_rows):
+    """Block mode of the tiled kernel on the first and last of 4 blocks of
+    mesh 64 (rows above the grid; padding rows below it), f64, default
+    tiles and 1-row tiles (two stages wrapping): against the plain version
+    on every row and the single kernel on the owned rows."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, 64)
+    p.cfg = dataclasses.replace(p.cfg, **CHEBY)
+    kw = p.fused_step_kwargs()
+    whole = fs.fused_rv_step(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, (u2, uo2, uoo2, g2), 4)
+    n1x, n1y = p._shape2
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    for d in (0, 3):
+        row0, ext = blocks[d]
+        got = ts.tiled_rv_step(*ext, row0_base=row0, n_rows=n1x,
+                               abs_term=abs_term, tile_rows=tile_rows, **bkw)
+        ref = fs.fused_rv_block_step_plain(*ext, row0, abs_term, n_rows=n1x,
+                                           n_cols=n1y, **bkw)
+        torch.testing.assert_close(got, ref, rtol=0, atol=F64_TOL)
+        own = slice(D, D + min(L, n1x - d * L))
+        torch.testing.assert_close(got[own],
+                                   whole[d * L:d * L + own.stop - D],
+                                   rtol=0, atol=F64_TOL)
 
 
 @pytest.mark.parametrize("kernel,n_blocks", [("block", 2), ("tiled", 2),

@@ -66,24 +66,119 @@ def test_plain_tiled_step_matches_jax_fixed_step(name):
 
 def test_tile_geometry():
     """tile_rows rows by balanced column tiles of at most 64 columns, cut
-    to fit the staged shared memory; the default balances the rounds of
-    tiles over the SMs against the halo."""
+    until two stages of the largest sweep fit the shared memory a block may
+    use; the default weighs the rounds of tiles over the resident blocks
+    against the halo."""
     assert ts.tile_geometry(25, 25, 8, 8) == (8, 25)
     assert ts.tile_geometry(65, 65, 8, 8) == (8, 33)
-    assert ts.tile_geometry(1025, 1025, 4, 32) == (32, 61)
-    assert ts.tile_geometry(2049, 2049, 4, 64) == (64, 63)
+    assert ts.tile_geometry(1025, 1025, 4, 32) == (32, 41)
+    assert ts.tile_geometry(2049, 2049, 4, 64) == (64, 20)
     rows, cols = ts.tile_geometry(2049, 2049, 8, 128)
-    assert rows == 128 and 1 <= cols < 63
-    assert ts.STAGED * (rows + 2) * (cols + 2) * 8 <= ts.STAGE_BYTES
+    assert rows == 128 and 1 <= cols < 9
+    assert ts.smem_bytes(rows, cols, 8) <= ts.smem_budget(8)
     for bad in (0, 10**5):
         with pytest.raises(ValueError):
             ts.tile_geometry(65, 65, 8, bad)
-    # mesh 256 on the H100 SXM's 132 SMs: 16-row tiles make 1105 tiles, 9
-    # rounds of 132 (32-row: 561 tiles, 5 rounds of mostly idle blocks at
-    # twice the tile area)
-    for n1, itemsize, rows in ((65, 8, 8), (513, 4, 8), (1025, 4, 16),
-                               (2049, 4, 32), (2049, 8, 32)):
-        assert ts.default_tile_rows(n1, n1, itemsize, 132) == rows
+    # one block per SM (the kernel's registers) on the H100 SXM's 132 SMs:
+    # at mesh 256 in f32 8-row tiles make 2193 tiles, 17 rounds of 1584
+    # sectors; 16-row tiles 9 rounds of 3096; at mesh 512 16-row tiles 33
+    # rounds of 3168, 32-row tiles (41 columns) 25 rounds of 4760
+    for n1, itemsize, rows in ((65, 8, 8), (513, 4, 32), (1025, 4, 16),
+                               (2049, 4, 16), (2049, 8, 16)):
+        assert ts.default_tile_rows(n1, n1, itemsize, 132,
+                                    lambda smem: 1) == rows
+
+
+def _covered(lo, hi, n1x, n1y, rows, cols):
+    """How often the kernel's tiles (tile_origins, masked to rows [lo, hi)
+    and the grid's columns) visit each node of an (n1x, n1y) buffer."""
+    seen = np.zeros((n1x, n1y), dtype=int)
+    origins = ts.tile_origins(lo, hi, n1y, rows, cols)
+    for r0, c0 in origins:
+        seen[r0:min(r0 + rows, hi), c0:min(c0 + cols, n1y)] += 1
+    return seen, origins
+
+
+# (name, buffer rows, row0 of the block or None for the whole grid, grid
+# rows, n1y, tile rows, tile cols): mesh 16 (17 x 17) whole and in 3
+# blocks of L 6 with a 4-row halo (B 14): the first block's rows above the
+# grid, an interior block, the last block's padding rows below it; ragged
+# last rows of tiles, and a ragged last column of tiles where cols does
+# not divide 17
+COVER = [("whole", 17, None, 17, 17, 8, 17),
+         ("whole ragged columns", 17, None, 17, 17, 8, 5),
+         ("first block", 14, -4, 17, 17, 8, 17),
+         ("interior block", 14, 2, 17, 17, 4, 6),
+         ("last block", 14, 8, 17, 17, 8, 5)]
+
+
+@pytest.mark.parametrize("name,B,row0,n_rows,n1y,rows,cols", COVER,
+                         ids=[c[0] for c in COVER])
+def test_tiles_cover_rows_once(name, B, row0, n_rows, n1y, rows, cols):
+    """Every node of rows [lo, hi) in the grid and every column is in
+    exactly one tile; no tile starts outside them."""
+    lo, hi = (0, B) if row0 is None else fs.block_rows(B, row0, n_rows)
+    if row0 is not None:
+        assert (lo > 0) == (row0 < 0) and (hi < B) == (row0 + B > n_rows)
+    seen, origins = _covered(lo, hi, B, n1y, rows, cols)
+    assert (seen[lo:hi] == 1).all()
+    assert not seen[:lo].any() and not seen[hi:].any()
+    assert all(lo <= r0 < hi and 0 <= c0 < n1y for r0, c0 in origins)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rows", [8, 16, 32, 64])
+def test_two_stages_fit_shared_memory(itemsize, rows):
+    """Two stages of the largest sweep (4 fields with their halo, 17 values
+    per node) fit the block's shared memory at every width, or the tile
+    narrows until they do, and no further than that."""
+    for n1y in (17, 65, 257, 1025, 2049):
+        r, cols = ts.tile_geometry(1025, n1y, itemsize, rows)
+        assert r == rows and 1 <= cols <= min(n1y, ts.MAX_TILE_COLS)
+        assert ts.smem_bytes(rows, cols, itemsize) <= ts.smem_budget(itemsize)
+        assert ts.smem_budget(itemsize) + ts.STATIC_VALUES * itemsize < (
+            227 * 1024)
+        # the fewest column tiles: one fewer would be too wide or too big
+        n_tiles = -(-n1y // cols)
+        if n_tiles > 1:
+            wider = -(-n1y // (n_tiles - 1))
+            assert (wider > ts.MAX_TILE_COLS or ts.smem_bytes(
+                rows, wider, itemsize) > ts.smem_budget(itemsize))
+
+
+def _one_per_sm(smem):
+    return 1
+
+
+def _two_small(smem):
+    """Two blocks on an SM when their shared memory allows it."""
+    return min(2, ts.SMEM_OPTIN // (smem + ts.STATIC_VALUES * 4))
+
+
+@pytest.mark.parametrize("n1x,n1y,itemsize,per_sm", [
+    (17, 17, 8, _one_per_sm), (129, 65, 4, _one_per_sm),
+    (381, 1025, 4, _one_per_sm), (1025, 1025, 4, _one_per_sm),
+    (1025, 1025, 8, _one_per_sm), (2049, 2049, 4, _one_per_sm),
+    (1025, 1025, 4, _two_small), (2049, 2049, 4, _two_small)])
+def test_default_tile_rows_minimises_rounds(n1x, n1y, itemsize, per_sm):
+    """default_tile_rows takes, of 64, 32, 16 and 8 rows, the tile whose
+    rounds over the resident blocks times the sectors a stage touches and
+    a tile's fixed cost are least (ties: the larger tile), the rounds
+    counted here from the tiles themselves."""
+    def staged(rows):
+        r, cols = ts.tile_geometry(n1x, n1y, itemsize, rows)
+        tiles = len(ts.tile_origins(0, n1x, n1y, r, cols))
+        resident = 132 * per_sm(ts.smem_bytes(r, cols, itemsize))
+        rounds = -(-tiles // min(resident, tiles))
+        plan = ts.tile_plan(n1x, n1y, itemsize, rows, 132, per_sm)
+        assert (plan["tiles"], plan["rounds"]) == (tiles, rounds)
+        return rounds * (ts.stage_sectors(r, cols, itemsize)
+                         + ts.TILE_SECTORS)
+
+    costs = {rows: staged(rows) for rows in (64, 32, 16, 8)}
+    best = min(costs.values())
+    assert ts.default_tile_rows(n1x, n1y, itemsize, 132, per_sm) == max(
+        rows for rows, c in costs.items() if c == best)
 
 
 def test_tiled_refuses_what_is_not_ported():
