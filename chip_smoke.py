@@ -13,24 +13,32 @@ exits non-zero:
      numpy-seeded inputs or a mid-trajectory state (32 steps of the plain
      f64 bench path): stencil_matvec (257^2, 1025^2; f32, f64; timed on a
      CUDA graph beside the same operator as a torch CSR matrix), cg_solve
-     (mesh-64 mass stencil), fused_rv_step (mesh 16, 64, 256), the split
-     setup and Newton kernels against their plain stages and the whole split
-     step against the single kernel (mesh 16, 64 f64; mesh 128 f32), the
+     (mesh-64 mass stencil), fused_rv_step (mesh 16, 64, 256), the
      tiled kernel against its plain version and the single kernel (mesh 16
      with 8-row tiles: cheby and bicgstab, frozen and fresh Jacobian, odd
      Newton counts, gfem; mesh 256 f64; mesh 256 and 512 f32, timed in
      turns with the single kernel on the same state, with the tile plan,
      registers, spills, shared memory and resident blocks, the sweeps per
-     step and the bytes they must move). f64 is gated at 1e-11 (1e-10 for
-     the tiled kernel: the JAX package's bound for its tiled BiCGStab
-     kernel), f32 at 1e-4;
+     step and the bytes they must move), the split setup and Newton
+     kernels (the Newton kernel with both values of relinearize and
+     residual) against their plain stages and the whole split step
+     against the tiled kernel on the same plan and the single kernel (f64
+     mesh 16 with 8-row tiles in four solver cases, mesh 64 default plan;
+     f32 mesh 128), timed at mesh 128 f32 in turns with the tiled and
+     single kernels (each split kernel's plan, registers, spills, shared
+     memory and sweep floor), and the tiled kernel at mesh 64 in turns
+     with the single kernel. f64 is gated at 1e-11 (1e-10 for the tile
+     pipeline's kernels, tiled and split: the JAX package's bound for its
+     tiled BiCGStab kernel), f32 at 1e-4;
   4. the main paths through kpp.build(..., use_kernels=True).solve(), f32
      bench config (bench.py:_config), each gated at L2rel <= 1e-2 against
      its committed f64 anchor and u in [0.5, 12], with the launch counts
      zeroed just before the kernel-path solve and read just after it: mesh
      64 (100 steps, single kernel), mesh 128 (200 steps, split), mesh 256
      (400 steps, tiled), mesh 512 to T = 0.1 (80 steps, tiled); beside each,
-     the plain-torch composed path (gated, timed) and the unprofiled device
+     the single-kernel path (and at mesh 128 the tiled-kernel path) of the
+     same trajectory, the plain-torch composed path (gated, timed) and the
+     unprofiled device
      idle share; then, as a run of its own, 5 steps of the adaptive f64
      config with kernels on (cg_solve mass solve), checked against the
      same steps without kernels;
@@ -64,10 +72,11 @@ kernels, each with its bound); the last line is {"ok": true, "device":
 The ablation (--ablate) times one fused_rv_step launch, f32 bench config,
 from the mid-trajectory state at mesh 64 and 256, with one keyword
 argument of the wrapper changed per variant (ABLATIONS; the kernel source
-is the same for all); times the tiled kernel at mesh 256 and 512 with
-8, 16, 32 and 64 rows per tile beside the single kernel (each with its
-columns, tiles, rounds and resident blocks) and with each variant of
-ABLATIONS; and reads the
+is the same for all), and the split step at mesh 128 with each variant;
+times the tiled kernel at mesh 128, 256 and 512, and the split step at
+mesh 128, with 8, 16, 32 and 64 rows per tile beside the single kernel
+(each with its columns, tiles, rounds and resident blocks), the tiled
+kernel at mesh 256 and 512 with each variant of ABLATIONS; and reads the
 device's idle share over a 20-step solve of each main path (mesh 64, 128,
 256, 512), with and without torch.profiler.
 """
@@ -250,10 +259,10 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def step_ops(s, part="step"):
+def step_ops(s, part="step", relinearize=True, residual=True):
     """Operations per node of one whole step (part "step"), of the split
-    setup ("setup") or of one split Newton launch ("newton"); s: the step's
-    keyword arguments."""
+    setup ("setup") or of one split Newton launch ("newton", with its two
+    keywords); s: the step's keyword arguments."""
     cheby = s["inner_solver"] == "cheby"
     head = (OPS_PROJ_RHS
             + s["cg_iters"] * (OPS_CHEBY_ITER if cheby else OPS_CG_ITER)
@@ -262,21 +271,16 @@ def step_ops(s, part="step"):
     if part == "setup":
         return head + OPS_F
     if part == "newton":
-        return OPS_LIN + newton + OPS_F
+        return (OPS_LIN if relinearize else 0) + newton + (
+            OPS_F if residual else 0)
     n_lin = 1 if s["freeze_jacobian"] else s["newton_iters"]
     return head + s["newton_iters"] * (OPS_F + newton) + n_lin * OPS_LIN
 
 
-def tiled_sweeps(s):
-    """(sweeps, values per node) of one step of the tiled kernel: the
-    sweeps csrc/fused_step.cuh StepPhases runs for the step's keyword
-    arguments s, and the values per node they must move — what each one's
-    Reads declares (fields at neighbours and at the node, 7 per operator)
-    and the fields it writes (7 per operator), each once per sweep; the
-    per-sweep floor is those bytes over the HBM rate."""
+def head_sweeps(s, residual):
+    """[(values read, values written) per node] of the sweeps of a step up
+    to uk0 (and F(uk0) if residual): the split setup launch."""
     cheby = s["inner_solver"] == "cheby"
-    newton = s["newton_iters"]
-    # (values read, values written) per node
     sweeps = [((3 if s["residual_scheme"] == "bdf2" else 2) + 7, 4)]
     for it in range(s["cg_iters"]):
         if cheby:                  # d | x, r | M -> x, r, d'
@@ -286,20 +290,89 @@ def tiled_sweeps(s):
     if s["stabilization"] == "rv":
         sweeps.append((2, 1))      # u, RH -> eps
     # eps, u, g (N(u), M for F0) -> Kc, K u, uk0 (F0)
-    sweeps.append((3 + 8, 10) if newton else (3, 9))
-    for it in range(newton):
-        if it == 0 or not s["freeze_jacobian"]:
-            # w | F | M, Kc -> J, dJinv, x, r, d (rhat)
-            sweeps.append((2 + 14, 11 if cheby else 12))
-        for li in range(s["lin_iters"]):
-            if cheby:              # d | x, r, dJinv | J -> x, r, d'
-                sweeps.append((1 + 3 + 7, 3))
-            else:                  # dJinv, p (r, v) | rhat | J -> (p), v
-                sweeps.append((2 + 1 + 7, 1) if li == 0 else (4 + 1 + 7, 2))
-                sweeps.append((3 + 7, 2))   # dJinv, r, v | J -> s, t
-        if it + 1 < newton:        # uk, dx, u | N(u), K u, g | M, Kc
-            sweeps.append((3 + 3 + 14, 2))
+    sweeps.append((3 + 8, 10) if residual else (3, 9))
+    return sweeps
+
+
+def newton_sweeps(s, relinearize, residual):
+    """The sweeps of one Newton iteration (one split Newton launch): the
+    linearisation if relinearize, the inner solve, the update with its
+    residual if residual (otherwise a pointwise pass, not a sweep)."""
+    cheby = s["inner_solver"] == "cheby"
+    sweeps = []
+    if relinearize:                # w | F | M, Kc -> J, dJinv, x, r, d (rhat)
+        sweeps.append((2 + 14, 11 if cheby else 12))
+    for li in range(s["lin_iters"]):
+        if cheby:                  # d | x, r, dJinv | J -> x, r, d'
+            sweeps.append((1 + 3 + 7, 3))
+        else:                      # dJinv, p (r, v) | rhat | J -> (p), v
+            sweeps.append((2 + 1 + 7, 1) if li == 0 else (4 + 1 + 7, 2))
+            sweeps.append((3 + 7, 2))   # dJinv, r, v | J -> s, t
+    if residual:                   # uk, dx, u | N(u), K u, g | M, Kc
+        sweeps.append((3 + 3 + 14, 2))
+    return sweeps
+
+
+def sweep_count(sweeps):
+    """(sweeps, values per node they must move)."""
     return len(sweeps), sum(r + w for r, w in sweeps)
+
+
+def tiled_sweeps(s):
+    """(sweeps, values per node) of one step of the tiled kernel: the
+    sweeps csrc/fused_step.cuh StepPhases runs for the step's keyword
+    arguments s, and the values per node they must move — what each one's
+    Reads declares (fields at neighbours and at the node, 7 per operator)
+    and the fields it writes (7 per operator), each once per sweep; the
+    per-sweep floor is those bytes over the HBM rate. The split step runs
+    the same sweeps, cut at its launches (head_sweeps, newton_sweeps)."""
+    newton = s["newton_iters"]
+    sweeps = head_sweeps(s, newton > 0)
+    for it in range(newton):
+        sweeps += newton_sweeps(s, it == 0 or not s["freeze_jacobian"],
+                                it + 1 < newton)
+    return sweep_count(sweeps)
+
+
+# the ptxas name of each kernel that runs the tile pipeline
+PTXAS_NAMES = {"tiled": "tiled_rv_step", "split_setup": "split_setup",
+               "split_newton": "split_newton"}
+
+
+def plan_facts(n1x, n1y, dtype, regs, kernel="tiled", tile_rows=None):
+    """A tile-pipeline kernel's plan on the card (card_plan over n1x x n1y)
+    and what the card gives it: registers, spills, shared memory, resident
+    blocks."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = ts.card_plan(n1x, n1y, dtype, tile_rows, kernel=kernel)
+    info = ts.occupancy(dtype, plan["smem"], kernel=kernel)
+    if info["max_dynamic_smem"] < ts.smem_budget(itemsize):
+        raise AssertionError(f"the card gives a block of {kernel} "
+                             f"{info['max_dynamic_smem']} bytes of dynamic "
+                             f"shared memory, the plan assumes "
+                             f"{ts.smem_budget(itemsize)}")
+    dn = "f32" if itemsize == 4 else "f64"
+    return dict(
+        tile_rows=plan["rows"], tile_cols=plan["cols"], tiles=plan["tiles"],
+        blocks=plan["blocks"], rounds=plan["rounds"],
+        smem_per_block=plan["smem"] + info["static_smem"],
+        blocks_per_sm=info["blocks_per_sm"],
+        resident_blocks=plan["resident"], registers=info["registers"],
+        local_bytes=info["local_bytes"],
+        spill_stores=regs.get(f"{PTXAS_NAMES[kernel]} {dn}", {}).get(
+            "spill_stores", 0))
+
+
+def floor_facts(sweeps, n, itemsize):
+    """(sweeps, values per node) as the bytes they must move over n nodes
+    and that over the HBM rate."""
+    count, values = sweeps
+    return dict(sweeps=count, sweep_bytes=values * n * itemsize,
+                sweep_floor_ms=values * n * itemsize / HBM_BYTES_PER_S * 1e3)
 
 
 def tiled_facts(kw, n1x, n1y, n, dtype, regs):
@@ -309,29 +382,13 @@ def tiled_facts(kw, n1x, n1y, n, dtype, regs):
     import torch
 
     from conservation_fem_tpu_torch.ops import fused_step as fs
-    from conservation_fem_tpu_torch.ops import tiled_step as ts
 
     itemsize = torch.empty((), dtype=dtype).element_size()
-    plan = ts.card_plan(n1x, n1y, dtype)
-    info = ts.occupancy(dtype, plan["smem"])
-    if info["max_dynamic_smem"] < ts.smem_budget(itemsize):
-        raise AssertionError(f"the card gives a block "
-                             f"{info['max_dynamic_smem']} bytes of dynamic "
-                             f"shared memory, the plan assumes "
-                             f"{ts.smem_budget(itemsize)}")
-    sweeps, values = tiled_sweeps(fs.step_args("", kw))
-    dn = "f32" if itemsize == 4 else "f64"
-    return dict(
-        tile_rows=plan["rows"], tile_cols=plan["cols"], tiles=plan["tiles"],
-        blocks=plan["blocks"], rounds=plan["rounds"],
-        smem_per_block=plan["smem"] + info["static_smem"],
-        blocks_per_sm=info["blocks_per_sm"],
-        resident_blocks=plan["resident"], registers=info["registers"],
-        local_bytes=info["local_bytes"],
-        spill_stores=regs.get(f"tiled_rv_step {dn}", {}).get(
-            "spill_stores", 0),
-        sweeps_per_step=sweeps, sweep_bytes=values * n * itemsize,
-        sweep_floor_ms=values * n * itemsize / HBM_BYTES_PER_S * 1e3)
+    floor = floor_facts(tiled_sweeps(fs.step_args("", kw)), n, itemsize)
+    return dict(plan_facts(n1x, n1y, dtype, regs),
+                sweeps_per_step=floor["sweeps"],
+                sweep_bytes=floor["sweep_bytes"],
+                sweep_floor_ms=floor["sweep_floor_ms"])
 
 
 def _alternated(fns, reps):
@@ -616,85 +673,227 @@ def _bench_f32(state):
             p.fused_step_kwargs())
 
 
-def check_split(summary, states):
-    """Each split kernel against its plain stage, and the whole split step
-    against the single kernel: f64 at mesh 16 and 64, f32 at mesh 128 (the
-    split main path), timed there."""
+# the Newton launches a split step makes: (relinearize, residual) -> name;
+# the main path (frozen Jacobian, 2 iterations) makes the first and last
+NEWTON_FLAGS = {(True, True): "relinearize, residual",
+                (False, False): "reinit, no residual",
+                (True, False): "relinearize, no residual",
+                (False, True): "reinit, residual"}
+MAIN_PATH_FLAGS = ((True, True), (False, False))
+
+
+def split_newton_values(relinearize, residual):
+    """Values per node a split Newton launch must move, each input read and
+    each output written once: uk, F and, to linearise, w and the planes M,
+    Kc (15), or else the Jacobian planes and their preconditioner that an
+    earlier launch left (8); for the residual u, g, N(u), K u (and M, Kc
+    if not read yet) and F'; uk'."""
+    reads = 2 + (15 if relinearize else 8)
+    if residual:
+        reads += 4 + (0 if relinearize else 14)
+    return reads + 1 + (1 if residual else 0)
+
+
+def check_split(summary, states, regs):
+    """Each split kernel against its plain stage, the Newton kernel with both
+    values of each keyword, and the whole split step against the tiled
+    kernel on the same plan and against the single kernel: f64 at mesh 16
+    with 8-row tiles (bicgstab frozen, cheby fresh, bicgstab fresh with 2
+    Newton iterations, gfem) and at mesh 64 with the default plan; f32 at
+    mesh 128 (the split main path), timed there in turns with the tiled
+    and single kernels; the tiled kernel timed at mesh 64 in turns with the
+    single kernel."""
     import torch
 
     from conservation_fem_tpu_torch.ops import fused_step as fs
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
 
-    errs = {}
+    errs, same_as_tiled = {}, []
 
-    def compare(p, fields, kw, dn):
+    def compare(fields, kw, dn, tile_rows=None, label=""):
         u2, uo2, uoo2, g2, Mc = fields
         s = fs.step_args("split", kw)
         sd, body = fs._plain_data(u2, Mc, s), fs._body_kw(s)
-        setup = fs.split_setup(*fields, **kw)
+        scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+        got = fs.split_setup(*fields, scratch=scr, tile_rows=tile_rows, **kw)
         ref = fs._split_setup_plain(sd, u2, uo2, uoo2, g2, **body)
-        e_setup = max(max_err(a, b) for a, b in zip(setup, ref))
-        Kc, aux, uk, F = setup
-        newton = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, uk, **kw)
-        ref = fs._split_newton_plain(sd, uk, F, u2, g2, Kc, aux, uk, **body)
-        e_newton = max(max_err(a, b) for a, b in zip(newton, ref))
-        e_step = max_err(fs.fused_rv_step_split(*fields, **kw),
-                         fs.fused_rv_step(*fields, **kw)[0])
+        e = {"split_setup": max(max_err(a, b) for a, b in zip(got, ref))}
+        Kc, aux, uk, F = got
+        # the first launch linearises at uk0, leaving the Jacobian in scr;
+        # then every pair of keywords from its result, at the same w
+        args = (u2, g2, Mc, Kc, aux, uk)
+        uk1, F1 = fs.split_newton(uk, F, *args, scratch=scr,
+                                  tile_rows=tile_rows, **kw)
+        ref = fs._split_newton_plain(sd, uk, F, *args[:2], Kc, aux, uk,
+                                     **body)
+        e["split_newton"] = max(max_err(uk1, ref[0]), max_err(F1, ref[1]))
+        for relin, resid in NEWTON_FLAGS:
+            got = fs.split_newton(uk1, F1, *args, scratch=scr,
+                                  tile_rows=tile_rows, relinearize=relin,
+                                  residual=resid, **kw)
+            ref = fs._split_newton_plain(sd, uk1, F1, *args[:2], Kc, aux,
+                                         uk, relinearize=relin,
+                                         residual=resid, **body)
+            if (got[1] is None) != (not resid) or (ref[1] is None) != (
+                    not resid):
+                raise AssertionError(f"split_newton residual={resid}: F' "
+                                     f"returned {got[1] is not None}")
+            e["split_newton"] = max(e["split_newton"],
+                                    max_err(got[0], ref[0]),
+                                    max_err(got[1], ref[1]) if resid else 0)
+        split = fs.fused_rv_step_split(*fields, tile_rows=tile_rows, **kw)
+        tiled = ts.tiled_rv_step(*fields, tile_rows=tile_rows, **kw)
+        e["split step vs tiled"] = max_err(split, tiled)
+        e["split step vs single"] = max_err(
+            split, fs.fused_rv_step(*fields, **kw)[0])
         torch.cuda.synchronize()
-        log(f"split {tuple(u2.shape)} {dn} {kw['inner_solver']} frozen="
-            f"{kw['freeze_jacobian']}: setup {e_setup:.3e}, newton "
-            f"{e_newton:.3e} vs plain stage; split step vs single kernel "
-            f"{e_step:.3e}")
-        for name, e in (("split_setup", e_setup), ("split_newton", e_newton),
-                        ("split step", e_step)):
-            _gated(name, e, dn, errs.setdefault(name, {}))
+        same_as_tiled.append(bool(torch.equal(split, tiled)))
+        log(f"split {label} {dn}: vs plain stage setup "
+            f"{e['split_setup']:.3e}, newton (4 keyword pairs) "
+            f"{e['split_newton']:.3e}; split step vs tiled kernel on the "
+            f"same plan {e['split step vs tiled']:.3e} (equal bit for bit: "
+            f"{same_as_tiled[-1]}), vs single kernel "
+            f"{e['split step vs single']:.3e}")
+        for name, v in e.items():
+            _gated(name, v, dn, errs.setdefault(name, {}), TILED_F64_TOL)
+        # the same passes over the same tiles and blocks: the same bits
+        if not same_as_tiled[-1]:
+            raise AssertionError(f"split step {label} {dn} differs from the "
+                                 "tiled kernel on the same plan")
 
-    for mesh in (16, 64):
-        p, *fields = states[mesh]
-        fields = list(fields) + [p.sd.M_coef]
-        for solver, frozen in (("bicgstab", True), ("cheby", False)):
-            kw = dict(p.fused_step_kwargs(), inner_solver=solver,
-                      freeze_jacobian=frozen, newton_iters=3,
-                      cg_iters=6 if solver == "bicgstab" else 10,
-                      lin_iters=4 if solver == "bicgstab" else 16)
-            compare(p, fields, kw, "f64")
+    p, *fields = states[16]
+    fields = list(fields) + [p.sd.M_coef]
+    for solver, frozen, newton, stab in (
+            ("bicgstab", True, 3, "rv"), ("cheby", False, 3, "rv"),
+            ("bicgstab", False, 2, "rv"), ("bicgstab", True, 3, "gfem")):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, newton_iters=newton,
+                  stabilization=stab,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16)
+        compare(fields, kw, "f64", 8,
+                f"mesh 16, 8-row tiles, {solver} frozen={frozen} "
+                f"newton={newton} {stab}")
+    p, *fields = states[64]
+    fields = list(fields) + [p.sd.M_coef]
+    for solver, frozen in (("bicgstab", True), ("cheby", False)):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, newton_iters=3,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16)
+        compare(fields, kw, "f64", None,
+                f"mesh 64, default plan, {solver} frozen={frozen}")
     p, f32, kw = _bench_f32(states[128])
-    compare(p, f32, kw, "f32")
+    compare(f32, kw, "f32", None, "mesh 128 bench config")
+
+    # timed at mesh 128 f32, bench config, all in turns
     u2, uo2, uoo2, g2, Mc = f32
     s = fs.step_args("split", kw)
     sd, body = fs._plain_data(u2, Mc, s), fs._body_kw(s)
-    Kc, aux, uk, F = fs.split_setup(*f32, **kw)
-    n = u2.numel()
-    times = dict(
-        split_setup=(cuda_ms(lambda: fs.split_setup(*f32, **kw), 20),
-                     cuda_ms(lambda: fs._split_setup_plain(
-                         sd, u2, uo2, uoo2, g2, **body), 3),
-                     bound(22 * n * 4, n * step_ops(s, "setup"), "f32")),
-        split_newton=(cuda_ms(lambda: fs.split_newton(
-                          uk, F, u2, g2, Mc, Kc, aux, uk, **kw), 20),
-                      cuda_ms(lambda: fs._split_newton_plain(
-                          sd, uk, F, u2, g2, Kc, aux, uk, **body), 3),
-                      bound(23 * n * 4, n * step_ops(s, "newton"), "f32")))
-    step_ms = cuda_ms(lambda: fs.fused_rv_step_split(*f32, **kw), 20)
-    single_ms = cuda_ms(lambda: fs.fused_rv_step(*f32, **kw), 20)
-    for name, (ms, plain_ms, (b_ms, b_by)) in times.items():
-        log(f"{name} mesh 128 f32 bench config: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        summary[name] = dict(
-            max_abs_err=errs[name]["f64"],
-            err_case="f64 mesh 16 and 64, mid-trajectory: bicgstab frozen, "
-                     "cheby fresh, 3 Newton iterations, against the plain "
-                     "stage on the same inputs",
-            max_abs_err_f32=errs[name]["f32"],
-            f32_case="f32 mesh 128 bench config, against the plain stage",
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, timed_case="mesh-128 f32 bench config, one "
-                                        "launch",
-            split_step_vs_single_f64=errs["split step"]["f64"],
-            split_step_vs_single_f32=errs["split step"]["f32"])
-    log(f"split step mesh 128 f32 (1 + 2 launches): {step_ms:.4f} ms; single "
-        f"kernel on the same state {single_ms:.4f} ms")
-    summary["split_setup"].update(step_ms_mesh128=step_ms,
-                                  single_ms_mesh128=single_ms)
+    scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+    Kc, aux, uk, F = fs.split_setup(*f32, scratch=scr, **kw)
+    uk1, F1 = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, uk, scratch=scr,
+                              **kw)
+
+    def newton_fn(relin, resid):
+        start = (uk, F) if relin else (uk1, F1)
+        return lambda: fs.split_newton(*start, u2, g2, Mc, Kc, aux, uk,
+                                       scratch=scr, relinearize=relin,
+                                       residual=resid, **kw)
+
+    fns = {"split_setup": lambda: fs.split_setup(*f32, scratch=scr, **kw)}
+    for flags in MAIN_PATH_FLAGS:
+        fns[NEWTON_FLAGS[flags]] = newton_fn(*flags)
+    fns.update({
+        "split step": lambda: fs.fused_rv_step_split(*f32, **kw),
+        "tiled": lambda: ts.tiled_rv_step(*f32, **kw),
+        "single": lambda: fs.fused_rv_step(*f32, **kw)})
+    t = _alternated(fns, 20)
+    n, n1 = u2.numel(), u2.shape[0]
+    plain = dict(
+        split_setup=cuda_ms(lambda: fs._split_setup_plain(
+            sd, u2, uo2, uoo2, g2, **body), 3),
+        split_newton=cuda_ms(lambda: fs._split_newton_plain(
+            sd, uk, F, u2, g2, Kc, aux, uk, **body), 3))
+    facts = {k: plan_facts(n1, n1, torch.float32, regs, k)
+             for k in ("split_setup", "split_newton")}
+    floors = {"split_setup": floor_facts(sweep_count(head_sweeps(s, True)),
+                                         n, 4)}
+    bounds = {"split_setup": bound(22 * n * 4, n * step_ops(s, "setup"),
+                                   "f32")}
+    for flags in NEWTON_FLAGS:
+        floors[NEWTON_FLAGS[flags]] = floor_facts(
+            sweep_count(newton_sweeps(s, *flags)), n, 4)
+        bounds[NEWTON_FLAGS[flags]] = bound(
+            split_newton_values(*flags) * n * 4,
+            n * step_ops(s, "newton", *flags), "f32")
+    for name in ("split_setup",) + tuple(NEWTON_FLAGS[f]
+                                         for f in MAIN_PATH_FLAGS):
+        kernel = "split_setup" if name == "split_setup" else "split_newton"
+        log(f"{kernel} ({name}) mesh 128 f32 bench config: {t[name]:.5f} ms"
+            f" in turns; bound {bounds[name][0]:.5f} ms ({bounds[name][1]});"
+            f" {floors[name]['sweeps']} sweeps moving "
+            f"{floors[name]['sweep_bytes']} B, floor "
+            f"{floors[name]['sweep_floor_ms']:.5f} ms")
+    for k, v in facts.items():
+        log(f"{k} mesh 128 f32 plan " + json.dumps(v))
+    log(f"mesh 128 f32 in turns: split step (1 + 2 launches) "
+        f"{t['split step']:.5f} ms, tiled kernel {t['tiled']:.5f} ms, "
+        f"single kernel {t['single']:.5f} ms; plain stages "
+        f"{plain['split_setup']:.4f} / {plain['split_newton']:.4f} ms")
+    # the tiled kernel at mesh 64, in turns with the single kernel
+    p64, f64_32, kw64 = _bench_f32(states[64])
+    t64 = _alternated({
+        "tiled": lambda: ts.tiled_rv_step(*f64_32, **kw64),
+        "single": lambda: fs.fused_rv_step(*f64_32, **kw64)}, 20)
+    plan64 = plan_facts(*f64_32[0].shape, torch.float32, regs)
+    log(f"tiled_rv_step mesh 64 f32 bench config: {t64['tiled']:.5f} ms; "
+        f"single kernel in turns {t64['single']:.5f} ms (ratio "
+        f"{t64['tiled'] / t64['single']:.4f}); plan " + json.dumps(plan64))
+    common = dict(
+        err_case="f64 mesh 16 with 8-row tiles (bicgstab frozen, cheby "
+                 "fresh, bicgstab fresh 2 Newton iterations, gfem) and mesh "
+                 "64 with the default plan, mid-trajectory; the Newton "
+                 "kernel with both values of each keyword; against the "
+                 "plain stage on the same inputs",
+        f32_case="f32 mesh 128 bench config, against the plain stage",
+        library_ms=None, split_step_ms_mesh128=t["split step"],
+        tiled_ms_mesh128=t["tiled"], single_ms_mesh128=t["single"],
+        split_step_vs_tiled_f64=errs["split step vs tiled"]["f64"],
+        split_step_vs_tiled_f32=errs["split step vs tiled"]["f32"],
+        split_step_equals_tiled_every_case=all(same_as_tiled),
+        split_step_vs_single_f64=errs["split step vs single"]["f64"],
+        split_step_vs_single_f32=errs["split step vs single"]["f32"])
+    setup = "split_setup"
+    summary[setup] = dict(
+        max_abs_err=errs[setup]["f64"], max_abs_err_f32=errs[setup]["f32"],
+        ms=t[setup], plain_ms=plain[setup], bound_ms=bounds[setup][0],
+        bound_by=bounds[setup][1],
+        timed_case="mesh-128 f32 bench config, one launch, in turns",
+        **common, **floors[setup], **facts[setup])
+    main, last = (NEWTON_FLAGS[f] for f in MAIN_PATH_FLAGS)
+    summary["split_newton"] = dict(
+        max_abs_err=errs["split_newton"]["f64"],
+        max_abs_err_f32=errs["split_newton"]["f32"], ms=t[main],
+        plain_ms=plain["split_newton"], bound_ms=bounds[main][0],
+        bound_by=bounds[main][1],
+        timed_case="mesh-128 f32 bench config, one launch with "
+                   "relinearisation and residual (the first of the main "
+                   "path's two), in turns",
+        ms_reinit_no_residual=t[last],
+        bound_ms_reinit_no_residual=bounds[last][0],
+        bound_by_reinit_no_residual=bounds[last][1],
+        sweep_floor_ms_by_flags={k: floors[k]["sweep_floor_ms"]
+                                 for k in NEWTON_FLAGS.values()},
+        sweeps_by_flags={k: floors[k]["sweeps"] for k in NEWTON_FLAGS.values()},
+        **common, **facts["split_newton"])
+    summary["tiled_rv_step"].update(
+        ms_mesh128=t["tiled"], single_ms_mesh128=t["single"],
+        ms_mesh64=t64["tiled"], single_ms_mesh64=t64["single"],
+        ratio_to_single_mesh64=t64["tiled"] / t64["single"],
+        plan_mesh64={k: plan64[k] for k in TILED_FACT_KEYS},
+        plan_mesh128={k: plan_facts(n1, n1, torch.float32, regs)[k]
+                      for k in TILED_FACT_KEYS})
 
 
 def check_tiled(summary, states, regs):
@@ -846,15 +1045,26 @@ def _counted_solve(p):
     return u, dict(_build.launches)
 
 
-def _single_kernel_solve(p):
-    """(solution, microseconds per step) of p's trajectory with one
-    fused_rv_step launch per step whatever p's mode, CUDA events."""
+def _kernel_solve(p, kernel="single"):
+    """(solution, microseconds per step) of p's trajectory with one launch
+    per step of the single kernel (fused_rv_step) or the tiled kernel
+    (tiled_rv_step, default plan), whatever p's mode, CUDA events."""
+    from conservation_fem_tpu_torch.ops.tiled_step import tiled_rv_step
+
     g2 = p.bc_value(p.points, p.dt).reshape(p._shape2)
+    kw = p.fused_step_kwargs()
+
+    def step(carry):
+        if kernel == "single":
+            return p._fused_call(carry, g2, 1)
+        u2 = tiled_rv_step(*(v.reshape(p._shape2) for v in carry), g2,
+                           p.sd.M_coef, **kw)
+        return u2.reshape(-1), carry[0], carry[1]
 
     def run():
         carry = p._initial_carry()
         for _ in range(p.num_steps):
-            carry = p._fused_call(carry, g2, 1)
+            carry = step(carry)
         return carry[0]
 
     return _timed(run, p.num_steps)
@@ -902,11 +1112,18 @@ def run_main_path(mesh_size, T, mode, anchor, card):
     if mode != "single":
         # the same trajectory through the single kernel, for the dispatch
         # rule's trade at this size
-        u_single, us_single = _single_kernel_solve(p)
+        u_single, us_single = _kernel_solve(p)
         log(f"mesh {mesh_size} f32 single-kernel path (not dispatched): "
             f"{us_single:.1f} us/step, {n / us_single * 1e6:.4g} DOF-steps/s, "
             f"L2rel vs anchor {_gate(u_single, mesh_size, anchor):.4e}, "
             f"max|{mode} - single| {max_err(u, u_single):.3e}")
+    if mode == "split":
+        # and through the tiled kernel, whose passes the split step runs
+        u_tiled, us_tiled = _kernel_solve(p, "tiled")
+        log(f"mesh {mesh_size} f32 tiled-kernel path (not dispatched): "
+            f"{us_tiled:.1f} us/step, {n / us_tiled * 1e6:.4g} DOF-steps/s, "
+            f"L2rel vs anchor {_gate(u_tiled, mesh_size, anchor):.4e}, "
+            f"max|split - tiled| {max_err(u, u_tiled):.3e}")
     q = kpp.build(_bench_cfg(kpp, mesh_size, "float32", **extra),
                   device="cuda")
     uq, us_plain = _timed_solve(q)
@@ -1212,7 +1429,7 @@ def run_sharded_f64(mesh, n_blocks, kernel):
     sh = ShardedFusedStructured(p, LocalBlocks(n_blocks, "cuda"),
                                 kernel=kernel)
     u = sh.solve()
-    u_single, _ = _single_kernel_solve(kpp.build(cfg))
+    u_single, _ = _kernel_solve(kpp.build(cfg))
     torch.cuda.synchronize()
     e = max_err(u, u_single)
     log(f"sharded path mesh {mesh} x {n_blocks} blocks ({sh.kernel} kernel) "
@@ -1349,18 +1566,33 @@ def ablate(card):
         else:
             rows["full"] = cuda_ms(lambda: fs.fused_rv_step(*f32, **base), 20)
         plans = {}
+        n1 = f32[0].shape[0]
+        if mesh == 128:
+            # the split step's breakdown (the main path's kernels here)
+            for name, change in ABLATIONS:
+                kw = dict(base, **change)
+                rows[f"split, {name}"] = cuda_ms(
+                    lambda: fs.fused_rv_step_split(*f32, **kw), 20)
+        if mesh >= 128:
+            # the tiled kernel (and at mesh 128 the split step) by rows per
+            # tile, beside the single kernel
+            steps = {"tiled": ("tiled", ts.tiled_rv_step)}
+            if mesh == 128:
+                steps["split"] = ("split_newton", fs.fused_rv_step_split)
+            for label, (kernel, fn) in steps.items():
+                default = ts.card_plan(n1, n1, torch.float32,
+                                       kernel=kernel)["rows"]
+                for tr in TILE_ROWS:
+                    name = (f"{label}, {tr}-row tiles"
+                            + (" (default)" if tr == default else ""))
+                    rows[name] = cuda_ms(
+                        lambda: fn(*f32, tile_rows=tr, **base), 10)
+                    plan = ts.card_plan(n1, n1, torch.float32, tr,
+                                        kernel=kernel)
+                    plans[name] = dict(plan, blocks_per_sm=ts.occupancy(
+                        torch.float32, plan["smem"],
+                        kernel=kernel)["blocks_per_sm"])
         if mesh >= 256:
-            # the tiled kernel by rows per tile, beside the single kernel
-            n1 = f32[0].shape[0]
-            default = ts.card_plan(n1, n1, torch.float32)["rows"]
-            for tr in TILE_ROWS:
-                name = (f"tiled, {tr}-row tiles"
-                        + (" (default)" if tr == default else ""))
-                rows[name] = cuda_ms(
-                    lambda: ts.tiled_rv_step(*f32, tile_rows=tr, **base), 10)
-                plan = ts.card_plan(n1, n1, torch.float32, tr)
-                plans[name] = dict(plan, blocks_per_sm=ts.occupancy(
-                    torch.float32, plan["smem"])["blocks_per_sm"])
             # the tiled kernel's own breakdown, default tiles
             for name, change in ABLATIONS[1:]:
                 kw = dict(base, **change)
@@ -1406,8 +1638,8 @@ def smoke(card, regs):
     for mesh in (16, 64, 128, 256, 512):
         states[mesh] = mid_trajectory_state(mesh)
     check_fused_step(summary, states)
-    check_split(summary, states)
     check_tiled(summary, states, regs)
+    check_split(summary, states, regs)
     check_block_kernels(summary, states, regs)
     states.clear()
     counts, runs = {}, {}

@@ -16,8 +16,9 @@
 //     Chebyshev inner solve and the update with its residual. A phase
 //     that reads values at neighbours runs as a sweep over a sweep
 //     policy, and declares the raw fields and operators it reads (Reads):
-//     GridSweep (here) visits the nodes in a grid-stride loop and reads
-//     them from device memory, TileSweep (tiled_step.cu) copies them into
+//     GridSweep (here; the single and block kernels) visits the nodes in
+//     a grid-stride loop and reads them from device memory, TileSweep
+//     (tile_sweep.cuh; the tiled and split kernels) copies them into
 //     shared memory tile by tile, the next tile while this one computes.
 // The flux is compiled in: KPP, f = (sin u, cos u), f' = (cos u, -sin u),
 // f'' = (-sin u, -cos u), |f'| = 1. sincos is the accurate libdevice one
@@ -294,7 +295,7 @@ __device__ __forceinline__ T cheby_next(T rho, T two_sigma, T delta, T& c1,
 // of the s-th of the NS values that stage(i, j, h, v) forms from the raw
 // values h(k), k < H, of node (i, j) — formed where they are read, from
 // device memory (GridSweep) or from a shared-memory tile (TileSweep,
-// tiled_step.cu). Nothing a sweep reads at neighbours is written by it,
+// tile_sweep.cuh). Nothing a sweep reads at neighbours is written by it,
 // because other threads read those values meanwhile; a field read at the
 // node only may be updated there.
 template <typename T, int H, int M, int P> struct Reads {
@@ -340,8 +341,8 @@ template <typename T, int NS, typename Stage> struct Formed {
   }
 };
 
-// Grid-stride sweep of the single, split and block kernels: every value is
-// read from device memory where it is needed.
+// Grid-stride sweep of the single and block kernels: every value is read
+// from device memory where it is needed.
 template <typename T> struct GridSweep {
   GridShape g;
   template <int NS, typename R, typename Stage, typename Body>
@@ -748,11 +749,21 @@ template <typename T, typename Sweep> struct StepPhases {
     grid.sync();
   }
 
+  // 6b. the last Newton iteration, which needs no residual: uk_new = uk +
+  // dx, pointwise (uk_new may be uk).
+  __device__ void advance(const T* uk, T* uk_new) {
+    pointwise(Reads<T, 0, 2, 0>{{uk, cx}, {}},
+              [&](int i, int j, int n, const auto& f) {
+                uk_new[n] = f(0) + f(1);
+              });
+    grid.sync();
+  }
+
   // CN Newton from uk0 in uk with F(uk0) in F: per iteration the Jacobian
   // at the iterate (the first iteration only for a frozen one) or the
   // solver state alone, the inner solve, and the update. The iterate
   // alternates between uk and uk2 with its residual in F; the last
-  // iteration needs no residual and writes uk + dx to uk pointwise.
+  // iteration needs no residual and writes uk + dx to uk (advance).
   __device__ void newton(const T* u, T* uk, int iters, int lin_iters,
                          bool freeze) {
     T *cur = uk, *nxt = uk2;
@@ -760,11 +771,7 @@ template <typename T, typename Sweep> struct StepPhases {
       const T rho = (it == 0 || !freeze) ? linearize(cur, F) : reinit(F);
       inner_solve(rho, lin_iters);
       if (it + 1 == iters) {
-        pointwise(Reads<T, 0, 2, 0>{{cur, cx}, {}},
-                  [&](int i, int j, int n, const auto& f) {
-                    uk[n] = f(0) + f(1);
-                  });
-        grid.sync();
+        advance(cur, uk);
       } else {
         update(u, cur, nxt, F);
         T* tmp = cur; cur = nxt; nxt = tmp;

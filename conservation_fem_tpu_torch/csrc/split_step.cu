@@ -12,20 +12,34 @@
 //     inner solve of J dx = -F, uk' = uk + dx and F' = F(uk').
 // Kc, aux, uk and F live in device memory between launches.
 //
-// What bounds them on the H100: the same chain of dependent grid-wide
-// phases as the single step (fused_step.cu) — the setup is the single
-// step's phases up to F(uk0), a Newton launch one of its Newton iterations
-// with the residual of the new iterate — so at the split sizes (mesh
-// 128 in f32: 1.05 MB per field, ~20 fields and 21 planes, all in the 50 MB
-// L2) the cost is grid-sync latency, plus one launch per Newton iteration.
-// Design: each kernel is one cooperative persistent launch built from the
-// phases of fused_step.cuh (StepPhases), so its arithmetic and its
-// deterministic two-level reductions are those of the single step; the TPU
-// split exists because the single kernel's live set outgrew VMEM, which
-// has no counterpart here, so the split is kept for the dispatch rule and
-// its launch structure.
+// What bounds them on the H100: the passes of the single step (the setup
+// is its passes up to F(uk0), a Newton launch one of its Newton
+// iterations), each a sweep over the grid with a grid.sync() and most
+// with a grid reduction after it. At the split sizes (mesh 128 in f32:
+// 513 x 513 nodes, 1.05 MB per field, ~45 MB of fields and planes, about
+// the 50 MB L2) a sweep that reads its fields with plain loads waits on
+// every load: at ~180 registers per thread one 256-thread block fits an
+// SM, 8 warps, too few to hide the latency (two blocks per SM would need
+// 128 registers, and the node functions spill there).
+//
+// Design: both kernels run StepPhases over the tile pipeline of the tiled
+// kernel (TileSweep, tile_sweep.cuh): every pass copies the raw values it
+// declares into two shared-memory stages with cp.async, the next tile in
+// flight while this one computes, so latency is hidden by the bytes in
+// flight, not by warps. One cooperative persistent launch each, every
+// block that can be resident with two stages of the tile plan
+// (ops/tiled_step.card_plan, one plan for all the launches of a step).
+// A Newton launch runs no pass that the single step does not run: with
+// relinearize 0 it takes the Jacobian planes jc and their Jacobi
+// preconditioner dj that a launch at the same w left in the same scratch
+// and re-initialises the inner solver from F alone (the single step's
+// reinit for a frozen Jacobian); with residual 0 it writes uk + dx
+// pointwise and no F' (the single step's last iteration). So the split
+// step runs the single step's passes in its order, and on the same tile
+// plan and number of blocks gives the tiled kernel's bits (the same
+// tiles, the same deterministic reductions).
 
-#include "fused_step.cuh"
+#include "tile_sweep.cuh"
 
 namespace cft {
 
@@ -35,29 +49,33 @@ template <typename T> struct SplitSetupParams {
   T *work, *part;
   const double* consts;
   GridShape gs;
+  int tile_rows, tile_cols;
   int cg_iters, bdf2, rv, cheby;
 };
 
 template <typename T> struct SplitNewtonParams {
   const T *uk, *F, *u, *g, *Mc, *Kc, *aux, *w;
-  T *uk_out, *F_out;
+  T *uk_out, *F_out;  // F_out: unused (may be null) with residual 0
   T *work, *part;
   const double* consts;
   GridShape gs;
-  int lin_iters, cheby;
+  int tile_rows, tile_cols;
+  int lin_iters, cheby, relinearize, residual;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kBlock, 1)
 split_setup_kernel(SplitSetupParams<T> P) {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
   __shared__ RedScratch<T> scratch;
   __shared__ StepConsts<T> C;
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  StepPhases<T, GridSweep<T>> S(grid, scratch, P.part, C, P.gs,
-                                GridSweep<T>{P.gs}, P.Mc, P.g, P.cheby,
-                                P.work);
+  const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
+                           reinterpret_cast<T*>(stage_raw));
+  StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
+                                P.g, P.cheby, P.work);
   S.kc = P.Kc;
   S.nun = P.aux;
   S.kun = P.aux + S.N;
@@ -69,46 +87,46 @@ split_setup_kernel(SplitSetupParams<T> P) {
 template <typename T>
 __global__ void __launch_bounds__(kBlock, 1)
 split_newton_kernel(SplitNewtonParams<T> P) {
+  extern __shared__ __align__(16) unsigned char stage_raw[];
   __shared__ RedScratch<T> scratch;
   __shared__ StepConsts<T> C;
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  StepPhases<T, GridSweep<T>> S(grid, scratch, P.part, C, P.gs,
-                                GridSweep<T>{P.gs}, P.Mc, P.g, P.cheby,
-                                P.work);
+  const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
+                           reinterpret_cast<T*>(stage_raw));
+  StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
+                                P.g, P.cheby, P.work);
   // read only here: the planes and frozen terms of the setup
   S.kc = const_cast<T*>(P.Kc);
   S.nun = const_cast<T*>(P.aux);
   S.kun = const_cast<T*>(P.aux) + S.N;
-  const T rho = S.linearize(P.w, P.F);
+  // the flags are the same in every block, so every block takes the same
+  // branch and meets the same grid barriers
+  const T rho = P.relinearize ? S.linearize(P.w, P.F) : S.reinit(P.F);
   S.inner_solve(rho, P.lin_iters);
-  S.update(P.u, P.uk, P.uk_out, P.F_out);
-}
-
-template <typename Params>
-int launch_coop(void (*kernel)(Params), Params& P, int n_nodes,
-                void* stream) {
-  void* args[] = {&P};
-  const int grid = coop_grid(kernel, n_nodes);
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)kernel, grid, kBlock, args, 0, (cudaStream_t)stream);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(e != cudaSuccess ? e : last);
+  if (P.residual) {
+    S.update(P.u, P.uk, P.uk_out, P.F_out);
+  } else {
+    S.advance(P.uk, P.uk_out);
+  }
 }
 
 template <typename T>
 int split_setup(const void* u, const void* uo, const void* uoo,
                 const void* gvals, const void* Mc, void* Kc, void* aux,
                 void* uk, void* F, void* work, void* part,
-                const void* consts, int n1x, int n1y, int cg_iters, int bdf2,
-                int rv, int cheby, void* stream) {
+                const void* consts, int n1x, int n1y, int tile_rows,
+                int tile_cols, int cg_iters, int bdf2, int rv, int cheby,
+                void* stream) {
+  const GridShape gs = GridShape::whole(n1x, n1y);
   SplitSetupParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo,
                         (const T*)gvals, (const T*)Mc, (T*)Kc, (T*)aux,
                         (T*)uk, (T*)F, (T*)work, (T*)part,
-                        (const double*)consts, GridShape::whole(n1x, n1y),
+                        (const double*)consts, gs, tile_rows, tile_cols,
                         cg_iters, bdf2, rv, cheby};
-  return launch_coop(split_setup_kernel<T>, P, n1x * n1y, stream);
+  return launch_tiles<T>(split_setup_kernel<T>, P, gs, tile_rows, tile_cols,
+                         stream);
 }
 
 template <typename T>
@@ -116,13 +134,18 @@ int split_newton(const void* uk, const void* F, const void* u,
                  const void* gvals, const void* Mc, const void* Kc,
                  const void* aux, const void* w, void* uk_out, void* F_out,
                  void* work, void* part, const void* consts, int n1x,
-                 int n1y, int lin_iters, int cheby, void* stream) {
+                 int n1y, int tile_rows, int tile_cols, int lin_iters,
+                 int cheby, int relinearize, int residual, void* stream) {
+  if (residual && !F_out) return (int)cudaErrorInvalidValue;
+  const GridShape gs = GridShape::whole(n1x, n1y);
   SplitNewtonParams<T> P{(const T*)uk, (const T*)F, (const T*)u,
                          (const T*)gvals, (const T*)Mc, (const T*)Kc,
                          (const T*)aux, (const T*)w, (T*)uk_out, (T*)F_out,
-                         (T*)work, (T*)part, (const double*)consts,
-                         GridShape::whole(n1x, n1y), lin_iters, cheby};
-  return launch_coop(split_newton_kernel<T>, P, n1x * n1y, stream);
+                         (T*)work, (T*)part, (const double*)consts, gs,
+                         tile_rows, tile_cols, lin_iters, cheby,
+                         relinearize, residual};
+  return launch_tiles<T>(split_newton_kernel<T>, P, gs, tile_rows, tile_cols,
+                         stream);
 }
 
 }  // namespace cft
@@ -132,40 +155,64 @@ extern "C" {
 int cft_split_setup_f32(const void* u, const void* uo, const void* uoo,
                         const void* g, const void* Mc, void* Kc, void* aux,
                         void* uk, void* F, void* work, void* part,
-                        const void* consts, int n1x, int n1y, int cg_iters,
-                        int bdf2, int rv, int cheby, void* stream) {
+                        const void* consts, int n1x, int n1y, int tile_rows,
+                        int tile_cols, int cg_iters, int bdf2, int rv,
+                        int cheby, void* stream) {
   return cft::split_setup<float>(u, uo, uoo, g, Mc, Kc, aux, uk, F, work,
-                                 part, consts, n1x, n1y, cg_iters, bdf2, rv,
-                                 cheby, stream);
+                                 part, consts, n1x, n1y, tile_rows,
+                                 tile_cols, cg_iters, bdf2, rv, cheby,
+                                 stream);
 }
 int cft_split_setup_f64(const void* u, const void* uo, const void* uoo,
                         const void* g, const void* Mc, void* Kc, void* aux,
                         void* uk, void* F, void* work, void* part,
-                        const void* consts, int n1x, int n1y, int cg_iters,
-                        int bdf2, int rv, int cheby, void* stream) {
+                        const void* consts, int n1x, int n1y, int tile_rows,
+                        int tile_cols, int cg_iters, int bdf2, int rv,
+                        int cheby, void* stream) {
   return cft::split_setup<double>(u, uo, uoo, g, Mc, Kc, aux, uk, F, work,
-                                  part, consts, n1x, n1y, cg_iters, bdf2, rv,
-                                  cheby, stream);
+                                  part, consts, n1x, n1y, tile_rows,
+                                  tile_cols, cg_iters, bdf2, rv, cheby,
+                                  stream);
 }
 int cft_split_newton_f32(const void* uk, const void* F, const void* u,
                          const void* g, const void* Mc, const void* Kc,
                          const void* aux, const void* w, void* uk_out,
                          void* F_out, void* work, void* part,
-                         const void* consts, int n1x, int n1y, int lin_iters,
-                         int cheby, void* stream) {
+                         const void* consts, int n1x, int n1y, int tile_rows,
+                         int tile_cols, int lin_iters, int cheby,
+                         int relinearize, int residual, void* stream) {
   return cft::split_newton<float>(uk, F, u, g, Mc, Kc, aux, w, uk_out, F_out,
-                                  work, part, consts, n1x, n1y, lin_iters,
-                                  cheby, stream);
+                                  work, part, consts, n1x, n1y, tile_rows,
+                                  tile_cols, lin_iters, cheby, relinearize,
+                                  residual, stream);
 }
 int cft_split_newton_f64(const void* uk, const void* F, const void* u,
                          const void* g, const void* Mc, const void* Kc,
                          const void* aux, const void* w, void* uk_out,
                          void* F_out, void* work, void* part,
-                         const void* consts, int n1x, int n1y, int lin_iters,
-                         int cheby, void* stream) {
+                         const void* consts, int n1x, int n1y, int tile_rows,
+                         int tile_cols, int lin_iters, int cheby,
+                         int relinearize, int residual, void* stream) {
   return cft::split_newton<double>(uk, F, u, g, Mc, Kc, aux, w, uk_out,
                                    F_out, work, part, consts, n1x, n1y,
-                                   lin_iters, cheby, stream);
+                                   tile_rows, tile_cols, lin_iters, cheby,
+                                   relinearize, residual, stream);
+}
+int cft_split_setup_occupancy_f32(int smem, int* out) {
+  return cft::tile_kernel_occupancy(cft::split_setup_kernel<float>, smem,
+                                    out);
+}
+int cft_split_setup_occupancy_f64(int smem, int* out) {
+  return cft::tile_kernel_occupancy(cft::split_setup_kernel<double>, smem,
+                                    out);
+}
+int cft_split_newton_occupancy_f32(int smem, int* out) {
+  return cft::tile_kernel_occupancy(cft::split_newton_kernel<float>, smem,
+                                    out);
+}
+int cft_split_newton_occupancy_f64(int smem, int* out) {
+  return cft::tile_kernel_occupancy(cft::split_newton_kernel<double>, smem,
+                                    out);
 }
 
 }  // extern "C"

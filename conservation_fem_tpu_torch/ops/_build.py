@@ -50,10 +50,13 @@ _SIGNATURES = {
     "cft_cg_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _P],
     "cft_fused_rv_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "cft_split_setup": [_P] * 12 + [_I] * 6 + [_P],
-    "cft_split_newton": [_P] * 13 + [_I] * 4 + [_P],
+    "cft_split_setup": [_P] * 12 + [_I] * 8 + [_P],
+    "cft_split_newton": [_P] * 13 + [_I] * 8 + [_P],
     "cft_tiled_rv_step": [_P] * 10 + [_I] * 14 + [_P],
+    # (dynamic shared memory, int[5] out) of each tile-pipeline kernel
     "cft_tiled_occupancy": [_I, _P],
+    "cft_split_setup_occupancy": [_I, _P],
+    "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 10 + [_P],
 }
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x

@@ -1,5 +1,7 @@
 """Whole stabilised time step: the Hopper kernels (csrc/fused_step.cu,
 csrc/split_step.cu, csrc/block_step.cu) and their plain PyTorch versions.
+The split kernels run the tiled kernel's tile pipeline, with its tile plan
+from ops/tiled_step.
 
 Port of conservation_fem_tpu/ops/pallas_fused.fused_rv_step,
 fused_rv_step_split and fused_rv_block_step. One step is the BDF1/BDF2 residual projection (fixed
@@ -174,9 +176,13 @@ def _split_setup_plain(sd, u, uo, uoo, g, **kw):
     return Kc, torch.stack([N_un, K_un]), uk, F
 
 
-def _split_newton_plain(sd, uk, F, u, g, Kc, aux, w, **kw):
+def _split_newton_plain(sd, uk, F, u, g, Kc, aux, w, *, relinearize=True,
+                        residual=True, **kw):
     """One split Newton stage: the Jacobian at w, the fixed inner solve of
-    J dx = -F, uk + dx and its residual; returns (uk', F(uk'))."""
+    J dx = -F, uk + dx and its residual; returns (uk', F(uk')), or (uk',
+    None) for residual=False. relinearize=False stands for the Jacobian a
+    stage at the same w left behind (the kernel reads it from its scratch):
+    it is formed at w here, which gives the same values."""
     dt, flux = kw["dt"], kw["flux"]
     jmv, pre = _linearize_plain(sd, Kc, w, dt=dt, flux=flux)
     if kw["inner_solver"] == "cheby":
@@ -186,6 +192,8 @@ def _split_newton_plain(sd, uk, F, u, g, Kc, aux, w, **kw):
     else:
         du = bicgstab_fixed(jmv, -F, iters=kw["lin_iters"], precond=pre).x
     uk = uk + du
+    if not residual:
+        return uk, None
     return uk, _residual_plain(sd, uk, u, g, Kc, aux[0], aux[1], dt=dt,
                                flux=flux)
 
@@ -321,11 +329,25 @@ def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
     return ring[(K + 2) % 4], ring[(K + 1) % 4], ring[K % 4]
 
 
-def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, **step):
+def _split_plan(u2, s, dtype, tile_rows, kernel):
+    """(rows, cols) of the tile plan of a split launch on the card
+    (ops/tiled_step.card_plan with ``kernel``'s occupancy)."""
+    # imported here: ops/tiled_step imports this module
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
+
+    plan = ts.card_plan(s["nx"] + 1, s["ny"] + 1, dtype, tile_rows,
+                        ts.device_index(u2), kernel)
+    return plan["rows"], plan["cols"]
+
+
+def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, tile_rows=None,
+                **step):
     """The setup launch of the split step (pallas_fused.fused_rv_step_split
     setup_kernel): returns (Kc (7, n1x, n1y), aux = (N(u), K u)
     (2, n1x, n1y), uk0, F(uk0)). scratch: (work, partials) from
-    ``new_scratch`` (None: new ones)."""
+    ``new_scratch`` (None: new ones); tile_rows: rows per tile of the
+    kernel's tile pipeline (None: ops/tiled_step.default_tile_rows), not
+    used on the CPU."""
     s = step_args("split_setup", step)
     if _build.on_cpu("split_setup", u2, uo2, uoo2, g2, Mc2):
         return _split_setup_plain(_plain_data(u2, Mc2, s), u2, uo2, uoo2,
@@ -333,6 +355,7 @@ def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, **step):
     n1x, n1y = s["nx"] + 1, s["ny"] + 1
     dtype, consts = _launch_prep("split_setup", s, [u2, uo2, uoo2, g2, Mc2],
                                  [(n1x, n1y)] * 4 + [(7, n1x, n1y)])
+    rows, cols = _split_plan(u2, s, dtype, tile_rows, "split_setup")
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=u2.device)
     Kc, aux = new(7, n1x, n1y), new(2, n1x, n1y)
     uk, F = new(n1x, n1y), new(n1x, n1y)
@@ -343,57 +366,82 @@ def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, **step):
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), uk.data_ptr(),
             F.data_ptr(), work.data_ptr(), part.data_ptr(),
-            consts.data_ptr(), n1x, n1y, int(s["cg_iters"]), bdf2, rv,
-            cheby, _build.stream_ptr(u2))
+            consts.data_ptr(), n1x, n1y, rows, cols, int(s["cg_iters"]),
+            bdf2, rv, cheby, _build.stream_ptr(u2))
     _build.launches["split_setup"] += 1
     _build.check(code, "split_setup")
     return Kc, aux, uk, F
 
 
 def split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, *, scratch=None,
-                 **step):
+                 tile_rows=None, relinearize=True, residual=True, **step):
     """One Newton launch of the split step (pallas_fused.fused_rv_step_split
     newton_kernel): the Jacobian at w, the inner solve, uk + dx; returns
-    (uk', F(uk')). scratch: as for split_setup."""
+    (uk', F(uk')). scratch, tile_rows: as for split_setup.
+
+    relinearize=False: the Jacobian planes and their preconditioner are
+    the ones a launch at the same w left in ``scratch`` (which must be
+    given), and the launch re-initialises the inner solver from F alone
+    (a frozen Jacobian after the first iteration). residual=False: the
+    launch writes uk + dx and no F(uk'), and returns (uk', None) (the last
+    iteration). The defaults are the TPU kernel's contract."""
     s = step_args("split_newton", step)
+    if not relinearize and scratch is None:
+        raise ValueError("split_newton: relinearize=False takes the "
+                         "Jacobian a launch at the same w left in its "
+                         "scratch; pass that scratch")
     if _build.on_cpu("split_newton", uk, F, u2, g2, Mc2, Kc, aux, w):
         return _split_newton_plain(_plain_data(u2, Mc2, s), uk, F, u2, g2,
-                                   Kc, aux, w, **_body_kw(s))
+                                   Kc, aux, w, relinearize=relinearize,
+                                   residual=residual, **_body_kw(s))
     n1x, n1y = s["nx"] + 1, s["ny"] + 1
     fld = (n1x, n1y)
     dtype, consts = _launch_prep(
         "split_newton", s, [uk, F, u2, g2, Mc2, Kc, aux, w],
         [fld] * 4 + [(7, n1x, n1y), (7, n1x, n1y), (2, n1x, n1y), fld])
-    new = lambda *shape: torch.empty(shape, dtype=dtype, device=u2.device)
-    uk_out, F_out = new(n1x, n1y), new(n1x, n1y)
+    rows, cols = _split_plan(u2, s, dtype, tile_rows, "split_newton")
+    uk_out = torch.empty(fld, dtype=dtype, device=u2.device)
+    F_out = (torch.empty(fld, dtype=dtype, device=u2.device) if residual
+             else None)
     work, part = scratch or new_scratch(dtype, u2.device, n1x, n1y)
     *_, cheby = _flags(s)
     with torch.cuda.device(u2.device):
         code = _build.entry("cft_split_newton", dtype)(
             uk.data_ptr(), F.data_ptr(), u2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), w.data_ptr(),
-            uk_out.data_ptr(), F_out.data_ptr(), work.data_ptr(),
-            part.data_ptr(), consts.data_ptr(), n1x, n1y,
-            int(s["lin_iters"]), cheby, _build.stream_ptr(u2))
+            uk_out.data_ptr(), F_out.data_ptr() if residual else 0,
+            work.data_ptr(), part.data_ptr(), consts.data_ptr(), n1x, n1y,
+            rows, cols, int(s["lin_iters"]), cheby, int(bool(relinearize)),
+            int(bool(residual)), _build.stream_ptr(u2))
     _build.launches["split_newton"] += 1
     _build.check(code, "split_newton")
     return uk_out, F_out
 
 
-def fused_rv_step_split(u2, uo2, uoo2, g2, Mc2, **step):
+def fused_rv_step_split(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None, **step):
     """One stabilised step in 1 + newton_iters launches; replaces
-    pallas_fused.fused_rv_step_split. Returns u_{n+1} (n1x, n1y). The
-    launches share one scratch."""
+    pallas_fused.fused_rv_step_split. Returns u_{n+1} (n1x, n1y).
+
+    The launches share one scratch and one tile plan (tile_rows None: the
+    default for the Newton kernel, launched newton_iters times). They run
+    the single step's passes: with a frozen Jacobian only the first Newton
+    launch linearises, and the last one writes uk + dx without a residual.
+    """
     s = step_args("fused_rv_step_split", step)
     if _build.on_cpu("fused_rv_step_split", u2, uo2, uoo2, g2, Mc2):
         return fused_rv_step_split_plain(u2, uo2, uoo2, g2, Mc2, **s)
+    if tile_rows is None:
+        tile_rows = _split_plan(u2, s, u2.dtype, None, "split_newton")[0]
     scr = new_scratch(u2.dtype, u2.device, s["nx"] + 1, s["ny"] + 1)
-    Kc, aux, uk, F = split_setup(u2, uo2, uoo2, g2, Mc2, scratch=scr, **s)
-    w0 = uk
-    for _ in range(s["newton_iters"]):
-        w = w0 if s["freeze_jacobian"] else uk
-        uk, F = split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, scratch=scr,
-                             **s)
+    Kc, aux, uk, F = split_setup(u2, uo2, uoo2, g2, Mc2, scratch=scr,
+                                 tile_rows=tile_rows, **s)
+    w0, frozen, iters = uk, s["freeze_jacobian"], s["newton_iters"]
+    for it in range(iters):
+        uk, F = split_newton(uk, F, u2, g2, Mc2, Kc, aux,
+                             w0 if frozen else uk, scratch=scr,
+                             tile_rows=tile_rows,
+                             relinearize=not (frozen and it > 0),
+                             residual=it + 1 < iters, **s)
     return uk
 
 

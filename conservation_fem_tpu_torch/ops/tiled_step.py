@@ -18,7 +18,10 @@ back (zero on rows outside the grid; only the owned rows equal the
 whole-grid step's). Its plain version is ``fused_step.block_step_plain``,
 that of fused_rv_block_step.
 
-The tile plan is chosen here, where the CPU tests reach it. A tile is
+The tile plan is chosen here, where the CPU tests reach it, for this
+kernel and for the split step's kernels (ops/fused_step.split_setup,
+split_newton), which run the same tile pipeline (csrc/tile_sweep.cuh);
+``card_plan`` takes the occupancy of the kernel it is asked for. A tile is
 ``tile_rows`` rows (the JAX meaning) by at most MAX_TILE_COLS columns. The
 kernel copies each sweep's raw fields and operator planes into two
 shared-memory stages (the next tile while this one computes), so the
@@ -41,7 +44,7 @@ import torch
 from conservation_fem_tpu_torch.ops import _build
 from conservation_fem_tpu_torch.ops import fused_step as fs
 
-# A stage (csrc/tiled_step.cu kStageHalo, kStageNode): STAGE_HALO fields
+# A stage (csrc/tile_sweep.cuh kStageHalo, kStageNode): STAGE_HALO fields
 # over the tile and its one-node halo, and STAGE_NODE values per node over
 # the tile — the most any sweep reads: 4 fields at neighbours (the
 # BiCGStab direction), 3 node fields and 2 operators of 7 planes (the
@@ -65,6 +68,10 @@ SECTOR = 32   # bytes of a device-memory sector
 # tiles beat 8-row ones by 3% and 8%.
 TILE_SECTORS = 224
 TILE_ROWS = (64, 32, 16, 8)   # default_tile_rows' candidates, largest first
+# the kernels that run the tile pipeline: name -> C occupancy entry
+OCCUPANCY_ENTRIES = {"tiled": "cft_tiled_occupancy",
+                     "split_setup": "cft_split_setup_occupancy",
+                     "split_newton": "cft_split_newton_occupancy"}
 
 
 def smem_budget(itemsize):
@@ -115,7 +122,7 @@ def tile_geometry(n1x, n1y, itemsize, tile_rows):
 
 def tile_origins(lo, hi, n1y, rows, cols):
     """[(row, column)] of the first node of each tile over rows [lo, hi),
-    in the kernel's tile order (csrc/tiled_step.cu TileGrid): block b
+    in the kernel's tile order (csrc/tile_sweep.cuh TileGrid): block b
     sweeps tiles b, b + blocks, ..."""
     tiles_y = -(-n1y // cols)
     count = -(-(hi - lo) // rows) * tiles_y
@@ -159,31 +166,47 @@ def default_tile_rows(n1x, n1y, itemsize, n_sm, blocks_per_sm):
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(dtype, smem, device_index=0):
-    """What the card gives the tiled kernel with smem bytes of dynamic
-    shared memory: blocks_per_sm (from the CUDA occupancy calculator),
-    registers and local_bytes (spills) per thread, static_smem and
-    max_dynamic_smem per block."""
+def occupancy(dtype, smem, device_index=0, kernel="tiled"):
+    """What the card gives ``kernel`` (a key of OCCUPANCY_ENTRIES) with
+    smem bytes of dynamic shared memory: blocks_per_sm (from the CUDA
+    occupancy calculator), registers and local_bytes (spills) per thread,
+    static_smem and max_dynamic_smem per block."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        code = _build.entry("cft_tiled_occupancy", dtype)(int(smem), out)
-    _build.check(code, "tiled_rv_step occupancy")
+        code = _build.entry(OCCUPANCY_ENTRIES[kernel], dtype)(int(smem), out)
+    _build.check(code, f"{kernel} occupancy")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
                      "static_smem", "max_dynamic_smem"), out))
 
 
-def card_plan(n1x, n1y, dtype, tile_rows=None, device_index=0):
-    """``tile_plan`` on the card (tile_rows None: ``default_tile_rows``)."""
+@functools.lru_cache(maxsize=None)
+def _card_plan(n1x, n1y, dtype, tile_rows, device_index, kernel):
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_sm = torch.cuda.get_device_properties(
         device_index).multi_processor_count
 
     def per_sm(smem):
-        return occupancy(dtype, smem, device_index)["blocks_per_sm"]
+        return occupancy(dtype, smem, device_index, kernel)["blocks_per_sm"]
 
     if tile_rows is None:
         tile_rows = default_tile_rows(n1x, n1y, itemsize, n_sm, per_sm)
     return tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, per_sm)
+
+
+def card_plan(n1x, n1y, dtype, tile_rows=None, device_index=0,
+              kernel="tiled"):
+    """``tile_plan`` on the card for ``kernel`` (a key of
+    OCCUPANCY_ENTRIES: its blocks per SM; tile_rows None:
+    ``default_tile_rows``). Plans are computed once per argument set."""
+    return dict(_card_plan(int(n1x), int(n1y), dtype,
+                           None if tile_rows is None else int(tile_rows),
+                           int(device_index), kernel))
+
+
+def device_index(t):
+    """The CUDA device index of tensor t (the current device for "cuda")."""
+    return torch.cuda.current_device() if t.device.index is None \
+        else t.device.index
 
 
 def _check_tiled_options(inner_solver, bf16_planes):
@@ -250,9 +273,7 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
         lo, hi = fs.block_rows(n1x, int(row0_base), n_rows)
     else:
         lo, hi = 0, n1x
-    plan = card_plan(hi - lo, n1y, dtype, tile_rows,
-                     torch.cuda.current_device() if dev.index is None
-                     else dev.index)
+    plan = card_plan(hi - lo, n1y, dtype, tile_rows, device_index(u2))
     out = torch.empty((n1x, n1y), dtype=dtype, device=dev)
     work, part = fs.new_scratch(dtype, dev, n1x, n1y)
     keep, abs_ptr = (fs.abs_term_ptr(abs_term, s, dtype, dev) if block

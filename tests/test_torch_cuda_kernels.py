@@ -141,6 +141,11 @@ def test_kernels_repeat_bit_for_bit(cuda):
     t1 = ts.tiled_rv_step(*args, tile_rows=1, **kw)
     t2 = ts.tiled_rv_step(*args, tile_rows=1, **kw)
     assert torch.equal(t1, t2)
+    # the split step on the same pipeline, its default plan and 1-row tiles
+    for rows in (None, 1):
+        s1 = fs.fused_rv_step_split(*args, tile_rows=rows, **kw)
+        s2 = fs.fused_rv_step_split(*args, tile_rows=rows, **kw)
+        assert torch.equal(s1, s2)
 
 
 def _state(cuda, mesh_size):
@@ -185,6 +190,69 @@ def test_split_kernels_match_plain_stages(cuda, solver, frozen):
             == before.get("split_newton", 0) + 1 + kw["newton_iters"])
     single = fs.fused_rv_step(u2, uo2, uoo2, g2, p.sd.M_coef, **kw)[0]
     torch.testing.assert_close(out, single, rtol=0, atol=F64_TOL)
+
+
+@pytest.mark.parametrize("relinearize,residual", [(True, True),
+                                                  (True, False),
+                                                  (False, True),
+                                                  (False, False)])
+@pytest.mark.parametrize("solver", ["bicgstab", "cheby"])
+def test_split_newton_keywords_match_plain_stage(cuda, solver, relinearize,
+                                                 residual):
+    """Mesh 16 (17 rows: two 8-row tiles and a ragged one), f64: a Newton
+    launch with each pair of keywords against the plain stage. Without
+    relinearisation the launch takes the Jacobian that a launch at the same
+    w left in the same scratch; without the residual it returns none."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, 16)
+    Mc = p.sd.M_coef
+    kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+              cg_iters=6 if solver == "bicgstab" else 10,
+              lin_iters=4 if solver == "bicgstab" else 16)
+    s = fs.step_args("test", kw)
+    sd, body = fs._plain_data(u2, Mc, s), fs._body_kw(s)
+    scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+    Kc, aux, uk, F = fs.split_setup(u2, uo2, uoo2, g2, Mc, scratch=scr,
+                                    tile_rows=8, **kw)
+    for a, b in zip((Kc, aux, uk, F),
+                    fs._split_setup_plain(sd, u2, uo2, uoo2, g2, **body)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
+    w = uk
+    # the first Newton launch of the step: it linearises at w, leaving the
+    # Jacobian in the scratch
+    uk1, F1 = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, w, scratch=scr,
+                              tile_rows=8, **kw)
+    before = _build.launches["split_newton"]
+    got = fs.split_newton(uk1, F1, u2, g2, Mc, Kc, aux, w, scratch=scr,
+                          tile_rows=8, relinearize=relinearize,
+                          residual=residual, **kw)
+    assert _build.launches["split_newton"] == before + 1
+    ref = fs._split_newton_plain(sd, uk1, F1, u2, g2, Kc, aux, w,
+                                 relinearize=relinearize, residual=residual,
+                                 **body)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-10)
+    if residual:
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=1e-10)
+    else:
+        assert got[1] is None and ref[1] is None
+
+
+@pytest.mark.parametrize("mesh,tile_rows", [(16, 8), (64, None)])
+def test_split_step_matches_tiled_kernel_on_the_same_plan(cuda, mesh,
+                                                          tile_rows):
+    """The split step runs the tiled kernel's passes in its order over the
+    same tiles and blocks, with the same deterministic reductions, f64,
+    BiCGStab with a frozen and Chebyshev with a fresh Jacobian: the tiled
+    kernel's result bit for bit."""
+    p, u2, uo2, uoo2, g2 = _state(cuda, mesh)
+    args = (u2, uo2, uoo2, g2, p.sd.M_coef)
+    for solver, frozen in (("bicgstab", True), ("cheby", False)):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, newton_iters=3,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16)
+        split = fs.fused_rv_step_split(*args, tile_rows=tile_rows, **kw)
+        tiled = ts.tiled_rv_step(*args, tile_rows=tile_rows, **kw)
+        assert torch.equal(split, tiled)
 
 
 @pytest.mark.parametrize("solver,frozen,newton,stabilization,scheme", [
@@ -263,8 +331,9 @@ def test_tiled_kernel_tile_plans(cuda, name, mesh, tile_rows, dtype):
 
 def test_step_kernels_refuse_bad_arguments(cuda):
     """On CUDA tensors: bf16 planes, block mode with BiCGStab or (rv)
-    without abs_term, and a flux other than KPP for every step kernel,
-    raise before a launch."""
+    without abs_term, a flux other than KPP for every step kernel, and
+    tiles of fewer than one row for the split kernels raise before a
+    launch."""
     p = _problem(cuda, 4, "float64", T=0.0)
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
@@ -287,6 +356,15 @@ def test_step_kernels_refuse_bad_arguments(cuda):
     with pytest.raises(NotImplementedError, match="KPP"):
         fs.fused_rv_block_step(*args, 0, 1.0, n_rows=17, n_cols=17,
                                **block_kw)
+    # tiles of fewer than one row, for the split wrappers
+    planes = torch.zeros((7, 17, 17), dtype=u2.dtype, device=cuda)
+    aux = torch.zeros((2, 17, 17), dtype=u2.dtype, device=cuda)
+    for call in (lambda: fs.split_setup(*args, tile_rows=0, **kw),
+                 lambda: fs.split_newton(u2, u2, u2, u2, p.sd.M_coef, planes,
+                                         aux, u2, tile_rows=0, **kw),
+                 lambda: fs.fused_rv_step_split(*args, tile_rows=-1, **kw)):
+        with pytest.raises(ValueError, match="tile_rows"):
+            call()
     assert sum(_build.launches.values()) == before
 
 

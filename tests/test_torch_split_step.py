@@ -8,8 +8,11 @@ fresh Jacobian.
 Tolerance 1e-11 absolute on O(1-10) fields: the bound of the JAX
 package's own fused-vs-XLA identity tests; the port sums the same terms in
 another order. The stages chained by hand must give the port's own single
-step to 1e-13 (the same plain arithmetic). Interpret mode costs ~5 s per
-launch here, so it runs one case at mesh 4."""
+step to 1e-13 (the same plain arithmetic), and the stages chained as the
+wrapper chains them on the card (no relinearisation after the first
+frozen iteration, no residual after the last) the default chain bit for
+bit. Interpret mode costs ~5 s per launch here, so it runs one case at
+mesh 4."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +119,34 @@ def test_split_stages_compose_to_the_single_step(state, solver, frozen):
     assert float(F[p.sd.bc2].abs().max()) == 0.0
     assert float(F.abs().max()) < float(
         fs.split_setup(u2, uo2, uoo2, g2, Mc, **kw)[3].abs().max())
+
+
+@pytest.mark.parametrize("frozen", [True, False])
+def test_split_newton_keywords_keep_the_chain(state, frozen):
+    """The chain fused_rv_step_split runs on the card — relinearize=False
+    after the first iteration of a frozen Jacobian, residual=False on the
+    last — gives the default chain's iterate bit for bit (on CPU tensors:
+    the plain stages), and the last stage returns no residual. Without a
+    scratch to take the Jacobian from, relinearize=False raises."""
+    p, u2, uo2, uoo2, g2 = state
+    kw = dict(p.fused_step_kwargs(), freeze_jacobian=frozen, newton_iters=3)
+    Mc = p.sd.M_coef
+    Kc, aux, uk0, F0 = fs.split_setup(u2, uo2, uoo2, g2, Mc, tile_rows=8,
+                                      **kw)
+    scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+    iters = kw["newton_iters"]
+    (uk, F), (vk, G) = (uk0, F0), (uk0, F0)
+    for it in range(iters):
+        w_u, w_v = (uk0, uk0) if frozen else (uk, vk)
+        uk, F = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, w_u, **kw)
+        vk, G = fs.split_newton(vk, G, u2, g2, Mc, Kc, aux, w_v,
+                                scratch=scr, tile_rows=8,
+                                relinearize=not (frozen and it > 0),
+                                residual=it + 1 < iters, **kw)
+        assert (G is None) == (it + 1 == iters)
+    assert torch.equal(vk, uk)
+    assert torch.equal(fs.fused_rv_step_split(u2, uo2, uoo2, g2, Mc, **kw),
+                       uk)
+    with pytest.raises(ValueError, match="scratch"):
+        fs.split_newton(uk0, F0, u2, g2, Mc, Kc, aux, uk0, relinearize=False,
+                        **kw)

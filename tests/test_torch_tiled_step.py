@@ -181,6 +181,62 @@ def test_default_tile_rows_minimises_rounds(n1x, n1y, itemsize, per_sm):
         rows for rows, c in costs.items() if c == best)
 
 
+# (n1, itemsize, tile plan): the measured default plans at mesh 256 and 512, one
+# block per SM on the H100 SXM's 132 SMs (f64 tiles narrow to 40 columns
+# so that two stages fit)
+PINNED_PLANS = [
+    (1025, 4, dict(rows=16, cols=61, tiles=1105, blocks=132, rounds=9)),
+    (2049, 4, dict(rows=16, cols=63, tiles=4257, blocks=132, rounds=33)),
+    (1025, 8, dict(rows=16, cols=40, tiles=1690, blocks=132, rounds=13)),
+    (2049, 8, dict(rows=16, cols=40, tiles=6708, blocks=132, rounds=51)),
+]
+
+
+@pytest.mark.parametrize("n1,itemsize,want", PINNED_PLANS,
+                         ids=["mesh256-f32", "mesh512-f32", "mesh256-f64",
+                              "mesh512-f64"])
+def test_default_plans_at_mesh_256_and_512(n1, itemsize, want):
+    """The tiled main paths keep their measured plans: 16-row tiles."""
+    rows = ts.default_tile_rows(n1, n1, itemsize, 132, _one_per_sm)
+    plan = ts.tile_plan(n1, n1, itemsize, rows, 132, _one_per_sm)
+    assert {k: plan[k] for k in want} == want
+
+
+@pytest.mark.parametrize("kernel,per_sm", [("tiled", 1), ("split_setup", 1),
+                                           ("split_newton", 1),
+                                           ("split_newton", 2)])
+def test_card_plan_takes_the_launched_kernels_occupancy(monkeypatch, kernel,
+                                                        per_sm):
+    """card_plan at mesh 128 (513 x 513, f32) asks the occupancy of the
+    kernel it is given (a fake card here: 132 SMs, per_sm blocks each),
+    and its plan is tile_plan's with that occupancy and the default rows;
+    one plan serves all of a split step's launches."""
+    asked = []
+
+    def fake_occupancy(dtype, smem, device_index=0, kernel="tiled"):
+        asked.append(kernel)
+        return dict(blocks_per_sm=per_sm)
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(ts, "occupancy", fake_occupancy)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: Props())
+    ts._card_plan.cache_clear()
+    try:
+        plan = ts.card_plan(513, 513, torch.float32, kernel=kernel)
+        fixed = ts.card_plan(513, 513, torch.float32, 8, kernel=kernel)
+    finally:
+        ts._card_plan.cache_clear()
+    assert asked and set(asked) == {kernel}
+    fake = lambda smem: per_sm
+    rows = ts.default_tile_rows(513, 513, 4, 132, fake)
+    assert plan == ts.tile_plan(513, 513, 4, rows, 132, fake)
+    assert plan["resident"] == 132 * per_sm
+    assert (fixed["rows"], fixed["cols"]) == ts.tile_geometry(513, 513, 4, 8)
+
+
 def test_tiled_refuses_what_is_not_ported():
     """bf16 planes raise, naming their ROADMAP item, before any device
     dispatch; so do block mode with BiCGStab (its dots span the grid) or,
