@@ -64,10 +64,28 @@ exits non-zero:
      for 5 steps at mesh 64 and 256, through either kernel, against the
      single kernel (1e-11); and one
      ProcessGroupBlocks run on a one-rank NCCL group against LocalBlocks(1),
-     bit for bit.
+     bit for bit;
+  6. Burgers (models/burgers.py) through the step kernels' Burgers
+     instances (csrc/*_burgers.cu): (a) each instance against its plain
+     version with the Burgers flux from a state 30 steps in (single kernel
+     at mesh 64, split at 128, tiled at 256, the block kernel and tiled
+     block mode on 64 x 4 blocks; f64 two solver cases, f32), then timed
+     at its main path's shape (f32 single 200, split 400, tiled 800, an
+     interior block of 64 x 4); (c) the f64 reference config with
+     use_kernels (cg_solve): mesh 50 against the reference's last frame
+     (1e-9), mesh 100's L1 and L2 errors against the JAX package's (1e-3
+     relative: BURGERS_ERR_RTOL); (d) the fixed-iteration config through
+     burgers.build(...).solve() at mesh 200, 400, 800 in f32 (single,
+     split, tiled) and f64 (split, tiled, tiled), launch counts of each run
+     against the JAX package's step counts, errors against the exact
+     solution, µs/step, the idle share at mesh 200 f32, f32 within 1e-2 of
+     f64 and the f64 L1 error falling with the mesh; (e) one sharded f64
+     run at mesh 64 x 4 per block-mode kernel against the single-device
+     kernel path (1e-11).
 The second-to-last line is the per-kernel JSON summary (all eight ported
-kernels, each with its bound); the last line is {"ok": true, "device":
-{...}}.
+kernels, each with its bound; a step kernel's row also holds its Burgers
+instance's numbers under "burgers"); the last line is {"ok": true,
+"device": {...}}.
 
 The ablation (--ablate) times one fused_rv_step launch, f32 bench config,
 from the mid-trajectory state at mesh 64 and 256, with one keyword
@@ -136,6 +154,44 @@ SHARDED_VS_SINGLE = 1e-3   # |L2rel sharded - L2rel single device|, f32
 # tiled path has dipped to 0.496 while the sharded run stayed at 0.561.)
 SHARDED_RANGE_SLACK = 1e-2
 SHARDED_F64_STEPS = 5
+# Burgers (models/burgers.py). The fixed-iteration config of the JAX
+# package's fused Burgers test (tests/test_pallas_fused.py:152-155; RV,
+# bicgstab, T 0.5 from BurgersConfig), and the sharded Chebyshev config of
+# SHARDED with Burgers' P1 Chebyshev bounds (the config's defaults).
+BURGERS_FIXED = dict(stabilization="rv", cg_iters=10, newton_iters=2,
+                     newton_linear_iters=8, modified_newton=True)
+BURGERS_SHARDED = dict(inner_solver="cheby", newton_linear_iters=16)
+# steps of the sharded f64 gate (dt = 1/128 at mesh 64): as SHARDED_F64_STEPS
+# for KPP, a few steps, since the two paths sum in other orders and the
+# shocks grow that (the plain versions on the CPU: 1.7e-11 apart after the
+# 64 steps to T = 0.5)
+BURGERS_SHARDED_STEPS = 10
+BURGERS_STATE_STEPS = 30   # steps before the kernels' mid-trajectory state
+BURGERS_GOLDEN_TOL = 1e-9  # tests/test_golden_parity.py:184-191, mesh 50
+# The JAX package's errors of the f64 reference config at mesh 100 (101
+# steps) against the exact solution at t = 0.5, f64 on the CPU:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+#   jax.config.update('jax_enable_x64', True);
+#   from conservation_fem_tpu.models import burgers as b;
+#   p = b.build(b.BurgersConfig(mesh_size=100)); r = p.solve();
+#   print(r.num_steps, repr(float(b.l1_error_vs_exact(p, r.u, 0.5))),
+#   repr(float(b.l2_error_vs_exact(p, r.u, 0.5))))"
+BURGERS_JAX_MESH100 = dict(num_steps=101, l1=0.019605069883847758,
+                           l2=0.0946557754120581)
+# This config amplifies roundoff ~1e13-fold over mesh 100's 101 steps (the
+# RV n_i switch on the shocks): the JAX package's own scan solve and its
+# step jitted and chained end 9.3e-3 apart, their L1 errors 3.1e-4
+# relative apart (scripts/burgers_roundoff_growth.py, CPU f64). No other
+# summation order can hold these errors to 1e-9; the gate is 1e-3 relative,
+# about 3x the JAX package's own spread. Mesh 50 grows too little to show:
+# its gate is the golden frame's 1e-9.
+BURGERS_ERR_RTOL = 1e-3
+BURGERS_F32_VS_F64 = 1e-2  # L2rel of an f32 run against f64, same mesh
+# (mesh, dtype, the kernel _fused_mode must pick): 201 x 201 f32 is 161,604
+# B per field (single), 401 x 401 643,204 B (split), 801 x 801 beyond
+BURGERS_PATHS = ((200, "float32", "single"), (400, "float32", "split"),
+                 (800, "float32", "tiled"), (200, "float64", "split"),
+                 (400, "float64", "tiled"), (800, "float64", "tiled"))
 
 # The least time of a kernel's work: max(bytes / HBM rate, operations /
 # peak rate), H100 SXM data sheet (700 W): 3.35 TB/s; 67 TFLOP/s f32 and
@@ -148,25 +204,37 @@ PEAK_OPS = {"f32": 67e12, "f64": 34e12}
 # what depends on a triangle alone once per triangle, 2 per node, and what
 # depends on one of its corners once per corner, 6 per node. The kernels
 # recompute a triangle's part at each of its 3 corners; that is their cost,
-# not the work's.
+# not the work's. The flux's own operations per quadrature point: KPP a sin
+# and a cos; Burgers none (f' = (u, u), f'' = (1, 1) are free).
+FLUX_POINT_OPS = {"kpp": 2, "burgers": 0}
 OPS_STENCIL = 13                        # stencil_apply: 7 mul + 6 add
-OPS_NL = 2 * (10 + 6 * 10) + 6 * (6 * 2 + 2)   # nl_rhs_node: per triangle
-#   the gradient (10) and per quadrature point its value (5), sin, cos
-#   and f'(u_q) . grad u (3); per corner 6 weighted sums (2 each) + 2
-OPS_CONV = 2 * (10 + 6 * (10 + 3 * 5)) + 6 * 3 * (6 * 2 + 2)   # conv_planes
-#   _node: per triangle and quadrature point as OPS_NL plus the 3 terms
-#   fg phi_b + fx G_b0 + fy G_b1 (5 each); per corner 3 weighted sums
-OPS_PROJ_RHS = 5 + OPS_STENCIL + OPS_NL + 6   # du, M du, N(u), rhs, z, dots
 OPS_CG_ITER = OPS_STENCIL + 13          # M p, 2 dots, x, r, z, p
 OPS_CHEBY_ITER = OPS_STENCIL + 6        # A d, x, r, d
-OPS_RV = 3 + 6 * 5 + 8                  # max|u - mean|, patch max/min/|RH|,
-#   eps
 OPS_PLANES = 2 * 3 + 6 * 3 * 2 + OPS_STENCIL   # cell-mean eps per triangle,
 #   7 planes per corner, K u
-OPS_F = 7 + 2 * OPS_STENCIL + OPS_NL + 5   # F(uk): M (uk - u), N(uk), K uk
-OPS_LIN = OPS_CONV + 22                 # J = M + dt/2 (K + C), 1 / J_00
 OPS_BICG_ITER = 2 * OPS_STENCIL + 22    # J phat, J shat, 4 dots, s, shat,
 #   x, r, p, phat
+
+
+def flux_ops(flux):
+    """{part: operations per node} of the parts that depend on the flux
+    (a key of FLUX_POINT_OPS)."""
+    c = FLUX_POINT_OPS[flux]
+    # nl_rhs_node: per triangle the gradient (10) and per quadrature point
+    # its value (5), the flux's own operations and f'(u_q) . grad u (3);
+    # per corner 6 weighted sums (2 each) + 2
+    nl = 2 * (10 + 6 * (8 + c)) + 6 * (6 * 2 + 2)
+    # conv_planes_node: per triangle and quadrature point as nl plus the 3
+    # terms fg phi_b + fx G_b0 + fy G_b1 (5 each); per corner 3 weighted sums
+    conv = 2 * (10 + 6 * (8 + c + 3 * 5)) + 6 * 3 * (6 * 2 + 2)
+    return dict(
+        proj_rhs=5 + OPS_STENCIL + nl + 6,   # du, M du, N(u), rhs, z, dots
+        # max|u - mean|, patch max/min/|RH|, eps; Burgers' patch max |u|
+        # (7 abs, 6 max) and its speed sqrt(2) max|u| Cvel h (2)
+        rv=3 + 6 * 5 + 8 + (15 if flux == "burgers" else 0),
+        f=7 + 2 * OPS_STENCIL + nl + 5,      # F(uk): M (uk - u), N(uk), K uk
+        lin=conv + 22)                       # J = M + dt/2 (K + C), 1 / J_00
+
 
 # (name, fused_rv_step keyword arguments changed from the bench config)
 ABLATIONS = (
@@ -214,7 +282,8 @@ def phase_device():
 
 def phase_build():
     """Build the kernels; print the seconds and, from ptxas -v, each
-    kernel's registers per thread and spill stores."""
+    kernel's registers per thread and spill stores (a step kernel's
+    Burgers instance as "<kernel> burgers <dtype>")."""
     import re
 
     from conservation_fem_tpu_torch.ops import _build
@@ -225,9 +294,12 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     regs, name = {}, None
     for line in _build.build_log.splitlines():
-        m = re.search(r"entry function '_ZN3cft\d+(\w+?)_kernelI([fd])", line)
+        m = re.search(r"entry function '_ZN3cft\d+(\w+?)_kernelI([fd])"
+                      r"(?:NS_\d+(Kpp|Burgers)E)?", line)
         if m:
-            name = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+            flux = " burgers" if m.group(3) == "Burgers" else ""
+            name = (f"{m.group(1)}{flux} "
+                    f"{'f32' if m.group(2) == 'f' else 'f64'}")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))
@@ -262,19 +334,20 @@ def max_err(a, b):
 def step_ops(s, part="step", relinearize=True, residual=True):
     """Operations per node of one whole step (part "step"), of the split
     setup ("setup") or of one split Newton launch ("newton", with its two
-    keywords); s: the step's keyword arguments."""
+    keywords); s: the step's keyword arguments (the flux among them)."""
+    fo = flux_ops(s["flux"].name)
     cheby = s["inner_solver"] == "cheby"
-    head = (OPS_PROJ_RHS
+    head = (fo["proj_rhs"]
             + s["cg_iters"] * (OPS_CHEBY_ITER if cheby else OPS_CG_ITER)
-            + (OPS_RV if s["stabilization"] == "rv" else 0) + OPS_PLANES)
+            + (fo["rv"] if s["stabilization"] == "rv" else 0) + OPS_PLANES)
     newton = s["lin_iters"] * (OPS_CHEBY_ITER if cheby else OPS_BICG_ITER) + 1
     if part == "setup":
-        return head + OPS_F
+        return head + fo["f"]
     if part == "newton":
-        return (OPS_LIN if relinearize else 0) + newton + (
-            OPS_F if residual else 0)
+        return (fo["lin"] if relinearize else 0) + newton + (
+            fo["f"] if residual else 0)
     n_lin = 1 if s["freeze_jacobian"] else s["newton_iters"]
-    return head + s["newton_iters"] * (OPS_F + newton) + n_lin * OPS_LIN
+    return head + s["newton_iters"] * (fo["f"] + newton) + n_lin * fo["lin"]
 
 
 def head_sweeps(s, residual):
@@ -339,17 +412,20 @@ PTXAS_NAMES = {"tiled": "tiled_rv_step", "split_setup": "split_setup",
                "split_newton": "split_newton"}
 
 
-def plan_facts(n1x, n1y, dtype, regs, kernel="tiled", tile_rows=None):
+def plan_facts(n1x, n1y, dtype, regs, kernel="tiled", tile_rows=None,
+               flux="kpp"):
     """A tile-pipeline kernel's plan on the card (card_plan over n1x x n1y)
-    and what the card gives it: registers, spills, shared memory, resident
-    blocks."""
+    and what the card gives it, its instance for flux: registers, spills,
+    shared memory, resident blocks."""
     import torch
 
+    from conservation_fem_tpu_torch.ops import _build
     from conservation_fem_tpu_torch.ops import tiled_step as ts
 
     itemsize = torch.empty((), dtype=dtype).element_size()
-    plan = ts.card_plan(n1x, n1y, dtype, tile_rows, kernel=kernel)
-    info = ts.occupancy(dtype, plan["smem"], kernel=kernel)
+    plan = ts.card_plan(n1x, n1y, dtype, tile_rows, kernel=kernel, flux=flux)
+    info = ts.occupancy(dtype, plan["smem"],
+                        kernel=_build.launch_key(kernel, flux))
     if info["max_dynamic_smem"] < ts.smem_budget(itemsize):
         raise AssertionError(f"the card gives a block of {kernel} "
                              f"{info['max_dynamic_smem']} bytes of dynamic "
@@ -363,8 +439,9 @@ def plan_facts(n1x, n1y, dtype, regs, kernel="tiled", tile_rows=None):
         blocks_per_sm=info["blocks_per_sm"],
         resident_blocks=plan["resident"], registers=info["registers"],
         local_bytes=info["local_bytes"],
-        spill_stores=regs.get(f"{PTXAS_NAMES[kernel]} {dn}", {}).get(
-            "spill_stores", 0))
+        spill_stores=regs.get(
+            f"{PTXAS_NAMES[kernel]}{'' if flux == 'kpp' else ' ' + flux} "
+            f"{dn}", {}).get("spill_stores", 0))
 
 
 def floor_facts(sweeps, n, itemsize):
@@ -1070,11 +1147,14 @@ def _kernel_solve(p, kernel="single"):
     return _timed(run, p.num_steps)
 
 
-def _expected_launches(mode, steps, newton_iters):
-    return {"single": {"fused_rv_step": steps},
+def _expected_launches(mode, steps, newton_iters, flux="kpp"):
+    from conservation_fem_tpu_torch.ops import _build
+
+    want = {"single": {"fused_rv_step": steps},
             "split": {"split_setup": steps,
                       "split_newton": newton_iters * steps},
             "tiled": {"tiled_rv_step": steps}}[mode]
+    return {_build.launch_key(k, flux): v for k, v in want.items()}
 
 
 def run_main_path(mesh_size, T, mode, anchor, card):
@@ -1106,8 +1186,8 @@ def run_main_path(mesh_size, T, mode, anchor, card):
     log(f"mesh {mesh_size}: repeated kernel-path solves identical bit for "
         f"bit")
     # unprofiled idle share: 1 - steps x back-to-back step time / solve time
-    carry = (u, u, u)
-    step_ms = cuda_ms(lambda: p._step_fused(carry, p.dt), 20)
+    carry, g2 = (u, u, u), p.dirichlet_grid(p.dirichlet_frames([p.dt])[0])
+    step_ms = cuda_ms(lambda: p._step_fused(carry, g2), 20)
     idle = 1.0 - step_ms * 1e3 / us_kernel
     if mode != "single":
         # the same trajectory through the single kernel, for the dispatch
@@ -1497,6 +1577,454 @@ def sharded_paths(card, counts, runs):
     run_process_group_path()
 
 
+# ---------------------------------------------------------------------------
+# Burgers (models/burgers.py) through the step kernels' Burgers instances
+# ---------------------------------------------------------------------------
+
+
+def burgers_state(mesh, dtype="float64", **over):
+    """(problem, u, u_old, u_old_old, g) on the card after
+    BURGERS_STATE_STEPS steps of the plain f64 path of the fixed-iteration
+    config (the shocks have formed), g the Dirichlet data of the next step;
+    dtype: the problem's (the fields are f64 either way)."""
+    from conservation_fem_tpu_torch.models import burgers
+
+    cfg = burgers.BurgersConfig(mesh_size=mesh, **{**BURGERS_FIXED, **over})
+    p = burgers.build(dataclasses.replace(cfg, dtype="float64"),
+                      device="cuda")
+    carry = (p.u0,) * 3
+    times = p.step_times()
+    for t in times[:BURGERS_STATE_STEPS]:
+        carry, _ = p.step(carry, t)
+    sh = p._shape2
+    u2, uo2, uoo2 = (v.reshape(sh) for v in carry)
+    g2 = p.bc_value(p.points, times[BURGERS_STATE_STEPS]).reshape(sh)
+    if dtype != "float64":
+        p = burgers.build(dataclasses.replace(cfg, dtype=dtype),
+                          device="cuda")
+    return p, u2, uo2, uoo2, g2
+
+
+def _as(state, dtype):
+    """(problem, [u, u_old, u_old_old, g, M] in dtype, step kwargs)."""
+    p, *fields = state
+    return (p, [v.to(dtype) for v in fields] + [p.sd.M_coef.to(dtype)],
+            p.fused_step_kwargs())
+
+
+def check_burgers_kernels(regs):
+    """Each step kernel's Burgers instance against its plain version with
+    the Burgers flux, from BURGERS_STATE_STEPS steps in: the single kernel
+    at mesh 64, the split kernels at 128, the tiled kernel (whole grid) at
+    256, the block kernel and tiled block mode on 4 blocks of mesh 64 (the
+    sharded Chebyshev config); f64 (BiCGStab with a frozen and Chebyshev
+    with a fresh Jacobian) and f32 (the fixed config). Then the kernel of
+    each f64 main path (BURGERS_PATHS: split at mesh 200, tiled at 400 and
+    800, with the tile plans f64 narrows) at its shape, and each kernel
+    timed at the shapes its f32 main path gives it (single at mesh 200,
+    split at 400, tiled at 800; the block kernels on an interior block of
+    64 x 4), checked there first. Returns {kernel: Burgers row of the
+    kernels line}."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
+
+    errs = {}
+
+    def gate(name, e, dn, tol):
+        _gated(f"{name} (burgers)", e, dn, errs.setdefault(name, {}), tol)
+
+    def solver_cases(kw):
+        return [("fixed", kw), ("cheby fresh", dict(
+            kw, inner_solver="cheby", freeze_jacobian=False, lin_iters=16))]
+
+    def compare_single(f, kw, dn, label):
+        out = fs.fused_rv_step(*f, **kw)
+        ref = fs.fused_rv_step_plain(*f, **kw)
+        torch.cuda.synchronize()
+        e = max(max_err(a, b) for a, b in zip(out, ref))
+        log(f"burgers fused_rv_step {label} {dn}: max|kernel-plain| = "
+            f"{e:.3e} (step change {max_err(ref[0], f[0]):.3e})")
+        gate("fused_rv_step", e, dn, F64_TOL)
+
+    def compare_split(f, kw, dn, label):
+        u2, uo2, uoo2, g2, Mc = f
+        s = fs.step_args("split", kw)
+        sd, body = fs._plain_data(u2, Mc, s), fs._body_kw(s)
+        scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+        got = fs.split_setup(*f, scratch=scr, **kw)
+        ref = fs._split_setup_plain(sd, u2, uo2, uoo2, g2, **body)
+        e_setup = max(max_err(a, b) for a, b in zip(got, ref))
+        Kc, aux, uk, F = got
+        uk1, F1 = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, uk,
+                                  scratch=scr, **kw)
+        ref = fs._split_newton_plain(sd, uk, F, u2, g2, Kc, aux, uk, **body)
+        e_newton = max(max_err(uk1, ref[0]), max_err(F1, ref[1]))
+        last = fs.split_newton(uk1, F1, u2, g2, Mc, Kc, aux, uk, scratch=scr,
+                               relinearize=False, residual=False, **kw)
+        ref = fs._split_newton_plain(sd, uk1, F1, u2, g2, Kc, aux, uk,
+                                     relinearize=False, residual=False,
+                                     **body)
+        e_newton = max(e_newton, max_err(last[0], ref[0]))
+        e_step = max_err(fs.fused_rv_step_split(*f, **kw),
+                         fs.fused_rv_step_split_plain(*f, **kw))
+        torch.cuda.synchronize()
+        log(f"burgers split {label} {dn}: vs plain stage setup "
+            f"{e_setup:.3e}, newton (both main-path keyword pairs) "
+            f"{e_newton:.3e}; split step vs plain {e_step:.3e}")
+        gate("split_setup", e_setup, dn, TILED_F64_TOL)
+        gate("split_newton", max(e_newton, e_step), dn, TILED_F64_TOL)
+
+    def compare_tiled(f, kw, dn, label):
+        e = max_err(ts.tiled_rv_step(*f, **kw), ts.tiled_rv_step_plain(*f,
+                                                                      **kw))
+        torch.cuda.synchronize()
+        log(f"burgers tiled_rv_step {label} {dn}: max|kernel-plain| = "
+            f"{e:.3e}")
+        gate("tiled_rv_step", e, dn, TILED_F64_TOL)
+
+    def block_fns(ext, row0, abs_term, n1x, bkw):
+        n1y = ext[0].shape[1]
+        return {
+            "fused_rv_block_step": lambda: fs.fused_rv_block_step(
+                *ext, row0, abs_term, n_rows=n1x, n_cols=n1y, **bkw),
+            "tiled_rv_step_block": lambda: ts.tiled_rv_step(
+                *ext, row0_base=row0, n_rows=n1x, abs_term=abs_term,
+                **bkw)}
+
+    def blocks_of(f, kw):
+        u2 = f[0]
+        D = fs.required_halo(kw["cg_iters"], kw["newton_iters"],
+                             kw["lin_iters"])
+        blocks, L = _deep_halo_blocks(f[:4], f[4], 4, D)
+        abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+        bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+        return blocks, L, D, abs_term, bkw
+
+    def compare_blocks(f, kw, dn, label):
+        n1x, n1y = f[0].shape
+        blocks, L, D, abs_term, bkw = blocks_of(f, kw)
+        worst = {}
+        for d in (0, 1, 3):
+            row0, ext = blocks[d]
+            ref = fs.fused_rv_block_step_plain(*ext, row0, abs_term,
+                                               n_rows=n1x, n_cols=n1y, **bkw)
+            for name, fn in block_fns(ext, row0, abs_term, n1x,
+                                      bkw).items():
+                e = max_err(fn(), ref)
+                worst[name] = max(worst.get(name, 0.0), e)
+        torch.cuda.synchronize()
+        log(f"burgers block kernels {label} {dn} 4 blocks (L {L}, D {D}), "
+            f"blocks [0, 1, 3]: " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in worst.items()))
+        gate("fused_rv_block_step", worst["fused_rv_block_step"], dn,
+             F64_TOL)
+        gate("tiled_rv_step_block", worst["tiled_rv_step_block"], dn,
+             TILED_F64_TOL)
+
+    for mesh, compare in ((64, compare_single), (128, compare_split),
+                          (256, compare_tiled)):
+        state = burgers_state(mesh)
+        p, f64, kw = _as(state, torch.float64)
+        for label, k in solver_cases(kw):
+            compare(f64, k, "f64", f"mesh {mesh} {label}")
+        p, f32, kw = _as(burgers_state(mesh, "float32"), torch.float32)
+        compare(f32, kw, "f32", f"mesh {mesh} fixed")
+    for dtype, dn in (("float64", "f64"), ("float32", "f32")):
+        p, f, kw = _as(burgers_state(64, dtype, **BURGERS_SHARDED),
+                       getattr(torch, dtype))
+        compare_blocks(f, kw, dn, "mesh 64 Chebyshev 10/2x16")
+    # the f64 main paths' kernels at their shapes (run_burgers_paths holds
+    # _fused_mode to these picks)
+    compare = {"single": compare_single, "split": compare_split,
+               "tiled": compare_tiled}
+    for mesh, dtype, mode in BURGERS_PATHS:
+        if dtype == "float64":
+            p, f, kw = _as(burgers_state(mesh), torch.float64)
+            compare[mode](f, kw, "f64", f"mesh {mesh} fixed (main path "
+                                        f"shape)")
+
+    # timed, f32, at the main paths' shapes, the plain versions beside
+    rows = {}
+    p, f, kw = _as(burgers_state(200, "float32"), torch.float32)
+    n = f[0].numel()
+    compare_single(f, kw, "f32", "mesh 200 fixed (main path shape)")
+    rows["fused_rv_step"] = dict(
+        ms=cuda_ms(lambda: fs.fused_rv_step(*f, **kw), 20),
+        plain_ms=cuda_ms(lambda: fs.fused_rv_step_plain(*f, **kw), 3),
+        bound=bound(14 * n * 4, n * step_ops(fs.step_args("", kw)), "f32"),
+        timed_case="mesh-200 f32 fixed config (201 x 201), one step")
+    p, f, kw = _as(burgers_state(400, "float32"), torch.float32)
+    u2, uo2, uoo2, g2, Mc = f
+    n = u2.numel()
+    compare_split(f, kw, "f32", "mesh 400 fixed (main path shape)")
+    s = fs.step_args("split", kw)
+    sd, body = fs._plain_data(u2, Mc, s), fs._body_kw(s)
+    scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+    Kc, aux, uk, F = fs.split_setup(*f, scratch=scr, **kw)
+    uk1, F1 = fs.split_newton(uk, F, u2, g2, Mc, Kc, aux, uk, scratch=scr,
+                              **kw)
+
+    def newton_fn(relin, resid):
+        start = (uk, F) if relin else (uk1, F1)
+        return lambda: fs.split_newton(*start, u2, g2, Mc, Kc, aux, uk,
+                                       scratch=scr, relinearize=relin,
+                                       residual=resid, **kw)
+
+    fns = {"split_setup": lambda: fs.split_setup(*f, scratch=scr, **kw)}
+    for flags in MAIN_PATH_FLAGS:
+        fns[NEWTON_FLAGS[flags]] = newton_fn(*flags)
+    t = _alternated(fns, 20)
+    main, last = (NEWTON_FLAGS[fl] for fl in MAIN_PATH_FLAGS)
+    rows["split_setup"] = dict(
+        ms=t["split_setup"],
+        plain_ms=cuda_ms(lambda: fs._split_setup_plain(
+            sd, u2, uo2, uoo2, g2, **body), 3),
+        bound=bound(22 * n * 4, n * step_ops(s, "setup"), "f32"),
+        timed_case="mesh-400 f32 fixed config (401 x 401), one launch, in "
+                   "turns with the Newton launches",
+        **plan_facts(*u2.shape, torch.float32, regs, "split_setup",
+                     flux="burgers"))
+    rows["split_newton"] = dict(
+        ms=t[main],
+        plain_ms=cuda_ms(lambda: fs._split_newton_plain(
+            sd, uk, F, u2, g2, Kc, aux, uk, **body), 3),
+        bound=bound(split_newton_values(True, True) * n * 4,
+                    n * step_ops(s, "newton", True, True), "f32"),
+        timed_case="mesh-400 f32 fixed config, one launch with "
+                   "relinearisation and residual (the first of the main "
+                   "path's two), in turns",
+        ms_reinit_no_residual=t[last],
+        bound_ms_reinit_no_residual=bound(
+            split_newton_values(False, False) * n * 4,
+            n * step_ops(s, "newton", False, False), "f32")[0],
+        **plan_facts(*u2.shape, torch.float32, regs, "split_newton",
+                     flux="burgers"))
+    p, f, kw = _as(burgers_state(800, "float32"), torch.float32)
+    n = f[0].numel()
+    compare_tiled(f, kw, "f32", "mesh 800 fixed (main path shape)")
+    rows["tiled_rv_step"] = dict(
+        ms=cuda_ms(lambda: ts.tiled_rv_step(*f, **kw), 10),
+        plain_ms=cuda_ms(lambda: ts.tiled_rv_step_plain(*f, **kw), 2),
+        bound=bound(12 * n * 4, n * step_ops(fs.step_args("", kw)), "f32"),
+        timed_case="mesh-800 f32 fixed config (801 x 801), one step",
+        **{k: v for k, v in plan_facts(*f[0].shape, torch.float32, regs,
+                                       flux="burgers").items()
+           if k in TILED_FACT_KEYS})
+    p, f, kw = _as(burgers_state(64, "float32", **BURGERS_SHARDED),
+                   torch.float32)
+    n1x, n1y = f[0].shape
+    blocks, L, D, abs_term, bkw = blocks_of(f, kw)
+    row0, ext = blocks[1]
+    B = L + 2 * D
+    fns = block_fns(ext, row0, abs_term, n1x, bkw)
+    t = _alternated(fns, 20)
+    plain = cuda_ms(lambda: fs.fused_rv_block_step_plain(
+        *ext, row0, abs_term, n_rows=n1x, n_cols=n1y, **bkw), 2)
+    ops = step_ops(fs.step_args("", kw))
+    for name in fns:
+        rows[name] = dict(
+            ms=t[name], plain_ms=plain,
+            bound=bound(12 * B * n1y * 4, B * n1y * ops, "f32"),
+            timed_case=f"mesh-64 f32 Chebyshev 10/2x16, interior block of "
+                       f"4, {B} x {n1y}, in turns")
+    out = {}
+    for name, r in rows.items():
+        b = r.pop("bound")
+        out[name] = dict(
+            max_abs_err=errs[name]["f64"],
+            max_abs_err_f32=errs[name]["f32"], bound_ms=b[0],
+            bound_by=b[1], library_ms=None, **r)
+        log(f"burgers {name}: {r['ms']:.5f} ms ({r['timed_case']}); plain "
+            f"{r['plain_ms']:.4f} ms; bound {b[0]:.5f} ms ({b[1]}); max "
+            f"|kernel-plain| f64 {errs[name]['f64']:.3e}, f32 "
+            f"{errs[name]['f32']:.3e}")
+    return out
+
+
+def run_burgers_reference():
+    """The f64 reference config (adaptive solvers, exact Newton,
+    use_kernels: the mass solve is cg_solve): mesh 50 against the
+    reference's last frame, mesh 100's errors against the exact solution
+    against the JAX package's. Returns the cg_solve launches of mesh 50."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import burgers
+
+    p = burgers.build(burgers.BurgersConfig(mesh_size=50, use_kernels=True))
+    u, counts = _counted_solve(p)
+    ref = np.load(os.path.join(REPO, "golden", "burgers_rv50_final.npy"))
+    e = float(np.abs(u.cpu().numpy() - ref).max())
+    log(f"burgers reference config mesh 50 f64, {p.num_steps} steps: "
+        f"launches {counts}; max|u - golden/burgers_rv50 last frame| = "
+        f"{e:.3e} (gate {BURGERS_GOLDEN_TOL})")
+    if counts != {"cg_solve": p.num_steps} or p.num_steps != 51:
+        raise AssertionError(f"burgers mesh 50: {p.num_steps} steps, "
+                             f"launches {counts}")
+    if not e <= BURGERS_GOLDEN_TOL:
+        raise AssertionError(f"burgers mesh 50 differs from the golden "
+                             f"frame by {e}")
+    q = burgers.build(burgers.BurgersConfig(mesh_size=100, use_kernels=True))
+    uq, cq = _counted_solve(q)
+    got = dict(num_steps=q.num_steps,
+               l1=float(burgers.l1_error_vs_exact(q, uq, 0.5)),
+               l2=float(burgers.l2_error_vs_exact(q, uq, 0.5)))
+    rel = {k: abs(got[k] - BURGERS_JAX_MESH100[k]) / BURGERS_JAX_MESH100[k]
+           for k in ("l1", "l2")}
+    log(f"burgers reference config mesh 100 f64, {q.num_steps} steps: "
+        f"launches {cq}; L1 {got['l1']!r}, L2 {got['l2']!r} against the "
+        f"exact solution at t = 0.5; the JAX package's "
+        f"{BURGERS_JAX_MESH100['l1']!r}, {BURGERS_JAX_MESH100['l2']!r} "
+        f"(relative {rel['l1']:.2e}, {rel['l2']:.2e}; gate "
+        f"{BURGERS_ERR_RTOL})")
+    if (got["num_steps"] != BURGERS_JAX_MESH100["num_steps"]
+            or cq != {"cg_solve": q.num_steps}
+            or not max(rel.values()) <= BURGERS_ERR_RTOL):
+        raise AssertionError(f"burgers mesh 100: {got}, launches {cq}")
+    torch.cuda.synchronize()
+    return counts["cg_solve"]
+
+
+def run_burgers_paths(card):
+    """The fixed-iteration config through burgers.build(...).solve() with
+    use_kernels, f32 and f64 at mesh 200, 400 and 800 (BURGERS_PATHS): the
+    kernel _fused_mode picks, the launch counts of each run, errors against
+    the exact solution, µs/step after a warm-up solve, and the idle share
+    of mesh 200 f32. Gates: each f32 run within BURGERS_F32_VS_F64 (L2rel)
+    of the f64 run on its mesh; the f64 L1 error falls from 200 to 400 to
+    800. Returns ({launch key: count}, {launch key: run}) of the f32
+    runs."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import burgers
+
+    counts, runs, finals, l1_f64 = {}, {}, {}, []
+    for mesh, dtype, mode in BURGERS_PATHS:
+        cfg = burgers.BurgersConfig(mesh_size=mesh, dtype=dtype,
+                                    use_kernels=True, **BURGERS_FIXED)
+        p = burgers.build(cfg)
+        if p._fused_mode() != mode or p.num_steps != mesh + 1:
+            raise AssertionError(f"burgers mesh {mesh} {dtype}: mode "
+                                 f"{p._fused_mode()}, {p.num_steps} steps; "
+                                 f"expected {mode}, {mesh + 1}")
+        u, c = _counted_solve(p)
+        want = _expected_launches(mode, p.num_steps, cfg.newton_iters,
+                                  "burgers")
+        if c != want:
+            raise AssertionError(f"burgers mesh {mesh} {dtype}: launched "
+                                 f"{c}, expected {want}")
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"burgers mesh {mesh} {dtype}: not finite")
+        l1 = float(burgers.l1_error_vs_exact(p, u, 0.5))
+        l2 = float(burgers.l2_error_vs_exact(p, u, 0.5))
+        u_again, us = _timed_solve(p)
+        if not torch.equal(u_again, u):
+            raise AssertionError(f"burgers mesh {mesh} {dtype}: repeated "
+                                 "solves differ")
+        n = int(p.u0.numel())
+        extra = ""
+        if (mesh, dtype) == (200, "float32"):
+            carry = (u, u, u)
+            g2 = p.dirichlet_grid(p.dirichlet_frames(p.step_times()[:1])[0])
+            step_ms = cuda_ms(lambda: p._step_fused(carry, g2), 20)
+            idle = 1.0 - step_ms * 1e3 / us
+            prof = burgers_idle_profiled(p)
+            extra = (f"; back-to-back step {step_ms * 1e3:.1f} us, "
+                     f"unprofiled idle share {idle:.4%}; profiled: "
+                     f"{json.dumps(prof)}")
+        log(f"burgers path mesh {mesh} {dtype} ({mode}), fixed config, "
+            f"{p.num_steps} steps: launches {c}; L1 {l1!r}, L2 {l2!r} "
+            f"against the exact solution at t = 0.5; {us:.1f} us/step, "
+            f"{n / us * 1e6:.4g} DOF-steps/s ({card}){extra}")
+        finals[(mesh, dtype)] = u.double()
+        if dtype == "float64":
+            l1_f64.append(l1)
+        else:
+            for k, v in c.items():
+                counts.setdefault(k, v)
+                runs.setdefault(k, f"burgers mesh-{mesh} f32 fixed config "
+                                   f"({mode})")
+    for mesh in sorted({m for m, _, _ in BURGERS_PATHS}):
+        a, b = finals[(mesh, "float32")], finals[(mesh, "float64")]
+        rel = float((a - b).norm() / b.norm())
+        log(f"burgers mesh {mesh}: L2rel f32 vs f64 {rel:.4e} (gate "
+            f"{BURGERS_F32_VS_F64})")
+        if not rel <= BURGERS_F32_VS_F64:
+            raise AssertionError(f"burgers mesh {mesh}: f32 off f64 by {rel}")
+    if not l1_f64[0] > l1_f64[1] > l1_f64[2]:
+        raise AssertionError(f"burgers f64 L1 does not fall with the mesh: "
+                             f"{l1_f64}")
+    return counts, runs
+
+
+def burgers_idle_profiled(p):
+    """Device idle share of one solve under torch.profiler: the union of
+    the kernels' spans over the host's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.solve()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels)
+    return dict(profiled_wall_us=wall_us, profiled_device_busy_us=busy,
+                profiled_idle=1.0 - busy / wall_us,
+                device_kernels=len(kernels),
+                kernels_per_step=len(kernels) / p.num_steps)
+
+
+def run_burgers_sharded():
+    """One sharded Burgers run per block-mode kernel: f64, mesh 64 x 4
+    blocks, the sharded Chebyshev config (Burgers' P1 bounds),
+    BURGERS_SHARDED_STEPS steps, against the single-device kernel path of
+    the same config. Returns the launch counts and their run."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import burgers
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    cfg = burgers.BurgersConfig(mesh_size=64, T=BURGERS_SHARDED_STEPS / 128,
+                                **{**BURGERS_FIXED, **BURGERS_SHARDED})
+    ref = burgers.build(dataclasses.replace(cfg, use_kernels=True))
+    if ref._fused_mode() != "single":
+        raise AssertionError(f"burgers mesh 64 f64: {ref._fused_mode()}")
+    u_ref = ref.solve().u
+    if ref.num_steps != BURGERS_SHARDED_STEPS:
+        raise AssertionError(f"burgers sharded: {ref.num_steps} steps")
+    counts, runs = {}, {}
+    for kernel in ("block", "tiled"):
+        p = burgers.build(cfg)
+        sh = ShardedFusedStructured(p, LocalBlocks(4, "cuda"), kernel=kernel)
+        _build.launches.clear()
+        u = sh.solve()
+        torch.cuda.synchronize()
+        c = dict(_build.launches)
+        name = _build.launch_key("fused_rv_block_step" if kernel == "block"
+                                 else "tiled_rv_step_block", "burgers")
+        e = max_err(u, u_ref)
+        log(f"burgers sharded mesh 64 x 4 blocks ({kernel} kernel, L "
+            f"{sh.L}, B {sh.B}) f64 Chebyshev 10/2x16, {p.num_steps} steps: "
+            f"launches {c}; max|sharded - single kernel path| = {e:.3e} "
+            f"(gate {F64_TOL})")
+        if c != {name: p.num_steps * 4}:
+            raise AssertionError(f"burgers sharded {kernel}: launched {c}")
+        if not e <= F64_TOL:
+            raise AssertionError(f"burgers sharded {kernel} differs by {e}")
+        counts.update(c)
+        runs[name] = ("burgers sharded mesh 64 x 4 blocks, f64 Chebyshev "
+                      f"({kernel} kernel)")
+    return counts, runs
+
+
 def _busy_us(events):
     """Microseconds covered by the union of the events' time ranges."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -1533,7 +2061,8 @@ def idle_share(mesh):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(kernels)
     _, us_step = _timed_solve(p)
-    step_ms = cuda_ms(lambda: p._step_fused((u, u, u), p.dt), 20)
+    g2 = p.dirichlet_grid(p.dirichlet_frames([p.dt])[0])
+    step_ms = cuda_ms(lambda: p._step_fused((u, u, u), g2), 20)
     return dict(mode=p._fused_mode(), profiled_wall_us=wall_us,
                 profiled_device_busy_us=busy,
                 profiled_idle=1.0 - busy / wall_us,
@@ -1632,6 +2161,8 @@ def main(argv):
 
 
 def smoke(card, regs):
+    from conservation_fem_tpu_torch.ops import _build
+
     summary, states = {}, {}
     check_stencil_matvec(summary)
     check_cg_solve(summary)
@@ -1655,6 +2186,15 @@ def smoke(card, regs):
     runs["cg_solve"] = f"mesh-64 adaptive f64 config, {ADAPTIVE_STEPS} steps"
     runs["stencil_matvec"] = "none: no main path launches it"
     sharded_paths(card, counts, runs)
+    # Burgers: each kernel's instance against its plain version and timed,
+    # the f64 reference config, the fixed config's main paths, one sharded
+    # run per block-mode kernel
+    burgers_rows = check_burgers_kernels(regs)
+    burgers_cg = run_burgers_reference()
+    b_counts, b_runs = run_burgers_paths(card)
+    sharded_counts, sharded_runs = run_burgers_sharded()
+    b_counts.update(sharded_counts)
+    b_runs.update(sharded_runs)
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -1668,12 +2208,26 @@ def smoke(card, regs):
     }
     rows = []
     for name, (src, tpu) in sources.items():
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"conservation_fem_tpu_torch/csrc/{src}",
             replaces=f"conservation_fem_tpu/{tpu}",
             launches=counts.get(name, 0), launches_run=runs[name],
-            **summary[name]))
+            **summary[name])
+        if name in burgers_rows:
+            # the step kernels: one instance per flux; the row's own
+            # numbers are the KPP instance's
+            key = _build.launch_key(name, "burgers")
+            row.update(fluxes=["kpp", "burgers"], burgers=dict(
+                source=f"conservation_fem_tpu_torch/csrc/"
+                       f"{src[:-3]}_burgers.cu",
+                launches=b_counts.get(key, 0), launches_run=b_runs[key],
+                **burgers_rows[name]))
+        elif name == "cg_solve":
+            row.update(burgers_reference_launches=burgers_cg,
+                       burgers_reference_run="burgers mesh-50 f64 "
+                                             "reference config")
+        rows.append(row)
     log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
     log(card)
     log(json.dumps({"kernels": rows}))

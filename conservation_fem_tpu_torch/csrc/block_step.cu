@@ -1,6 +1,8 @@
-// Hopper kernel for the stabilised KPP-RV time step on a deep-halo row
+// Hopper kernel for the stabilised RV time step on a deep-halo row
 // block of a taller grid: the per-block kernel of the sharded fused path
-// (parallel/structured_fused_sharded.py).
+// (parallel/structured_fused_sharded.py). This source builds the KPP
+// instance, block_step_burgers.cu the Burgers one (fused_step.cuh Kpp,
+// Burgers).
 //
 // Replaces pallas_fused.fused_rv_block_step (conservation_fem_tpu/ops/
 // pallas_fused.py:491): one step of the single kernel's algorithm
@@ -41,7 +43,7 @@ template <typename T> struct BlockParams {
   int cg_iters, newton_iters, lin_iters, bdf2, rv, freeze;
 };
 
-template <typename T>
+template <typename T, typename Fl>
 __global__ void __launch_bounds__(kBlock, 1)
 fused_rv_block_step_kernel(BlockParams<T> P) {
   __shared__ RedScratch<T> scratch;
@@ -49,9 +51,10 @@ fused_rv_block_step_kernel(BlockParams<T> P) {
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  StepPhases<T, GridSweep<T>> S(grid, scratch, nullptr, C, P.gs,
-                                GridSweep<T>{P.gs}, P.Mc, P.g,
-                                /*cheby=*/true, P.work, /*external=*/true);
+  StepPhases<T, GridSweep<T>, Fl> S(grid, scratch, nullptr, C, P.gs,
+                                    GridSweep<T>{P.gs}, P.Mc, P.g,
+                                    /*cheby=*/true, P.work,
+                                    /*external=*/true);
   S.zero_outside(P.out);
   S.project(P.u, P.uo, P.uoo, P.bdf2, P.cg_iters);
   S.rv_eps(P.u, P.rv ? *P.abs_term : T(0), P.rv);
@@ -59,7 +62,7 @@ fused_rv_block_step_kernel(BlockParams<T> P) {
   S.newton(P.u, P.out, P.newton_iters, P.lin_iters, P.freeze);
 }
 
-template <typename T>
+template <typename T, typename Fl>
 int fused_rv_block_step(const void* u, const void* uo, const void* uoo,
                         const void* gvals, const void* Mc, void* out,
                         void* work, const void* abs_term, const void* consts,
@@ -73,10 +76,10 @@ int fused_rv_block_step(const void* u, const void* uo, const void* uoo,
                    (const double*)consts, gs, cg_iters, newton_iters,
                    lin_iters, bdf2, rv, freeze};
   void* args[] = {&P};
-  const int grid = coop_grid(fused_rv_block_step_kernel<T>,
+  const int grid = coop_grid(fused_rv_block_step_kernel<T, Fl>,
                              (gs.i_hi - gs.i_lo) * n1y);
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)fused_rv_block_step_kernel<T>, grid, kBlock, args, 0,
+      (void*)fused_rv_block_step_kernel<T, Fl>, grid, kBlock, args, 0,
       (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
@@ -86,30 +89,25 @@ int fused_rv_block_step(const void* u, const void* uo, const void* uoo,
 
 extern "C" {
 
-int cft_fused_rv_block_step_f32(const void* u, const void* uo,
-                                const void* uoo, const void* g,
-                                const void* Mc, void* out, void* work,
-                                const void* abs_term, const void* consts,
-                                int n1x, int n1y, int row0, int n_rows,
-                                int cg_iters, int newton_iters, int lin_iters,
-                                int bdf2, int rv, int freeze, void* stream) {
-  return cft::fused_rv_block_step<float>(u, uo, uoo, g, Mc, out, work,
-                                         abs_term, consts, n1x, n1y, row0,
-                                         n_rows, cg_iters, newton_iters,
-                                         lin_iters, bdf2, rv, freeze, stream);
+int CFT_ENTRY(fused_rv_block_step, f32)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* out, void* work, const void* abs_term,
+    const void* consts, int n1x, int n1y, int row0, int n_rows, int cg_iters,
+    int newton_iters, int lin_iters, int bdf2, int rv, int freeze,
+    void* stream) {
+  return cft::fused_rv_block_step<float, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, out, work, abs_term, consts, n1x, n1y, row0, n_rows,
+      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, stream);
 }
-int cft_fused_rv_block_step_f64(const void* u, const void* uo,
-                                const void* uoo, const void* g,
-                                const void* Mc, void* out, void* work,
-                                const void* abs_term, const void* consts,
-                                int n1x, int n1y, int row0, int n_rows,
-                                int cg_iters, int newton_iters, int lin_iters,
-                                int bdf2, int rv, int freeze, void* stream) {
-  return cft::fused_rv_block_step<double>(u, uo, uoo, g, Mc, out, work,
-                                          abs_term, consts, n1x, n1y, row0,
-                                          n_rows, cg_iters, newton_iters,
-                                          lin_iters, bdf2, rv, freeze,
-                                          stream);
+int CFT_ENTRY(fused_rv_block_step, f64)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* out, void* work, const void* abs_term,
+    const void* consts, int n1x, int n1y, int row0, int n_rows, int cg_iters,
+    int newton_iters, int lin_iters, int bdf2, int rv, int freeze,
+    void* stream) {
+  return cft::fused_rv_block_step<double, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, out, work, abs_term, consts, n1x, n1y, row0, n_rows,
+      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, stream);
 }
 
 }  // extern "C"

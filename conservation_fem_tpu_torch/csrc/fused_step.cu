@@ -1,4 +1,4 @@
-// Hopper kernel for the whole stabilised KPP-RV time step.
+// Hopper kernel for the whole stabilised RV time step (KPP, Burgers).
 //
 // Replaces pallas_fused.fused_rv_step (conservation_fem_tpu/ops/
 // pallas_fused.py:416, the step of _step_body :333 and _make_lib :97):
@@ -14,9 +14,8 @@
 //      or fresh per iteration, solved by fixed BiCGStab (safe_div guards)
 //      or Chebyshev; F recomputed after every iteration that is followed
 //      by another.
-// The flux is compiled in: KPP, f = (sin u, cos u), f' = (cos u, -sin u),
-// f'' = (-sin u, -cos u), |f'| = 1. sincos is the accurate libdevice one
-// (no fast-math): quadrature arguments reach 14 pi / 4.
+// The flux is compiled in (fused_step.cuh Kpp, Burgers): this source
+// builds the KPP instance, fused_step_burgers.cu the Burgers one.
 //
 // What bounds it on the H100: at mesh 64 a step moves a few MB — the 7
 // mass planes, 7 eps-stiffness and 7 Jacobian planes and ~20 fields, all of
@@ -59,7 +58,7 @@ template <typename T> struct StepParams {
   int bdf2, rv, freeze, cheby;
 };
 
-template <typename T>
+template <typename T, typename Fl>
 __global__ void __launch_bounds__(kBlock, 1)
 fused_rv_step_kernel(StepParams<T> P) {
   __shared__ RedScratch<T> scratch;
@@ -67,9 +66,9 @@ fused_rv_step_kernel(StepParams<T> P) {
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  StepPhases<T, GridSweep<T>> S(grid, scratch, P.part, C, P.gs,
-                                GridSweep<T>{P.gs}, P.Mc, P.g, P.cheby,
-                                P.work);
+  StepPhases<T, GridSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs,
+                                    GridSweep<T>{P.gs}, P.Mc, P.g, P.cheby,
+                                    P.work);
   const int N = S.N;
 
   for (int n = S.first; n < N; n += S.stride) {
@@ -91,7 +90,7 @@ fused_rv_step_kernel(StepParams<T> P) {
   }
 }
 
-template <typename T>
+template <typename T, typename Fl>
 int fused_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* ring, void* work,
                   void* part, const void* consts, int n1x, int n1y,
@@ -103,9 +102,9 @@ int fused_rv_step(const void* u, const void* uo, const void* uoo,
                   cg_iters, newton_iters, lin_iters, bdf2, rv, freeze,
                   cheby};
   void* args[] = {&P};
-  const int grid = coop_grid(fused_rv_step_kernel<T>, n1x * n1y);
+  const int grid = coop_grid(fused_rv_step_kernel<T, Fl>, n1x * n1y);
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)fused_rv_step_kernel<T>, grid, kBlock, args, 0,
+      (void*)fused_rv_step_kernel<T, Fl>, grid, kBlock, args, 0,
       (cudaStream_t)stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
@@ -115,27 +114,23 @@ int fused_rv_step(const void* u, const void* uo, const void* uoo,
 
 extern "C" {
 
-int cft_fused_rv_step_f32(const void* u, const void* uo, const void* uoo,
-                          const void* g, const void* Mc, void* ring,
-                          void* work, void* part, const void* consts,
-                          int n1x, int n1y, int n_sub, int cg_iters,
-                          int newton_iters, int lin_iters, int bdf2, int rv,
-                          int freeze, int cheby, void* stream) {
-  return cft::fused_rv_step<float>(u, uo, uoo, g, Mc, ring, work, part,
-                                   consts, n1x, n1y, n_sub, cg_iters,
-                                   newton_iters, lin_iters, bdf2, rv, freeze,
-                                   cheby, stream);
+int CFT_ENTRY(fused_rv_step, f32)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* ring, void* work, void* part, const void* consts,
+    int n1x, int n1y, int n_sub, int cg_iters, int newton_iters,
+    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
+  return cft::fused_rv_step<float, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, ring, work, part, consts, n1x, n1y, n_sub,
+      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, stream);
 }
-int cft_fused_rv_step_f64(const void* u, const void* uo, const void* uoo,
-                          const void* g, const void* Mc, void* ring,
-                          void* work, void* part, const void* consts,
-                          int n1x, int n1y, int n_sub, int cg_iters,
-                          int newton_iters, int lin_iters, int bdf2, int rv,
-                          int freeze, int cheby, void* stream) {
-  return cft::fused_rv_step<double>(u, uo, uoo, g, Mc, ring, work, part,
-                                    consts, n1x, n1y, n_sub, cg_iters,
-                                    newton_iters, lin_iters, bdf2, rv, freeze,
-                                    cheby, stream);
+int CFT_ENTRY(fused_rv_step, f64)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* ring, void* work, void* part, const void* consts,
+    int n1x, int n1y, int n_sub, int cg_iters, int newton_iters,
+    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
+  return cft::fused_rv_step<double, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, ring, work, part, consts, n1x, n1y, n_sub,
+      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, stream);
 }
 
 }  // extern "C"

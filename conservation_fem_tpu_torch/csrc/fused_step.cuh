@@ -1,4 +1,5 @@
-// Device phases of the stabilised KPP-RV time step, shared by the step
+// Device phases of the stabilised RV time step of a scalar conservation
+// law u_t + div f(u) = 0 (KPP, Burgers), shared by the step
 // kernels: the single cooperative step (fused_step.cu), the split setup
 // and Newton kernels (split_step.cu), the block kernel (block_step.cu) and
 // the tiled step (tiled_step.cu).
@@ -20,12 +21,23 @@
 //     a grid-stride loop and reads them from device memory, TileSweep
 //     (tile_sweep.cuh; the tiled and split kernels) copies them into
 //     shared memory tile by tile, the next tile while this one computes.
-// The flux is compiled in: KPP, f = (sin u, cos u), f' = (cos u, -sin u),
-// f'' = (-sin u, -cos u), |f'| = 1. sincos is the accurate libdevice one
-// (no fast-math): quadrature arguments reach 14 pi / 4.
+// The flux is compiled in, a template parameter Fl of the node functions
+// and of StepPhases (the JAX kernels take it as the functions fpx, fpy of
+// _make_lib): Kpp and Burgers below. Each source of a step kernel builds
+// one instance per flux, the Burgers one in a translation unit of its own
+// (*_burgers.cu), so that the sources compile in parallel.
 #pragma once
 
 #include "stencil.cuh"
+
+// The flux of the instance a step kernel's source builds: KPP, unless a
+// flux's own source (block_step_burgers.cu, ...) sets CFT_FLUX and
+// CFT_ENTRY and then includes the kernel's source. CFT_ENTRY(name, dt)
+// names the instance's C entry points.
+#ifndef CFT_FLUX
+#define CFT_FLUX Kpp
+#define CFT_ENTRY(name, dt) cft_##name##_##dt
+#endif
 
 namespace cft {
 
@@ -62,6 +74,62 @@ __device__ __forceinline__ void sin_cos(float u, float* s, float* c) {
 __device__ __forceinline__ void sin_cos(double u, double* s, double* c) {
   sincos(u, s, c);
 }
+
+// A flux policy: fp(u, fx, fy) sets f'(u) = (fx, fy), fp_fpp(u, fx, fy,
+// dfx, dfy) sets f'(u) and f''(u), and beta(amax) is the RV speed of a
+// patch, the patch max of |f'(u)| (structured.rv_epsilon's beta), from the
+// patch max of |u| when kAbsMax asks for it.
+//
+// KPP: f = (sin u, cos u), f' = (cos u, -sin u), f'' = (-sin u, -cos u),
+// |f'| = 1, so beta is 1 and no patch max of |u| is taken. sincos is the
+// accurate libdevice one (no fast-math): quadrature arguments reach
+// 14 pi / 4; fp_fpp takes one sincos for both derivatives.
+struct Kpp {
+  static constexpr bool kAbsMax = false;
+  template <typename T>
+  __device__ static __forceinline__ void fp(T u, T& fx, T& fy) {
+    T s, c;
+    sin_cos(u, &s, &c);
+    fx = c;
+    fy = -s;
+  }
+  template <typename T>
+  __device__ static __forceinline__ void fp_fpp(T u, T& fx, T& fy, T& dfx,
+                                                T& dfy) {
+    T s, c;
+    sin_cos(u, &s, &c);
+    fx = c;
+    fy = -s;
+    dfx = -s;
+    dfy = -c;
+  }
+  template <typename T> __device__ static __forceinline__ T beta(T) {
+    return T(1);
+  }
+};
+
+// Burgers: f = (u^2 / 2, u^2 / 2), f' = (u, u), f'' = (1, 1), |f'| =
+// sqrt(2) |u|; the patch max of sqrt(2) |u| is sqrt(2) times the patch max
+// of |u| (rounding is monotone), the JAX kernel's value bit for bit.
+struct Burgers {
+  static constexpr bool kAbsMax = true;
+  template <typename T>
+  __device__ static __forceinline__ void fp(T u, T& fx, T& fy) {
+    fx = u;
+    fy = u;
+  }
+  template <typename T>
+  __device__ static __forceinline__ void fp_fpp(T u, T& fx, T& fy, T& dfx,
+                                                T& dfy) {
+    fx = u;
+    fy = u;
+    dfx = T(1);
+    dfy = T(1);
+  }
+  template <typename T> __device__ static __forceinline__ T beta(T amax) {
+    return T(1.4142135623730951) * amax;
+  }
+};
 
 template <typename T>
 __device__ void load_consts(StepConsts<T>& C, const double* k) {
@@ -116,7 +184,7 @@ __device__ __forceinline__ T quad_value(const StepConsts<T>& C, int q,
 
 // N(x) at node (i, j): sum over the triangles that have (i, j) as corner a
 // of 2A sum_q qw_q phi_qa (f'(x_q) . grad x)  (_make_lib.nl_rhs).
-template <typename T, typename X>
+template <typename Fl, typename T, typename X>
 __device__ T nl_rhs_node(const StepConsts<T>& C, GridShape g, int i, int j,
                          X x) {
   T out = T(0);
@@ -131,9 +199,9 @@ __device__ T nl_rhs_node(const StepConsts<T>& C, GridShape g, int i, int j,
       T val = T(0);
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
-        T s, co;
-        sin_cos(quad_value(C, q, c), &s, &co);
-        val += C.W[q][a] * (co * gux + (-s) * guy);
+        T fx, fy;
+        Fl::fp(quad_value(C, q, c), fx, fy);
+        val += C.W[q][a] * (fx * gux + fy * guy);
       }
       out += C.two_area * val;
     }
@@ -142,7 +210,7 @@ __device__ T nl_rhs_node(const StepConsts<T>& C, GridShape g, int i, int j,
 }
 
 // Flux-Jacobian stencil planes at node (i, j) (_make_lib.conv_planes).
-template <typename T, typename X>
+template <typename Fl, typename T, typename X>
 __device__ void conv_planes_node(const StepConsts<T>& C, GridShape g, int i,
                                  int j, X x, T (&pl)[7]) {
 #pragma unroll
@@ -158,10 +226,9 @@ __device__ void conv_planes_node(const StepConsts<T>& C, GridShape g, int i,
       T row[3] = {T(0), T(0), T(0)};
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
-        T s, co;
-        sin_cos(quad_value(C, q, c), &s, &co);
-        const T fx = co, fy = -s;
-        const T fg = (-s) * gux + (-co) * guy;
+        T fx, fy, dfx, dfy;
+        Fl::fp_fpp(quad_value(C, q, c), fx, fy, dfx, dfy);
+        const T fg = dfx * gux + dfy * guy;
 #pragma unroll
         for (int b = 0; b < 3; ++b)
           row[b] += C.W[q][a] * (fg * C.PHI[q][b] + fx * C.G[t][b][0] +
@@ -197,31 +264,34 @@ __device__ __forceinline__ void keps_planes_node(const StepConsts<T>& C,
   }
 }
 
-// RV epsilon at node (i, j) (structured.rv_epsilon; |f'| = 1 for KPP):
-// patch max/min of u and patch max of |RH| with -inf / +inf fills outside
-// the grid, abs_term = max |u - mean u|.
-template <typename T, typename U, typename R>
+// RV epsilon at node (i, j) (structured.rv_epsilon): patch max/min of u
+// and patch max of |RH| and |f'(u)| with -inf / +inf fills outside the
+// grid, abs_term = max |u - mean u|, eps = min(Cvel h beta, CRV h^2 |RH_i /
+// max(n_i, tiny)|).
+template <typename Fl, typename T, typename U, typename R>
 __device__ __forceinline__ T rv_eps_node(const StepConsts<T>& C, GridShape g,
                                          int i, int j, U u, R rh_at,
                                          T abs_term) {
-  T umax = u(i, j), umin = umax, rh = fabs(rh_at(i, j));
+  T umax = u(i, j), umin = umax, rh = fabs(rh_at(i, j)), amax = fabs(umax);
 #pragma unroll
   for (int k = 1; k < 7; ++k) {
     const int ii = i + off_i(k), jj = j + off_j(k);
     if (!g.inside(ii, jj)) continue;  // the -inf / +inf fill
-    umax = fmax(umax, u(ii, jj));
-    umin = fmin(umin, u(ii, jj));
+    const T v = u(ii, jj);
+    umax = fmax(umax, v);
+    umin = fmin(umin, v);
+    if (Fl::kAbsMax) amax = fmax(amax, fabs(v));
     rh = fmax(rh, fabs(rh_at(ii, jj)));
   }
   const T n_i = fabs((umax - umin) - abs_term);
-  // the patch max of |f'| is 1: cvel_h * 1
-  return fmin(C.cvel_h, C.crv_hh * fabs(rh / fmax(n_i, C.tiny)));
+  return fmin(C.cvel_h * Fl::beta(amax),
+              C.crv_hh * fabs(rh / fmax(n_i, C.tiny)));
 }
 
 // CN residual at node (i, j): F(v) = M(v-u) + dt/2 (N(v)+N(u)) + dt/2 (K v
 // + K u), v - g on the frame; mc(k) the mass planes at the node, kv = (K
 // v)(i, j), nun = N(u)(i, j), kun = (K u)(i, j).
-template <typename T, typename A, typename V, typename U>
+template <typename Fl, typename T, typename A, typename V, typename U>
 __device__ __forceinline__ T residual_node(const StepConsts<T>& C,
                                            GridShape g, A mc, int i, int j,
                                            V v, U u, T kv, T nun, T kun,
@@ -230,7 +300,7 @@ __device__ __forceinline__ T residual_node(const StepConsts<T>& C,
   const T mv = stencil_apply(mc, g, i, j, [&](int ii, int jj) {
     return v(ii, jj) - u(ii, jj);
   });
-  const T nl = nl_rhs_node(C, g, i, j, v);
+  const T nl = nl_rhs_node<Fl>(C, g, i, j, v);
   return mv + C.half_dt * (nl + nun) + C.half_dt * (kv + kun);
 }
 
@@ -249,13 +319,13 @@ __device__ __forceinline__ auto pinned_apply(A a, GridShape g, int i, int j,
 // Jacobian planes M + dt/2 (K + C(w)) at node n = (i, j) into jc, from the
 // mass and eps-stiffness planes mc(k), kc(k) at the node; returns the
 // Jacobi preconditioner 1 / J_00 (1 on the frame).
-template <typename T, typename A, typename K, typename W>
+template <typename Fl, typename T, typename A, typename K, typename W>
 __device__ __forceinline__ T jacobian_node(const StepConsts<T>& C,
                                            GridShape g, A mc, K kc, T* jc,
                                            int i, int j, int n, W w) {
   const int N = g.size();
   T cc[7];
-  conv_planes_node(C, g, i, j, w, cc);
+  conv_planes_node<Fl>(C, g, i, j, w, cc);
   T j0 = T(0);
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
@@ -372,7 +442,7 @@ template <typename T> struct GridSweep {
 // phase reduces over the grid: where the whole-grid step combines a sum and
 // a barrier, block mode takes the barrier alone. Pointwise passes, like the
 // sweeps, visit only the rows in the grid.
-template <typename T, typename Sweep> struct StepPhases {
+template <typename T, typename Sweep, typename Fl> struct StepPhases {
   cg::grid_group& grid;
   RedScratch<T>& scratch;
   GridReducer<T> red;
@@ -452,7 +522,7 @@ template <typename T, typename Sweep> struct StepPhases {
         [&](int i, int j, int n, const auto& s, const auto& f,
             const auto& ops) {
           const T mv = stencil_apply(ops[0], g, i, j, s[0]);
-          const T nl = nl_rhs_node(C, g, i, j, s[1]);
+          const T nl = nl_rhs_node<Fl>(C, g, i, j, s[1]);
           nun[n] = nl;
           const T rhs = g.frame(i, j) ? T(0) : mv + nl;
           cx[n] = T(0);
@@ -572,7 +642,7 @@ template <typename T, typename Sweep> struct StepPhases {
           },
           [&](int i, int j, int n, const auto& s, const auto& f,
               const auto& ops) {
-            eps[n] = rv_eps_node(C, g, i, j, s[0], s[1], abs_term);
+            eps[n] = rv_eps_node<Fl>(C, g, i, j, s[0], s[1], abs_term);
           });
     } else {
       for (int n = first; n < last; n += stride) eps[n] = T(0);
@@ -602,9 +672,9 @@ template <typename T, typename Sweep> struct StepPhases {
           kun[n] = ku;
           uk[n] = s[2](i, j);
           if (Fo)
-            Fo[n] = residual_node(C, g, ops[0], i, j, s[2], s[1],
-                                  stencil_apply(K, g, i, j, s[2]), f(3), ku,
-                                  f(2));
+            Fo[n] = residual_node<Fl>(C, g, ops[0], i, j, s[2], s[1],
+                                      stencil_apply(K, g, i, j, s[2]), f(3),
+                                      ku, f(2));
         });
     grid.sync();
   }
@@ -633,7 +703,8 @@ template <typename T, typename Sweep> struct StepPhases {
         [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
         [&](int i, int j, int n, const auto& s, const auto& f,
             const auto& ops) {
-          const T d = jacobian_node(C, g, ops[0], ops[1], jc, i, j, n, s[0]);
+          const T d = jacobian_node<Fl>(C, g, ops[0], ops[1], jc, i, j, n,
+                                          s[0]);
           dj[n] = d;
           solver_init(n, -f(1), d, rho[0]);
         });
@@ -741,9 +812,9 @@ template <typename T, typename Sweep> struct StepPhases {
         },
         [&](int i, int j, int n, const auto& s, const auto& f,
             const auto& ops) {
-          Fo[n] = residual_node(C, g, ops[0], i, j, s[0], s[1],
-                                stencil_apply(ops[1], g, i, j, s[0]), f(3),
-                                f(4), f(5));
+          Fo[n] = residual_node<Fl>(C, g, ops[0], i, j, s[0], s[1],
+                                    stencil_apply(ops[1], g, i, j, s[0]),
+                                    f(3), f(4), f(5));
           uk_new[n] = s[0](i, j);
         });
     grid.sync();

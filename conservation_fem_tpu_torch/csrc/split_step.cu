@@ -1,5 +1,6 @@
-// Hopper kernels for the split stabilised KPP-RV time step: one step in
-// 1 + newton_iters launches.
+// Hopper kernels for the split stabilised RV time step: one step in
+// 1 + newton_iters launches. This source builds the KPP instance,
+// split_step_burgers.cu the Burgers one (fused_step.cuh Kpp, Burgers).
 //
 // Replaces pallas_fused.fused_rv_step_split (conservation_fem_tpu/ops/
 // pallas_fused.py:561):
@@ -63,7 +64,7 @@ template <typename T> struct SplitNewtonParams {
   int lin_iters, cheby, relinearize, residual;
 };
 
-template <typename T>
+template <typename T, typename Fl>
 __global__ void __launch_bounds__(kBlock, 1)
 split_setup_kernel(SplitSetupParams<T> P) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
@@ -74,8 +75,8 @@ split_setup_kernel(SplitSetupParams<T> P) {
   cg::grid_group grid = cg::this_grid();
   const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
                            reinterpret_cast<T*>(stage_raw));
-  StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
-                                P.g, P.cheby, P.work);
+  StepPhases<T, TileSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs, sweep,
+                                    P.Mc, P.g, P.cheby, P.work);
   S.kc = P.Kc;
   S.nun = P.aux;
   S.kun = P.aux + S.N;
@@ -84,7 +85,7 @@ split_setup_kernel(SplitSetupParams<T> P) {
   S.planes(P.u, P.uk, P.F);
 }
 
-template <typename T>
+template <typename T, typename Fl>
 __global__ void __launch_bounds__(kBlock, 1)
 split_newton_kernel(SplitNewtonParams<T> P) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
@@ -95,8 +96,8 @@ split_newton_kernel(SplitNewtonParams<T> P) {
   cg::grid_group grid = cg::this_grid();
   const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
                            reinterpret_cast<T*>(stage_raw));
-  StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
-                                P.g, P.cheby, P.work);
+  StepPhases<T, TileSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs, sweep,
+                                    P.Mc, P.g, P.cheby, P.work);
   // read only here: the planes and frozen terms of the setup
   S.kc = const_cast<T*>(P.Kc);
   S.nun = const_cast<T*>(P.aux);
@@ -112,7 +113,7 @@ split_newton_kernel(SplitNewtonParams<T> P) {
   }
 }
 
-template <typename T>
+template <typename T, typename Fl>
 int split_setup(const void* u, const void* uo, const void* uoo,
                 const void* gvals, const void* Mc, void* Kc, void* aux,
                 void* uk, void* F, void* work, void* part,
@@ -125,11 +126,11 @@ int split_setup(const void* u, const void* uo, const void* uoo,
                         (T*)uk, (T*)F, (T*)work, (T*)part,
                         (const double*)consts, gs, tile_rows, tile_cols,
                         cg_iters, bdf2, rv, cheby};
-  return launch_tiles<T>(split_setup_kernel<T>, P, gs, tile_rows, tile_cols,
-                         stream);
+  return launch_tiles<T>(split_setup_kernel<T, Fl>, P, gs, tile_rows,
+                         tile_cols, stream);
 }
 
-template <typename T>
+template <typename T, typename Fl>
 int split_newton(const void* uk, const void* F, const void* u,
                  const void* gvals, const void* Mc, const void* Kc,
                  const void* aux, const void* w, void* uk_out, void* F_out,
@@ -144,75 +145,69 @@ int split_newton(const void* uk, const void* F, const void* u,
                          (T*)work, (T*)part, (const double*)consts, gs,
                          tile_rows, tile_cols, lin_iters, cheby,
                          relinearize, residual};
-  return launch_tiles<T>(split_newton_kernel<T>, P, gs, tile_rows, tile_cols,
-                         stream);
+  return launch_tiles<T>(split_newton_kernel<T, Fl>, P, gs, tile_rows,
+                         tile_cols, stream);
 }
 
 }  // namespace cft
 
 extern "C" {
 
-int cft_split_setup_f32(const void* u, const void* uo, const void* uoo,
-                        const void* g, const void* Mc, void* Kc, void* aux,
-                        void* uk, void* F, void* work, void* part,
-                        const void* consts, int n1x, int n1y, int tile_rows,
-                        int tile_cols, int cg_iters, int bdf2, int rv,
-                        int cheby, void* stream) {
-  return cft::split_setup<float>(u, uo, uoo, g, Mc, Kc, aux, uk, F, work,
-                                 part, consts, n1x, n1y, tile_rows,
-                                 tile_cols, cg_iters, bdf2, rv, cheby,
-                                 stream);
+int CFT_ENTRY(split_setup, f32)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* Kc, void* aux, void* uk, void* F, void* work,
+    void* part, const void* consts, int n1x, int n1y, int tile_rows,
+    int tile_cols, int cg_iters, int bdf2, int rv, int cheby, void* stream) {
+  return cft::split_setup<float, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, Kc, aux, uk, F, work, part, consts, n1x, n1y,
+      tile_rows, tile_cols, cg_iters, bdf2, rv, cheby, stream);
 }
-int cft_split_setup_f64(const void* u, const void* uo, const void* uoo,
-                        const void* g, const void* Mc, void* Kc, void* aux,
-                        void* uk, void* F, void* work, void* part,
-                        const void* consts, int n1x, int n1y, int tile_rows,
-                        int tile_cols, int cg_iters, int bdf2, int rv,
-                        int cheby, void* stream) {
-  return cft::split_setup<double>(u, uo, uoo, g, Mc, Kc, aux, uk, F, work,
-                                  part, consts, n1x, n1y, tile_rows,
-                                  tile_cols, cg_iters, bdf2, rv, cheby,
-                                  stream);
+int CFT_ENTRY(split_setup, f64)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* Kc, void* aux, void* uk, void* F, void* work,
+    void* part, const void* consts, int n1x, int n1y, int tile_rows,
+    int tile_cols, int cg_iters, int bdf2, int rv, int cheby, void* stream) {
+  return cft::split_setup<double, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, Kc, aux, uk, F, work, part, consts, n1x, n1y,
+      tile_rows, tile_cols, cg_iters, bdf2, rv, cheby, stream);
 }
-int cft_split_newton_f32(const void* uk, const void* F, const void* u,
-                         const void* g, const void* Mc, const void* Kc,
-                         const void* aux, const void* w, void* uk_out,
-                         void* F_out, void* work, void* part,
-                         const void* consts, int n1x, int n1y, int tile_rows,
-                         int tile_cols, int lin_iters, int cheby,
-                         int relinearize, int residual, void* stream) {
-  return cft::split_newton<float>(uk, F, u, g, Mc, Kc, aux, w, uk_out, F_out,
-                                  work, part, consts, n1x, n1y, tile_rows,
-                                  tile_cols, lin_iters, cheby, relinearize,
-                                  residual, stream);
+int CFT_ENTRY(split_newton, f32)(
+    const void* uk, const void* F, const void* u, const void* g,
+    const void* Mc, const void* Kc, const void* aux, const void* w,
+    void* uk_out, void* F_out, void* work, void* part, const void* consts,
+    int n1x, int n1y, int tile_rows, int tile_cols, int lin_iters, int cheby,
+    int relinearize, int residual, void* stream) {
+  return cft::split_newton<float, cft::CFT_FLUX>(
+      uk, F, u, g, Mc, Kc, aux, w, uk_out, F_out, work, part, consts, n1x,
+      n1y, tile_rows, tile_cols, lin_iters, cheby, relinearize, residual,
+      stream);
 }
-int cft_split_newton_f64(const void* uk, const void* F, const void* u,
-                         const void* g, const void* Mc, const void* Kc,
-                         const void* aux, const void* w, void* uk_out,
-                         void* F_out, void* work, void* part,
-                         const void* consts, int n1x, int n1y, int tile_rows,
-                         int tile_cols, int lin_iters, int cheby,
-                         int relinearize, int residual, void* stream) {
-  return cft::split_newton<double>(uk, F, u, g, Mc, Kc, aux, w, uk_out,
-                                   F_out, work, part, consts, n1x, n1y,
-                                   tile_rows, tile_cols, lin_iters, cheby,
-                                   relinearize, residual, stream);
+int CFT_ENTRY(split_newton, f64)(
+    const void* uk, const void* F, const void* u, const void* g,
+    const void* Mc, const void* Kc, const void* aux, const void* w,
+    void* uk_out, void* F_out, void* work, void* part, const void* consts,
+    int n1x, int n1y, int tile_rows, int tile_cols, int lin_iters, int cheby,
+    int relinearize, int residual, void* stream) {
+  return cft::split_newton<double, cft::CFT_FLUX>(
+      uk, F, u, g, Mc, Kc, aux, w, uk_out, F_out, work, part, consts, n1x,
+      n1y, tile_rows, tile_cols, lin_iters, cheby, relinearize, residual,
+      stream);
 }
-int cft_split_setup_occupancy_f32(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::split_setup_kernel<float>, smem,
-                                    out);
+int CFT_ENTRY(split_setup_occupancy, f32)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::split_setup_kernel<float, cft::CFT_FLUX>, smem, out);
 }
-int cft_split_setup_occupancy_f64(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::split_setup_kernel<double>, smem,
-                                    out);
+int CFT_ENTRY(split_setup_occupancy, f64)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::split_setup_kernel<double, cft::CFT_FLUX>, smem, out);
 }
-int cft_split_newton_occupancy_f32(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::split_newton_kernel<float>, smem,
-                                    out);
+int CFT_ENTRY(split_newton_occupancy, f32)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::split_newton_kernel<float, cft::CFT_FLUX>, smem, out);
 }
-int cft_split_newton_occupancy_f64(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::split_newton_kernel<double>, smem,
-                                    out);
+int CFT_ENTRY(split_newton_occupancy, f64)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::split_newton_kernel<double, cft::CFT_FLUX>, smem, out);
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-// Hopper kernel for the stabilised KPP-RV time step swept in tiles.
+// Hopper kernel for the stabilised RV time step swept in tiles. This
+// source builds the KPP instance, tiled_step_burgers.cu the Burgers one
+// (fused_step.cuh Kpp, Burgers).
 //
 // Replaces pallas_tiled.tiled_rv_step (conservation_fem_tpu/ops/
 // pallas_tiled.py:120), whole-grid and block mode: the phases of the
@@ -62,7 +64,7 @@ template <typename T> struct TiledParams {
   int cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, external;
 };
 
-template <typename T>
+template <typename T, typename Fl>
 __global__ void __launch_bounds__(kBlock, 1)
 tiled_rv_step_kernel(TiledParams<T> P) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
@@ -73,8 +75,8 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   cg::grid_group grid = cg::this_grid();
   const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
                            reinterpret_cast<T*>(stage_raw));
-  StepPhases<T, TileSweep<T>> S(grid, scratch, P.part, C, P.gs, sweep, P.Mc,
-                                P.g, P.cheby, P.work, P.external);
+  StepPhases<T, TileSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs, sweep,
+                                    P.Mc, P.g, P.cheby, P.work, P.external);
   if (P.external) S.zero_outside(P.out);
   const T mean_u = S.project(P.u, P.uo, P.uoo, P.bdf2, P.cg_iters);
   const T abs_term = !P.rv ? T(0)
@@ -85,7 +87,7 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   S.newton(P.u, P.out, P.newton_iters, P.lin_iters, P.freeze);
 }
 
-template <typename T>
+template <typename T, typename Fl>
 int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* out, void* work,
                   void* part, const void* abs_term, const void* consts,
@@ -100,7 +102,7 @@ int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                    (T*)part, (const T*)abs_term, (const double*)consts, gs,
                    tile_rows, tile_cols, cg_iters, newton_iters, lin_iters,
                    bdf2, rv, freeze, cheby, external};
-  return launch_tiles<T>(tiled_rv_step_kernel<T>, P, gs, tile_rows,
+  return launch_tiles<T>(tiled_rv_step_kernel<T, Fl>, P, gs, tile_rows,
                          tile_cols, stream);
 }
 
@@ -108,41 +110,35 @@ int tiled_rv_step(const void* u, const void* uo, const void* uoo,
 
 extern "C" {
 
-int cft_tiled_rv_step_f32(const void* u, const void* uo, const void* uoo,
-                          const void* g, const void* Mc, void* out,
-                          void* work, void* part, const void* abs_term,
-                          const void* consts, int n1x, int n1y, int row0,
-                          int n_rows, int external, int tile_rows,
-                          int tile_cols, int cg_iters, int newton_iters,
-                          int lin_iters, int bdf2, int rv, int freeze,
-                          int cheby, void* stream) {
-  return cft::tiled_rv_step<float>(u, uo, uoo, g, Mc, out, work, part,
-                                   abs_term, consts, n1x, n1y, row0, n_rows,
-                                   external, tile_rows, tile_cols, cg_iters,
-                                   newton_iters, lin_iters, bdf2, rv,
-                                   freeze, cheby, stream);
+int CFT_ENTRY(tiled_rv_step, f32)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* out, void* work, void* part, const void* abs_term,
+    const void* consts, int n1x, int n1y, int row0, int n_rows, int external,
+    int tile_rows, int tile_cols, int cg_iters, int newton_iters,
+    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
+  return cft::tiled_rv_step<float, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, out, work, part, abs_term, consts, n1x, n1y, row0,
+      n_rows, external, tile_rows, tile_cols, cg_iters, newton_iters,
+      lin_iters, bdf2, rv, freeze, cheby, stream);
 }
-int cft_tiled_rv_step_f64(const void* u, const void* uo, const void* uoo,
-                          const void* g, const void* Mc, void* out,
-                          void* work, void* part, const void* abs_term,
-                          const void* consts, int n1x, int n1y, int row0,
-                          int n_rows, int external, int tile_rows,
-                          int tile_cols, int cg_iters, int newton_iters,
-                          int lin_iters, int bdf2, int rv, int freeze,
-                          int cheby, void* stream) {
-  return cft::tiled_rv_step<double>(u, uo, uoo, g, Mc, out, work, part,
-                                    abs_term, consts, n1x, n1y, row0, n_rows,
-                                    external, tile_rows, tile_cols, cg_iters,
-                                    newton_iters, lin_iters, bdf2, rv,
-                                    freeze, cheby, stream);
+int CFT_ENTRY(tiled_rv_step, f64)(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, void* out, void* work, void* part, const void* abs_term,
+    const void* consts, int n1x, int n1y, int row0, int n_rows, int external,
+    int tile_rows, int tile_cols, int cg_iters, int newton_iters,
+    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
+  return cft::tiled_rv_step<double, cft::CFT_FLUX>(
+      u, uo, uoo, g, Mc, out, work, part, abs_term, consts, n1x, n1y, row0,
+      n_rows, external, tile_rows, tile_cols, cg_iters, newton_iters,
+      lin_iters, bdf2, rv, freeze, cheby, stream);
 }
-int cft_tiled_occupancy_f32(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::tiled_rv_step_kernel<float>, smem,
-                                    out);
+int CFT_ENTRY(tiled_occupancy, f32)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::tiled_rv_step_kernel<float, cft::CFT_FLUX>, smem, out);
 }
-int cft_tiled_occupancy_f64(int smem, int* out) {
-  return cft::tile_kernel_occupancy(cft::tiled_rv_step_kernel<double>, smem,
-                                    out);
+int CFT_ENTRY(tiled_occupancy, f64)(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::tiled_rv_step_kernel<double, cft::CFT_FLUX>, smem, out);
 }
 
 }  // extern "C"

@@ -72,7 +72,8 @@ def check_supported(cfg: HyperbolicConfig):
     if cfg.smooth_l > 0:
         todo.append("smooth_l > 0 (ROADMAP queue 1 item 7)")
     if cfg.precise_reductions:
-        todo.append("precise_reductions (ROADMAP queue 1 item 4)")
+        todo.append("precise_reductions (ROADMAP queue 1 items 7, 13 and "
+                    "15)")
     if cfg.tiled_bf16_planes or cfg.xla_bf16_planes:
         todo.append("bf16 operator planes (ROADMAP queue 2 item 5, only "
                     "if the H100 measures a reason)")
@@ -85,7 +86,9 @@ class HyperbolicProblem:
     ``solve`` runs the time loop.
 
     flux: ops.structured.Flux (f', f'' and |f'|)
-    bc_value: (points, t) -> (N,) Dirichlet data (full vector, used on bc)
+    bc_value: (points, t) -> Dirichlet data at the points, read on the
+    boundary nodes only; t a number or a column of S times, giving (S, N)
+    or a row that broadcasts to it
     """
 
     def __init__(self, cfg: HyperbolicConfig, host_mesh: Mesh, flux: Flux,
@@ -104,23 +107,45 @@ class HyperbolicProblem:
         self.num_steps = int(num_steps)
         self.u0 = u0_fn(self.points[:, 0], self.points[:, 1]).to(self.dtype)
         self._carry = None
+        self._start_step = 0
 
-    def set_carry(self, u_n, u_old, u_old_old):
+    def set_carry(self, u_n, u_old, u_old_old, start_step=0):
         """Start ``solve`` from the history (u_n, u_old, u_old_old), given as
         numpy arrays or tensors in the flat node order — e.g. a JAX state
-        from the middle of a trajectory — instead of (u0, u0, u0)."""
+        from the middle of a trajectory — instead of (u0, u0, u0).
+        start_step: the steps that state has already taken (the JAX solve's
+        start_step); ``solve`` then runs the remaining num_steps -
+        start_step steps at their own times, which time-dependent
+        Dirichlet data read."""
+        if not 0 <= start_step <= self.num_steps:
+            raise ValueError(f"start_step {start_step} outside [0, "
+                             f"{self.num_steps}]")
         self._carry = tuple(
             torch.as_tensor(v if isinstance(v, torch.Tensor) else np.array(v),
                             dtype=self.dtype, device=self.device)
             .reshape(-1).clone() for v in (u_n, u_old, u_old_old))
+        self._start_step = int(start_step)
 
     def _initial_carry(self):
         if self._carry is not None:
             return self._carry
         return (self.u0, self.u0, self.u0)
 
-    def step(self, carry, t):
-        """One full stabilised time step; carry = (u_n, u_old, u_old_old)."""
+    def step_times(self, start_step=0):
+        """t of steps start_step .. num_steps - 1, (k + 1) dt formed in the
+        problem's dtype as the JAX time loop forms it (its Dirichlet data
+        read t there)."""
+        ks = torch.arange(start_step, self.num_steps, dtype=self.dtype)
+        return ((ks + 1.0) * self.dt).tolist()
+
+    def step_dirichlet(self, times):
+        """The Dirichlet data of each step of ``times``, in the form ``step``
+        takes them (None: the step forms them from its t)."""
+        return [None] * len(times)
+
+    def step(self, carry, t, g=None):
+        """One full stabilised time step; carry = (u_n, u_old, u_old_old),
+        g: the step's Dirichlet data from ``step_dirichlet``."""
         raise NotImplementedError(
             "the unstructured (ELL) step is not ported yet (ROADMAP queue 1 "
             "item 7); build on a structured mesh")
@@ -137,8 +162,9 @@ class HyperbolicProblem:
                 "queue 1 item 14)")
         carry = self._initial_carry()
         per_step = []
-        for k in range(self.num_steps):
-            carry, m = self.step(carry, (k + 1.0) * self.dt)
+        times = self.step_times(self._start_step)
+        for t, g in zip(times, self.step_dirichlet(times)):
+            carry, m = self.step(carry, t, g)
             if m is not None:
                 per_step.append(m)
         metrics = None

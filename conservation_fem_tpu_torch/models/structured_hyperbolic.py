@@ -40,7 +40,33 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
             area=float(hm.area[0]), h=float(hm.h_cell[0]),
             grads=np.stack([hm.grads[0], hm.grads[nx * ny]]),
             phi=st._quad_basis(), qw=st._DUN4_W * 0.5)
+        # the frame nodes, flat: the only nodes at which a step reads g
+        self._frame = torch.nonzero(self.sd.bc2.reshape(-1))[:, 0]
+        self._g2 = None
         return self
+
+    # -- Dirichlet data --------------------------------------------------------
+
+    def dirichlet_frames(self, times):
+        """(len(times), frame nodes): the Dirichlet data of each of ``times``
+        on the frame nodes, from one call of bc_value with t a column (for
+        data that change every step: no kernel a step for them)."""
+        t = torch.tensor(times, dtype=self.dtype, device=self.device)
+        g = self.bc_value(self.points[self._frame], t[:, None])
+        return torch.broadcast_to(g, (len(times), self._frame.numel()))
+
+    def dirichlet_grid(self, frame_values):
+        """g2 (n1x, n1y) from one step's frame values: scattered into the
+        problem's one g2 buffer, zero inside, so the previous step's g2 is
+        overwritten (in stream order on the card)."""
+        if self._g2 is None:
+            self._g2 = torch.zeros(self._shape2, dtype=self.dtype,
+                                   device=self.device)
+        self._g2.view(-1).index_copy_(0, self._frame, frame_values)
+        return self._g2
+
+    def step_dirichlet(self, times):
+        return map(self.dirichlet_grid, self.dirichlet_frames(times))
 
     # -- 2D pipeline ---------------------------------------------------------
 
@@ -154,8 +180,7 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
                             n_substeps=n_substeps, **self.fused_step_kwargs())
         return tuple(v.reshape(-1) for v in out)
 
-    def _step_fused(self, carry, t):
-        g2 = self.bc_value(self.points, t).reshape(self._shape2)
+    def _step_fused(self, carry, g2):
         mode = self._fused_mode()
         if mode == "single":
             return self._fused_call(carry, g2, 1), None
@@ -181,17 +206,19 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
         if kw or not self._fused_multistep_ok():
             return super().solve(**kw)
         K = self.cfg.fused_substeps
-        n_chunks, rem = divmod(self.num_steps, K)
-        g2 = self.bc_value(self.points, self.dt).reshape(self._shape2)
+        n_chunks, rem = divmod(self.num_steps - self._start_step, K)
+        g2 = self.dirichlet_grid(self.dirichlet_frames([self.dt])[0])
         carry = self._initial_carry()
         for n_sub in [K] * n_chunks + ([rem] if rem else []):
             carry = self._fused_call(carry, g2, n_sub)
         return SolveResult(u=carry[0], metrics=None, dt=self.dt,
                            num_steps=self.num_steps)
 
-    def step(self, carry, t):
+    def step(self, carry, t, g2=None):
+        if g2 is None:
+            g2 = self.dirichlet_grid(self.dirichlet_frames([t])[0])
         if self._fused_mode() is not None and not self.cfg.record_metrics:
-            return self._step_fused(carry, t)
+            return self._step_fused(carry, g2)
         u_n = carry[0]
         u2, uo2, uoo2 = (v.reshape(self._shape2) for v in carry)
         # one quadrature pass for N(u_n), shared by the residual
@@ -203,7 +230,6 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
                                  RH2, self.flux.fprime_norm)
         else:
             eps2 = torch.zeros_like(u2)
-        g2 = self.bc_value(self.points, t).reshape(self._shape2)
         res = self._newton_cn_2d(u2, eps2, g2, N_un=N_un)
         uh = res.u.reshape(-1)
         metrics = None

@@ -16,10 +16,14 @@ Nothing here runs at import time, so the package imports on a machine
 without nvcc or a GPU.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on a non-zero code. ``launches``
-counts kernel launches by wrapper name — the wrappers add one exactly
-where they launch (the tiled kernel's block-mode launches count as
-``tiled_rv_step_block``, apart from its whole-grid ones).
+``cudaGetLastError()``; ``check`` raises on a non-zero code. The step
+kernels have one instance per compiled flux (``FLUXES``): the KPP entry
+points are ``cft_<name>_f32`` / ``_f64``, the Burgers ones
+``cft_<name>_burgers_f32`` / ``_f64``, built from ``csrc/*_burgers.cu``.
+``launches`` counts kernel launches by wrapper name — the wrappers add one
+exactly where they launch (the tiled kernel's block-mode launches count
+as ``tiled_rv_step_block``, apart from its whole-grid ones), and a
+Burgers instance's launches under ``<name>/burgers`` (``launch_key``).
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ LIB_NAME = "libcft_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches: collections.Counter = collections.Counter()
+# the fluxes the step kernels compile in (csrc/fused_step.cuh Kpp, Burgers)
+# and the infix of each one's C entry points
+FLUXES = {"kpp": "", "burgers": "_burgers"}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # (name, argtypes) of every C entry point; the f32 and f64 instantiations
-# share a signature
+# share a signature, and so do the flux instances of a step kernel
+# (FLUX_ENTRIES)
 _SIGNATURES = {
     "cft_stencil_matvec": [_P, _P, _P, _I, _I, _P],
     "cft_cg_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _P],
@@ -59,6 +67,8 @@ _SIGNATURES = {
     "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 10 + [_P],
 }
+FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
+                                         "cft_cg_solve"}
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x
 # kMaxGrid (csrc/stencil.cuh)
 PART_SIZE = 2 * 4 * 2048
@@ -145,21 +155,32 @@ def lib():
         if _lib is None:
             handle = ctypes.CDLL(build())
             for base, argtypes in _SIGNATURES.items():
-                for name in (base + "_f32", base + "_f64"):
-                    fn = getattr(handle, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                infixes = FLUXES.values() if base in FLUX_ENTRIES else [""]
+                for infix in infixes:
+                    for dt in ("_f32", "_f64"):
+                        fn = getattr(handle, base + infix + dt)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
             _lib = handle
         return _lib
 
 
-def entry(base: str, dtype):
-    """The C entry point ``base`` instantiated for ``dtype``."""
+def entry(base: str, dtype, flux: str = "kpp"):
+    """The C entry point ``base`` instantiated for ``dtype`` and, for a step
+    kernel, for the flux named ``flux`` (a key of FLUXES)."""
+    infix = FLUXES[flux]
     if dtype == torch.float32:
-        return getattr(lib(), base + "_f32")
+        return getattr(lib(), base + infix + "_f32")
     if dtype == torch.float64:
-        return getattr(lib(), base + "_f64")
+        return getattr(lib(), base + infix + "_f64")
     raise TypeError(f"{base}: kernels take float32 or float64, not {dtype}")
+
+
+def launch_key(name: str, flux: str = "kpp") -> str:
+    """The key of ``launches`` under which wrapper ``name`` counts a launch
+    of its kernel's instance for ``flux``: the name for KPP, the name and
+    the flux (``fused_rv_step/burgers``) for another."""
+    return name if flux == "kpp" else f"{name}/{flux}"
 
 
 def stream_ptr(t: torch.Tensor) -> int:

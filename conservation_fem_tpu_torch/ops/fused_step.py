@@ -19,7 +19,9 @@ The plain versions are a transcription of the JAX ``_step_body`` (and of
 the split kernels' two stages) on whole grids, built from the port's
 stencil ops and fixed-iteration solvers. The wrappers run them for CPU
 tensors and launch the CUDA kernels for CUDA tensors. The kernels compile
-the flux in: they know KPP only, and any other flux raises on the card.
+the flux in, one instance per flux of ``_build.FLUXES`` (KPP, Burgers),
+which the wrappers pick by ``flux.name``; any other flux raises on the
+card. The plain versions take any ``structured.Flux``.
 
 The step's keyword arguments (``step`` below) are those of
 ``fused_rv_step`` without ``n_substeps``: nx, ny, dt, area, h, grads,
@@ -258,9 +260,10 @@ def _constants_on(device, table_bytes):
 def _check_kernel_options(flux, residual_scheme, stabilization,
                           inner_solver):
     """Raise for what the CUDA step kernels do not compile in."""
-    if flux.name != "kpp":
+    if flux.name not in _build.FLUXES:
         raise NotImplementedError(
-            f"the CUDA step kernels compile in the KPP flux only, not "
+            f"the CUDA step kernels compile in the fluxes "
+            f"{sorted(_build.FLUXES)} (ops/structured.Flux.name), not "
             f"{flux.name!r}")
     if residual_scheme not in ("bdf1", "bdf2"):
         raise ValueError(f"residual_scheme {residual_scheme!r}")
@@ -317,13 +320,13 @@ def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
     work, part = new_scratch(dtype, dev, n1x, n1y)
     bdf2, rv, freeze, cheby = _flags(s)
     with torch.cuda.device(dev):
-        code = _build.entry("cft_fused_rv_step", dtype)(
+        code = _build.entry("cft_fused_rv_step", dtype, s["flux"].name)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), ring.data_ptr(), work.data_ptr(),
             part.data_ptr(), consts.data_ptr(), n1x, n1y, int(n_substeps),
             int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
             bdf2, rv, freeze, cheby, _build.stream_ptr(u2))
-    _build.launches["fused_rv_step"] += 1
+    _build.launches[_build.launch_key("fused_rv_step", s["flux"].name)] += 1
     _build.check(code, "fused_rv_step")
     K = int(n_substeps)
     return ring[(K + 2) % 4], ring[(K + 1) % 4], ring[K % 4]
@@ -336,7 +339,7 @@ def _split_plan(u2, s, dtype, tile_rows, kernel):
     from conservation_fem_tpu_torch.ops import tiled_step as ts
 
     plan = ts.card_plan(s["nx"] + 1, s["ny"] + 1, dtype, tile_rows,
-                        ts.device_index(u2), kernel)
+                        ts.device_index(u2), kernel, s["flux"].name)
     return plan["rows"], plan["cols"]
 
 
@@ -362,13 +365,13 @@ def split_setup(u2, uo2, uoo2, g2, Mc2, *, scratch=None, tile_rows=None,
     work, part = scratch or new_scratch(dtype, u2.device, n1x, n1y)
     bdf2, rv, _, cheby = _flags(s)
     with torch.cuda.device(u2.device):
-        code = _build.entry("cft_split_setup", dtype)(
+        code = _build.entry("cft_split_setup", dtype, s["flux"].name)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), uk.data_ptr(),
             F.data_ptr(), work.data_ptr(), part.data_ptr(),
             consts.data_ptr(), n1x, n1y, rows, cols, int(s["cg_iters"]),
             bdf2, rv, cheby, _build.stream_ptr(u2))
-    _build.launches["split_setup"] += 1
+    _build.launches[_build.launch_key("split_setup", s["flux"].name)] += 1
     _build.check(code, "split_setup")
     return Kc, aux, uk, F
 
@@ -406,14 +409,14 @@ def split_newton(uk, F, u2, g2, Mc2, Kc, aux, w, *, scratch=None,
     work, part = scratch or new_scratch(dtype, u2.device, n1x, n1y)
     *_, cheby = _flags(s)
     with torch.cuda.device(u2.device):
-        code = _build.entry("cft_split_newton", dtype)(
+        code = _build.entry("cft_split_newton", dtype, s["flux"].name)(
             uk.data_ptr(), F.data_ptr(), u2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), Kc.data_ptr(), aux.data_ptr(), w.data_ptr(),
             uk_out.data_ptr(), F_out.data_ptr() if residual else 0,
             work.data_ptr(), part.data_ptr(), consts.data_ptr(), n1x, n1y,
             rows, cols, int(s["lin_iters"]), cheby, int(bool(relinearize)),
             int(bool(residual)), _build.stream_ptr(u2))
-    _build.launches["split_newton"] += 1
+    _build.launches[_build.launch_key("split_newton", s["flux"].name)] += 1
     _build.check(code, "split_newton")
     return uk_out, F_out
 
@@ -430,6 +433,9 @@ def fused_rv_step_split(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None, **step):
     s = step_args("fused_rv_step_split", step)
     if _build.on_cpu("fused_rv_step_split", u2, uo2, uoo2, g2, Mc2):
         return fused_rv_step_split_plain(u2, uo2, uoo2, g2, Mc2, **s)
+    # before the plan, which asks the flux's instance for its occupancy
+    _check_kernel_options(s["flux"], s["residual_scheme"],
+                          s["stabilization"], s["inner_solver"])
     if tile_rows is None:
         tile_rows = _split_plan(u2, s, u2.dtype, None, "split_newton")[0]
     scr = new_scratch(u2.dtype, u2.device, s["nx"] + 1, s["ny"] + 1)
@@ -572,12 +578,14 @@ def fused_rv_block_step(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *, n_rows,
     keep, abs_ptr = abs_term_ptr(abs_term, s, dtype, dev)
     bdf2, rv, freeze, _ = _flags(s)
     with torch.cuda.device(dev):
-        code = _build.entry("cft_fused_rv_block_step", dtype)(
+        code = _build.entry("cft_fused_rv_block_step", dtype,
+                            s["flux"].name)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), abs_ptr,
             consts.data_ptr(), B, n1y, int(row0), int(n_rows),
             int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
             bdf2, rv, freeze, _build.stream_ptr(u2))
-    _build.launches["fused_rv_block_step"] += 1
+    _build.launches[_build.launch_key("fused_rv_block_step",
+                                      s["flux"].name)] += 1
     _build.check(code, "fused_rv_block_step")
     return out

@@ -123,3 +123,16 @@ def rectangle_mesh_lean(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
                 boundary_mask=bnd.reshape(-1),
                 area=np.broadcast_to(area0[:1], (M,)), grads=grads,
                 h_cell=np.broadcast_to(h0[:1], (M,)))
+
+
+def rectangle_cell_sizes(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
+                         ny: int | None = None):
+    """(h_cell, area) of every cell of rectangle_mesh(p0, p1, nx, ny),
+    computed cell by cell as there, where the linspace points make them
+    differ in their last bits, without the boundary mask (the costly part
+    at large nx)."""
+    if ny is None:
+        ny = nx
+    points, tris = _grid(p0, p1, nx, ny)
+    area, _, h_cell = _cell_geometry(points, tris)
+    return h_cell, area

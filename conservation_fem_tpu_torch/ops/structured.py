@@ -34,8 +34,10 @@ CORNERS = (((0, 0), (1, 0), (1, 1)), ((0, 0), (1, 1), (0, 1)))  # L, U
 class Flux(NamedTuple):
     """Pointwise flux derivatives of a scalar law u_t + div f(u) = 0.
 
-    ``name`` selects the flux compiled into the CUDA step kernel; "kpp"
-    is the only one it has."""
+    ``name`` selects the flux compiled into the CUDA step kernels: "kpp"
+    or "burgers" (``ops/_build.FLUXES``; csrc/fused_step.cuh Kpp,
+    Burgers). The plain versions run any flux; the kernels raise on the
+    card for another name."""
     name: str
     fprime_xy: tuple          # (f'_x, f'_y): u -> tensor
     fprime2_xy: tuple         # (f''_x, f''_y)

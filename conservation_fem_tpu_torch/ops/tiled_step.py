@@ -167,26 +167,31 @@ def default_tile_rows(n1x, n1y, itemsize, n_sm, blocks_per_sm):
 
 @functools.lru_cache(maxsize=None)
 def occupancy(dtype, smem, device_index=0, kernel="tiled"):
-    """What the card gives ``kernel`` (a key of OCCUPANCY_ENTRIES) with
-    smem bytes of dynamic shared memory: blocks_per_sm (from the CUDA
-    occupancy calculator), registers and local_bytes (spills) per thread,
-    static_smem and max_dynamic_smem per block."""
+    """What the card gives ``kernel`` with smem bytes of dynamic shared
+    memory: blocks_per_sm (from the CUDA occupancy calculator), registers
+    and local_bytes (spills) per thread, static_smem and max_dynamic_smem
+    per block. ``kernel`` is a key of OCCUPANCY_ENTRIES (the KPP instance)
+    or ``_build.launch_key(key, flux)`` (``"tiled/burgers"``: the instance
+    for that flux)."""
+    name, _, flux = kernel.partition("/")
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        code = _build.entry(OCCUPANCY_ENTRIES[kernel], dtype)(int(smem), out)
+        code = _build.entry(OCCUPANCY_ENTRIES[name], dtype, flux or "kpp")(
+            int(smem), out)
     _build.check(code, f"{kernel} occupancy")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
                      "static_smem", "max_dynamic_smem"), out))
 
 
 @functools.lru_cache(maxsize=None)
-def _card_plan(n1x, n1y, dtype, tile_rows, device_index, kernel):
+def _card_plan(n1x, n1y, dtype, tile_rows, device_index, kernel, flux):
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_sm = torch.cuda.get_device_properties(
         device_index).multi_processor_count
 
     def per_sm(smem):
-        return occupancy(dtype, smem, device_index, kernel)["blocks_per_sm"]
+        return occupancy(dtype, smem, device_index,
+                         _build.launch_key(kernel, flux))["blocks_per_sm"]
 
     if tile_rows is None:
         tile_rows = default_tile_rows(n1x, n1y, itemsize, n_sm, per_sm)
@@ -194,13 +199,14 @@ def _card_plan(n1x, n1y, dtype, tile_rows, device_index, kernel):
 
 
 def card_plan(n1x, n1y, dtype, tile_rows=None, device_index=0,
-              kernel="tiled"):
+              kernel="tiled", flux="kpp"):
     """``tile_plan`` on the card for ``kernel`` (a key of
-    OCCUPANCY_ENTRIES: its blocks per SM; tile_rows None:
-    ``default_tile_rows``). Plans are computed once per argument set."""
+    OCCUPANCY_ENTRIES), its instance for ``flux`` (its blocks per SM;
+    tile_rows None: ``default_tile_rows``). Plans are computed once per
+    argument set."""
     return dict(_card_plan(int(n1x), int(n1y), dtype,
                            None if tile_rows is None else int(tile_rows),
-                           int(device_index), kernel))
+                           int(device_index), kernel, flux))
 
 
 def device_index(t):
@@ -273,14 +279,16 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
         lo, hi = fs.block_rows(n1x, int(row0_base), n_rows)
     else:
         lo, hi = 0, n1x
-    plan = card_plan(hi - lo, n1y, dtype, tile_rows, device_index(u2))
+    flux = s["flux"].name
+    plan = card_plan(hi - lo, n1y, dtype, tile_rows, device_index(u2),
+                     flux=flux)
     out = torch.empty((n1x, n1y), dtype=dtype, device=dev)
     work, part = fs.new_scratch(dtype, dev, n1x, n1y)
     keep, abs_ptr = (fs.abs_term_ptr(abs_term, s, dtype, dev) if block
                      else (None, 0))
     bdf2, rv, freeze, cheby = fs._flags(s)
     with torch.cuda.device(dev):
-        code = _build.entry("cft_tiled_rv_step", dtype)(
+        code = _build.entry("cft_tiled_rv_step", dtype, flux)(
             u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
             Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), part.data_ptr(),
             abs_ptr, consts.data_ptr(), n1x, n1y,
@@ -288,6 +296,7 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
             int(block), plan["rows"], plan["cols"], int(s["cg_iters"]),
             int(s["newton_iters"]), int(s["lin_iters"]), bdf2, rv, freeze,
             cheby, _build.stream_ptr(u2))
-    _build.launches["tiled_rv_step_block" if block else "tiled_rv_step"] += 1
+    _build.launches[_build.launch_key(
+        "tiled_rv_step_block" if block else "tiled_rv_step", flux)] += 1
     _build.check(code, "tiled_rv_step")
     return out

@@ -1,5 +1,7 @@
 """Row-sharded structured grid x the whole-step block kernels: the
-communication-avoiding decomposition of the KPP main path, ported from
+communication-avoiding decomposition of the structured step (KPP,
+Burgers: the problem's flux and its Dirichlet data at each step's t),
+ported from
 conservation_fem_tpu/parallel/structured_fused_sharded.py.
 
 The grid's rows are split into ``n_dev`` blocks of L rows. Per step:
@@ -78,13 +80,25 @@ class ShardedFusedStructured:
         Mc_pad[:, D:D + n1x] = p.sd.M_coef
         self.Mc_ext = torch.stack([Mc_pad[:, d * L:d * L + self.B]
                                    for d in blocks.ranks])
-        pts = torch.zeros((rows, n1y, 2), dtype=p.dtype, device=p.device)
-        pts[:n1x] = p.points.reshape(n1x, n1y, 2)
-        self._pts = self._local(pts).reshape(-1, 2)
         valid = torch.zeros((rows, n1y), dtype=torch.bool, device=p.device)
         valid[:n1x] = True
         self._valid = self._local(valid)
+        # the frame nodes of the blocks held here: which of the problem's
+        # frame values (dirichlet_frames) each takes, and where it goes in
+        # the flat (blocks, L, n1y) g, which is zero elsewhere
+        r, c = p._frame // n1y, p._frame % n1y
+        d = r // L
+        held = torch.full((self.n_dev,), -1, dtype=torch.long,
+                          device=p.device)
+        held[list(blocks.ranks)] = torch.arange(len(blocks.ranks),
+                                                device=p.device)
+        k = held[d]
+        self._frame_sel = torch.nonzero(k >= 0)[:, 0]
+        self._frame_dst = ((k * L + r - d * L) * n1y + c)[self._frame_sel]
+        self._g = torch.zeros(self._valid.shape, dtype=p.dtype,
+                              device=p.device)
         self._carry = None
+        self._start_step = 0
 
     def _geometry(self, kernel):
         """The decomposition's numbers from the problem and the blocks:
@@ -120,17 +134,18 @@ class ShardedFusedStructured:
         return self.blocks.max(dev.amax(dim=(1, 2)))
 
     def make_step(self):
-        """step(u, uo, uoo, t) -> (u_new, u, uo) on the blocks held here,
-        each (blocks, L, n1y)."""
+        """step(u, uo, uoo, g_frame) -> (u_new, u, uo) on the blocks held
+        here, each (blocks, L, n1y); g_frame: the step's row of
+        dirichlet_frames(), the frame values of the blocks held here."""
         p, cfg = self.p, self.p.cfg
         L, D, n1x, n1y = self.L, self.D, self.n1x, self.n1y
         kw = p.fused_step_kwargs()   # nx, ny: the kernels take the block's
-        shape = self._valid.shape
 
-        def step(u, uo, uoo, t):
+        def step(u, uo, uoo, g_frame):
             abs_term = (self._abs_term(u) if cfg.stabilization == "rv"
                         else None)
-            g = p.bc_value(self._pts, t).reshape(shape)
+            g = self._g
+            g.view(-1).index_copy_(0, self._frame_dst, g_frame)
             ext = self.blocks.extend(torch.stack([u, uo, uoo, g], dim=1), D)
             owned = []
             for k, d in enumerate(self.blocks.ranks):
@@ -151,12 +166,19 @@ class ShardedFusedStructured:
 
         return step
 
-    def set_carry(self, u_n, u_old, u_old_old):
+    def set_carry(self, u_n, u_old, u_old_old, start_step=0):
         """Start ``solve`` from the history (u_n, u_old, u_old_old), flat
         global vectors in node order (numpy arrays or tensors) — e.g. a JAX
-        state from the middle of a trajectory — instead of (u0, u0, u0)."""
+        state from the middle of a trajectory — instead of (u0, u0, u0).
+        start_step: the steps that state has already taken, as in
+        HyperbolicProblem.set_carry: ``solve`` runs the remaining ones at
+        their own times."""
+        if not 0 <= start_step <= self.p.num_steps:
+            raise ValueError(f"start_step {start_step} outside [0, "
+                             f"{self.p.num_steps}]")
         self._carry = tuple(self._from_global(v)
                             for v in (u_n, u_old, u_old_old))
+        self._start_step = int(start_step)
 
     def _from_global(self, v):
         v = torch.as_tensor(v if isinstance(v, torch.Tensor) else np.array(v),
@@ -171,8 +193,9 @@ class ShardedFusedStructured:
         p = self.p
         step = self.make_step()
         carry = self._carry or (self._from_global(p.u0),) * 3
-        for k in range(p.num_steps):
-            carry = step(*carry, (k + 1.0) * p.dt)
+        frames = p.dirichlet_frames(p.step_times(self._start_step))
+        for g_frame in frames[:, self._frame_sel]:
+            carry = step(*carry, g_frame)
         u = self.blocks.gather(carry[0]).reshape(-1, self.n1y)
         return u[:self.n1x].reshape(-1)
 

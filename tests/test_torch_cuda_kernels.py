@@ -331,9 +331,9 @@ def test_tiled_kernel_tile_plans(cuda, name, mesh, tile_rows, dtype):
 
 def test_step_kernels_refuse_bad_arguments(cuda):
     """On CUDA tensors: bf16 planes, block mode with BiCGStab or (rv)
-    without abs_term, a flux other than KPP for every step kernel, and
-    tiles of fewer than one row for the split kernels raise before a
-    launch."""
+    without abs_term, a flux the step kernels do not compile in (neither
+    KPP nor Burgers) for every step kernel, and tiles of fewer than one row
+    for the split kernels raise before a launch."""
     p = _problem(cuda, 4, "float64", T=0.0)
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
@@ -346,14 +346,14 @@ def test_step_kernels_refuse_bad_arguments(cuda):
     with pytest.raises(ValueError, match="abs_term"):
         ts.tiled_rv_step(*args, **dict(kw, inner_solver="cheby"),
                          row0_base=0, n_rows=17)
-    other = dict(kw, flux=kw["flux"]._replace(name="burgers"))
+    other = dict(kw, flux=kw["flux"]._replace(name="euler"))
     for fn in (fs.fused_rv_step, fs.fused_rv_step_split, fs.split_setup,
                ts.tiled_rv_step):
-        with pytest.raises(NotImplementedError, match="KPP"):
+        with pytest.raises(NotImplementedError, match="structured.Flux"):
             fn(*args, **other)
     block_kw = {k: v for k, v in dict(other, inner_solver="cheby").items()
                 if k not in ("nx", "ny")}
-    with pytest.raises(NotImplementedError, match="KPP"):
+    with pytest.raises(NotImplementedError, match="structured.Flux"):
         fs.fused_rv_block_step(*args, 0, 1.0, n_rows=17, n_cols=17,
                                **block_kw)
     # tiles of fewer than one row, for the split wrappers
@@ -495,3 +495,130 @@ def test_main_path_dispatches_to_the_mode_kernel(cuda, monkeypatch, mode):
     assert dict(_build.launches) == want
     v = _problem(cuda, 16, "float32", T=0.1).solve().u
     assert float((u - v).norm() / v.norm()) < 1e-3
+
+
+# -- the Burgers instances (csrc/*_burgers.cu): f' = (u, u), f'' = (1, 1),
+# RV speed sqrt(2) max|u|; the fixed-iteration config of the JAX package's
+# fused Burgers test, from a state with its shocks formed
+
+BURGERS_FIXED = dict(stabilization="rv", cg_iters=10, newton_iters=2,
+                     newton_linear_iters=8, modified_newton=True)
+
+
+def _burgers_state(cuda, mesh_size, steps, **over):
+    """(problem, u, u_old, u_old_old, g) after `steps` steps of the plain
+    f64 path at mesh_size, g the Dirichlet data of the next step."""
+    from conservation_fem_tpu_torch.models import burgers
+
+    p = burgers.build(burgers.BurgersConfig(
+        mesh_size=mesh_size, **{**BURGERS_FIXED, **over}), device=cuda)
+    carry = (p.u0,) * 3
+    times = p.step_times()
+    for t in times[:steps]:
+        carry, _ = p.step(carry, t)
+    u2, uo2, uoo2 = (v.reshape(p._shape2) for v in carry)
+    g2 = p.bc_value(p.points, times[steps]).reshape(p._shape2)
+    return p, u2, uo2, uoo2, g2
+
+
+def _burgers_launches(before, name, n):
+    """The launch counter of `name`'s Burgers instance went up by n and its
+    KPP instance's did not move."""
+    key = _build.launch_key(name, "burgers")
+    assert _build.launches[key] == before.get(key, 0) + n
+    assert _build.launches[name] == before.get(name, 0)
+
+
+@pytest.mark.parametrize("solver,frozen", [("bicgstab", True),
+                                           ("cheby", False)])
+def test_burgers_step_kernels_match_plain(cuda, solver, frozen):
+    """Mesh 16 f64, 8 steps in: the single kernel, the split kernels (8-row
+    tiles: two and a ragged one) and the tiled kernel (8-row tiles), each
+    against its plain version with the Burgers flux, through its Burgers
+    instance."""
+    p, u2, uo2, uoo2, g2 = _burgers_state(cuda, 16, 8)
+    assert float(u2.max() - u2.min()) > 1.0
+    kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+              freeze_jacobian=frozen, newton_iters=3,
+              lin_iters=8 if solver == "bicgstab" else 16)
+    assert kw["flux"].name == "burgers"
+    args = (u2, uo2, uoo2, g2, p.sd.M_coef)
+    s = fs.step_args("test", kw)
+    sd, body = fs._plain_data(u2, p.sd.M_coef, s), fs._body_kw(s)
+    before = dict(_build.launches)
+    out = fs.fused_rv_step(*args, **kw)
+    _burgers_launches(before, "fused_rv_step", 1)
+    for a, b in zip(out, fs.fused_rv_step_plain(*args, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=F64_TOL)
+    scr = fs.new_scratch(u2.dtype, u2.device, *u2.shape)
+    before = dict(_build.launches)
+    setup = fs.split_setup(*args, scratch=scr, tile_rows=8, **kw)
+    for a, b in zip(setup, fs._split_setup_plain(sd, u2, uo2, uoo2, g2,
+                                                 **body)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
+    Kc, aux, uk, F = setup
+    new = fs.split_newton(uk, F, u2, g2, p.sd.M_coef, Kc, aux, uk,
+                          scratch=scr, tile_rows=8, **kw)
+    for a, b in zip(new, fs._split_newton_plain(sd, uk, F, u2, g2, Kc, aux,
+                                                uk, **body)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
+    _burgers_launches(before, "split_setup", 1)
+    _burgers_launches(before, "split_newton", 1)
+    before = dict(_build.launches)
+    tiled = ts.tiled_rv_step(*args, tile_rows=8, **kw)
+    _burgers_launches(before, "tiled_rv_step", 1)
+    torch.testing.assert_close(tiled, ts.tiled_rv_step_plain(*args, **kw),
+                               rtol=0, atol=1e-10)
+    split = fs.fused_rv_step_split(*args, tile_rows=8, **kw)
+    assert torch.equal(split, tiled)
+
+
+def test_burgers_block_kernels_match_plain(cuda):
+    """Mesh 16 f64 in 3 uneven blocks, Chebyshev: both block-mode kernels'
+    Burgers instances against the plain version on every row."""
+    p, u2, uo2, uoo2, g2 = _burgers_state(
+        cuda, 16, 8, inner_solver="cheby", newton_linear_iters=12)
+    kw = p.fused_step_kwargs()
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, (u2, uo2, uoo2, g2), 3)
+    n1x, n1y = p._shape2
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    for row0, ext in blocks:
+        before = dict(_build.launches)
+        got_b = fs.fused_rv_block_step(*ext, row0, abs_term, n_rows=n1x,
+                                       n_cols=n1y, **bkw)
+        got_t = ts.tiled_rv_step(*ext, row0_base=row0, n_rows=n1x,
+                                 abs_term=abs_term, tile_rows=8, **bkw)
+        _burgers_launches(before, "fused_rv_block_step", 1)
+        _burgers_launches(before, "tiled_rv_step_block", 1)
+        ref = fs.fused_rv_block_step_plain(*ext, row0, abs_term, n_rows=n1x,
+                                           n_cols=n1y, **bkw)
+        for got in (got_b, got_t):
+            torch.testing.assert_close(got, ref, rtol=0, atol=F64_TOL)
+
+
+@pytest.mark.parametrize("mode", ["single", "split", "tiled"])
+def test_burgers_main_path_dispatches_to_the_mode_kernel(cuda, monkeypatch,
+                                                         mode):
+    """The Burgers fixed config at mesh 16, f64, T 0.1 with use_kernels and
+    the mode forced: each step launches that mode's Burgers instance with
+    the Dirichlet data of its own t, and the trajectory is the plain
+    path's."""
+    from conservation_fem_tpu_torch.models import burgers
+
+    cfg = burgers.BurgersConfig(mesh_size=16, T=0.1, use_kernels=True,
+                                **BURGERS_FIXED)
+    p = burgers.build(cfg, device=cuda)
+    monkeypatch.setattr(type(p), "_fused_mode", lambda self: mode)
+    _build.launches.clear()
+    u = p.solve().u
+    n = p.num_steps
+    key = lambda name: _build.launch_key(name, "burgers")
+    want = {"single": {key("fused_rv_step"): n},
+            "split": {key("split_setup"): n, key("split_newton"): 2 * n},
+            "tiled": {key("tiled_rv_step"): n}}[mode]
+    assert dict(_build.launches) == want
+    monkeypatch.undo()
+    ref = burgers.build(dataclasses.replace(cfg, use_kernels=False),
+                        device=cuda).solve().u
+    torch.testing.assert_close(u, ref, rtol=0, atol=1e-10)

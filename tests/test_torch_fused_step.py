@@ -98,13 +98,16 @@ def test_plain_fused_step_matches_jax_fixed_step(stabilization, scheme):
 
 
 def test_cuda_step_refuses_what_it_does_not_compile_in(state):
-    """The CUDA step compiles in the KPP flux and the listed schemes; any
-    other raises before a launch. Tensors neither all on the CPU nor all
-    on a card raise too (no fallback to the plain version)."""
+    """The CUDA step compiles in the KPP and Burgers fluxes and the listed
+    schemes; any other raises before a launch, naming the Flux field that
+    selects the instance. Tensors neither all on the CPU nor all on a card
+    raise too (no fallback to the plain version)."""
     p, u2, _, _ = state
-    with pytest.raises(NotImplementedError, match="KPP"):
-        fs._check_kernel_options(tkpp.FLUX._replace(name="burgers"), "bdf2",
+    with pytest.raises(NotImplementedError, match="structured.Flux"):
+        fs._check_kernel_options(tkpp.FLUX._replace(name="euler"), "bdf2",
                                  "rv", "bicgstab")
+    fs._check_kernel_options(tkpp.FLUX._replace(name="burgers"), "bdf2",
+                             "rv", "bicgstab")
     for bad in (("bdf3", "rv", "bicgstab"), ("bdf2", "si", "bicgstab"),
                 ("bdf2", "rv", "gmres")):
         with pytest.raises(ValueError):
