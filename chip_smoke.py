@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --ablate   # the step ablation and idle share
+    python3 chip_smoke.py --against DIR   # the single and block kernels
+                                          # against another tree's, in turns
 
 Phases of the smoke run, in order; any failure raises and the process
 exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), TF32 flags;
      no CUDA device -> error;
-  2. build: compile csrc/*.cu with nvcc, one process per source (seconds
-     and registers per thread of each kernel printed);
+  2. build: compile csrc/*.cu with nvcc, one process per source (seconds,
+     and registers per thread, spill stores and static shared memory of
+     each kernel instance printed);
   3. each hand-written kernel against its plain PyTorch version on the card,
      numpy-seeded inputs or a mid-trajectory state (32 steps of the plain
      f64 bench path): stencil_matvec (257^2, 1025^2; f32, f64; timed on a
@@ -87,8 +90,16 @@ kernels, each with its bound; a step kernel's row also holds its Burgers
 instance's numbers under "burgers"); the last line is {"ok": true,
 "device": {...}}.
 
-The ablation (--ablate) times one fused_rv_step launch, f32 bench config,
-from the mid-trajectory state at mesh 64 and 256, with one keyword
+The ablation (--ablate) first times the single kernel at mesh 64 and
+256, f32 bench config, in turns with its instances that leave out one
+element of its band design (csrc/band_sweep.cuh BandDesign: staged
+planes, shuffle reductions, quadrature per triangle) or all three
+(ops/fused_step.BAND_ABLATIONS; built into a library of their own,
+ops/_build.ablate_lib), and the block kernel on the interior blocks of 64
+x 4 and 512 x 4 (Chebyshev 10 / 2 x 16) in turns with its instances
+(BLOCK_ABLATIONS); then times one fused_rv_step
+launch, f32 bench config, from the mid-trajectory state at mesh 64 and
+256, with one keyword
 argument of the wrapper changed per variant (ABLATIONS; the kernel source
 is the same for all), and the split step at mesh 128 with each variant;
 times the tiled kernel at mesh 128, 256 and 512, and the split step at
@@ -97,6 +108,15 @@ mesh 128, with 8, 16, 32 and 64 rows per tile beside the single kernel
 kernel at mesh 256 and 512 with each variant of ABLATIONS; and reads the
 device's idle share over a 20-step solve of each main path (mesh 64, 128,
 256, 512), with and without torch.profiler.
+
+--against DIR times the single and block kernels of the tree in DIR (an
+unpacked earlier commit) and of this one in turns, DIR, this, this, DIR,
+twice, one process each (scripts/torch_kernel_times.py: fused_rv_step at
+KPP mesh 64 and Burgers mesh 200 in f32, fused_rv_block_step on the
+interior blocks of KPP and Burgers mesh 64 x 4; off the main paths,
+fused_rv_step at KPP mesh 256 and fused_rv_block_step on the interior
+block of KPP 512 x 4), and prints each case's times and the ratio this /
+DIR.
 """
 
 import dataclasses
@@ -282,30 +302,36 @@ def phase_device():
 
 def phase_build():
     """Build the kernels; print the seconds and, from ptxas -v, each
-    kernel's registers per thread and spill stores (a step kernel's
-    Burgers instance as "<kernel> burgers <dtype>")."""
+    kernel's registers per thread, spill stores and static shared memory
+    (a step kernel's Burgers instance as "<kernel> burgers <dtype>")."""
     import re
 
     from conservation_fem_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
+    if "registers" not in _build.build_log:   # built without ptxas -v
+        _build.build(verbose=True, force=True)
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     regs, name = {}, None
     for line in _build.build_log.splitlines():
         m = re.search(r"entry function '_ZN3cft\d+(\w+?)_kernelI([fd])"
-                      r"(?:NS_\d+(Kpp|Burgers)E)?", line)
+                      r"(?:NS_\d+(Kpp|Burgers)E)?(?:Li(\d+)E)?", line)
         if m:
             flux = " burgers" if m.group(3) == "Burgers" else ""
+            design = ("" if m.group(4) in (None, "7")
+                      else f" design {m.group(4)}")
             name = (f"{m.group(1)}{flux} "
-                    f"{'f32' if m.group(2) == 'f' else 'f64'}")
+                    f"{'f32' if m.group(2) == 'f' else 'f64'}{design}")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            regs[name]["static_smem"] = int(m.group(1)) if m else 0
             name = None
     log(json.dumps({"registers_per_thread": regs}))
     return regs
@@ -466,6 +492,38 @@ def tiled_facts(kw, n1x, n1y, n, dtype, regs):
                 sweeps_per_step=floor["sweeps"],
                 sweep_bytes=floor["sweep_bytes"],
                 sweep_floor_ms=floor["sweep_floor_ms"])
+
+
+# the band kernels' timed shapes: name -> (KPP shape, Burgers shape), f32,
+# every row of each buffer in the grid (interior blocks)
+BAND_SHAPES = {"fused_rv_step": ((257, 257), (201, 201)),
+               "fused_rv_block_step": ((189, 257), (141, 65))}
+
+
+def band_facts(name, regs):
+    """The band plan of a band kernel (ops/fused_step.band_plan) at its
+    timed shapes, KPP and Burgers, f32, and what ptxas gave each instance:
+    registers, spill stores, static shared memory."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for flux, shape in zip(("kpp", "burgers"), BAND_SHAPES[name]):
+        plan = fs.band_plan(*shape, 4, sms)
+        tag = "" if flux == "kpp" else " burgers"
+        out[flux] = dict(
+            shape=list(shape), **{k: plan[k] for k in (
+                "ctas", "cap", "staged", "chunk", "quad_cells", "smem")},
+            ptxas={dn: regs.get(f"{name}{tag} {dn}") for dn in ("f32",
+                                                                  "f64")})
+        for dn, info in out[flux]["ptxas"].items():
+            if info is None or info.get("spill_stores", 0):
+                raise AssertionError(f"{name}{tag} {dn}: ptxas reports "
+                                     f"{info} (a band kernel must not "
+                                     "spill)")
+    return out
 
 
 def _alternated(fns, reps):
@@ -2071,6 +2129,62 @@ def idle_share(mesh):
                 unprofiled_idle=1.0 - step_ms * 1e3 / us_step)
 
 
+def _medians(title, fns, reps=30, rounds=7):
+    """{name: median ms} of fns over `rounds` rounds of `reps` launches
+    each, the order rotated and reversed from round to round; logs each
+    median with the spread (min, max) of its rounds."""
+    import statistics
+
+    names = list(fns)
+    got = {k: [] for k in names}
+    for r in range(rounds):
+        order = names[r % len(names):] + names[:r % len(names)]
+        for k in (order[::-1] if r % 2 else order):
+            got[k].append(cuda_ms(fns[k], reps))
+    med = {k: statistics.median(v) for k, v in got.items()}
+    for k, v in got.items():
+        log(f"{title} {k}: {med[k]:.5f} ms ({med[k] / med[names[0]]:.1%} "
+            f"of {names[0]}; rounds {min(v):.5f} to {max(v):.5f})")
+    return med
+
+
+def band_ablation(card, states):
+    """{ablation: {variant: median ms}}: the single kernel at mesh 64 and
+    256 (f32 bench config) and the block kernel on the interior blocks of
+    64 x 4 and 512 x 4 (Chebyshev 10 / 2 x 16), each in turns with its
+    instances without one element of the band design
+    (ops/fused_step.BAND_ABLATIONS, BLOCK_ABLATIONS); states: {mesh:
+    mid_trajectory_state(mesh)}."""
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+
+    out = {}
+    for mesh in (64, 256):
+        p, f32, base = _bench_f32(states[mesh])
+        fns = {"full": lambda: fs.fused_rv_step(*f32, **base)}
+        for name, design in fs.BAND_ABLATIONS.items():
+            fns[name] = (lambda d=design: fs.fused_rv_step_ablated(
+                d, *f32, **base))
+        out[f"band_design_mesh{mesh}"] = _medians(
+            f"ablate band design mesh {mesh} ({card})", fns)
+    for mesh in (64, 512):
+        p, f32, base = _bench_f32(states[mesh])
+        n1x, n1y = f32[0].shape
+        blocks, _ = _deep_halo_blocks(f32[:4], f32[4], 4, 62)
+        row0, ext = blocks[1]
+        at = (f32[0] - f32[0].mean()).abs().max().reshape(1)
+        bkw = {k: v for k, v in dict(base, inner_solver="cheby",
+                                     cg_iters=10, lin_iters=16).items()
+               if k not in ("nx", "ny")}
+        fns = {"full": lambda: fs.fused_rv_block_step(
+            *ext, row0, at, n_rows=n1x, n_cols=n1y, **bkw)}
+        for name, design in fs.BLOCK_ABLATIONS.items():
+            fns[name] = (lambda d=design: fs.fused_rv_block_step_ablated(
+                d, *ext, row0, at, n_rows=n1x, n_cols=n1y, **bkw))
+        out[f"band_design_block_{mesh}x4"] = _medians(
+            f"ablate band design, block kernel {mesh} x 4 ({card})", fns)
+    return out
+
+
 def ablate(card):
     import torch
 
@@ -2082,8 +2196,10 @@ def ablate(card):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     out = dict(card=card, clocks=clocks)
+    states = {mesh: mid_trajectory_state(mesh) for mesh in (64, 256, 512)}
+    out.update(band_ablation(card, states))
     for mesh in (64, 128, 256, 512):
-        state = mid_trajectory_state(mesh)
+        state = states.pop(mesh, None) or mid_trajectory_state(mesh)
         p, f32, base = _bench_f32(state)
         rows = {}
         if mesh in (64, 256):
@@ -2143,6 +2259,40 @@ def ablate(card):
     return out
 
 
+def against(other, card):
+    """{case: times} of the single and block kernels of the tree in
+    `other` and of this one, in turns (other, this, this, other, twice),
+    one process each (scripts/torch_kernel_times.py; the first makes the
+    inputs)."""
+    import torch
+
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "conservation_fem_tpu_torch")):
+        raise SystemExit(f"--against {other}: no conservation_fem_tpu_torch "
+                         "there")
+    script = os.path.join(REPO, "scripts", "torch_kernel_times.py")
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        for k, (tree, who) in enumerate(2 * ((other, "other"),
+                                             (REPO, "this"), (REPO, "this"),
+                                             (other, "other"))):
+            out = os.path.join(tmp, f"{k}.pt")
+            subprocess.run([sys.executable, script, "run", tree, inputs,
+                            out], check=True, cwd=tree)
+            for name, ms in torch.load(out).items():
+                got.setdefault(name, {"this": [], "other": []})[who].append(
+                    ms)
+    rows = {}
+    for name, t in got.items():
+        this, prev = (sum(v) / len(v) for v in (t["this"], t["other"]))
+        rows[name] = dict(this_ms=this, other_ms=prev, ratio=this / prev,
+                          this_runs=t["this"], other_runs=t["other"])
+        log(f"against {other}: {name}: this tree {this:.5f} ms, the other "
+            f"{prev:.5f} ms, ratio {this / prev:.4f} ({card})")
+    return rows
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -2151,8 +2301,10 @@ def main(argv):
     if argv[1:] == ["--ablate"]:
         log(card)
         log(json.dumps({"ablation": ablate(card)}))
+    elif argv[1:2] == ["--against"] and len(argv) == 3:
+        log(json.dumps({"against": against(argv[2], card)}))
     elif argv[1:]:
-        raise SystemExit(f"usage: {argv[0]} [--ablate]")
+        raise SystemExit(f"usage: {argv[0]} [--ablate | --against DIR]")
     else:
         smoke(card, regs)
     print(json.dumps({"ok": True, "device": {
@@ -2223,7 +2375,11 @@ def smoke(card, regs):
                        f"{src[:-3]}_burgers.cu",
                 launches=b_counts.get(key, 0), launches_run=b_runs[key],
                 **burgers_rows[name]))
-        elif name == "cg_solve":
+        if name in BAND_SHAPES:
+            row["band_plan"] = band_facts(name, regs)
+            log(f"{name} band plan and ptxas: "
+                + json.dumps(row["band_plan"]))
+        if name == "cg_solve":
             row.update(burgers_reference_launches=burgers_cg,
                        burgers_reference_run="burgers mesh-50 f64 "
                                              "reference config")

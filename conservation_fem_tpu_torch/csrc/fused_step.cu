@@ -17,29 +17,32 @@
 // The flux is compiled in (fused_step.cuh Kpp, Burgers): this source
 // builds the KPP instance, fused_step_burgers.cu the Burgers one.
 //
-// What bounds it on the H100: at mesh 64 a step moves a few MB — the 7
-// mass planes, 7 eps-stiffness and 7 Jacobian planes and ~20 fields, all of
-// which stay in the 50 MB L2 — and does four quadrature passes of 36
-// sincos per node. Neither is the limit: the step is a chain of 44
-// dependent phases (40 of them end in a global reduction: the CG and
-// BiCGStab dots, the mean and max of u) with the bench iteration counts,
-// so the cost is grid-wide synchronisation latency. Design: ONE cooperative
-// persistent kernel per call (every block resident, grid-stride loops over
-// nodes, grid.sync() between phases) so no launch and no host round trip
-// sits between phases; dots are deterministic two-level reductions
-// (stencil.cuh GridReducer), identical from run to run. Cells are indexed
-// directly — the TPU kernel's roll + iota-mask layout is not carried over:
-// each node gathers the contributions of its (up to) six triangles, so no
-// scatter and no atomics are needed, at the price of recomputing a cell's
-// quadrature at each of its three corners. Scalars (alpha, omega, rho) live
+// What bounds it on the H100: at mesh 64 a step moves a few MB (the 7
+// mass planes, 7 eps-stiffness and 7 Jacobian planes and ~20 fields, all in
+// the 50 MB L2) and does four quadrature passes; neither is the limit. The
+// step is a chain of 44 dependent passes (40 of them end in a global
+// reduction: the CG and BiCGStab dots, the mean and max of u) with the
+// bench iteration counts, so the cost is the latency of each pass: its
+// barrier, its reduction, its dependent L2 round trips and, in four of
+// them, the quadrature. Design: ONE cooperative persistent kernel per call
+// (no launch and no host round trip between passes), over the resident
+// bands of band_sweep.cuh: each CTA owns one contiguous band of nodes for
+// the whole launch, with its operator planes and the quadrature of its
+// triangles in shared memory; a reduction is a warp-shuffle tree in each
+// block, partials in alternating buffers, one grid.sync(), then a shuffle
+// tree over the partials, identical from run to run. Cells are indexed directly: the TPU kernel's roll +
+// iota-mask layout is not carried over. Scalars (alpha, omega, rho) live
 // in registers, identical in every thread; nothing crosses to the host.
-// The phases themselves are in fused_step.cuh (StepPhases over a
-// grid-stride sweep), shared with the split and tiled kernels; a phase
-// that reads a combination at neighbours, such as the next BiCGStab
-// direction, forms it where it reads it instead of storing it in a phase
-// of its own.
+// The phases themselves are in fused_step.cuh (StepPhases), shared with
+// the split, tiled and block kernels; a phase that reads a combination at
+// neighbours, such as the next BiCGStab direction, forms it where it reads
+// it instead of storing it in a phase of its own. The band plan (nodes per
+// CTA, what is staged, the quadrature chunk) comes from
+// ops/fused_step.band_plan. fused_step_ablate.cu builds the instances that
+// leave one design element out (BandDesign) into a library of their own,
+// for the ablation.
 
-#include "fused_step.cuh"
+#include "band_sweep.cuh"
 
 namespace cft {
 
@@ -54,24 +57,30 @@ template <typename T> struct StepParams {
   T* part;   // reduction partials
   const double* consts;
   GridShape gs;
+  BandPlan plan;
   int n_sub, cg_iters, newton_iters, lin_iters;
   int bdf2, rv, freeze, cheby;
 };
 
-template <typename T, typename Fl>
+template <typename T, typename Fl, int D>
 __global__ void __launch_bounds__(kBlock, 1)
 fused_rv_step_kernel(StepParams<T> P) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
   __shared__ RedScratch<T> scratch;
+  __shared__ BandShared<T> sh;
   __shared__ StepConsts<T> C;
   if (threadIdx.x == 0) load_consts(C, P.consts);
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  StepPhases<T, GridSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs,
-                                    GridSweep<T>{P.gs}, P.Mc, P.g, P.cheby,
-                                    P.work);
+  using Sweep = BandSweep<T, Fl, D>;
+  StepPhases<T, Sweep, Fl> S(
+      grid, scratch, P.part, C, P.gs,
+      Sweep(C, P.gs, P.plan, reinterpret_cast<T*>(band_smem), P.part, sh,
+            grid),
+      P.Mc, P.g, P.cheby, P.work);
   const int N = S.N;
 
-  for (int n = S.first; n < N; n += S.stride) {
+  for (int n = S.first; n < S.last; n += S.stride) {
     P.ring[n] = P.uoo_in[n];
     P.ring[N + n] = P.uo_in[n];
     P.ring[2 * N + n] = P.u_in[n];
@@ -90,47 +99,70 @@ fused_rv_step_kernel(StepParams<T> P) {
   }
 }
 
-template <typename T, typename Fl>
+template <typename T, typename Fl, int D>
 int fused_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* ring, void* work,
-                  void* part, const void* consts, int n1x, int n1y,
-                  int n_sub, int cg_iters, int newton_iters, int lin_iters,
-                  int bdf2, int rv, int freeze, int cheby, void* stream) {
+                  void* part, const void* consts, int n1x,
+                  int n1y, int n_sub, int cg_iters, int newton_iters,
+                  int lin_iters, int bdf2, int rv, int freeze, int cheby,
+                  int ctas, int staged, int chunk, int cap, int smem,
+                  void* stream) {
   StepParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo, (const T*)gvals,
                   (const T*)Mc, (T*)ring, (T*)work, (T*)part,
-                  (const double*)consts, GridShape::whole(n1x, n1y), n_sub,
-                  cg_iters, newton_iters, lin_iters, bdf2, rv, freeze,
-                  cheby};
-  void* args[] = {&P};
-  const int grid = coop_grid(fused_rv_step_kernel<T, Fl>, n1x * n1y);
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (void*)fused_rv_step_kernel<T, Fl>, grid, kBlock, args, 0,
-      (cudaStream_t)stream);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(e != cudaSuccess ? e : last);
+                  (const double*)consts,
+                  GridShape::whole(n1x, n1y),
+                  BandPlan{ctas, staged, chunk, cap, smem}, n_sub, cg_iters,
+                  newton_iters, lin_iters, bdf2, rv, freeze, cheby};
+  return launch_bands(fused_rv_step_kernel<T, Fl, D>, P, P.plan, stream);
 }
 
 }  // namespace cft
 
+#define CFT_STEP_ARGS                                                      \
+  const void *u, const void *uo, const void *uoo, const void *g,           \
+      const void *Mc, void *ring, void *work, void *part,                  \
+      const void *consts, int n1x, int n1y, int n_sub, int cg_iters,       \
+      int newton_iters, int lin_iters, int bdf2, int rv, int freeze,       \
+      int cheby, int ctas, int staged, int chunk, int cap, int smem,       \
+      void *stream
+#define CFT_STEP_CALL                                                      \
+  u, uo, uoo, g, Mc, ring, work, part, consts, n1x, n1y, n_sub,            \
+      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, ctas,    \
+      staged, chunk, cap, smem, stream
+
 extern "C" {
 
-int CFT_ENTRY(fused_rv_step, f32)(
-    const void* u, const void* uo, const void* uoo, const void* g,
-    const void* Mc, void* ring, void* work, void* part, const void* consts,
-    int n1x, int n1y, int n_sub, int cg_iters, int newton_iters,
-    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
-  return cft::fused_rv_step<float, cft::CFT_FLUX>(
-      u, uo, uoo, g, Mc, ring, work, part, consts, n1x, n1y, n_sub,
-      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, stream);
+#ifndef CFT_BAND_ABLATE
+int CFT_ENTRY(fused_rv_step, f32)(CFT_STEP_ARGS) {
+  return cft::fused_rv_step<float, cft::CFT_FLUX, cft::kBandAll>(
+      CFT_STEP_CALL);
 }
-int CFT_ENTRY(fused_rv_step, f64)(
-    const void* u, const void* uo, const void* uoo, const void* g,
-    const void* Mc, void* ring, void* work, void* part, const void* consts,
-    int n1x, int n1y, int n_sub, int cg_iters, int newton_iters,
-    int lin_iters, int bdf2, int rv, int freeze, int cheby, void* stream) {
-  return cft::fused_rv_step<double, cft::CFT_FLUX>(
-      u, uo, uoo, g, Mc, ring, work, part, consts, n1x, n1y, n_sub,
-      cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, stream);
+int CFT_ENTRY(fused_rv_step, f64)(CFT_STEP_ARGS) {
+  return cft::fused_rv_step<double, cft::CFT_FLUX, cft::kBandAll>(
+      CFT_STEP_CALL);
 }
+#else
+// The KPP f32 instances without one design element each, and without all
+// three (design: the BandDesign bits kept).
+int cft_fused_rv_step_ablate_f32(int design, CFT_STEP_ARGS) {
+  using cft::Kpp;
+  constexpr int kAll = cft::kBandAll;
+  switch (design) {
+    case kAll & ~cft::kStagePlanes:
+      return cft::fused_rv_step<float, Kpp, kAll & ~cft::kStagePlanes>(
+          CFT_STEP_CALL);
+    case kAll & ~cft::kShflReduce:
+      return cft::fused_rv_step<float, Kpp, kAll & ~cft::kShflReduce>(
+          CFT_STEP_CALL);
+    case kAll & ~cft::kTriQuad:
+      return cft::fused_rv_step<float, Kpp, kAll & ~cft::kTriQuad>(
+          CFT_STEP_CALL);
+    case 0:
+      return cft::fused_rv_step<float, Kpp, 0>(CFT_STEP_CALL);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
 
 }  // extern "C"

@@ -8,19 +8,24 @@
 //   * node functions (nl_rhs_node, conv_planes_node, keps_planes_node,
 //     rv_eps_node, residual_node, pinned_apply, jacobian_node) compute one
 //     node's value from field accessors x(i, j) and operator accessors
-//     a(k), so the same arithmetic reads device memory in the grid-stride
-//     kernels and a staged shared-memory tile in the tiled kernel;
-//   * StepPhases, the grid-wide phases of every step kernel (grid.sync()
-//     between phases, deterministic two-level reductions from
-//     stencil.cuh): residual projection with its mass solve, RV epsilon,
+//     a(k), so the same arithmetic reads device memory or shared memory
+//     in the band kernels and a staged shared-memory tile in the tiled
+//     ones (band_sweep.cuh adds overloads of nl_rhs_node and
+//     conv_planes_node that gather a triangle table);
+//   * StepPhases, the grid-wide phases of every step kernel (a barrier
+//     between phases, deterministic reductions): residual projection with
+//     its mass solve, RV epsilon,
 //     eps-stiffness planes, Newton linearisation, the fixed BiCGStab or
 //     Chebyshev inner solve and the update with its residual. A phase
 //     that reads values at neighbours runs as a sweep over a sweep
 //     policy, and declares the raw fields and operators it reads (Reads):
-//     GridSweep (here; the single and block kernels) visits the nodes in
-//     a grid-stride loop and reads them from device memory, TileSweep
-//     (tile_sweep.cuh; the tiled and split kernels) copies them into
-//     shared memory tile by tile, the next tile while this one computes.
+//     TileSweep (tile_sweep.cuh; the tiled and split kernels) copies them
+//     into shared memory tile by tile, the next tile while this one
+//     computes, and BandSweep (band_sweep.cuh; the single and block
+//     kernels) keeps one band of nodes on each SM, with its operator
+//     planes and its quadrature in shared memory. A phase ends with
+//     grid.sync(); TileSweep reduces with GridReducer (stencil.cuh),
+//     BandSweep with its own shuffle trees (kOwnReduce).
 // The flux is compiled in, a template parameter Fl of the node functions
 // and of StepPhases (the JAX kernels take it as the functions fpx, fpy of
 // _make_lib): Kpp and Burgers below. Each source of a step kernel builds
@@ -354,8 +359,20 @@ __device__ __forceinline__ T cheby_next(T rho, T two_sigma, T delta, T& c1,
   return rho_new;
 }
 
-// Sweeps. sweep.run<NS>(reads, stage, body) runs body(i, j, n, st, f, ops)
-// once at every node (i, j), n = i * n1y + j, of the grid held in the
+// The quadrature a sweep's body evaluates, on the stage value S: none, N(x)
+// (nl_rhs_node) or the flux-Jacobian planes (conv_planes_node). BandSweep
+// tabulates it once per triangle before the body runs; TileSweep ignores
+// it (the body evaluates it at each node).
+template <int S, int K> struct Quad {
+  static constexpr int kStage = S, kKind = K;
+};
+enum QuadKind { kQuadNone = 0, kQuadNl = 1, kQuadConv = 2 };
+using NoQuad = Quad<-1, kQuadNone>;
+template <int S> using QuadNl = Quad<S, kQuadNl>;
+template <int S> using QuadConv = Quad<S, kQuadConv>;
+
+// Sweeps. sweep.run<NS, Q>(reads, stage, body) runs body(i, j, n, st, f,
+// ops) once at every node (i, j), n = i * n1y + j, of the grid held in the
 // buffer (a row block's rows outside the grid are never computed and never
 // read). `reads` declares the raw values the sweep reads (Reads): fields
 // f[0, H) at the node and its six neighbours, fields f[H, H + M) at the
@@ -364,8 +381,8 @@ __device__ __forceinline__ T cheby_next(T rho, T two_sigma, T delta, T& c1,
 // node, ops[p](k) plane k of operator p there, and st[s] an (i, j) accessor
 // of the s-th of the NS values that stage(i, j, h, v) forms from the raw
 // values h(k), k < H, of node (i, j) — formed where they are read, from
-// device memory (GridSweep) or from a shared-memory tile (TileSweep,
-// tile_sweep.cuh). Nothing a sweep reads at neighbours is written by it,
+// device memory (BandSweep, band_sweep.cuh) or from a shared-memory tile
+// (TileSweep, tile_sweep.cuh). Nothing a sweep reads at neighbours is written by it,
 // because other threads read those values meanwhile; a field read at the
 // node only may be updated there.
 template <typename T, int H, int M, int P> struct Reads {
@@ -381,16 +398,7 @@ template <typename T> struct GlobalAt {
   __device__ __forceinline__ T operator()(int k) const { return f[k][n]; }
 };
 
-// Operators at node n in device memory.
-template <typename T> struct GlobalOps {
-  const T* const* op;
-  int n, N;
-  __device__ __forceinline__ PlanesAt<T> operator[](int p) const {
-    return PlanesAt<T>{op[p], n, N};
-  }
-};
-
-// The values of a stage, formed from device memory where they are read.
+// The value s of a stage, formed from device memory where it is read.
 template <typename T, int NS, typename Stage> struct FormedField {
   const Stage* stage;
   const T* const* f;
@@ -401,37 +409,25 @@ template <typename T, int NS, typename Stage> struct FormedField {
     return v[s];
   }
 };
-template <typename T, int NS, typename Stage> struct Formed {
-  const Stage* stage;
-  const T* const* f;
-  int n1y;
-  __device__ __forceinline__ FormedField<T, NS, Stage> operator[](
-      int s) const {
-    return FormedField<T, NS, Stage>{stage, f, n1y, s};
-  }
-};
-
-// Grid-stride sweep of the single and block kernels: every value is read
-// from device memory where it is needed.
-template <typename T> struct GridSweep {
-  GridShape g;
-  template <int NS, typename R, typename Stage, typename Body>
-  __device__ __forceinline__ void run(const R& in, Stage stage,
-                                      Body body) const {
-    const Formed<T, NS, Stage> st{&stage, in.f, g.n1y};
-    const int hi = g.n_hi(), N = g.size();
-    for (int n = g.n_lo() + blockIdx.x * kBlock + threadIdx.x; n < hi;
-         n += gridDim.x * kBlock)
-      body(n / g.n1y, n % g.n1y, n, st, GlobalAt<T>{in.f, n},
-           GlobalOps<T>{in.op, n, N});
-  }
-};
+// This thread's nodes of a grid-stride sweep: first, first + stride, ...
+// below last.
+template <typename Sweep>
+__device__ __forceinline__ void node_range(const Sweep&, GridShape g,
+                                           int& first, int& last,
+                                           int& stride) {
+  first = g.n_lo() + blockIdx.x * kBlock + threadIdx.x;
+  last = g.n_hi();
+  stride = gridDim.x * kBlock;
+}
 
 // The grid-wide phases of a step. Every block runs every phase, so every
 // thread computes the same scalars (a diverging branch would deadlock the
-// grid barrier). Fields are addressed by node n = i * n1y + j; passes that
-// read neighbours are sweeps, and passes that read fields at the node only
-// run over the same sweep policy (pointwise).
+// barrier). The sweep policy visits the nodes (first, last, stride: this
+// thread's nodes of the grid-stride or band loop, node_range) and may bring
+// its own reduction and shared-memory copies of the operator planes
+// (kOwnReduce, kStages). Fields are addressed by node
+// n = i * n1y + j; passes that read neighbours are sweeps, and passes that
+// read fields at the node only run over the same sweep policy (pointwise).
 // Ping-pong buffers keep a sweep from writing what it reads at neighbours:
 // the directions cd0 / p2 and cd1 / v2, the Chebyshev direction cd0 / cd1
 // and the Newton iterate uk / uk2.
@@ -461,15 +457,34 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                         Sweep sweep_, const T* Mc_, const T* gv_,
                         bool cheby_, T* work, bool external_ = false)
       : grid(grid_), scratch(scratch_), red{part, 0}, C(C_), g(g_),
-        N(g_.size()), first(g_.n_lo() + blockIdx.x * kBlock + threadIdx.x),
-        last(g_.n_hi()), stride(gridDim.x * kBlock), sweep(sweep_), Mc(Mc_),
-        gv(gv_), cheby(cheby_), external(external_) {
+        N(g_.size()), sweep(sweep_), Mc(Mc_), gv(gv_), cheby(cheby_),
+        external(external_) {
+    node_range(sweep, g, first, last, stride);
     auto field = [&](int f) { return work + (size_t)f * N; };
     nun = field(NUN); kun = field(KUN); eps = field(EPS); cx = field(CX);
     cr = field(CR); cd0 = field(CD0); cd1 = field(CD1); p2 = field(P2);
     v2 = field(V2); dj = field(DJ); F = field(FR); bs = field(BS);
     bt = field(BT); rhat = field(RHAT); uk2 = field(UK2); kc = field(KC);
     jc = field(JC);
+    if constexpr (Sweep::kStages) sweep.stage(0, Mc);
+  }
+
+  // The end of a phase: every block waits for every other.
+  __device__ void barrier() { grid.sync(); }
+
+  // Grid-wide reduction of K values, which also ends the phase.
+  template <typename Op, int K> __device__ void reduce(T (&v)[K]) {
+    if constexpr (Sweep::kOwnReduce) {
+      sweep.template reduce<Op>(v);
+    } else {
+      red.template run<Op>(grid, scratch, v);
+    }
+  }
+
+  // Operator planes written in the phase just ended that the sweep keeps
+  // in shared memory from now on (slot 1 eps-stiffness, 2 Jacobian).
+  __device__ void stage(int slot, const T* op) {
+    if constexpr (Sweep::kStages) sweep.stage(slot, op);
   }
 
   // Jacobi preconditioner 1 / d of a pinned operator's diagonal d
@@ -478,8 +493,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   }
 
   // A pass that reads only at the node: body(i, j, n, f) at every node of
-  // the sweep, f(k) raw field k of `in` there (GridSweep: the grid-stride
-  // loop of first, last and stride; TileSweep: the tile pipeline).
+  // the sweep, f(k) raw field k of `in` there (BandSweep: the band's
+  // nodes; TileSweep: the tile pipeline).
   template <int M, typename Body>
   __device__ void pointwise(const Reads<T, 0, M, 0>& in, Body body) {
     sweep.template run<1>(
@@ -492,7 +507,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // Block mode: zero `out` on the buffer's rows outside the grid, which no
   // pass visits.
   __device__ void zero_outside(T* out) const {
-    for (int n = blockIdx.x * kBlock + threadIdx.x; n < N; n += stride)
+    for (int n = blockIdx.x * kBlock + threadIdx.x; n < N;
+         n += gridDim.x * kBlock)
       if (n < g.n_lo() || n >= last) out[n] = T(0);
   }
 
@@ -500,9 +516,9 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // sums to take (Chebyshev, abs_term from the caller) and only ends it.
   template <int K> __device__ void sum_all(T (&v)[K]) {
     if (external) {
-      grid.sync();
+      barrier();
     } else {
-      red.template run<SumOp>(grid, scratch, v);
+      reduce<SumOp>(v);
     }
   }
 
@@ -512,7 +528,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   __device__ T project(const T* u, const T* uo, const T* uoo, bool bdf2,
                        int cg_iters) {
     T acc[2] = {T(0), T(0)};  // rz of CG init, sum(u)
-    sweep.template run<2>(
+    sweep.template run<2, QuadNl<1>>(
         Reads<T, 3, 0, 1>{{u, uo, bdf2 ? uoo : nullptr}, {Mc}},
         [&](int i, int j, const auto& h, T (&v)[2]) {
           v[0] = bdf2 ? (T(3) * h(0) - T(4) * h(1) + h(2)) / C.two_dt
@@ -567,7 +583,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
             const T z = pre ? f(3) : inv_diag(i, j, ops[0](0));
             d_out[n] = c1 * d + c2 * (z * r);
           });
-      grid.sync();
+      barrier();
       rho = rho_new;
       T* tmp = d_in; d_in = d_out; d_out = tmp;
     }
@@ -599,7 +615,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
             cd1[n] = q;
             pap[0] += p * q;
           });
-      red.template run<SumOp>(grid, scratch, pap);
+      reduce<SumOp>(pap);
       if (!first_it) {
         p_alt = p_cur;
         p_cur = p_out;
@@ -614,7 +630,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                   cr[n] = r;
                   rzn[0] += r * (inv_diag(i, j, f(4)) * r);
                 });
-      red.template run<SumOp>(grid, scratch, rzn);
+      reduce<SumOp>(rzn);
       beta = rzn[0] / (rz > T(0) ? rz : C.tiny);
       rz = rzn[0];
     }
@@ -627,7 +643,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
               [&](int i, int j, int n, const auto& f) {
                 mx[0] = fmax(mx[0], fabs(f(0) - mean_u));
               });
-    red.template run<MaxOp>(grid, scratch, mx);
+    reduce<MaxOp>(mx);
     return mx[0];
   }
 
@@ -647,13 +663,13 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
     } else {
       for (int n = first; n < last; n += stride) eps[n] = T(0);
     }
-    grid.sync();
+    barrier();
   }
 
   // 3. eps-stiffness planes (kc), K u_n (kun), uk0 = where(bc, g, u) into
   // uk and, unless Fo is null, F(uk0) into Fo.
   __device__ void planes(const T* u, T* uk, T* Fo) {
-    sweep.template run<3>(
+    sweep.template run<3, QuadNl<2>>(
         Reads<T, 3, 1, 1>{{eps, u, gv, Fo ? nun : nullptr},
                           {Fo ? Mc : nullptr}},
         [&](int i, int j, const auto& h, T (&v)[3]) {
@@ -676,7 +692,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                                       stencil_apply(K, g, i, j, s[2]), f(3),
                                       ku, f(2));
         });
-    grid.sync();
+    barrier();
+    stage(1, kc);
   }
 
   // Inner-solver initial state from -F at node n: x = 0, r = rhat = p = -F
@@ -698,7 +715,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // r.r.
   __device__ T linearize(const T* w, const T* Fi) {
     T rho[1] = {T(0)};
-    sweep.template run<1>(
+    sweep.template run<1, QuadConv<0>>(
         Reads<T, 1, 1, 2>{{w, Fi}, {Mc, kc}},
         [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
         [&](int i, int j, int n, const auto& s, const auto& f,
@@ -709,6 +726,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
           solver_init(n, -f(1), d, rho[0]);
         });
     sum_all(rho);
+    stage(2, jc);
     return rho[0];
   }
 
@@ -762,7 +780,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
             v_out[n] = vv;
             rv[0] += f(4) * vv;
           });
-      red.template run<SumOp>(grid, scratch, rv);
+      reduce<SumOp>(rv);
       if (!first_it) {
         p_alt = p_cur;
         p_cur = p_out;
@@ -785,7 +803,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
             ts[0] += tv * sv;
             ts[1] += tv * tv;
           });
-      red.template run<SumOp>(grid, scratch, ts);
+      reduce<SumOp>(ts);
       omega = safe_div(ts[0], ts[1], C.tiny);
       T rn[1] = {T(0)};
       pointwise(Reads<T, 0, 6, 0>{{cx, dj, p_cur, bs, bt, rhat}, {}},
@@ -796,7 +814,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                   cr[n] = r;
                   rn[0] += f(5) * r;
                 });
-      red.template run<SumOp>(grid, scratch, rn);
+      reduce<SumOp>(rn);
       beta = safe_div(rn[0], rho, C.tiny) * safe_div(alpha, omega, C.tiny);
       rho = rn[0];
     }
@@ -804,7 +822,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
 
   // 6. uk_new = uk + dx and F(uk_new) into Fo (uk_new is not uk).
   __device__ void update(const T* u, const T* uk, T* uk_new, T* Fo) {
-    sweep.template run<2>(
+    sweep.template run<2, QuadNl<0>>(
         Reads<T, 3, 3, 2>{{uk, cx, u, nun, kun, gv}, {Mc, kc}},
         [&](int i, int j, const auto& h, T (&v)[2]) {
           v[0] = h(0) + h(1);
@@ -817,7 +835,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                                     f(3), f(4), f(5));
           uk_new[n] = s[0](i, j);
         });
-    grid.sync();
+    barrier();
   }
 
   // 6b. the last Newton iteration, which needs no residual: uk_new = uk +
@@ -827,7 +845,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
               [&](int i, int j, int n, const auto& f) {
                 uk_new[n] = f(0) + f(1);
               });
-    grid.sync();
+    barrier();
   }
 
   // CN Newton from uk0 in uk with F(uk0) in F: per iteration the Jacobian

@@ -18,7 +18,7 @@
 // columns in the grid, and the node fields and planes over the tile.
 // Combinations such as the BiCGStab direction dJinv (r + beta (p - omega
 // v)) are formed from the staged raw values where the body reads them,
-// with the expressions of GridSweep. Writes go straight to device memory,
+// with the expressions of BandSweep. Writes go straight to device memory,
 // coalesced along the tile's rows.
 //
 // Copy route: cp.async (4-byte copies in f32, 8-byte in f64; a source size
@@ -128,6 +128,7 @@ template <typename T, int H, int NS, typename Stage> struct TileFormed {
 // The sweep of the tiled and split kernels (fused_step.cuh): this block's
 // tiles in turn through two shared-memory stages of `stage` values each.
 template <typename T> struct TileSweep {
+  static constexpr bool kOwnReduce = false, kStages = false;
   TileGrid tg;
   T* buf;
   int hc, hs, rc, stage;
@@ -175,7 +176,8 @@ template <typename T> struct TileSweep {
     }
   }
 
-  template <int NS, typename R, typename Stage, typename Body>
+  template <int NS, typename Q = NoQuad, typename R, typename Stage,
+            typename Body>
   __device__ void run(const R& in, Stage stage_fn, Body body) const {
     constexpr int H = R::kHalo, M = R::kNode;
     static_assert(H <= kStageHalo && M + 7 * R::kOps <= kStageNode,

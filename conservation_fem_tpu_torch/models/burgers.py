@@ -156,22 +156,37 @@ def _check_ported(cfg: BurgersConfig):
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
+def _min_h_cg(host_mesh, N, dtype, h_cell, area):
+    """min h_CG, projected on the host in ``dtype``."""
+    sd = st.build_structured(host_mesh, N, N, dtype, "cpu")
+    return float(get_nodal_h(sd, h_cell, area).min())
+
+
 def time_step(host_mesh, cfg: BurgersConfig, cells=None):
     """(dt, num_steps): dt = CFL min(h_CG) and ceil(T / dt) steps. h_CG is
-    projected on the host in the configuration's dtype, so a run takes the
-    same steps on the card as on the CPU, from the size of every cell as
-    the JAX package's mesh has it: the linspace points make the sizes
-    differ in their last bits. So h_CG comes out a few 1e-15 below 1/N
-    (f64), and the run takes N + 1 steps unless N is a power of two, as in
-    the JAX package. cells: (h_cell, area) of every cell; None: the host
-    mesh's own (give them for rectangle_mesh_lean, whose identical cells
-    would give 1/N exactly)."""
+    projected on the host, so a run takes the same steps on the card as on
+    the CPU, from the size of every cell as the JAX package's mesh has it:
+    the linspace points make the sizes differ in their last bits, so the
+    exact min h_CG lies a hair below 1/N, and the JAX package runs N + 1
+    steps unless N is a power of two (f64; in f32 always N + 1).
+
+    The projection runs in the configuration's dtype. Below f64 it runs in
+    f64 too, and the smaller of the two minima is taken: f32 rounding can
+    land min h_CG on f32(1/N), above 1/N, where the JAX package's own f32
+    projection (another summation order) lands below it (N = 20: f32 alone
+    gives 20 steps, the JAX package 21). The f64 minimum lies below 1/N
+    and the f32 one, wherever that is below 1/N, lies below the f64 one,
+    so this changes dt only where f32 rounded up; it gives the JAX
+    package's f32 step counts at N = 8, 12, 16, 20, 24, 50, 100, 200, 400,
+    800 (scripts/burgers_time_steps.py --dtype float32). cells: (h_cell,
+    area) of every cell; None: the host mesh's own (give them for
+    rectangle_mesh_lean, whose identical cells would give 1/N exactly)."""
     h_cell, area = cells or (host_mesh.h_cell, host_mesh.area)
     N = cfg.mesh_size
-    sd = st.build_structured(host_mesh, N, N, getattr(torch, cfg.dtype),
-                             "cpu")
-    h = get_nodal_h(sd, h_cell, area)
-    dt = cfg.CFL * float(h.min())
+    h = _min_h_cg(host_mesh, N, getattr(torch, cfg.dtype), h_cell, area)
+    if cfg.dtype != "float64":
+        h = min(h, _min_h_cg(host_mesh, N, torch.float64, h_cell, area))
+    dt = cfg.CFL * h
     return dt, int(np.ceil(cfg.T / dt))
 
 

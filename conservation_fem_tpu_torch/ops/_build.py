@@ -1,16 +1,20 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/*.cu`` source compiles, with nvcc and a plain C interface,
+Each ``csrc/*.cu`` source (the ablation units apart) compiles, with nvcc
+and a plain C interface,
 to an object file — one nvcc process per source, all started together —
 and the objects link into one shared library that is loaded with ctypes
-(no PyTorch headers, so a build takes seconds, not minutes):
+(no PyTorch headers, so a build takes seconds, not minutes). The
+ablation instances of the band kernels (``csrc/*_ablate.cu``) link into
+a second library, ``libcft_ablate.so``, built only when ``ablate_lib``
+is first called:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c -o _build/obj/<name>.o csrc/<name>.cu   (each)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o _build/libcft_kernels.so _build/obj/*.o
 
-The build runs at first use into ``_build/`` beside this package (listed
+A build runs at first use into ``_build/`` beside this package (listed
 in .gitignore) and again whenever the SHA-256 of the sources changes.
 Nothing here runs at import time, so the package imports on a machine
 without nvcc or a GPU.
@@ -41,7 +45,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_NAME = "libcft_kernels.so"
+# the libraries built from csrc/ and the suffix of each one's units: the
+# kernels, and the ablation instances of the band kernels
+LIBS = {"kernels": ("libcft_kernels.so", None),
+        "ablate": ("libcft_ablate.so", "_ablate.cu")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches: collections.Counter = collections.Counter()
@@ -56,8 +63,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "cft_stencil_matvec": [_P, _P, _P, _I, _I, _P],
     "cft_cg_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _P],
-    "cft_fused_rv_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cft_fused_rv_step": [_P] * 9 + [_I] * 15 + [_P],
     "cft_split_setup": [_P] * 12 + [_I] * 8 + [_P],
     "cft_split_newton": [_P] * 13 + [_I] * 8 + [_P],
     "cft_tiled_rv_step": [_P] * 10 + [_I] * 14 + [_P],
@@ -65,17 +71,27 @@ _SIGNATURES = {
     "cft_tiled_occupancy": [_I, _P],
     "cft_split_setup_occupancy": [_I, _P],
     "cft_split_newton_occupancy": [_I, _P],
-    "cft_fused_rv_block_step": [_P] * 9 + [_I] * 10 + [_P],
+    "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
 }
 FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
                                          "cft_cg_solve"}
+# the entry points of the ablation library, KPP f32 alone: (design, the
+# arguments of the kernel's own entry point)
+_ABLATE_SIGNATURES = {
+    "cft_fused_rv_step_ablate_f32":
+        [_I] + _SIGNATURES["cft_fused_rv_step"],
+    "cft_fused_rv_block_step_ablate_f32":
+        [_I] + _SIGNATURES["cft_fused_rv_block_step"],
+}
 # reduction partials of the cooperative kernels: 2 buffers x kMaxRed x
 # kMaxGrid (csrc/stencil.cuh)
 PART_SIZE = 2 * 4 * 2048
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""   # compiler output of the last build (-Xptxas -v when verbose)
+_ablate_lib = None
+# compiler output of the kernels library's build (-Xptxas -v when verbose)
+build_log = ""
 
 
 def _sources():
@@ -83,7 +99,17 @@ def _sources():
                   if f.endswith((".cu", ".cuh")))
 
 
+def _units(which: str):
+    """The translation units of library ``which`` (a key of LIBS)."""
+    suffix, ablate = LIBS[which][1], LIBS["ablate"][1]
+    return [path for path in _sources() if path.endswith(".cu")
+            and (path.endswith(suffix) if suffix
+                 else not path.endswith(ablate))]
+
+
 def source_hash() -> str:
+    """SHA-256 of every source in csrc/ (an ablation unit includes a
+    kernel's source, so each library depends on all of them)."""
     h = hashlib.sha256()
     for path in _sources():
         h.update(os.path.basename(path).encode())
@@ -99,24 +125,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into BUILD_DIR/LIB_NAME unless a library built
-    from the same sources is there; returns its path. The sources compile
-    in parallel, one nvcc each; ``build_log`` keeps the compiler output."""
+def build(verbose: bool = False, force: bool = False,
+          which: str = "kernels") -> str:
+    """Compile the units of library ``which`` (a key of LIBS) into
+    BUILD_DIR unless a library built from the same sources is there (or
+    ``force``); returns its path. The sources compile in parallel, one
+    nvcc each; for the kernels library ``build_log`` keeps the compiler
+    output, also of the build that made a library found there (each
+    library's log is BUILD_DIR/<library>.log)."""
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-    stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
+    lib_name = LIBS[which][0]
+    lib_path = os.path.join(BUILD_DIR, lib_name)
+    stamp = lib_path + ".sha256"
+    log_path = lib_path[:-len(".so")] + ".log"
     digest = source_hash()
-    if os.path.exists(lib_path) and os.path.exists(stamp):
+    if not force and os.path.exists(lib_path) and os.path.exists(stamp):
         with open(stamp) as fh:
             if fh.read().strip() == digest:
+                if which == "kernels" and os.path.exists(log_path):
+                    with open(log_path) as lf:
+                        build_log = lf.read()
                 return lib_path
     nvcc = _nvcc()
-    obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    obj_dir = os.path.join(BUILD_DIR, f"obj.{which}.{os.getpid()}")
     os.makedirs(obj_dir, exist_ok=True)
     procs = []
-    for src in [path for path in _sources() if path.endswith(".cu")]:
+    for src in _units(which):
         obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
         cmd = ([nvcc] + ARCH_FLAGS
                + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c"]
@@ -137,12 +172,16 @@ def build(verbose: bool = False) -> str:
         outputs.append(res.stdout + res.stderr)
         failed = res.returncode != 0
     shutil.rmtree(obj_dir, ignore_errors=True)
-    build_log = "".join(outputs)
+    log = "".join(outputs)
+    if which == "kernels":
+        build_log = log
     if verbose or failed:
-        print(build_log, flush=True)
+        print(log, flush=True)
     if failed:
-        raise RuntimeError("nvcc failed: the CUDA kernels did not build")
+        raise RuntimeError(f"nvcc failed: the {which} library did not build")
     os.replace(tmp, lib_path)
+    with open(log_path, "w") as fh:
+        fh.write(log)
     with open(stamp, "w") as fh:
         fh.write(digest)
     return lib_path
@@ -163,6 +202,21 @@ def lib():
                         fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def ablate_lib():
+    """The loaded library of the band kernels' ablation instances (built
+    at first use, apart from the kernels library)."""
+    global _ablate_lib
+    with _lock:
+        if _ablate_lib is None:
+            handle = ctypes.CDLL(build(which="ablate"))
+            for name, argtypes in _ABLATE_SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _ablate_lib = handle
+        return _ablate_lib
 
 
 def entry(base: str, dtype, flux: str = "kpp"):

@@ -33,6 +33,7 @@ inner_solver, mass_bounds, lin_bounds.
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -45,6 +46,25 @@ from conservation_fem_tpu_torch.ops.krylov import (bicgstab_fixed, cg_fixed,
 from conservation_fem_tpu_torch.ops.newton import newton_fixed
 
 N_WORK_FIELDS = 29   # csrc/fused_step.cuh Field::N_FIELDS
+# The band plan of the single and block kernels (csrc/band_sweep.cuh)
+SMEM_OPTIN = 232448      # bytes of shared memory a block may take (H100)
+BAND_STATIC_SMEM = 16384  # kept for the band kernels' static shared memory
+QUAD_CELL_VALUES = 18    # per tabulated cell: 2 triangles x 9 (kQuadValues)
+STAGED_OPS = ("mass", "eps-stiffness", "Jacobian")   # the staging slots
+# nodes per band the plan aims at (H100, Burgers block 141 x 65: 64-128
+# nodes a band ran 4-5% faster than 256 or one band per SM, 512 25% slower)
+BAND_MIN_NODES = 128
+# the BandDesign bits (csrc/band_sweep.cuh); BAND_ABLATIONS: the single
+# kernel's instances without one element, or without all three;
+# BLOCK_ABLATIONS: the block kernel's, which takes no reduction
+BAND_DESIGN = {"stage_planes": 1, "shuffle_reductions": 2,
+               "quadrature_per_triangle": 4}
+BAND_ALL = 7
+BAND_ABLATIONS = {f"no {k}": BAND_ALL & ~v for k, v in BAND_DESIGN.items()}
+BAND_ABLATIONS["none of the three"] = 0
+BLOCK_ABLATIONS = {k: v for k, v in BAND_ABLATIONS.items()
+                   if k not in ("no shuffle_reductions", "none of the three")}
+BLOCK_ABLATIONS["none of the two"] = 0
 
 _GEOMETRY = ("nx", "ny", "area", "h", "grads", "phi", "qw")
 _REQUIRED = _GEOMETRY + ("dt", "Cvel", "CRV", "flux", "cg_iters",
@@ -301,35 +321,190 @@ def _flags(s):
             int(s["inner_solver"] == "cheby"))
 
 
-def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
-    """``n_substeps`` stabilised steps; replaces pallas_fused.fused_rv_step.
+def band_start(n_lo, n_hi, ctas, b):
+    """First node of band b of ``ctas`` over the nodes [n_lo, n_hi)
+    (csrc/band_sweep.cuh band_start)."""
+    n = n_hi - n_lo
+    q, r = divmod(n, ctas)
+    return n_lo + b * q + min(b, r)
 
-    u2/uo2/uoo2: (n1x, n1y) history; g2: Dirichlet data (time-independent
-    when n_substeps > 1); Mc2: (7, n1x, n1y) mass stencil. On the card the
-    whole call is one cooperative kernel launch."""
-    if _build.on_cpu("fused_rv_step", u2, uo2, uoo2, g2, Mc2):
-        return fused_rv_step_plain(u2, uo2, uoo2, g2, Mc2,
-                                   n_substeps=n_substeps, **step)
-    s = step_args("fused_rv_step", step)
+
+def quad_cells(chunk, n1y):
+    """Cells a quadrature chunk of ``chunk`` nodes tabulates (QuadCells):
+    the row below the nodes and their own row, one range where they meet."""
+    return min(2 * chunk + 2, chunk + 1 + n1y)
+
+
+def quad_nodes(chunk, n1y):
+    """Nodes whose value a chunk's cells read: the chunk and n1y + 1 on
+    either side (band_sweep.cuh BandSweep::fetch)."""
+    return chunk + 2 * n1y + 2
+
+
+def _quad_values(chunk, n1y):
+    """Shared-memory values of one quadrature chunk: its table and the
+    value the table is made from at every node its cells touch."""
+    return QUAD_CELL_VALUES * quad_cells(chunk, n1y) + quad_nodes(chunk, n1y)
+
+
+def band_plan(n1x, n1y, itemsize, sms, rows=None,
+              smem_cap=SMEM_OPTIN - BAND_STATIC_SMEM, min_nodes=None):
+    """The band plan of the single and block kernels (csrc/band_sweep.cuh)
+    on an (n1x, n1y) buffer whose rows [rows[0], rows[1]) lie in the grid
+    (None: all of them), ``itemsize`` bytes a value, on a card of ``sms``
+    SMs.
+
+    One CTA per band, at most one per SM: bands of nearly equal contiguous
+    ranges of the rows' nodes (band_start), none shorter than n1y + 1 nodes,
+    so that a band's halo (the n1y + 1 nodes on each side) lies in the two
+    neighbouring bands, and no more bands than ``min_nodes`` (None:
+    BAND_MIN_NODES) fill: a small grid runs fewer CTAs. In shared memory the
+    plan stages as many of the mass, eps-stiffness and Jacobian planes of
+    the largest band (``cap`` nodes) as leave room for a quadrature chunk of
+    at least min(cap, n1y + 1) nodes, then takes the largest chunk that
+    fits: the whole band at every main-path shape. Raises ValueError if not
+    even one node's quadrature fits ``smem_cap`` bytes. At most 256 CTAs
+    (one partial per thread of a reduction), as at most one per SM.
+
+    Returns a dict: ctas, starts (ctas + 1 node indices), cap, halo (per
+    CTA the CTAs holding its halo below and above, None at an end), staged
+    (how many operators, in STAGED_OPS order), chunk, quad_cells, smem
+    (dynamic shared memory in bytes), n_lo, n_hi."""
+    i_lo, i_hi = rows if rows is not None else (0, n1x)
+    n_lo, n_hi = i_lo * n1y, i_hi * n1y
+    nodes = n_hi - n_lo
+    if nodes < 1:
+        raise ValueError(f"band plan: no rows of the grid in {rows}")
+    min_nodes = BAND_MIN_NODES if min_nodes is None else min_nodes
+    ctas = max(1, min(int(sms), nodes // (n1y + 1), -(-nodes // min_nodes)))
+    starts = [band_start(n_lo, n_hi, ctas, b) for b in range(ctas + 1)]
+    cap = -(-nodes // ctas)
+    per_value = smem_cap // itemsize
+
+    def chunk_for(staged):
+        # the largest chunk whose _quad_values fit: below n1y nodes 37 c +
+        # 38 + 2 n1y values, from n1y up 19 c + 20 + 20 n1y
+        rest = per_value - 7 * staged * cap
+        return min(cap, max((rest - 38 - 2 * n1y) // 37,
+                            (rest - 20 - 20 * n1y) // 19))
+
+    for staged in (3, 1, 0):
+        chunk = chunk_for(staged)
+        if chunk >= min(cap, n1y + 1) or (staged == 0 and chunk >= 1):
+            break
+    else:
+        raise ValueError(
+            f"band plan: the quadrature of one node of a {n1x} x {n1y} "
+            f"grid does not fit the {smem_cap} bytes of shared memory a "
+            f"block may take")
+    cells = quad_cells(chunk, n1y)
+    assert 7 * staged * cap + _quad_values(chunk, n1y) <= per_value
+    return dict(ctas=ctas, starts=starts, cap=cap,
+                halo=[(b - 1 if b > 0 else None,
+                       b + 1 if b + 1 < ctas else None)
+                      for b in range(ctas)],
+                staged=staged, chunk=chunk, quad_cells=cells,
+                smem=itemsize * (7 * staged * cap + _quad_values(chunk, n1y)),
+                n_lo=n_lo, n_hi=n_hi)
+
+
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+
+
+def card_band_plan(name, device, n1x, n1y, dtype, rows=None):
+    """``band_plan`` on the card of ``device``, worked out once per shape
+    (a launch of the single kernel takes ~0.2 ms, so the wrapper must cost
+    far less); says once per shape, on stderr, where it stages fewer than
+    all three operators or tabulates a band in more than one chunk."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _card_plan(name, index, n1x, n1y, _ITEMSIZE[dtype], rows,
+                      BAND_MIN_NODES)
+
+
+@functools.lru_cache(maxsize=64)
+def _card_plan(name, index, n1x, n1y, itemsize, rows, min_nodes):
+    plan = band_plan(n1x, n1y, itemsize,
+                     torch.cuda.get_device_properties(
+                         index).multi_processor_count,
+                     rows, min_nodes=min_nodes)
+    if plan["staged"] < 3 or plan["chunk"] < plan["cap"]:
+        print(f"{name}: band plan of a {n1x} x {n1y} buffer of "
+              f"{itemsize}-byte values stages "
+              f"{list(STAGED_OPS[:plan['staged']])} planes, quadrature in "
+              f"chunks of {plan['chunk']} of {plan['cap']} nodes "
+              f"({plan['ctas']} CTAs, {plan['smem']} B of shared memory)",
+              file=sys.stderr, flush=True)
+    return plan
+
+
+def _plan_args(plan):
+    """The band plan as the kernels' int arguments (ctas, staged, chunk,
+    cap, smem)."""
+    return (plan["ctas"], plan["staged"], plan["chunk"], plan["cap"],
+            plan["smem"])
+
+
+def _single_launch(entry, u2, uo2, uoo2, g2, Mc2, n_substeps, s, head=()):
+    """Launch the single kernel's C entry point ``entry`` (after the
+    arguments ``head``) with the step arguments s (step_args); returns the
+    last three states."""
     n1x, n1y = s["nx"] + 1, s["ny"] + 1
     dtype, consts = _launch_prep("fused_rv_step", s,
                                  [u2, uo2, uoo2, g2, Mc2],
                                  [(n1x, n1y)] * 4 + [(7, n1x, n1y)])
     dev = u2.device
+    plan = card_band_plan("fused_rv_step", dev, n1x, n1y, dtype)
     ring = torch.empty((4, n1x, n1y), dtype=dtype, device=dev)
     work, part = new_scratch(dtype, dev, n1x, n1y)
     bdf2, rv, freeze, cheby = _flags(s)
     with torch.cuda.device(dev):
-        code = _build.entry("cft_fused_rv_step", dtype, s["flux"].name)(
-            u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
-            Mc2.data_ptr(), ring.data_ptr(), work.data_ptr(),
-            part.data_ptr(), consts.data_ptr(), n1x, n1y, int(n_substeps),
-            int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
-            bdf2, rv, freeze, cheby, _build.stream_ptr(u2))
-    _build.launches[_build.launch_key("fused_rv_step", s["flux"].name)] += 1
+        code = entry(
+            *head, u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(),
+            g2.data_ptr(), Mc2.data_ptr(), ring.data_ptr(), work.data_ptr(),
+            part.data_ptr(), consts.data_ptr(), n1x, n1y,
+            int(n_substeps), int(s["cg_iters"]), int(s["newton_iters"]),
+            int(s["lin_iters"]), bdf2, rv, freeze, cheby, *_plan_args(plan),
+            _build.stream_ptr(u2))
     _build.check(code, "fused_rv_step")
     K = int(n_substeps)
     return ring[(K + 2) % 4], ring[(K + 1) % 4], ring[K % 4]
+
+
+def fused_rv_step_ablated(design, u2, uo2, uoo2, g2, Mc2, *, n_substeps=1,
+                          **step):
+    """The single kernel's KPP f32 instance with the band design elements
+    ``design`` (BandDesign bits, a value of BAND_ABLATIONS) on CUDA
+    tensors, for the ablation of chip_smoke.py; its launches are not
+    counted in ``_build.launches``."""
+    s = step_args("fused_rv_step", step)
+    if design not in BAND_ABLATIONS.values():
+        raise ValueError(f"design {design}: not one of {BAND_ABLATIONS}")
+    if s["flux"].name != "kpp" or u2.dtype != torch.float32:
+        raise ValueError("the ablation instances are KPP, f32")
+    entry = _build.ablate_lib().cft_fused_rv_step_ablate_f32
+    return _single_launch(entry, u2, uo2, uoo2, g2, Mc2, n_substeps, s,
+                          head=(int(design),))
+
+
+def fused_rv_step(u2, uo2, uoo2, g2, Mc2, *, n_substeps=1, **step):
+    """``n_substeps`` stabilised steps; replaces pallas_fused.fused_rv_step.
+
+    u2/uo2/uoo2: (n1x, n1y) history; g2: Dirichlet data (time-independent
+    when n_substeps > 1); Mc2: (7, n1x, n1y) mass stencil. On the card the
+    whole call is one cooperative kernel launch over the resident bands of
+    ``band_plan``."""
+    if _build.on_cpu("fused_rv_step", u2, uo2, uoo2, g2, Mc2):
+        return fused_rv_step_plain(u2, uo2, uoo2, g2, Mc2,
+                                   n_substeps=n_substeps, **step)
+    s = step_args("fused_rv_step", step)
+    _check_kernel_options(s["flux"], s["residual_scheme"],
+                          s["stabilization"], s["inner_solver"])
+    out = _single_launch(
+        _build.entry("cft_fused_rv_step", u2.dtype, s["flux"].name), u2, uo2,
+        uoo2, g2, Mc2, n_substeps, s)
+    _build.launches[_build.launch_key("fused_rv_step", s["flux"].name)] += 1
+    return out
 
 
 def _split_plan(u2, s, dtype, tile_rows, kernel):
@@ -550,7 +725,8 @@ def fused_rv_block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *,
 def fused_rv_block_step(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *, n_rows,
                         n_cols, **step):
     """One stabilised step on a deep-halo row block of an (n_rows, n_cols)
-    grid, one launch; replaces pallas_fused.fused_rv_block_step.
+    grid, one launch over the resident bands of ``band_plan`` (the block's
+    rows in the grid); replaces pallas_fused.fused_rv_block_step.
 
     u2/uo2/uoo2/g2: (B, n1y) block, owned rows plus at least
     ``required_halo`` rows of each neighbour; Mc2: (7, B, n1y) mass planes
@@ -558,34 +734,66 @@ def fused_rv_block_step(u2, uo2, uoo2, g2, Mc2, row0, abs_term, *, n_rows,
     above the grid); abs_term: max|u - mean u| over the whole grid, a
     one-element tensor (read on the device, never by the host) or a float;
     ``step``: as fused_rv_step, with inner_solver="cheby" (the default
-    here, and the only one); nx, ny, if given, give way to the block's. Returns the whole block; only
-    the owned rows equal the whole-grid step's, rows outside the grid are
-    zero."""
+    here, and the only one); nx, ny, if given, give way to the block's.
+    Returns the whole block; only the owned rows equal the whole-grid
+    step's, rows outside the grid are zero."""
     s = block_step_args("fused_rv_block_step", u2, n_cols, step,
                         inner_solver="cheby")
     check_block_options("fused_rv_block_step", s, abs_term)
     if _build.on_cpu("fused_rv_block_step", u2, uo2, uoo2, g2, Mc2):
         return block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term,
                                 n_rows, s)
+    _check_kernel_options(s["flux"], s["residual_scheme"],
+                          s["stabilization"], s["inner_solver"])
+    out = _block_launch(
+        _build.entry("cft_fused_rv_block_step", u2.dtype, s["flux"].name),
+        u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s)
+    _build.launches[_build.launch_key("fused_rv_block_step",
+                                      s["flux"].name)] += 1
+    return out
+
+
+def _block_launch(entry, u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s,
+                  head=()):
+    """Launch the block kernel's C entry point ``entry`` (after the
+    arguments ``head``) with the block step arguments s; returns the
+    block."""
     B, n1y = u2.shape
-    block_rows(B, int(row0), n_rows)
+    rows = block_rows(B, int(row0), n_rows)
     dtype, consts = _launch_prep("fused_rv_block_step", s,
                                  [u2, uo2, uoo2, g2, Mc2],
                                  [(B, n1y)] * 4 + [(7, B, n1y)])
     dev = u2.device
+    plan = card_band_plan("fused_rv_block_step", dev, B, n1y, dtype, rows)
     out = torch.empty((B, n1y), dtype=dtype, device=dev)
     work = torch.empty((N_WORK_FIELDS, B, n1y), dtype=dtype, device=dev)
     keep, abs_ptr = abs_term_ptr(abs_term, s, dtype, dev)
     bdf2, rv, freeze, _ = _flags(s)
     with torch.cuda.device(dev):
-        code = _build.entry("cft_fused_rv_block_step", dtype,
-                            s["flux"].name)(
-            u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
-            Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), abs_ptr,
-            consts.data_ptr(), B, n1y, int(row0), int(n_rows),
-            int(s["cg_iters"]), int(s["newton_iters"]), int(s["lin_iters"]),
-            bdf2, rv, freeze, _build.stream_ptr(u2))
-    _build.launches[_build.launch_key("fused_rv_block_step",
-                                      s["flux"].name)] += 1
+        code = entry(
+            *head, u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(),
+            g2.data_ptr(), Mc2.data_ptr(), out.data_ptr(), work.data_ptr(),
+            abs_ptr, consts.data_ptr(), B, n1y, int(row0),
+            int(n_rows), int(s["cg_iters"]), int(s["newton_iters"]),
+            int(s["lin_iters"]), bdf2, rv, freeze, *_plan_args(plan),
+            _build.stream_ptr(u2))
     _build.check(code, "fused_rv_block_step")
     return out
+
+
+def fused_rv_block_step_ablated(design, u2, uo2, uoo2, g2, Mc2, row0,
+                                abs_term, *, n_rows, n_cols, **step):
+    """The block kernel's KPP f32 instance with the band design elements
+    ``design`` (a value of BLOCK_ABLATIONS) on CUDA tensors, for the
+    ablation of chip_smoke.py; its launches are not counted in
+    ``_build.launches``."""
+    s = block_step_args("fused_rv_block_step", u2, n_cols, step,
+                        inner_solver="cheby")
+    check_block_options("fused_rv_block_step", s, abs_term)
+    if design not in BLOCK_ABLATIONS.values():
+        raise ValueError(f"design {design}: not one of {BLOCK_ABLATIONS}")
+    if s["flux"].name != "kpp" or u2.dtype != torch.float32:
+        raise ValueError("the ablation instances are KPP, f32")
+    entry = _build.ablate_lib().cft_fused_rv_block_step_ablate_f32
+    return _block_launch(entry, u2, uo2, uoo2, g2, Mc2, row0, abs_term,
+                         n_rows, s, head=(int(design),))

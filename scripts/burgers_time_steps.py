@@ -1,7 +1,8 @@
 """Burgers' time step and step count, the JAX package's against the port's,
 on the CPU: dt = CFL min(h_CG), h_CG the CG projection of the cells' sizes
 onto P1 (JAX: ops/helpers.get_nodal_h on the ELL mass, as
-burgers.build calls it; the port: models/burgers.time_step), and
+burgers.build calls it; the port: models/burgers.time_step on the lean
+mesh with every cell's size, as burgers.build takes them), and
 ceil(T / dt) steps, T = 0.5.
 
     python3 scripts/burgers_time_steps.py [N ...] [--dtype float32]
@@ -27,7 +28,7 @@ from conservation_fem_tpu.ops.helpers import get_nodal_h  # noqa: E402
 from conservation_fem_tpu.ops.mesh import rectangle_mesh  # noqa: E402
 from conservation_fem_tpu_torch.models import burgers  # noqa: E402
 from conservation_fem_tpu_torch.ops.mesh import (  # noqa: E402
-    rectangle_mesh_lean)
+    rectangle_cell_sizes, rectangle_mesh_lean)
 
 
 def main(argv):
@@ -44,7 +45,8 @@ def main(argv):
         dt_jax = 0.5 * float(get_nodal_h(m).min())
         dt, steps = burgers.time_step(
             rectangle_mesh_lean((0, 0), (1, 1), nx=N),
-            burgers.BurgersConfig(mesh_size=N, dtype=dtype))
+            burgers.BurgersConfig(mesh_size=N, dtype=dtype),
+            rectangle_cell_sizes((0, 0), (1, 1), nx=N))
         print(f"N {N} {dtype}: dt JAX {dt_jax!r}, port {dt!r} (relative "
               f"{(dt - dt_jax) / dt_jax:.2e}); steps JAX "
               f"{int(np.ceil(0.5 / dt_jax))}, port {steps}", flush=True)

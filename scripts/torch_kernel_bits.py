@@ -4,6 +4,7 @@ same card.
 
     python3 scripts/torch_kernel_bits.py run DIR INPUTS OUT
     python3 scripts/torch_kernel_bits.py compare OUT_A OUT_B [--common]
+        [--kernels NAME,NAME,...]
 
 ``run`` imports conservation_fem_tpu_torch from the tree in DIR (its
 kernels build into that tree's own build directory), loads the inputs
@@ -13,7 +14,9 @@ stencils), and saves every kernel output to OUT. ``compare`` prints each
 output's largest difference and exits non-zero unless all are equal bit
 for bit; with --common it compares the cases both runs have and lists the
 others (a tree from before a kernel instance existed has none of its
-cases). The cases: the single kernel (fused_rv_step), the tiled kernel
+cases); with --kernels it holds only the cases of the kernels named (the
+first word of a case) to the bits and prints how far the others moved. The
+cases: the single kernel (fused_rv_step), the tiled kernel
 whole grid and in block mode (tiled_rv_step), the block kernel
 (fused_rv_block_step) and stencil_matvec, in f32 and f64, at fixed tile
 rows so that a change of the default plan does not change the case; and,
@@ -197,10 +200,19 @@ def run(repo, inputs_path, out_path):
     print(f"{len(out)} outputs of the tree in {repo} -> {out_path}")
 
 
-def compare(a_path, b_path, common=False):
+def compare(a_path, b_path, common=False, kernels=None):
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
+    if kernels is not None:
+        for name in sorted(k for k in a if k.split()[0] not in kernels):
+            if name in b:
+                diff = float((a[name].double() - b[name].double()).abs()
+                             .max())
+                same = "equal" if torch.equal(a[name], b[name]) else "differs"
+                print(f"{name}: not held ({same}, max diff {diff:.3e})")
+        a = {k: v for k, v in a.items() if k.split()[0] in kernels}
+        b = {k: v for k, v in b.items() if k.split()[0] in kernels}
     if set(a) != set(b):
         only = sorted(set(a) ^ set(b))
         if not common:
@@ -221,9 +233,15 @@ def main(argv):
     if len(argv) == 5 and argv[1] == "run":
         run(*argv[2:])
         return 0
-    if len(argv) in (4, 5) and argv[1] == "compare" and argv[4:] in (
-            [], ["--common"]):
-        return compare(*argv[2:4], common=argv[4:] == ["--common"])
+    if len(argv) >= 4 and argv[1] == "compare":
+        opts, kernels = argv[4:], None
+        if "--kernels" in opts[:-1]:
+            k = opts.index("--kernels")
+            kernels = set(opts[k + 1].split(","))
+            opts = opts[:k] + opts[k + 2:]
+        if opts in ([], ["--common"]):
+            return compare(*argv[2:4], common=opts == ["--common"],
+                           kernels=kernels)
     raise SystemExit(__doc__)
 
 

@@ -147,6 +147,23 @@ def test_time_step_matches_jax_at_reference_sizes(N):
     assert abs(dt - JAX_DT[N]) <= (1e-14 if N <= 50 else 5e-14) * JAX_DT[N]
 
 
+def test_f32_time_step_matches_jax_at_n20():
+    """f32 at N = 20: an f32 projection alone rounds min h_CG onto
+    f32(1/20), above 1/20, and takes 20 steps, where the JAX package's f32
+    projection lands below 1/20 and takes 21. time_step takes the smaller
+    of the f32 and f64 minima: JAX's 21 steps, and dt within f32 rounding
+    (2e-7 relative) of JAX's 0.02499999664723873."""
+    N = 20
+    m = jrect((0, 0), (1, 1), nx=N).device_arrays(jnp.float32)
+    dt_jax = 0.5 * float(jax.jit(jget_nodal_h)(m).min())
+    dt, steps = tb.time_step(
+        rectangle_mesh_lean((0, 0), (1, 1), nx=N),
+        tb.BurgersConfig(mesh_size=N, dtype="float32"),
+        rectangle_cell_sizes((0, 0), (1, 1), nx=N))
+    assert steps == int(np.ceil(0.5 / dt_jax)) == N + 1
+    assert abs(dt - dt_jax) <= 2e-7 * dt_jax
+
+
 def _jax_chain(p):
     """[carry after 0, 1, ..., num_steps steps] of the JAX problem p: its
     own step, jitted once and chained from u0 at its time loop's times

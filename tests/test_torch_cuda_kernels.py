@@ -622,3 +622,124 @@ def test_burgers_main_path_dispatches_to_the_mode_kernel(cuda, monkeypatch,
     ref = burgers.build(dataclasses.replace(cfg, use_kernels=False),
                         device=cuda).solve().u
     torch.testing.assert_close(u, ref, rtol=0, atol=1e-10)
+
+
+def _band_case(cuda, flux, mesh_size, dtype, **over):
+    """(problem, [u, u_old, u_old_old, g, mass planes]) of a band-kernel
+    case in dtype: the KPP initial state with the default Dirichlet data,
+    or Burgers 4 steps in (mesh 2 and 4: 1 step)."""
+    dt = getattr(torch, dtype)
+    if flux == "kpp":
+        p = _problem(cuda, mesh_size, "float64", T=0.0, **over)
+        u2 = p.u0.reshape(p._shape2)
+        fields = (u2, u2, u2, torch.full_like(u2, np.pi / 4))
+    else:
+        p, *fields = _burgers_state(cuda, mesh_size,
+                                    1 if mesh_size <= 4 else 4, **over)
+    return p, [f.to(dt) for f in fields] + [p.sd.M_coef.to(dt)]
+
+
+def _tol(dtype):
+    return F64_TOL if dtype == "float64" else 1e-4
+
+
+@pytest.mark.parametrize("flux", ["kpp", "burgers"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("mesh", [2, 4, 12, 16])
+def test_band_single_kernel_matches_plain(cuda, monkeypatch, flux, dtype,
+                                          mesh):
+    """The single kernel's resident bands where they are thin and few (mesh
+    2: 2 CTAs of 4 and 5 nodes; 4: 4 CTAs) and split unevenly (mesh 12:
+    169 nodes in 12 bands, 16: 289 in 16), as many as the rows allow
+    (BAND_MIN_NODES 1), both fluxes, both dtypes, BiCGStab with a frozen
+    Jacobian and Chebyshev with a fresh one, 2 substeps (the reductions'
+    partial buffers alternate across them)."""
+    monkeypatch.setattr(fs, "BAND_MIN_NODES", 1)
+    plan = fs.band_plan(mesh + 1, mesh + 1, 8, 132)
+    sizes = np.diff(plan["starts"])
+    assert plan["ctas"] == max(1, (mesh + 1) ** 2 // (mesh + 2))
+    if mesh >= 12:
+        assert sizes.max() - sizes.min() == 1
+    p, args = _band_case(cuda, flux, mesh, dtype)
+    key = _build.launch_key("fused_rv_step", flux)
+    for solver, frozen in (("bicgstab", True), ("cheby", False)):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, n_substeps=2,
+                  lin_iters=4 if solver == "bicgstab" else 12)
+        before = _build.launches[key]
+        out = fs.fused_rv_step(*args, **kw)
+        assert _build.launches[key] == before + 1
+        for a, b in zip(out, fs.fused_rv_step_plain(*args, **kw)):
+            torch.testing.assert_close(a, b, rtol=0, atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("flux", ["kpp", "burgers"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("mesh,n_blocks,which", [(2, 2, (0, 1)),
+                                                 (4, 2, (0, 1)),
+                                                 (16, 3, (0, 1, 2)),
+                                                 (64, 4, (0, 3))])
+def test_band_block_kernel_matches_plain(cuda, monkeypatch, flux, dtype,
+                                         mesh, n_blocks, which):
+    """The block kernel's bands on the first and last blocks of a sharded
+    grid (rows above the grid; padding rows below it) and an interior one,
+    mesh 2 to 64, both fluxes and dtypes, Chebyshev, rv, as many bands as
+    the rows allow (BAND_MIN_NODES 1): against the plain version on every
+    row, zero outside the grid."""
+    monkeypatch.setattr(fs, "BAND_MIN_NODES", 1)
+    p, args = _band_case(cuda, flux, mesh, dtype, **CHEBY)
+    kw = p.fused_step_kwargs()
+    u2 = args[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, args[:4], n_blocks)
+    blocks = [(row0, [a.to(u2.dtype) for a in ext])
+              for row0, ext in blocks]
+    n1x, n1y = p._shape2
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    key = _build.launch_key("fused_rv_block_step", flux)
+    for d in which:
+        row0, ext = blocks[d]
+        before = _build.launches[key]
+        got = fs.fused_rv_block_step(*ext, row0, abs_term, n_rows=n1x,
+                                     n_cols=n1y, **bkw)
+        assert _build.launches[key] == before + 1
+        ref = fs.fused_rv_block_step_plain(*ext, row0, abs_term, n_rows=n1x,
+                                           n_cols=n1y, **bkw)
+        torch.testing.assert_close(got, ref, rtol=0, atol=_tol(dtype))
+        lo, hi = fs.block_rows(L + 2 * D, row0, n1x)
+        assert not got[:lo].any() and not got[hi:].any()
+
+
+def test_band_kernels_repeat_and_ablations_match(cuda):
+    """Both band kernels give the same bits launch after launch at mesh 64
+    (132 CTAs; BiCGStab's reductions over all of them); each ablation
+    instance of the single kernel (KPP f32) stays within 1e-4 of the plain
+    version, each of the block kernel within 1e-4 of the full kernel."""
+    p, args = _band_case(cuda, "kpp", 64, "float32")
+    kw = p.fused_step_kwargs()
+    a = fs.fused_rv_step(*args, **kw)
+    b = fs.fused_rv_step(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = fs.fused_rv_step_plain(*args, **kw)
+    for name, design in fs.BAND_ABLATIONS.items():
+        out = fs.fused_rv_step_ablated(design, *args, **kw)
+        torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4,
+                                   msg=name)
+    p.cfg = dataclasses.replace(p.cfg, **CHEBY)
+    kw = p.fused_step_kwargs()
+    u2 = args[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, args[:4], 4)
+    row0, ext = blocks[1]
+    ext = [t.float() for t in ext]
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    run = lambda: fs.fused_rv_block_step(*ext, row0, abs_term,
+                                         n_rows=p._shape2[0],
+                                         n_cols=p._shape2[1], **bkw)
+    got = run()
+    assert torch.equal(got, run())
+    for name, design in fs.BLOCK_ABLATIONS.items():
+        out = fs.fused_rv_block_step_ablated(
+            design, *ext, row0, abs_term, n_rows=p._shape2[0],
+            n_cols=p._shape2[1], **bkw)
+        torch.testing.assert_close(out, got, rtol=0, atol=1e-4, msg=name)
