@@ -15,8 +15,13 @@ exits non-zero:
   3. each hand-written kernel against its plain PyTorch version on the card,
      numpy-seeded inputs or a mid-trajectory state (32 steps of the plain
      f64 bench path): stencil_matvec (257^2, 1025^2; f32, f64; timed on a
-     CUDA graph beside the same operator as a torch CSR matrix), cg_solve
-     (mesh-64 mass stencil), fused_rv_step (mesh 16, 64, 256), the
+     CUDA graph beside the same operator as a torch CSR matrix, from a cold
+     L2 at 1025^2 and 2049^2, and beside an empty kernel's launch),
+     cg_solve in both instances (the mass stencils of Burgers mesh 50 and
+     100 and KPP mesh 64 and 256, f64 and f32: the wrapper's plan, and the
+     grid instance forced where the plan is a cluster; timed with its
+     iterations, plan and bound, beside forced cluster sizes),
+     fused_rv_step (mesh 16, 64, 256), the
      tiled kernel against its plain version and the single kernel (mesh 16
      with 8-row tiles: cheby and bicgstab, frozen and fresh Jacobian, odd
      Newton counts, gfem; mesh 256 f64; mesh 256 and 512 f32, timed in
@@ -87,8 +92,10 @@ exits non-zero:
      kernel path (1e-11).
 The second-to-last line is the per-kernel JSON summary (all eight ported
 kernels, each with its bound; a step kernel's row also holds its Burgers
-instance's numbers under "burgers"); the last line is {"ok": true,
-"device": {...}}.
+instance's numbers under "burgers"; cg_solve's row the plan, iterations
+and times of each shape it was checked at, both instances' registers and
+spills, and the launches of the Burgers reference runs); the last line is
+{"ok": true, "device": {...}}.
 
 The ablation (--ablate) first times the single kernel at mesh 64 and
 256, f32 bench config, in turns with its instances that leave out one
@@ -109,14 +116,16 @@ kernel at mesh 256 and 512 with each variant of ABLATIONS; and reads the
 device's idle share over a 20-step solve of each main path (mesh 64, 128,
 256, 512), with and without torch.profiler.
 
---against DIR times the single and block kernels of the tree in DIR (an
-unpacked earlier commit) and of this one in turns, DIR, this, this, DIR,
-twice, one process each (scripts/torch_kernel_times.py: fused_rv_step at
-KPP mesh 64 and Burgers mesh 200 in f32, fused_rv_block_step on the
-interior blocks of KPP and Burgers mesh 64 x 4; off the main paths,
-fused_rv_step at KPP mesh 256 and fused_rv_block_step on the interior
-block of KPP 512 x 4), and prints each case's times and the ratio this /
-DIR.
+--against DIR times the single and block kernels and cg_solve of the
+tree in DIR (an unpacked earlier commit) and of this one in turns, DIR,
+this, this, DIR, twice, one process each (scripts/torch_kernel_times.py:
+fused_rv_step at KPP mesh 64 and Burgers mesh 200 in f32,
+fused_rv_block_step on the interior blocks of KPP and Burgers mesh 64 x 4;
+off the main paths, fused_rv_step at KPP mesh 256 and fused_rv_block_step
+on the interior block of KPP 512 x 4; cg_solve on the f64 mass solves of
+the Burgers reference config at mesh 50 and 100 and of the KPP adaptive
+config at mesh 64 and 256, and that of mesh 256 in f32), and prints each
+case's times and the ratio this / DIR.
 """
 
 import dataclasses
@@ -138,6 +147,17 @@ ACCURACY_GATE = 1e-2     # L2rel vs the committed f64 anchor (bench.py)
 SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
+# cg_solve's shapes: (label, model, mesh, f64 rtol): the mass solves of the
+# Burgers f64 reference config (rtol 1e-12) at mesh 50 and 100 and of the
+# KPP adaptive f64 config at mesh 64 (timed at 1e-10, as before), and at
+# mesh 256, whose bands do not fit shared memory (the grid instance not
+# resident); the cluster sizes timed at each Burgers shape where they hold
+# its state
+CG_CASES = (("burgers 51x51", "burgers", 50, 1e-12),
+            ("burgers 101x101", "burgers", 100, 1e-12),
+            ("kpp 257x257", "kpp", 64, 1e-10),
+            ("kpp 1025x1025", "kpp", 256, 1e-10))
+CG_CLUSTER_SIZES = (2, 4, 8, 16)
 # (mesh, T, expected whole-step kernel, anchor); T None: the bench's 1.0
 MAIN_PATHS = ((64, None, "single", "kpp_rv_anchor_mesh64.npy"),
               (128, None, "split", "kpp_rv_anchor_mesh128.npy"),
@@ -519,10 +539,27 @@ def band_facts(name, regs):
             ptxas={dn: regs.get(f"{name}{tag} {dn}") for dn in ("f32",
                                                                   "f64")})
         for dn, info in out[flux]["ptxas"].items():
-            if info is None or info.get("spill_stores", 0):
-                raise AssertionError(f"{name}{tag} {dn}: ptxas reports "
-                                     f"{info} (a band kernel must not "
-                                     "spill)")
+            _no_spill(f"{name}{tag} {dn}", info)
+    return out
+
+
+def _no_spill(kernel, info):
+    """Raise unless ptxas reported kernel (info: its registers line) and it
+    spills nothing."""
+    if info is None or info.get("spill_stores", 0):
+        raise AssertionError(f"{kernel}: ptxas reports {info} (a band "
+                             "kernel or cg_solve instance must not spill)")
+
+
+def cg_facts(regs):
+    """What ptxas gave each cg_solve instance, f32 and f64 (registers,
+    spill stores, static shared memory); raises where one spills."""
+    out = {}
+    for inst in ("cluster", "grid"):
+        for dn in ("f32", "f64"):
+            info = regs.get(f"cg_{inst} {dn}")
+            _no_spill(f"cg_solve {inst} {dn}", info)
+            out[f"{inst} {dn}"] = info
     return out
 
 
@@ -641,6 +678,7 @@ def check_stencil_matvec(summary):
                     f"{times[n1]['plain_ms']:.5f} ms, torch CSR SpMV "
                     f"{lib_ms:.5f} ms on a CUDA graph, bound "
                     f"{times[n1]['bound'][0]:.5f} ms")
+    cold = stencil_matvec_cold(errs)
     t = times[257]
     summary["stencil_matvec"] = dict(
         max_abs_err=errs["f64"], err_case="f64, 257x257 and 1025x1025",
@@ -650,66 +688,172 @@ def check_stencil_matvec(summary):
         timed_case="257x257 f32 (the mesh-64 grid); kernel and library "
                    "(torch CSR SpMV) each on a CUDA graph of 100 calls",
         host_ms_per_call=t["host_ms"], ms_1025=times[1025]["ms"],
-        library_ms_1025=times[1025]["library_ms"],
-        bound_ms_1025=times[1025]["bound"][0])
+        library_ms_1025=times[1025]["library_ms"], **cold)
+
+
+def stencil_matvec_cold(errs):
+    """stencil_matvec from a cold L2, f32: on a CUDA graph of calls that
+    rotate over sets of inputs (7 planes and x, each set read once in
+    turn) that together exceed the 50 MB L2 (1025^2: 3 sets of 33.6 MB;
+    2049^2: 2 sets of 134 MB), beside the warm reading on one set, the
+    bound and an empty kernel's launch on a CUDA graph (the launch floor
+    beside the 257^2 reading). Gated against the plain version on one
+    set at 2049^2."""
+    import itertools
+
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.ops import stencil_kernels as sk
+
+    out = {}
+    for n1, copies in ((1025, 3), (2049, 2)):
+        gen = torch.Generator("cuda").manual_seed(n1)
+        sets = [(torch.randn((7, n1, n1), generator=gen, device="cuda"),
+                 torch.randn((n1, n1), generator=gen, device="cuda"))
+                for _ in range(copies)]
+        if n1 == 2049:
+            e = max_err(sk.stencil_matvec(*sets[0]),
+                        sk.stencil_matvec_plain(*sets[0]))
+            log(f"stencil_matvec 2049^2 f32: max|kernel-plain| = {e:.3e}")
+            _gated("stencil_matvec", e, "f32", errs)
+        turn = itertools.cycle(sets)
+        cold_ms = graph_ms(lambda: sk.stencil_matvec(*next(turn)))
+        warm_ms = graph_ms(lambda: sk.stencil_matvec(*sets[0]))
+        b_ms = bound(9 * n1 * n1 * 4, OPS_STENCIL * n1 * n1, "f32")[0]
+        out.update({f"cold_ms_{n1}": cold_ms, f"warm_ms_{n1}": warm_ms,
+                    f"bound_ms_{n1}": b_ms})
+        log(f"stencil_matvec {n1}^2 f32 on a CUDA graph: L2-cold "
+            f"({copies} input sets in turn) {cold_ms:.5f} ms, warm (one "
+            f"set) {warm_ms:.5f} ms, bound {b_ms:.5f} ms: cold reaches "
+            f"{b_ms / cold_ms:.1%} of the bound")
+        del sets, turn
+    lib = _build.lib()
+    out["launch_floor_ms"] = graph_ms(lambda: _build.check(
+        lib.cft_empty_launch(torch.cuda.current_stream().cuda_stream),
+        "empty kernel"))
+    log(f"an empty kernel of one warp on a CUDA graph: "
+        f"{out['launch_floor_ms']:.5f} ms (the launch floor)")
+    out["cold_case"] = ("f32 on a CUDA graph of 100 calls rotating over "
+                        "input sets beyond the 50 MB L2")
+    return out
+
+
+def cg_bound(n, iters, dn):
+    """(bound_ms, bound_by) of a cg_solve on n nodes: coef, b, diag and x
+    once and the bool mask; per iteration the pinned matvec and 2 dots, x,
+    r, z, p (OPS_CG_ITER)."""
+    size = 8 if dn == "f64" else 4
+    return bound(n * (10 * size + 1), n * iters * OPS_CG_ITER, dn)
+
+
+def _plan_row(plan):
+    return {k: plan[k] for k in ("instance", "ctas", "cap", "resident",
+                                 "smem")}
 
 
 def check_cg_solve(summary):
+    """Both instances of cg_solve against the plain version at the shapes
+    that launch it (CG_CASES; b = M x_true, x_true ~ N(0, 1) on the
+    interior, so the absolute bound is a relative one): the wrapper's own
+    plan, and at a cluster shape the grid instance forced too; then, in
+    f64 and at the KPP shapes in f32 too, each timed with its iterations,
+    plan and bound, and in f64 with the cluster sizes of CG_CLUSTER_SIZES
+    that hold the state forced."""
     import torch
 
-    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.models import burgers, kpp
     from conservation_fem_tpu_torch.ops import stencil_kernels as sk
 
-    errs = {}
-    for dtype, dn, rtol in (("float64", "f64", 1e-10),
-                            ("float32", "f32", 1e-5)):
-        p = kpp.build(kpp.KPPConfig(mesh_size=64, dtype=dtype, T=0.0),
-                      device="cuda")
-        sd = p.sd
-        # b = M x_true with x_true ~ N(0, 1), so the solution is O(1) and
-        # the absolute bound is a relative one
-        rng = np.random.default_rng(64)
-        x_true = torch.tensor(rng.normal(size=sd.bc2.shape), dtype=p.dtype,
-                              device="cuda")
-        x_true = torch.where(sd.bc2, 0.0, x_true)
-        b = torch.where(sd.bc2, 0.0,
-                        sk.stencil_matvec_plain(sd.M_coef, x_true))
-        args = (sd.M_coef, b, sd.bc2, sd.diagM2)
-        x = sk.cg_solve(*args, rtol=rtol)
-        x0 = sk.cg_solve_plain(*args, rtol=rtol)
-        torch.cuda.synchronize()
-        e = max_err(x, x0)
-        res = float(torch.where(sd.bc2, 0.0, b - sk.stencil_matvec_plain(
-            sd.M_coef, torch.where(sd.bc2, 0.0, x))).norm() / b.norm())
-        log(f"cg_solve mesh 64 {dn} rtol {rtol}: max|kernel-plain| = "
-            f"{e:.3e}, kernel relative residual {res:.2e}")
-        _gated("cg_solve", e, dn, errs)
-        if not res <= 10 * rtol:
-            raise AssertionError(f"cg_solve {dn} residual {res}")
-        if dn == "f64":
-            times = (cuda_ms(lambda: sk.cg_solve(*args, rtol=rtol), 20),
-                     cuda_ms(lambda: sk.cg_solve_plain(*args, rtol=rtol), 3))
-            # this solve's iterations: the plain solve's matvec calls - 1
-            calls, mv = [], sk.stencil_matvec_plain
-            sk.stencil_matvec_plain = lambda *a: calls.append(1) or mv(*a)
-            try:
-                sk.cg_solve_plain(*args, rtol=rtol)
-            finally:
-                sk.stencil_matvec_plain = mv
-            iters, n = len(calls) - 1, b.numel()
-            # coef, b, diag, x in f64 and the bool mask; per iteration the
-            # pinned matvec and 2 dots, x, r, z, p (as OPS_CG_ITER)
-            cg_bound = bound(n * (10 * 8 + 1), n * iters * OPS_CG_ITER, "f64")
-            log(f"cg_solve mesh 64 f64: {iters} iterations, kernel "
-                f"{times[0]:.5f} ms, plain {times[1]:.5f} ms, bound "
-                f"{cg_bound[0]:.6f} ms ({cg_bound[1]})")
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_kernel_times as kernel_times
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, shapes = {}, {}
+    for label, model, mesh, rtol64 in CG_CASES:
+        for dtype, dn, rtol in (("float64", "f64", rtol64),
+                                ("float32", "f32", 1e-5)):
+            if model == "kpp":
+                p = kpp.build(kpp.KPPConfig(mesh_size=mesh, dtype=dtype,
+                                            T=0.0), device="cuda")
+            else:
+                p = burgers.build(burgers.BurgersConfig(mesh_size=mesh,
+                                                        dtype=dtype),
+                                  device="cuda")
+            sd = p.sd
+            rng = np.random.default_rng(mesh)
+            x_true = torch.tensor(rng.normal(size=sd.bc2.shape),
+                                  dtype=p.dtype, device="cuda")
+            x_true = torch.where(sd.bc2, 0.0, x_true)
+            b = torch.where(sd.bc2, 0.0,
+                            sk.stencil_matvec_plain(sd.M_coef, x_true))
+            args = (sd.M_coef, b, sd.bc2, sd.diagM2)
+            n1 = b.shape[0]
+            plan = sk.card_cg_plan(b.device, n1, n1, p.dtype)
+            plans = {plan["instance"]: plan}
+            if plan["instance"] == "cluster":
+                plans["grid"] = sk.cg_plan(n1, n1, b.element_size(), sms,
+                                           instance="grid")
+            x0 = sk.cg_solve_plain(*args, rtol=rtol)
+            for inst, pl in plans.items():
+                x = sk.cg_solve(*args, rtol=rtol, plan=pl)
+                torch.cuda.synchronize()
+                e = max_err(x, x0)
+                ax = sk.stencil_matvec_plain(sd.M_coef,
+                                             torch.where(sd.bc2, 0.0, x))
+                res = float(torch.where(sd.bc2, 0.0, b - ax).norm()
+                            / b.norm())
+                log(f"cg_solve {label} {dn} rtol {rtol}, {inst} instance "
+                    f"({pl['ctas']} CTAs): max|kernel-plain| = {e:.3e}, "
+                    f"kernel relative residual {res:.2e}")
+                _gated("cg_solve", e, dn, errs)
+                if not res <= 10 * rtol:
+                    raise AssertionError(f"cg_solve {label} {dn} {inst} "
+                                         f"residual {res}")
+            key = f"{label} {dn}"
+            if dn == "f64" or model == "kpp":
+                iters = kernel_times.plain_iterations(
+                    sk, lambda: sk.cg_solve_plain(*args, rtol=rtol))
+                times = {f"{inst} ({pl['ctas']} CTAs)": cuda_ms(
+                    lambda pl=pl: sk.cg_solve(*args, rtol=rtol, plan=pl), 20)
+                    for inst, pl in plans.items()}
+                if dn == "f64":
+                    for C in CG_CLUSTER_SIZES:
+                        try:
+                            pl = sk.cg_plan(n1, n1, 8, sms,
+                                            instance="cluster", ctas=C)
+                        except ValueError:
+                            continue
+                        times[f"cluster forced ({C} CTAs)"] = cuda_ms(
+                            lambda pl=pl: sk.cg_solve(*args, rtol=rtol,
+                                                      plan=pl), 20)
+                plain_ms = cuda_ms(lambda: sk.cg_solve_plain(*args,
+                                                             rtol=rtol), 3)
+                cb = cg_bound(b.numel(), iters, dn)
+                shapes[key] = dict(
+                    rtol=rtol, iterations=iters, plan=_plan_row(plan),
+                    ms=times[f"{plan['instance']} ({plan['ctas']} CTAs)"],
+                    us_per_iteration=1e3 * times[
+                        f"{plan['instance']} ({plan['ctas']} CTAs)"]
+                    / max(iters, 1),
+                    instance_ms=times, plain_ms=plain_ms, bound_ms=cb[0],
+                    bound_by=cb[1])
+                log(f"cg_solve {key}: {iters} iterations, "
+                    + ", ".join(f"{k} {v:.5f} ms" for k, v in times.items())
+                    + f"; plain {plain_ms:.5f} ms, bound {cb[0]:.6f} ms "
+                    f"({cb[1]}); plan {_plan_row(plan)}")
+    t = shapes["kpp 257x257 f64"]
     summary["cg_solve"] = dict(
-        max_abs_err=errs["f64"], err_case="mesh-64 mass solve f64 rtol 1e-10",
+        max_abs_err=errs["f64"],
+        err_case="mass solves f64, both instances, " + ", ".join(
+            f"{c[0]} rtol {c[3]}" for c in CG_CASES),
         max_abs_err_f32=errs["f32"],
-        f32_case="mesh-64 mass solve f32 rtol 1e-5",
-        ms=times[0], plain_ms=times[1], bound_ms=cg_bound[0],
-        bound_by=cg_bound[1], library_ms=None, iterations=iters,
-        timed_case="mesh-64 mass solve f64 rtol 1e-10")
+        f32_case="the same in f32, rtol 1e-5",
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None,
+        iterations=t["iterations"],
+        timed_case="kpp mesh-64 (257x257) mass solve f64 rtol 1e-10",
+        shapes=shapes)
 
 
 def _bench_cfg(kpp, mesh_size, dtype, **kw):
@@ -1906,7 +2050,7 @@ def run_burgers_reference():
     """The f64 reference config (adaptive solvers, exact Newton,
     use_kernels: the mass solve is cg_solve): mesh 50 against the
     reference's last frame, mesh 100's errors against the exact solution
-    against the JAX package's. Returns the cg_solve launches of mesh 50."""
+    against the JAX package's. Returns the cg_solve launches of each run."""
     import torch
 
     from conservation_fem_tpu_torch.models import burgers
@@ -1942,7 +2086,7 @@ def run_burgers_reference():
             or not max(rel.values()) <= BURGERS_ERR_RTOL):
         raise AssertionError(f"burgers mesh 100: {got}, launches {cq}")
     torch.cuda.synchronize()
-    return counts["cg_solve"]
+    return {"mesh 50": counts["cg_solve"], "mesh 100": cq["cg_solve"]}
 
 
 def run_burgers_paths(card):
@@ -2381,8 +2525,10 @@ def smoke(card, regs):
                 + json.dumps(row["band_plan"]))
         if name == "cg_solve":
             row.update(burgers_reference_launches=burgers_cg,
-                       burgers_reference_run="burgers mesh-50 f64 "
-                                             "reference config")
+                       burgers_reference_runs="burgers mesh-50 and mesh-100 "
+                                              "f64 reference config",
+                       ptxas=cg_facts(regs))
+            log("cg_solve ptxas: " + json.dumps(row["ptxas"]))
         rows.append(row)
     log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
     log(card)

@@ -20,7 +20,8 @@
 //     launch, the eps-stiffness and Jacobian planes from the pass that
 //     writes them on (StepPhases::stage), as many as the plan fits. A pass
 //     ends in grid.sync();
-//   * reductions by warp shuffles (kShflReduce): every warp combines its
+//   * reductions by warp shuffles (kShflReduce; grid_all of stencil.cuh,
+//     which cg_solve's grid instance runs too): every warp combines its
 //     K values with an xor butterfly (every lane ends with the same bits),
 //     warp 0 combines the 8 warps' values and thread 0 writes the block's
 //     partial into one of two alternating buffers; after one grid.sync()
@@ -62,13 +63,6 @@ enum BandDesign {
 struct BandPlan {
   int ctas, staged, chunk, cap, smem;
 };
-
-// First node of band b of G over the nodes [n_lo, n_hi): G nearly equal
-// contiguous ranges, the first (n_hi - n_lo) % G one node longer.
-__host__ __device__ inline int band_start(int n_lo, int n_hi, int G, int b) {
-  const int n = n_hi - n_lo, q = n / G, r = n % G;
-  return n_lo + b * q + (b < r ? b : r);
-}
 
 // The cells whose triangles the nodes [c0, c1) read, by linear index
 // (lower-left node, ci * n1y + cj): [a0, a1), the row below the nodes, and
@@ -266,23 +260,6 @@ template <typename T> struct BandOps {
   }
 };
 
-// Every lane of a warp gets Op over lanes l ^ (top, top / 2, ..., 1):
-// the same bits in each lane of a group of 2 top lanes.
-template <typename Op, typename T>
-__device__ __forceinline__ T warp_all(T x, int top) {
-  for (int off = top; off > 0; off >>= 1)
-    x = Op::apply(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-constexpr int kWarps = kBlock / 32;
-
-// Shared memory of a block's reductions: the warps' values and the result.
-template <typename T> struct BandShared {
-  T warp[kWarps][kMaxRed];
-  T total[kMaxRed];
-};
-
 template <typename T, typename Fl, int D> struct BandSweep {
   static constexpr bool kOwnReduce = (D & kShflReduce) != 0;
   static constexpr bool kStages = (D & kStagePlanes) != 0;
@@ -290,7 +267,7 @@ template <typename T, typename Fl, int D> struct BandSweep {
   const StepConsts<T>& C;
   GridShape g;
   BandPlan plan;
-  int b, n0, n1;
+  int n0, n1;
   T* sm;    // staged planes: slot s, plane k at sm + (7 s + k) cap
   T* tab;   // the quadrature table, after the staged planes
   T* xs;    // the quadrature's value at the chunk's nodes, after the table
@@ -303,7 +280,7 @@ template <typename T, typename Fl, int D> struct BandSweep {
   __device__ BandSweep(const StepConsts<T>& C_, GridShape g_, BandPlan plan_,
                        T* smem, T* part_, BandShared<T>& sh_,
                        cg::grid_group& grid_)
-      : C(C_), g(g_), plan(plan_), b(blockIdx.x),
+      : C(C_), g(g_), plan(plan_),
         n0(band_start(g_.n_lo(), g_.n_hi(), plan_.ctas, blockIdx.x)),
         n1(band_start(g_.n_lo(), g_.n_hi(), plan_.ctas, blockIdx.x + 1)),
         sm(smem), tab(smem + (size_t)plan_.staged * 7 * plan_.cap),
@@ -399,46 +376,7 @@ template <typename T, typename Fl, int D> struct BandSweep {
   // Grid-wide Op over the K values of every thread, the same bits in every
   // thread and every run (the order depends on the plan alone).
   template <typename Op, int K> __device__ void reduce(T (&v)[K]) {
-    T* p = part + (size_t)(++red & 1) * plan.ctas * kMaxRed;
-    block_all<Op>(v);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) p[(size_t)b * kMaxRed + k] = v[k];
-    }
-    grid.sync();
-    const int c = threadIdx.x;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      v[k] = c < plan.ctas ? __ldcg(p + (size_t)c * kMaxRed + k)
-                           : Op::template identity<T>();
-    block_all<Op>(v);
-  }
-
-  // Op over the block's K values of every thread, into every thread: a
-  // butterfly in each warp, one over the warps' values, through sh.total
-  // (a thread reads it before it reaches the next call's first barrier,
-  // and only then is it written again).
-  template <typename Op, int K> __device__ void block_all(T (&v)[K]) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = warp_all<Op>(v[k], 16);
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) sh.warp[w][k] = v[k];
-    }
-    __syncthreads();
-    if (w == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const T x = warp_all<Op>(lane < kWarps ? sh.warp[lane][k]
-                                               : Op::template identity<T>(),
-                                 kWarps / 2);
-        if (lane == 0) sh.total[k] = x;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = sh.total[k];
+    grid_all<Op>(grid, sh, part, plan.ctas, red, v);
   }
 };
 
@@ -460,22 +398,7 @@ int launch_bands(void (*kernel)(Params), Params& P, const BandPlan& plan,
                  void* stream) {
   if (plan.ctas < 1 || plan.ctas > kBlock || plan.chunk < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      plan.smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
-                                                    plan.smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm * sms < plan.ctas) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&P};
-  e = cudaLaunchCooperativeKernel((void*)kernel, plan.ctas, kBlock, args,
-                                  plan.smem, (cudaStream_t)stream);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(e != cudaSuccess ? e : last);
+  return launch_resident(kernel, P, plan.ctas, plan.smem, stream);
 }
 
 }  // namespace cft

@@ -1,7 +1,9 @@
 // Shared device code of the structured-grid kernels (stencil.cu and the
 // step kernels of fused_step.cuh): grid offsets, the 7-plane stencil
-// application over a coefficient accessor, and the
-// deterministic block/grid reductions of the cooperative kernels.
+// application over a coefficient accessor, the deterministic block/grid
+// reductions of the cooperative kernels (GridReducer's block trees, and the
+// warp-shuffle trees of the resident-band kernels and cg_solve), and the
+// cooperative launch of a kernel whose blocks must all be resident.
 //
 // Layout: a field is an (n1x, n1y) row-major grid, node n = i * n1y + j;
 // a stencil operator is 7 such planes, plane k at offset k * n1x * n1y,
@@ -51,6 +53,14 @@ __host__ __device__ constexpr int plane_of(int di, int dj) {
 __host__ __device__ constexpr int pair_plane(int t, int a, int b) {
   return plane_of(corner_i(t, b) - corner_i(t, a),
                   corner_j(t, b) - corner_j(t, a));
+}
+
+// First node of band b of G over the nodes [n_lo, n_hi): G nearly equal
+// contiguous ranges, the first (n_hi - n_lo) % G one node longer (the
+// bands of band_sweep.cuh and of cg_solve).
+__host__ __device__ inline int band_start(int n_lo, int n_hi, int G, int b) {
+  const int n = n_hi - n_lo, q = n / G, r = n % G;
+  return n_lo + b * q + (b < r ? b : r);
 }
 
 // An (n1x, n1y) buffer of nodes. It is either a whole grid or a row block
@@ -183,6 +193,112 @@ template <typename T> struct GridReducer {
     __syncthreads();  // s is free for the next reduction
   }
 };
+
+// Every lane of a warp gets Op over lanes l ^ (top, top / 2, ..., 1):
+// the same bits in each lane of a group of 2 top lanes.
+template <typename Op, typename T>
+__device__ __forceinline__ T warp_all(T x, int top) {
+  for (int off = top; off > 0; off >>= 1)
+    x = Op::apply(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+constexpr int kWarps = kBlock / 32;
+
+// Shared memory of a block's shuffle reductions: the warps' values and the
+// result.
+template <typename T> struct BandShared {
+  T warp[kWarps][kMaxRed];
+  T total[kMaxRed];
+};
+
+// Op over the block's K values of every thread, into lanes 0 .. kWarps - 1
+// of warp 0 (the same bits in each): a butterfly in each warp, then one
+// over the warps' values through sh.warp. The other lanes and warps keep
+// partial values.
+template <typename Op, typename T, int K>
+__device__ __forceinline__ void block_to_warp0(BandShared<T>& sh,
+                                               T (&v)[K]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_all<Op>(v[k], 16);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh.warp[w][k] = v[k];
+  }
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = warp_all<Op>(lane < kWarps ? sh.warp[lane][k]
+                                        : Op::template identity<T>(),
+                          kWarps / 2);
+  }
+}
+
+// Op over the block's K values of every thread, into every thread, through
+// sh.total (a thread reads it before it reaches the next call's first
+// barrier, and only then is it written again).
+template <typename Op, typename T, int K>
+__device__ void block_all(BandShared<T>& sh, T (&v)[K]) {
+  block_to_warp0<Op>(sh, v);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh.total[k] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = sh.total[k];
+}
+
+// Grid-wide Op over the K values of every thread of `ctas` blocks (at most
+// kBlock), the same bits in every thread and every run (the order depends
+// on ctas alone): block_all, thread 0 writes the block's partial into one
+// of two alternating buffers of part (2 x ctas x kMaxRed values; `red`
+// counts the calls), one grid.sync(), then thread c reads block c's
+// partial and block_all combines them. A block can only be one reduction
+// ahead of the slowest, so it never overwrites partials still being read.
+template <typename Op, typename T, int K>
+__device__ void grid_all(cg::grid_group& grid, BandShared<T>& sh, T* part,
+                         int ctas, unsigned& red, T (&v)[K]) {
+  T* p = part + (size_t)(++red & 1) * ctas * kMaxRed;
+  block_all<Op>(sh, v);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[(size_t)blockIdx.x * kMaxRed + k] = v[k];
+  }
+  grid.sync();
+  const int c = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = c < ctas ? __ldcg(p + (size_t)c * kMaxRed + k)
+                    : Op::template identity<T>();
+  block_all<Op>(sh, v);
+}
+
+// One cooperative launch of `ctas` blocks of kBlock threads with `smem`
+// bytes of dynamic shared memory each; refused (an error code) when the
+// card cannot hold every block at once.
+template <typename Params>
+int launch_resident(void (*kernel)(Params), Params& P, int ctas, int smem,
+                    void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm * sms < ctas) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&P};
+  e = cudaLaunchCooperativeKernel((void*)kernel, ctas, kBlock, args, smem,
+                                  (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
 
 // Grid size of a cooperative kernel: every block resident at once, no
 // more blocks than n_nodes / kBlock; smem is the dynamic shared memory

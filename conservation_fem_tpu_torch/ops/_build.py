@@ -62,7 +62,12 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # (FLUX_ENTRIES)
 _SIGNATURES = {
     "cft_stencil_matvec": [_P, _P, _P, _I, _I, _P],
-    "cft_cg_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _P],
+    # coef, b, bc, diag, x, work, part (work and part null in the cluster
+    # instance); n1x, n1y, rtol, maxiter; the plan: cluster, ctas,
+    # resident; stream
+    "cft_cg_solve": [_P] * 7 + [_I, _I, _D, _I] + [_I] * 3 + [_P],
+    # (n1x, n1y, ctas, int out): clusters the card can place
+    "cft_cg_cluster_occupancy": [_I, _I, _I, _P],
     "cft_fused_rv_step": [_P] * 9 + [_I] * 15 + [_P],
     "cft_split_setup": [_P] * 12 + [_I] * 8 + [_P],
     "cft_split_newton": [_P] * 13 + [_I] * 8 + [_P],
@@ -74,7 +79,8 @@ _SIGNATURES = {
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
 }
 FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
-                                         "cft_cg_solve"}
+                                         "cft_cg_solve",
+                                         "cft_cg_cluster_occupancy"}
 # the entry points of the ablation library, KPP f32 alone: (design, the
 # arguments of the kernel's own entry point)
 _ABLATE_SIGNATURES = {
@@ -83,9 +89,13 @@ _ABLATE_SIGNATURES = {
     "cft_fused_rv_block_step_ablate_f32":
         [_I] + _SIGNATURES["cft_fused_rv_block_step"],
 }
-# reduction partials of the cooperative kernels: 2 buffers x kMaxRed x
-# kMaxGrid (csrc/stencil.cuh)
-PART_SIZE = 2 * 4 * 2048
+# values reduced together at most (csrc/stencil.cuh kMaxRed) and the CTAs
+# of a reduction over a grid (one partial per thread of a block)
+MAX_RED = 4
+MAX_GRID_CTAS = 256
+# reduction partials of the step kernels: 2 buffers x kMaxRed x kMaxGrid
+# (csrc/stencil.cuh)
+PART_SIZE = 2 * MAX_RED * 2048
 
 _lock = threading.Lock()
 _lib = None
@@ -193,6 +203,9 @@ def lib():
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
+            # an empty kernel of one warp on a stream: a launch floor
+            handle.cft_empty_launch.argtypes = [_P]
+            handle.cft_empty_launch.restype = ctypes.c_int
             for base, argtypes in _SIGNATURES.items():
                 infixes = FLUXES.values() if base in FLUX_ENTRIES else [""]
                 for infix in infixes:

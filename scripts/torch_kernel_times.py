@@ -1,5 +1,5 @@
-"""Times of the single and block step kernels at their main-path shapes, to
-compare two trees in turns on one card.
+"""Times of the single and block step kernels and of cg_solve at the shapes
+that launch them, to compare two trees in turns on one card.
 
     python3 scripts/torch_kernel_times.py run DIR INPUTS OUT [REPS]
 
@@ -17,8 +17,14 @@ block of KPP mesh 64 x 4 (189 x 257, Chebyshev 10 / 2 x 16) and of Burgers
 mesh 64 x 4 (141 x 65, the sharded Chebyshev config) in f32 and f64; and
 off the main paths, beyond the single limit, fused_rv_step at KPP mesh 256
 (1025 x 1025, bench config) and fused_rv_block_step on the interior block
-of KPP mesh 512 x 4 (637 x 2049, Chebyshev 10 / 2 x 16). Needs a CUDA
-device.
+of KPP mesh 512 x 4 (637 x 2049, Chebyshev 10 / 2 x 16); cg_solve, f64,
+on the mass solve of the Burgers reference config (rtol 1e-12) halfway
+through its run at mesh 50 (51 x 51, step 25) and 100 (101 x 101, step
+50), and of the KPP adaptive config (use_kernels) at its third step at
+mesh 64 (257 x 257), rtol 1e-10 and 1e-12, and off the driven paths at
+its first step at mesh 256 (1025 x 1025, rtol 1e-10, and the same solve
+in f32 at rtol 1e-5), each with its iterations (the plain solve's)
+printed. Needs a CUDA device.
 """
 
 import os
@@ -34,6 +40,18 @@ BURGERS_SHARDED = dict(inner_solver="cheby", newton_linear_iters=16)
 BURGERS_STEPS = 30   # steps of the plain f64 path before a Burgers state
 HALO = 62            # required_halo(10, 2, 16): the sharded path's D
 ROUNDS = 5           # timed rounds per case; the median is kept
+# cg_solve's right-hand sides: (tag, model, mesh, the step whose mass solve
+# is taken); the rtols each is timed at
+CG_STATES = (("burgers50", "burgers", 50, 25),
+             ("burgers100", "burgers", 100, 50),
+             ("kpp64", "kpp", 64, 3), ("kpp256", "kpp", 256, 0))
+CG_RTOLS = {"burgers50": (1e-12,), "burgers100": (1e-12,),
+            "kpp64": (1e-10, 1e-12), "kpp256": (1e-10,)}
+# the solves also timed in f32, cast from the f64 arguments: their rtol
+CG_F32 = {"kpp256": 1e-5}
+CG_LABELS = {"burgers50": "burgers 51 x 51", "burgers100": "burgers 101 x 101",
+             "kpp64": "kpp 257 x 257",
+             "kpp256": "kpp 1025 x 1025 (off the driven paths)"}
 
 
 def _kpp(kpp, dtype, mesh=64, **over):
@@ -80,6 +98,39 @@ def make_inputs(kpp, burgers, torch):
     return out
 
 
+def mass_solves(kpp, burgers, sk, torch):
+    """{name: CPU tensor}: the arguments of cg_solve at each state of
+    CG_STATES, taken where the f64 reference path (use_kernels: its mass
+    solve is cg_solve) calls it."""
+    out, real = {}, sk.cg_solve
+    for tag, model, mesh, step in CG_STATES:
+        got = []
+
+        def spy(coef, b, bc, diag, rtol=1e-5, maxiter=200):
+            got.append((coef, b, bc, diag))
+            return real(coef, b, bc, diag, rtol, maxiter)
+
+        sk.cg_solve = spy
+        try:
+            if model == "burgers":
+                p = burgers.build(burgers.BurgersConfig(
+                    mesh_size=mesh, use_kernels=True), device="cuda")
+                carry = (p.u0,) * 3
+                for t in p.step_times()[:step + 1]:
+                    carry, _ = p.step(carry, t)
+            else:
+                dt = 0.01 * min(1.0, 64 / mesh)
+                kpp.build(kpp.KPPConfig(mesh_size=mesh, dtype="float64",
+                                        T=(step + 1) * dt, dt=dt,
+                                        use_kernels=True),
+                          device="cuda").solve()
+        finally:
+            sk.cg_solve = real
+        for name, v in zip(("coef", "b", "bc", "diag"), got[step]):
+            out[f"cg/{tag}/{name}"] = v.cpu()
+    return out
+
+
 def _interior_block(fields, torch):
     """(row0, fields of block 1 of 4 with HALO rows of each neighbour)."""
     n1x = fields[0].shape[-2]
@@ -90,8 +141,37 @@ def _interior_block(fields, torch):
                       for a in ext]
 
 
+def cg_cases(sk, inputs):
+    """{case: (zero-argument launch, its plain solve)} of cg_solve."""
+    out = {}
+    for tag, _, _, step in CG_STATES:
+        args = [inputs[f"cg/{tag}/{k}"].to("cuda")
+                for k in ("coef", "b", "bc", "diag")]
+        runs = [("f64", args, rtol) for rtol in CG_RTOLS[tag]]
+        if tag in CG_F32:
+            runs.append(("f32", [a.float() if a.is_floating_point() else a
+                                 for a in args], CG_F32[tag]))
+        for dn, a, rtol in runs:
+            out[f"cg_solve {CG_LABELS[tag]} {dn} rtol {rtol:g} (the mass "
+                f"solve of step {step})"] = (
+                lambda a=a, r=rtol: sk.cg_solve(*a, rtol=r),
+                lambda a=a, r=rtol: sk.cg_solve_plain(*a, rtol=r))
+    return out
+
+
+def plain_iterations(sk, plain):
+    """Iterations of a plain cg solve: its matvecs - 1."""
+    calls, mv = [], sk.stencil_matvec_plain
+    sk.stencil_matvec_plain = lambda *a: calls.append(1) or mv(*a)
+    try:
+        plain()
+    finally:
+        sk.stencil_matvec_plain = mv
+    return len(calls) - 1
+
+
 def cases(kpp, burgers, fs, torch, inputs):
-    """{case: zero-argument launch} of the timed kernels."""
+    """{case: zero-argument launch} of the timed step kernels."""
     def fields(tag, dtype):
         return [inputs[f"{tag}/{k}"].to("cuda", dtype)
                 for k in ("u", "uo", "uoo", "g", "Mc")]
@@ -142,6 +222,7 @@ def run(repo, inputs_path, out_path, reps=20):
 
     from conservation_fem_tpu_torch.models import burgers, kpp
     from conservation_fem_tpu_torch.ops import fused_step as fs
+    from conservation_fem_tpu_torch.ops import stencil_kernels as sk
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_times.py needs a CUDA device")
@@ -149,9 +230,15 @@ def run(repo, inputs_path, out_path, reps=20):
         inputs = torch.load(inputs_path)
     else:
         inputs = make_inputs(kpp, burgers, torch)
+        inputs.update(mass_solves(kpp, burgers, sk, torch))
         torch.save(inputs, inputs_path)
+    timed = cases(kpp, burgers, fs, torch, inputs)
+    for name, (fn, plain) in cg_cases(sk, inputs).items():
+        timed[name] = fn
+        print(f"{name}: {plain_iterations(sk, plain)} iterations",
+              flush=True)
     out = {}
-    for name, fn in cases(kpp, burgers, fs, torch, inputs).items():
+    for name, fn in timed.items():
         fn()
         torch.cuda.synchronize()
         times = []

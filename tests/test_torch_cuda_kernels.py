@@ -87,6 +87,106 @@ def test_cg_solve_kernel_matches_plain(cuda):
                                rtol=0, atol=F64_TOL)
 
 
+def _mass_case(cuda, nx, ny, dtype, seed=2):
+    """(mass planes, b, frame mask, diagonal) of the unit square's nx x ny
+    mesh in dtype, b = M x_true pinned to 0 on the frame, x_true ~ N(0, 1):
+    the solution is O(1), so an absolute bound is a relative one."""
+    from conservation_fem_tpu_torch.ops import mesh as pm
+    from conservation_fem_tpu_torch.ops import structured as st
+
+    dt = getattr(torch, dtype)
+    sd = st.build_structured(pm.rectangle_mesh(nx=nx, ny=ny), nx, ny, dt,
+                             cuda)
+    x_true = torch.tensor(np.random.default_rng(seed).normal(
+        size=sd.bc2.shape), dtype=dt, device=cuda)
+    b = torch.where(sd.bc2, 0.0, sk.stencil_matvec_plain(
+        sd.M_coef, torch.where(sd.bc2, 0.0, x_true)))
+    return sd.M_coef, b, sd.bc2, sd.diagM2
+
+
+# (instance, CTAs, resident): the cluster sizes 1, 2, 8, 16 and the grid,
+# its bands in shared memory and not, 36 bands of exactly n1y + 1 nodes
+CG_FORCED = [("cluster", 1, True), ("cluster", 2, True),
+             ("cluster", 8, True), ("cluster", 16, True),
+             ("grid", 36, True), ("grid", 36, False), ("grid", 7, True)]
+
+
+def _cg_plan(b, instance, ctas, resident):
+    return sk.cg_plan(*b.shape, b.element_size(), 132, instance=instance,
+                      ctas=ctas, resident=resident)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("instance,ctas,resident", CG_FORCED)
+def test_cg_solve_instances_match_plain(cuda, instance, ctas, resident,
+                                        dtype):
+    """Each instance of the cg_solve kernel forced on a thin 40 x 9 grid
+    (uneven bands of 22 and 23 nodes at 16 CTAs, of 10 = n1y + 1 at 36,
+    51 and 52 at 7), f64 and f32, against the plain version at rtol 1e-10
+    (f32: 1e-5); each launch counted once and repeated bit for bit."""
+    args = _mass_case(cuda, 39, 8, dtype)
+    plan = _cg_plan(args[1], instance, ctas, resident)
+    rtol = 1e-10 if dtype == "float64" else 1e-5
+    before = _build.launches["cg_solve"]
+    x = sk.cg_solve(*args, rtol=rtol, plan=plan)
+    assert _build.launches["cg_solve"] == before + 1
+    torch.testing.assert_close(x, sk.cg_solve_plain(*args, rtol=rtol),
+                               rtol=0, atol=_tol(dtype))
+    assert torch.equal(x, sk.cg_solve(*args, rtol=rtol, plan=plan))
+
+
+@pytest.mark.parametrize("instance,ctas,resident", CG_FORCED)
+def test_cg_solve_instances_at_the_edges(cuda, instance, ctas, resident):
+    """maxiter = 0 returns x0 = where(bc, b, 0) exactly; rtol = 0 runs to
+    maxiter (25, past convergence to roundoff) as the plain version does;
+    on a grid whose every node is Dirichlet the solve returns b."""
+    M, b, bc, d = _mass_case(cuda, 39, 8, "float64")
+    plan = _cg_plan(b, instance, ctas, resident)
+    x = sk.cg_solve(M, b, bc, d, rtol=1e-10, maxiter=0, plan=plan)
+    assert torch.equal(x, torch.where(bc, b, 0.0))
+    for maxiter in (3, 25):
+        x = sk.cg_solve(M, b, bc, d, rtol=0.0, maxiter=maxiter, plan=plan)
+        torch.testing.assert_close(
+            x, sk.cg_solve_plain(M, b, bc, d, rtol=0.0, maxiter=maxiter),
+            rtol=0, atol=F64_TOL)
+    g = b + 1.0
+    every = torch.ones_like(bc)
+    assert torch.equal(sk.cg_solve(M, g, every, d, rtol=1e-10, plan=plan), g)
+
+
+def test_cg_solve_hand_made_plans(cuda):
+    """The kernel works out each band and its shared memory from the grid,
+    the CTAs and the instance: a plan whose cap and smem understate them
+    gives the honest plan's bits, and one whose band the card cannot hold
+    in shared memory (one CTA for a 101 x 101 grid in f64) raises instead
+    of running past the CTA's shared memory."""
+    args = _mass_case(cuda, 39, 8, "float64")
+    for instance, ctas, resident in (("cluster", 8, True),
+                                     ("grid", 7, True)):
+        plan = _cg_plan(args[1], instance, ctas, resident)
+        x = sk.cg_solve(*args, rtol=1e-10, plan=plan)
+        assert torch.equal(x, sk.cg_solve(*args, rtol=1e-10,
+                                          plan=dict(plan, cap=1, smem=0)))
+    big = _mass_case(cuda, 100, 100, "float64")
+    for instance in ("cluster", "grid"):
+        plan = dict(_cg_plan(big[1], instance, 16, True), ctas=1, smem=1024)
+        with pytest.raises(RuntimeError):
+            sk.cg_solve(*big, rtol=1e-10, plan=plan)
+
+
+def test_cg_solve_default_plans(cuda):
+    """The wrapper's own plans: the cluster instance on the Burgers
+    reference shape of mesh 50 and the grid instance on KPP mesh 64, f64,
+    each within 1e-11 of the plain version."""
+    for n, instance in ((50, "cluster"), (256, "grid")):
+        args = _mass_case(cuda, n, n, "float64")
+        plan = sk.card_cg_plan(args[1].device, n + 1, n + 1, torch.float64)
+        assert plan["instance"] == instance
+        torch.testing.assert_close(sk.cg_solve(*args, rtol=1e-12),
+                                   sk.cg_solve_plain(*args, rtol=1e-12),
+                                   rtol=0, atol=F64_TOL)
+
+
 @pytest.mark.parametrize("solver,frozen,stabilization,scheme", [
     ("bicgstab", True, "rv", "bdf2"), ("bicgstab", False, "rv", "bdf2"),
     ("cheby", True, "rv", "bdf2"), ("bicgstab", True, "gfem", "bdf2"),

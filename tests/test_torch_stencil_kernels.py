@@ -66,6 +66,27 @@ def test_cg_solve_plain_matches_pallas(setup, rtol):
     assert float(r.norm() / args[1].norm()) < 10 * rtol
 
 
+def test_cg_solve_plain_matches_pallas_on_the_burgers_mass_matrix():
+    """The mass solve of the Burgers reference config (unit square, mesh
+    12, rtol 1e-12): the plain version against the Pallas kernel in
+    interpret mode, on a right-hand side pinned to 0 on the frame. Same
+    stopping test, so the same iterations; 1e-12 on an O(1) solution (f64
+    reduction order)."""
+    host = jmesh.rectangle_mesh((0.0, 0.0), (1.0, 1.0), nx=N, ny=N)
+    sd = jst.build_structured(host, N, N, jnp.float64)
+    rng = np.random.default_rng(12)
+    b = jnp.where(sd.bc2, 0.0, jnp.asarray(rng.normal(size=(N + 1, N + 1))
+                                          / N ** 2))
+    ref = np.asarray(pk.cg_solve(sd.M_coef, b, sd.bc2, sd.diagM2,
+                                 rtol=1e-12, interpret=True))
+    args = (torch.tensor(np.asarray(sd.M_coef)), torch.tensor(np.asarray(b)),
+            torch.tensor(np.asarray(sd.bc2)),
+            torch.tensor(np.asarray(sd.diagM2)))
+    got = sk.cg_solve_plain(*args, rtol=1e-12)
+    assert float(np.abs(ref).max()) > 0.1
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
+
+
 def test_wrappers_refuse_mixed_or_unknown_devices(setup):
     """No silent fallback: a tensor that is neither all-CPU nor all-CUDA
     raises instead of reaching the plain version."""
