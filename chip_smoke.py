@@ -90,6 +90,25 @@ exits non-zero:
      f64 and the f64 L1 error falling with the mesh; (e) one sharded f64
      run at mesh 64 x 4 per block-mode kernel against the single-device
      kernel path (1e-11).
+  7. the ELL backend and the stabilisation library, which launch no
+     hand-written kernel (the JAX package runs them as XLA gathers and
+     segment sums, not Pallas): the five anchored irregular meshes
+     (irregular_mesh nx 140 ... 640, seed 1, RCM order; IRR) built and
+     checked against the JAX package's fingerprints; KPP RV through
+     kpp.build(cfg, host_mesh=m).solve() with backend="ell", f32
+     unstructured bench config (IRR_FIXED), gated at L2rel <= 2e-2 against
+     golden/kpp_rv_anchor_irr*.npy with no hand-written launch, timed
+     (µs/step, DOF-steps/s), profiled (kernels per step, idle share), and
+     again with precise_reductions; irr140 in f64: the adaptive config
+     against its anchor, and RV, SI and GFEM for 5 fixed-config steps
+     against the CPU (1e-10); KPP SI at mesh 64 on the stencil backend (5
+     f64 steps against the CPU, the f32 bench trajectory timed, its L2rel
+     to the f64 adaptive run printed); Burgers SI with l = 4 smoothing,
+     f64 reference config at mesh 100 against the C++ reference's errors
+     and the JAX package's (1e-3 relative), at mesh 200 in f64 and f32
+     (timed, the f64 errors below mesh 100's); Burgers RV on the ELL
+     backend at mesh 50 against the golden frame (1e-9). A JSON line
+     {"ell": ...} holds these readings.
 The second-to-last line is the per-kernel JSON summary (all eight ported
 kernels, each with its bound; a step kernel's row also holds its Burgers
 instance's numbers under "burgers"; cg_solve's row the plan, iterations
@@ -128,6 +147,7 @@ config at mesh 64 and 256, and that of mesh 256 in f32), and prints each
 case's times and the ratio this / DIR.
 """
 
+import copy
 import dataclasses
 import json
 import os
@@ -232,6 +252,53 @@ BURGERS_F32_VS_F64 = 1e-2  # L2rel of an f32 run against f64, same mesh
 BURGERS_PATHS = ((200, "float32", "single"), (400, "float32", "split"),
                  (800, "float32", "tiled"), (200, "float64", "split"),
                  (400, "float64", "tiled"), (800, "float64", "tiled"))
+
+# The ELL path (models/scalar_hyperbolic.HyperbolicProblem.step): KPP RV on
+# the JAX package's five anchored irregular meshes (irregular_mesh((-2,-2),
+# (2,2), nx, seed=1) in RCM order; scripts/make_anchor.py:38-65), the
+# unstructured bench config of scripts/bench_blocked_scaling.py:50-51 in
+# f32 with backend="ell", gated at the JAX bench's L2rel
+# (scripts/bench_blocked_scaling.py:36). nx: (dt, T), ~100 steps each.
+IRR = {140: (0.005, 0.5), 224: (0.0025, 0.25), 316: (0.0018, 0.18),
+       448: (0.00125, 0.125), 640: (0.0009, 0.09)}
+IRR_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
+                 newton_linear_iters=8)
+IRR_GATE = 2e-2
+# make_anchor.py:139-142's window, set for the f64 runs: printed, not gated
+IRR_WINDOW = (0.2, 12.5)
+# sha256 of points (f64) and cells (int64) of each anchored mesh in RCM
+# order, as the JAX package builds it (ops/mesh.mesh_fingerprint of
+# conservation_fem_tpu.ops.mesh.reorder_mesh(m, rcm_permutation(m)), CPU):
+# the anchors hold only for these triangulations and this numbering
+IRR_FINGERPRINTS = {
+    140: "5e58cc78f229748744715b912cd550540bb29eb3c7a58d7ff6af43da9254a2fa",
+    224: "fff162ca2132ff5dfc92ab917dbc62d57be8c4022e2da90d68860f6392cff582",
+    316: "c0342f24a303eb9b949faefaa312092477f5517e8c90f90d5725017a3ad58e47",
+    448: "5cf696dac536ce2e5de2f6566eb68f3e86a3fef0ece51256fdea81b0c115ddbc",
+    640: "6614cbfd5d0a403d7d19b8652300cd8a213d311361a56e185aeb63ec144aab49",
+}
+
+# card against the CPU, f64, 5 steps of a fixed-iteration config (the
+# same code; the reductions sum in other orders on the card)
+F64_CARD_VS_CPU = 1e-10
+# Burgers SI with the l = 4 smoothing (Exact_Burger_SI.py), f64 reference
+# config: the C++ reference's errors at mesh 100 (tests/test_burgers.py:
+# 41-51; gated at x 1.35 on L1 and x 1.05 on L2, as there) and the JAX
+# package's, f64 on the CPU:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+#   jax.config.update('jax_enable_x64', True);
+#   from conservation_fem_tpu.models import burgers as b;
+#   p = b.build(b.BurgersConfig(mesh_size=100, stabilization='si',
+#   smooth_l=4.0)); r = p.solve();
+#   print(r.num_steps, repr(float(b.l1_error_vs_exact(p, r.u, 0.5))),
+#   repr(float(b.l2_error_vs_exact(p, r.u, 0.5))))"
+BURGERS_SI_CPP = dict(l1=0.0146037, l2=0.0928357)
+BURGERS_SI_JAX_MESH100 = dict(num_steps=101, l1=0.015444565370997209,
+                              l2=0.08178413380487048)
+# the f32 run at mesh 200: BURGERS_FIXED's solvers with SI (f32 cannot
+# reach the reference config's 1e-12)
+BURGERS_SI_FIXED = dict(cg_iters=10, newton_iters=2, newton_linear_iters=8,
+                        modified_newton=True)
 
 # The least time of a kernel's work: max(bytes / HBM rate, operations /
 # peak rate), H100 SXM data sheet (700 W): 3.35 TB/s; 67 TFLOP/s f32 and
@@ -2132,7 +2199,7 @@ def run_burgers_paths(card):
             g2 = p.dirichlet_grid(p.dirichlet_frames(p.step_times()[:1])[0])
             step_ms = cuda_ms(lambda: p._step_fused(carry, g2), 20)
             idle = 1.0 - step_ms * 1e3 / us
-            prof = burgers_idle_profiled(p)
+            prof = idle_profiled(p)
             extra = (f"; back-to-back step {step_ms * 1e3:.1f} us, "
                      f"unprofiled idle share {idle:.4%}; profiled: "
                      f"{json.dumps(prof)}")
@@ -2161,14 +2228,19 @@ def run_burgers_paths(card):
     return counts, runs
 
 
-def burgers_idle_profiled(p):
-    """Device idle share of one solve under torch.profiler: the union of
-    the kernels' spans over the host's wall time."""
+def idle_profiled(p, steps=None):
+    """Device idle share of one solve under torch.profiler, recording the
+    device's activity only: the union of the kernels' spans over the
+    host's wall time. steps: solve only the trajectory's first steps (a
+    copy of p with num_steps = steps); None: the whole solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if steps is not None:
+        p = copy.copy(p)
+        p.num_steps = steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         p.solve()
         torch.cuda.synchronize()
@@ -2179,7 +2251,8 @@ def burgers_idle_profiled(p):
     return dict(profiled_wall_us=wall_us, profiled_device_busy_us=busy,
                 profiled_idle=1.0 - busy / wall_us,
                 device_kernels=len(kernels),
-                kernels_per_step=len(kernels) / p.num_steps)
+                kernels_per_step=len(kernels) / p.num_steps,
+                device_busy_us_per_step=busy / p.num_steps)
 
 
 def run_burgers_sharded():
@@ -2225,6 +2298,253 @@ def run_burgers_sharded():
         runs[name] = ("burgers sharded mesh 64 x 4 blocks, f64 Chebyshev "
                       f"({kernel} kernel)")
     return counts, runs
+
+
+def irr_meshes():
+    """{nx: host mesh} of the five anchored irregular meshes in RCM order,
+    each checked against the JAX package's fingerprint first (the anchors
+    hold only for the same triangulation and numbering)."""
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    meshes = {}
+    for nx in IRR:
+        t0 = time.perf_counter()
+        m = tmesh.irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1)
+        m = tmesh.reorder_mesh(m, tmesh.rcm_permutation(m))
+        fp = tmesh.mesh_fingerprint(m)
+        if fp != IRR_FINGERPRINTS[nx]:
+            raise AssertionError(
+                f"irregular_mesh nx {nx}: this machine's triangulation or "
+                f"RCM numbering differs from the JAX package's (fingerprint "
+                f"{fp}, expected {IRR_FINGERPRINTS[nx]}): the committed "
+                f"anchor golden/kpp_rv_anchor_irr{nx}.npy does not apply")
+        _ = m.ell
+        log(f"irr{nx}: {m.n_nodes} nodes, {m.n_cells} cells, K "
+            f"{m.max_patch}, fingerprint matches the JAX package's; built "
+            f"in {time.perf_counter() - t0:.1f} s on the host")
+        meshes[nx] = m
+    return meshes
+
+
+def _ell_run(p, label):
+    """(u, launch counts, us/step): one counted solve, then a solve timed
+    on CUDA events after it, which must repeat its bits."""
+    import torch
+
+    u, counts = _counted_solve(p)
+    if counts:
+        raise AssertionError(f"{label}: launched hand-written kernels "
+                             f"{counts}; this path has none")
+    u2, us = _timed(lambda: p.solve().u, p.num_steps)
+    if not torch.equal(u2, u):
+        raise AssertionError(f"{label}: repeated solves differ")
+    return u, counts, us
+
+
+def _irr_gate(u, nx, label):
+    ref = np.load(os.path.join(REPO, "golden",
+                               f"kpp_rv_anchor_irr{nx}.npy")).astype(
+        np.float64)
+    ud = u.double().cpu().numpy()
+    if not np.isfinite(ud).all():
+        raise AssertionError(f"{label}: not finite")
+    rel = float(np.linalg.norm(ud - ref) / np.linalg.norm(ref))
+    if not rel <= IRR_GATE:
+        raise AssertionError(f"{label}: L2rel {rel} against the anchor")
+    return rel, float(ud.min()), float(ud.max()), float(ref.min()), \
+        float(ref.max())
+
+
+def run_ell_paths(card, meshes):
+    """KPP RV on the ELL backend at irr140..irr640, f32 unstructured bench
+    config (IRR_FIXED), through kpp.build(cfg, host_mesh=m).solve(): gated
+    at L2rel <= IRR_GATE against each anchor, min and max beside the
+    anchor's, no hand-written launch, µs/step and DOF-steps/s (CUDA events
+    around a solve after the first), kernels per step and idle share
+    (torch.profiler, the first 3 steps), and the same run with
+    precise_reductions, timed the same way.
+    Returns {nx: readings}."""
+    from conservation_fem_tpu_torch.models import kpp
+
+    out = {}
+    for nx, m in meshes.items():
+        dt, T = IRR[nx]
+        cfg = kpp.KPPConfig(dtype="float32", dt=dt, T=T, backend="ell",
+                            **IRR_FIXED)
+        p = kpp.build(cfg, host_mesh=m)
+        label = f"irr{nx} f32 ELL bench config"
+        u, counts, us = _ell_run(p, label)
+        rel, lo, hi, rlo, rhi = _irr_gate(u, nx, label)
+        prof = idle_profiled(p, steps=3)
+        q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
+                      host_mesh=m)
+        uq, _, usq = _ell_run(q, label + " precise_reductions")
+        relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
+        n = m.n_nodes
+        out[nx] = dict(nodes=n, steps=p.num_steps, l2rel=rel, u_min=lo,
+                       u_max=hi, anchor_min=rlo, anchor_max=rhi,
+                       us_per_step=us, dof_steps_per_s=n / us * 1e6,
+                       hand_written_launches=sum(counts.values()),
+                       precise_l2rel=relq, precise_us_per_step=usq, **prof)
+        log(f"{label}, {p.num_steps} steps: L2rel {rel:.4e} against "
+            f"golden/kpp_rv_anchor_irr{nx}.npy (gate {IRR_GATE}); u in "
+            f"[{lo:.4f}, {hi:.4f}], anchor [{rlo:.4f}, {rhi:.4f}] (window "
+            f"{IRR_WINDOW}, not gated); hand-written launches 0; {us:.1f} "
+            f"us/step, {n / us * 1e6:.4g} DOF-steps/s; "
+            f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
+            f"precise_reductions: L2rel {relq:.4e}, {usq:.1f} us/step "
+            f"({card})")
+    return out
+
+
+def _ell_f64_fixed(stabilization):
+    return dict(stabilization=stabilization, dtype="float64", **IRR_FIXED)
+
+
+def run_ell_f64(meshes):
+    """f64 on the card at irr140: the adaptive config (KPPConfig defaults,
+    krylov_rtol 1e-12), the anchor's own run, gated at IRR_GATE; and RV,
+    SI and GFEM for 5 steps of the fixed config, card against the CPU
+    (F64_CARD_VS_CPU)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+
+    m = meshes[140]
+    dt, T = IRR[140]
+    p = kpp.build(kpp.KPPConfig(dt=dt, T=T, backend="ell",
+                                krylov_rtol=1e-12), host_mesh=m)
+    u, _, us = _ell_run(p, "irr140 f64 adaptive")
+    rel, lo, hi, _, _ = _irr_gate(u, 140, "irr140 f64 adaptive")
+    log(f"irr140 f64 adaptive config (krylov_rtol 1e-12), {p.num_steps} "
+        f"steps: L2rel {rel!r} against golden/kpp_rv_anchor_irr140.npy "
+        f"(this run on the CPU, stored f32; gate {IRR_GATE}); u in "
+        f"[{lo:.4f}, {hi:.4f}]; {us:.1f} us/step")
+    out = dict(adaptive_l2rel=rel, adaptive_us_per_step=us)
+    for stab in ("rv", "si", "gfem"):
+        cfg = kpp.KPPConfig(dt=dt, T=5 * dt, backend="ell",
+                            **_ell_f64_fixed(stab))
+        uc = kpp.build(cfg, host_mesh=m).solve().u
+        torch.cuda.synchronize()
+        ref = kpp.build(cfg, host_mesh=m, device="cpu").solve().u
+        e = max_err(uc.cpu(), ref)
+        log(f"irr140 f64 fixed config {stab}, 5 steps: max|card - CPU| = "
+            f"{e:.3e} (gate {F64_CARD_VS_CPU})")
+        if not e <= F64_CARD_VS_CPU:
+            raise AssertionError(f"irr140 {stab}: card off the CPU by {e}")
+        out[f"{stab}_card_vs_cpu"] = e
+    return out
+
+
+def run_kpp_si(card):
+    """KPP SI (Cm 0.5) at mesh 64 on the stencil backend: 5 steps of the
+    f64 fixed config, card against the CPU; the f32 bench-config
+    trajectory (100 steps), timed and profiled, finite; its L2rel against
+    the card's f64 adaptive run, printed (the JAX package gates SI on
+    finite values only)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+
+    si = dict(stabilization="si", Cm=0.5)
+    cfg = _bench_cfg(kpp, 64, "float64", T=0.05, **si)
+    uc = kpp.build(cfg).solve().u
+    torch.cuda.synchronize()
+    e = max_err(uc.cpu(), kpp.build(cfg, device="cpu").solve().u)
+    log(f"kpp si mesh 64 f64 bench config, 5 steps: max|card - CPU| = "
+        f"{e:.3e} (gate {F64_CARD_VS_CPU})")
+    if not e <= F64_CARD_VS_CPU:
+        raise AssertionError(f"kpp si mesh 64: card off the CPU by {e}")
+    p = kpp.build(_bench_cfg(kpp, 64, "float32", **si))
+    u, counts = _counted_solve(p)
+    if counts or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"kpp si mesh 64 f32: launches {counts}, "
+                             f"finite {bool(torch.isfinite(u).all())}")
+    _, us = _timed(lambda: p.solve().u, p.num_steps)
+    prof = idle_profiled(p, steps=3)
+    q = kpp.build(kpp.KPPConfig(mesh_size=64, **si))
+    uq, _, usq = _ell_run(q, "kpp si mesh 64 f64 adaptive")
+    rel = float((u.double() - uq).norm() / uq.norm())
+    n = int(u.numel())
+    log(f"kpp si mesh 64 f32 bench config, {p.num_steps} steps: finite, u "
+        f"in [{float(u.min()):.4f}, {float(u.max()):.4f}]; {us:.1f} "
+        f"us/step, {n / us * 1e6:.4g} DOF-steps/s; "
+        f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+        f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); L2rel "
+        f"against the f64 adaptive run {rel:.4e} (printed, not gated); f64 "
+        f"adaptive {usq:.1f} us/step ({card})")
+    return dict(card_vs_cpu=e, us_per_step=us, dof_steps_per_s=n / us * 1e6,
+                f32_vs_f64_l2rel=rel, f64_adaptive_us_per_step=usq, **prof)
+
+
+def run_burgers_si(card):
+    """Burgers SI with the l = 4 smoothing (Exact_Burger_SI.py): the f64
+    reference config at mesh 100 within the C++ reference's figures and
+    within BURGERS_ERR_RTOL of the JAX package's errors; at mesh 200 (the
+    reference's N) the f64 reference config and the f32 fixed config,
+    timed, the f64 errors below mesh 100's. Then Burgers RV on the ELL
+    backend, f64 reference config at mesh 50, against the golden frame."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import burgers
+
+    out = {}
+    si = dict(stabilization="si", smooth_l=4.0)
+    errs = {}
+    for mesh, dtype, extra in ((100, "float64", {}), (200, "float64", {}),
+                               (200, "float32", BURGERS_SI_FIXED)):
+        p = burgers.build(burgers.BurgersConfig(mesh_size=mesh, dtype=dtype,
+                                                **si, **extra))
+        label = f"burgers si l=4 mesh {mesh} {dtype}" + (
+            " fixed config" if extra else " reference config")
+        u, _, us = _ell_run(p, label)
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"{label}: not finite")
+        l1 = float(burgers.l1_error_vs_exact(p, u, 0.5))
+        l2 = float(burgers.l2_error_vs_exact(p, u, 0.5))
+        prof = idle_profiled(p, steps=3)
+        n = int(u.numel())
+        log(f"{label}, {p.num_steps} steps: L1 {l1!r}, L2 {l2!r} against "
+            f"the exact solution at t = 0.5; {us:.1f} us/step, "
+            f"{n / us * 1e6:.4g} DOF-steps/s; {prof['kernels_per_step']:.1f}"
+            f" kernels/step, idle share {prof['profiled_idle']:.4f} "
+            f"(profiled, first 3 steps) ({card})")
+        errs[(mesh, dtype)] = (l1, l2)
+        out[label] = dict(steps=p.num_steps, l1=l1, l2=l2, us_per_step=us,
+                          dof_steps_per_s=n / us * 1e6, **prof)
+        if (mesh, dtype) == (100, "float64"):
+            rel = {k: abs(v - BURGERS_SI_JAX_MESH100[k])
+                   / BURGERS_SI_JAX_MESH100[k]
+                   for k, v in (("l1", l1), ("l2", l2))}
+            log(f"  against the C++ reference: L1 {l1:.6f} <= "
+                f"{BURGERS_SI_CPP['l1'] * 1.35:.6f}, L2 {l2:.6f} <= "
+                f"{BURGERS_SI_CPP['l2'] * 1.05:.6f}; against the JAX "
+                f"package's {BURGERS_SI_JAX_MESH100['l1']!r}, "
+                f"{BURGERS_SI_JAX_MESH100['l2']!r}: relative "
+                f"{rel['l1']:.2e}, {rel['l2']:.2e} (gate {BURGERS_ERR_RTOL})")
+            if (p.num_steps != BURGERS_SI_JAX_MESH100["num_steps"]
+                    or not l1 <= BURGERS_SI_CPP["l1"] * 1.35
+                    or not l2 <= BURGERS_SI_CPP["l2"] * 1.05
+                    or not max(rel.values()) <= BURGERS_ERR_RTOL):
+                raise AssertionError(f"{label}: L1 {l1}, L2 {l2}, relative "
+                                     f"{rel}, {p.num_steps} steps")
+    a, b = errs[(100, "float64")], errs[(200, "float64")]
+    if not (b[0] < a[0] and b[1] < a[1]):
+        raise AssertionError(f"burgers si: the f64 errors do not fall from "
+                             f"mesh 100 {a} to mesh 200 {b}")
+    p = burgers.build(burgers.BurgersConfig(mesh_size=50, backend="ell"))
+    u, _, us = _ell_run(p, "burgers rv mesh 50 f64 ELL reference config")
+    ref = np.load(os.path.join(REPO, "golden", "burgers_rv50_final.npy"))
+    e = float(np.abs(u.cpu().numpy() - ref).max())
+    log(f"burgers rv mesh 50 f64 reference config on the ELL backend, "
+        f"{p.num_steps} steps: max|u - golden/burgers_rv50 last frame| = "
+        f"{e:.3e} (gate {BURGERS_GOLDEN_TOL}); {us:.1f} us/step ({card})")
+    if p.num_steps != 51 or not e <= BURGERS_GOLDEN_TOL:
+        raise AssertionError(f"burgers rv ELL mesh 50: {p.num_steps} "
+                             f"steps, {e} from the golden frame")
+    out["burgers rv mesh 50 ELL"] = dict(golden_max_abs=e, us_per_step=us)
+    return out
 
 
 def _busy_us(events):
@@ -2491,6 +2811,15 @@ def smoke(card, regs):
     sharded_counts, sharded_runs = run_burgers_sharded()
     b_counts.update(sharded_counts)
     b_runs.update(sharded_runs)
+    # the ELL backend and the stabilisation library: no hand-written
+    # kernel on these paths (the JAX package runs them as XLA gathers)
+    t_ell = time.perf_counter()
+    meshes = irr_meshes()
+    ell = dict(irr=run_ell_paths(card, meshes),
+               irr140_f64=run_ell_f64(meshes), kpp_si_mesh64=run_kpp_si(card),
+               burgers=run_burgers_si(card))
+    meshes.clear()
+    log(f"ELL and stabilisation phase: {time.perf_counter() - t_ell:.0f} s")
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -2531,6 +2860,7 @@ def smoke(card, regs):
             log("cg_solve ptxas: " + json.dumps(row["ptxas"]))
         rows.append(row)
     log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
+    log(json.dumps({"ell": ell}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -11,11 +11,23 @@ BurgersConfig), e.g.::
     python -m conservation_fem_tpu_torch burgers --mesh_size 200 \\
         --dtype float32 --cg_iters 10 --newton_iters 2 \\
         --modified_newton true --use_kernels true
+    python -m conservation_fem_tpu_torch kpp --stabilization si --Cm 0.5 \\
+        --mesh_size 8 --device cpu
+    python -m conservation_fem_tpu_torch kpp --backend ell --mesh_size 8 \\
+        --device cpu
+    python -m conservation_fem_tpu_torch kpp --mesh_source golden/kpp_rv8.h5 \\
+        --T 0.05 --device cpu
+    python -m conservation_fem_tpu_torch burgers --stabilization si \\
+        --smooth_l 4 --backend ell --mesh_size 12 --device cpu
 
-Runs on the card unless ``--device cpu`` is given. Prints a one-line JSON
-result. As in the JAX package's CLI, kpp records per-step metrics, so its
-run takes the composed step (the fused kernel records none); burgers
-reports the L2 error against the exact solution (at t = 0.5 for T = 0.5).
+Runs on the card unless ``--device cpu`` is given. ``--backend ell``
+runs the ELL step on the structured mesh; ``--mesh_source`` reads a
+DOLFINx .h5 mesh (KPP, the ELL backend, needs h5py). Other meshes
+(ops/mesh.irregular_mesh, disk_mesh) go to ``kpp.build`` or
+``burgers.build`` as ``host_mesh=``. Prints a one-line JSON result. As in
+the JAX package's CLI, kpp records per-step metrics, so its run takes the
+composed step (the fused kernel records none); burgers reports the L2
+error against the exact solution (at t = 0.5 for T = 0.5).
 """
 
 from __future__ import annotations
@@ -59,7 +71,10 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, record_metrics=True)
         res = kpp.run(cfg, device=device)
         u = res.u.double().cpu()
+        ell = cfg.backend == "ell" or cfg.mesh_source != "structured"
         out = {"workload": "kpp", "stabilization": cfg.stabilization,
+               "backend": "ell" if ell else "stencil",
+               "n_nodes": int(u.numel()),
                "mesh_size": cfg.mesh_size, "num_steps": res.num_steps,
                "device": device, "u_min": float(u.min()),
                "u_max": float(u.max()),
@@ -71,6 +86,7 @@ def main(argv=None):
         cfg, device = _parse(burgers.BurgersConfig, "burgers", argv[1:])
         res, err = burgers.run(cfg, device=device)
         out = {"workload": "burgers", "stabilization": cfg.stabilization,
+               "backend": "ell" if cfg.backend == "ell" else "stencil",
                "mesh_size": cfg.mesh_size, "num_steps": res.num_steps,
                "L2_error_vs_exact": err, "device": device}
     out["wall_s"] = round(time.perf_counter() - t0, 2)

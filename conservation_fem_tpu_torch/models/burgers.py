@@ -1,20 +1,23 @@
-"""2D Burgers u_t + u (u_x + u_y) = 0 on the unit square, P1 on the
-structured stencil backend, ported from conservation_fem_tpu/models/
-burgers.py.
+"""2D Burgers u_t + u (u_x + u_y) = 0 on the unit square, P1, ported from
+conservation_fem_tpu/models/burgers.py.
 
 Structured "/"-triangulation with N = mesh_size cells per side, flux
 f(u) = (u^2/2, u^2/2), so f'(u) = (u, u), f''(u) = (1, 1) and |f'(u)| =
 sqrt(2) |u|; quadrant Riemann IC with the closed-form 5-band solution as
 oracle and as time-dependent Dirichlet data (or the bump IC with zero
 data); dt = CFL min(h_CG), h_CG the projected nodal h (ops/helpers.py),
-T = 0.5, Cvel 0.5, CRV 10. The step kernels compile this flux in
-(``FLUX.name``), so ``use_kernels`` runs the whole-step kernel that
-``_fused_mode`` picks, as for KPP; the Dirichlet data change every step,
-so a launch takes one step.
+T = 0.5, Cvel 0.5, CRV 10; the SI variant Cm 0.5 with the l = 4
+post-solve smoothing (``stabilization="si", smooth_l=4.0``). The stencil
+backend runs on the structured mesh; backend="ell" (or a ``host_mesh``)
+runs the generic ELL step, whose errors are taken on the ELL mass. The
+step kernels compile this flux in (``FLUX.name``), so ``use_kernels`` on
+the stencil backend runs the whole-step kernel that ``_fused_mode`` picks,
+as for KPP; the Dirichlet data change every step, so a launch takes one
+step.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-SI and post-solve smoothing (queue 1 item 7), degree > 1 (item 10), the
-ELL backend and its matvec backends (items 7 and 13).
+degree > 1 (queue 1 item 10), the ELL matvec backends banded / blocked
+(item 13) and lattice (item 12).
 """
 
 from __future__ import annotations
@@ -30,33 +33,35 @@ from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
 from conservation_fem_tpu_torch.models.structured_hyperbolic import structure
 from conservation_fem_tpu_torch.ops import structured as st
 from conservation_fem_tpu_torch.ops.assembly import _DUN4_W, _quad_basis
-from conservation_fem_tpu_torch.ops.helpers import get_nodal_h
-from conservation_fem_tpu_torch.ops.mesh import (rectangle_cell_sizes,
+from conservation_fem_tpu_torch.ops.helpers import (get_nodal_h,
+                                                    get_nodal_h_ell)
+from conservation_fem_tpu_torch.ops.mesh import (Mesh, rectangle_cell_sizes,
                                                  rectangle_mesh,
                                                  rectangle_mesh_lean)
+from conservation_fem_tpu_torch.ops.spmv import ell_matvec
 
 
 @dataclasses.dataclass(frozen=True)
 class BurgersConfig:
     mesh_size: int = 200           # cells per side of the unit square
-    stabilization: str = "rv"      # rv | gfem (si: not ported yet)
+    stabilization: str = "rv"      # rv | si | gfem
     CFL: float = 0.5
     T: float = 0.5
     Cvel: float = 0.5
     CRV: float = 10.0
     Cm: float = 0.5                # SI only
-    smooth_l: float = 0.0          # post-solve smoothing: not ported yet
+    smooth_l: float = 0.0          # > 0: post-solve smoothing (SI: 4.0)
     newton_rtol: float = 1e-4
     krylov_rtol: float = 1e-12
     newton_linear_rtol: float | None = None
     modified_newton: bool = False
     dtype: str = "float64"
     record_metrics: bool = False
-    backend: str = "auto"          # "auto" | "stencil" ("ell" not ported)
+    backend: str = "auto"          # "auto" | "stencil" | "ell"
     ic: str = "riemann"            # riemann | bump
     residual_scheme: str = "bdf2"  # bdf2 | bdf1
     degree: int = 1                # > 1 not ported yet
-    ell_matvec_backend: str = "gather"   # the ELL backend's; not ported
+    ell_matvec_backend: str = "gather"   # banded / blocked: item 13
     # fixed-iteration solvers (throughput paths; see KPPConfig)
     cg_iters: int | None = None
     newton_iters: int | None = None
@@ -142,33 +147,48 @@ FLUX = st.Flux(name="burgers", fprime_xy=flux_prime_xy,
 
 def _check_ported(cfg: BurgersConfig):
     """Raise for the options this port does not have yet, naming the
-    ROADMAP item of each (SI and smoothing raise in HyperbolicProblem)."""
-    todo = []
+    ROADMAP item of each (the ELL matvec backends raise in
+    HyperbolicProblem)."""
     if cfg.degree > 1:
-        todo.append("degree > 1 (ROADMAP queue 1 item 10)")
-    if cfg.backend not in ("auto", "stencil") \
-            or cfg.ell_matvec_backend != "gather":
-        todo.append("the ELL backend and its matvec backends (ROADMAP "
-                    "queue 1 items 7 and 13)")
+        raise NotImplementedError(
+            "not ported yet: degree > 1 (ROADMAP queue 1 item 10)")
     if cfg.ic not in ("riemann", "bump"):
         raise ValueError(f"unknown ic {cfg.ic!r}")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    if cfg.backend not in ("auto", "stencil", "ell"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
-def _min_h_cg(host_mesh, N, dtype, h_cell, area):
-    """min h_CG, projected on the host in ``dtype``."""
-    sd = st.build_structured(host_mesh, N, N, dtype, "cpu")
-    return float(get_nodal_h(sd, h_cell, area).min())
+def stencil_min_h(host_mesh, N, cells=None):
+    """dtype -> min h_CG, projected on the host on the structured mesh
+    (ops/helpers.get_nodal_h). cells: (h_cell, area) of every cell; None:
+    the host mesh's own (give them for rectangle_mesh_lean, whose
+    identical cells would give 1/N exactly)."""
+    h_cell, area = cells or (host_mesh.h_cell, host_mesh.area)
+
+    def min_h(dtype):
+        sd = st.build_structured(host_mesh, N, N, dtype, "cpu")
+        return float(get_nodal_h(sd, h_cell, area).min())
+    return min_h
 
 
-def time_step(host_mesh, cfg: BurgersConfig, cells=None):
-    """(dt, num_steps): dt = CFL min(h_CG) and ceil(T / dt) steps. h_CG is
-    projected on the host, so a run takes the same steps on the card as on
-    the CPU, from the size of every cell as the JAX package's mesh has it:
-    the linspace points make the sizes differ in their last bits, so the
-    exact min h_CG lies a hair below 1/N, and the JAX package runs N + 1
-    steps unless N is a power of two (f64; in f32 always N + 1).
+def ell_min_h(host_mesh: Mesh):
+    """dtype -> min h_CG, projected on the host on any mesh through its
+    ELL mass (ops/helpers.get_nodal_h_ell, the JAX package's
+    projection)."""
+    def min_h(dtype):
+        return float(get_nodal_h_ell(
+            host_mesh.device_arrays(dtype, "cpu")).min())
+    return min_h
+
+
+def time_step(cfg: BurgersConfig, min_h):
+    """(dt, num_steps): dt = CFL min(h_CG) and ceil(T / dt) steps, min_h
+    the projection (stencil_min_h or ell_min_h). h_CG is projected on the
+    host, so a run takes the same steps on the card as on the CPU, from
+    the size of every cell as the JAX package's mesh has it: the linspace
+    points make the sizes differ in their last bits, so the exact min h_CG
+    lies a hair below 1/N, and the JAX package runs N + 1 steps unless N
+    is a power of two (f64; in f32 always N + 1).
 
     The projection runs in the configuration's dtype. Below f64 it runs in
     f64 too, and the smaller of the two minima is taken: f32 rounding can
@@ -178,34 +198,41 @@ def time_step(host_mesh, cfg: BurgersConfig, cells=None):
     and the f32 one, wherever that is below 1/N, lies below the f64 one,
     so this changes dt only where f32 rounded up; it gives the JAX
     package's f32 step counts at N = 8, 12, 16, 20, 24, 50, 100, 200, 400,
-    800 (scripts/burgers_time_steps.py --dtype float32). cells: (h_cell,
-    area) of every cell; None: the host mesh's own (give them for
-    rectangle_mesh_lean, whose identical cells would give 1/N exactly)."""
-    h_cell, area = cells or (host_mesh.h_cell, host_mesh.area)
-    N = cfg.mesh_size
-    h = _min_h_cg(host_mesh, N, getattr(torch, cfg.dtype), h_cell, area)
+    800 (scripts/burgers_time_steps.py --dtype float32)."""
+    h = min_h(getattr(torch, cfg.dtype))
     if cfg.dtype != "float64":
-        h = min(h, _min_h_cg(host_mesh, N, torch.float64, h_cell, area))
+        h = min(h, min_h(torch.float64))
     dt = cfg.CFL * h
     return dt, int(np.ceil(cfg.T / dt))
 
 
-def build(cfg: BurgersConfig | None = None, device=None, **kw):
-    """The Burgers problem on the structured stencil backend, on ``device``
-    (None: the card; raises without one. device="cpu" for the CPU)."""
+def build(cfg: BurgersConfig | None = None, device=None,
+          host_mesh: Mesh | None = None, **kw):
+    """The Burgers problem on ``device`` (None: the card; raises without
+    one. device="cpu" for the CPU): the stencil backend on the structured
+    mesh, or the ELL backend (backend="ell", or a host_mesh given)."""
     if cfg is None:
         cfg = BurgersConfig(**kw)
     _check_ported(cfg)
     N = cfg.mesh_size
-    if N >= 512:
-        host_mesh = rectangle_mesh_lean((0, 0), (1, 1), nx=N)
-        cells = rectangle_cell_sizes((0, 0), (1, 1), nx=N)
+    built_structured = host_mesh is None
+    if cfg.backend == "stencil" and not built_structured:
+        raise ValueError("the stencil backend runs on the structured mesh "
+                         "only (no host_mesh)")
+    use_stencil = built_structured and cfg.backend != "ell"
+    if not built_structured:
+        min_h = ell_min_h(host_mesh)
     else:
-        host_mesh, cells = rectangle_mesh((0, 0), (1, 1), nx=N), None
-    dt, num_steps = time_step(host_mesh, cfg, cells)
+        if use_stencil and N >= 512:
+            host_mesh = rectangle_mesh_lean((0, 0), (1, 1), nx=N)
+            cells = rectangle_cell_sizes((0, 0), (1, 1), nx=N)
+        else:
+            host_mesh, cells = rectangle_mesh((0, 0), (1, 1), nx=N), None
+        min_h = stencil_min_h(host_mesh, N, cells)
+    dt, num_steps = time_step(cfg, min_h)
     hcfg = HyperbolicConfig(
         stabilization=cfg.stabilization, residual_scheme=cfg.residual_scheme,
-        Cvel=cfg.Cvel, CRV=cfg.CRV, newton_rtol=cfg.newton_rtol,
+        Cvel=cfg.Cvel, CRV=cfg.CRV, Cm=cfg.Cm, newton_rtol=cfg.newton_rtol,
         krylov_rtol=cfg.krylov_rtol,
         newton_linear_rtol=cfg.newton_linear_rtol,
         modified_newton=cfg.modified_newton, smooth_l=cfg.smooth_l,
@@ -215,6 +242,7 @@ def build(cfg: BurgersConfig | None = None, device=None, **kw):
         newton_final_residual=cfg.newton_final_residual,
         cheby_mass_bounds=cfg.cheby_mass_bounds or (0.5, 2.0),
         cheby_lin_bounds=cfg.cheby_lin_bounds or (0.4, 2.2),
+        ell_matvec_backend=cfg.ell_matvec_backend,
         use_kernels=cfg.use_kernels, dtype=cfg.dtype,
         record_metrics=cfg.record_metrics)
     if cfg.ic == "riemann":
@@ -228,36 +256,52 @@ def build(cfg: BurgersConfig | None = None, device=None, **kw):
                              u0_fn=ic_fn, dt=dt, num_steps=num_steps,
                              device=device)
     prob.bc_static = False         # g = exact solution at each step's t
-    return structure(prob, N, N)
+    if use_stencil:
+        return structure(prob, N, N)
+    return prob
+
+
+def _exact_difference(problem, u, t):
+    pts = problem.points
+    return u - exact_solution(pts[:, 0], pts[:, 1], t)
 
 
 def l2_error_vs_exact(problem, u, t):
-    """sqrt(d^T M d), d = u - the exact solution's nodal interpolant."""
-    pts = problem.points
-    d = (u - exact_solution(pts[:, 0], pts[:, 1], t)).reshape(
-        problem._shape2)
-    return torch.sqrt(torch.sum(d * st.mass_matvec(problem.sd, d)))
+    """sqrt(d^T M d), d = u - the exact solution's nodal interpolant, on
+    the stencil or the ELL mass."""
+    d = _exact_difference(problem, u, t)
+    if hasattr(problem, "sd"):
+        d = d.reshape(problem._shape2)
+        return torch.sqrt(torch.sum(d * st.mass_matvec(problem.sd, d)))
+    return torch.sqrt(d @ ell_matvec(problem.mesh, problem.M, d))
 
 
 def l1_error_vs_exact(problem, u, t):
     """int |u - u_ex| dx, u_ex the nodal interpolant, by the degree-4
     quadrature on every cell."""
-    pts, sd = problem.points, problem.sd
-    d = (u - exact_solution(pts[:, 0], pts[:, 1], t)).reshape(
-        problem._shape2)
+    d = _exact_difference(problem, u, t)
     phi = torch.as_tensor(_quad_basis(), dtype=u.dtype, device=u.device)
     w = torch.as_tensor(_DUN4_W * 0.5, dtype=u.dtype, device=u.device)
-    d_q = torch.einsum("txya,qa->txyq", st.cell_gather(sd, d), phi)
-    return ((d_q.abs() * w).sum(dim=-1) * 2.0 * sd.area).sum()
+    if hasattr(problem, "sd"):
+        sd = problem.sd
+        d_q = torch.einsum("txya,qa->txyq",
+                           st.cell_gather(sd, d.reshape(problem._shape2)),
+                           phi)
+        return ((d_q.abs() * w).sum(dim=-1) * 2.0 * sd.area).sum()
+    m = problem.mesh
+    d_q = torch.einsum("ma,qa->mq", d[m.cells], phi)
+    return ((d_q.abs() * w).sum(dim=1) * 2.0 * m.area).sum()
 
 
-def run(cfg: BurgersConfig | None = None, device=None, **kw):
-    """Solve and compare with the exact solution: at t = 0.5 for the
-    standard T = 0.5 (the loop overshoots it slightly, as the reference
-    does), else at the end time. Returns (SolveResult, L2 error)."""
+def run(cfg: BurgersConfig | None = None, device=None,
+        host_mesh: Mesh | None = None, **kw):
+    """Solve (on host_mesh if given, as build) and compare with the exact
+    solution: at t = 0.5 for the standard T = 0.5 (the loop overshoots it
+    slightly, as the reference does), else at the end time. Returns
+    (SolveResult, L2 error)."""
     if cfg is None:
         cfg = BurgersConfig(**kw)
-    p = build(cfg, device=device)
+    p = build(cfg, device=device, host_mesh=host_mesh)
     res = p.solve()
     t_cmp = 0.5 if cfg.T == 0.5 else res.num_steps * res.dt
     return res, float(l2_error_vs_exact(p, res.u, t_cmp))

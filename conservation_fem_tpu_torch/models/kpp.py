@@ -1,10 +1,16 @@
 """KPP rotating-wave benchmark: u_t + div(sin u, cos u) = 0, ported from
-conservation_fem_tpu/models/kpp.py (structured mesh only).
+conservation_fem_tpu/models/kpp.py.
 
 Domain [-2,2]^2, IC = 14 pi/4 inside the unit circle else pi/4,
-Dirichlet bc = pi/4, dt = 0.01, T = 1, Cvel = 0.5, CRV = 4.0; flux
-derivative f'(u) = (cos u, -sin u), so |f'(u)| = 1 identically, and
-f''(u) = (-sin u, -cos u).
+Dirichlet bc = pi/4, dt = 0.01, T = 1, Cvel = 0.5, CRV = 4.0 (SI: Cm =
+0.5); flux derivative f'(u) = (cos u, -sin u), so |f'(u)| = 1
+identically, and f''(u) = (-sin u, -cos u).
+
+The mesh is the structured triangulation of [-2,2]^2 (default), a stored
+DOLFINx mesh (``mesh_source``: a path to an .h5 file), or one the caller
+gives (``host_mesh``, e.g. ops/mesh.irregular_mesh). backend="auto" runs
+the stencil backend on the structured mesh and the ELL backend on any
+other; "ell" forces the ELL backend.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
     HyperbolicConfig, HyperbolicProblem)
 from conservation_fem_tpu_torch.models.structured_hyperbolic import structure
-from conservation_fem_tpu_torch.ops.mesh import (rectangle_mesh,
+from conservation_fem_tpu_torch.ops.mesh import (Mesh, load_h5_mesh,
+                                                 rectangle_mesh,
                                                  rectangle_mesh_lean)
 from conservation_fem_tpu_torch.ops.structured import Flux
 
@@ -26,13 +33,14 @@ from conservation_fem_tpu_torch.ops.structured import Flux
 @dataclasses.dataclass(frozen=True)
 class KPPConfig:
     mesh_size: int = 32            # cells per unit length: hmax = 1/mesh_size
-    mesh_source: str = "structured"  # only "structured" is ported
-    stabilization: str = "rv"      # rv | gfem
+    mesh_source: str = "structured"  # "structured" | path to an .h5 mesh
+    stabilization: str = "rv"      # rv | si | gfem
     dt: float = 0.01
     T: float = 1.0
     Cvel: float = 0.5
     CRV: float = 4.0
-    smooth_l: float = 0.0
+    Cm: float = 0.5                # SI
+    smooth_l: float = 0.0          # > 0: post-solve patch smoothing
     newton_rtol: float = 1e-4
     newton_atol: float = 1e-10
     krylov_rtol: float = 1e-12
@@ -45,13 +53,17 @@ class KPPConfig:
     newton_final_residual: bool = True
     precise_reductions: bool = False
     # O(N) host mesh (identical geometry); None = auto at mesh_size >= 512
+    # on the stencil backend
     lean_mesh: bool | None = None
     tiled_bf16_planes: bool = False
     xla_bf16_planes: bool = False
+    # ELL operator application: "gather" (banded / blocked: ROADMAP queue
+    # 1 item 13)
+    ell_matvec_backend: str = "gather"
     use_kernels: bool = False      # see HyperbolicConfig
     dtype: str = "float64"
     record_metrics: bool = False
-    backend: str = "auto"          # "auto" | "stencil" ("ell" not ported)
+    backend: str = "auto"          # "auto" | "stencil" | "ell"
 
 
 def initial_condition(x, y):
@@ -76,23 +88,33 @@ FLUX = Flux(name="kpp", fprime_xy=flux_prime_xy, fprime2_xy=flux_prime2_xy,
             fprime_norm=flux_prime_norm)
 
 
-def build(cfg: KPPConfig | None = None, device=None, **kw):
-    """The KPP problem on the structured stencil backend, on ``device``
-    (None: the card; raises without one. device="cpu" for the CPU)."""
+def build(cfg: KPPConfig | None = None, device=None,
+          host_mesh: Mesh | None = None, **kw):
+    """The KPP problem on ``device`` (None: the card; raises without one.
+    device="cpu" for the CPU). host_mesh: a mesh to run on (the ELL
+    backend; its node order is kept, so give an RCM-ordered one where the
+    order matters)."""
     if cfg is None:
         cfg = KPPConfig(**kw)
-    if cfg.mesh_source != "structured" or cfg.backend not in ("auto",
-                                                              "stencil"):
-        raise NotImplementedError(
-            "only the structured stencil backend is ported (unstructured "
-            "meshes and the ELL backend: ROADMAP queue 1 item 7)")
+    if cfg.backend not in ("auto", "stencil", "ell"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    built_structured = host_mesh is None and cfg.mesh_source == "structured"
+    if cfg.backend == "stencil" and not built_structured:
+        raise ValueError("the stencil backend runs on the structured mesh "
+                         "only (mesh_source='structured', no host_mesh)")
+    use_stencil = built_structured and cfg.backend != "ell"
     n = 4 * cfg.mesh_size   # [-2,2] spans 4 units
-    lean = cfg.lean_mesh if cfg.lean_mesh is not None else cfg.mesh_size >= 512
-    mesh_fn = rectangle_mesh_lean if lean else rectangle_mesh
-    host_mesh = mesh_fn((-2, -2), (2, 2), nx=n, ny=n)
+    if host_mesh is None:
+        if built_structured:
+            lean = (cfg.lean_mesh if cfg.lean_mesh is not None
+                    else use_stencil and cfg.mesh_size >= 512)
+            mesh_fn = rectangle_mesh_lean if lean else rectangle_mesh
+            host_mesh = mesh_fn((-2, -2), (2, 2), nx=n, ny=n)
+        else:
+            host_mesh = load_h5_mesh(cfg.mesh_source)
     hcfg = HyperbolicConfig(
         stabilization=cfg.stabilization, Cvel=cfg.Cvel, CRV=cfg.CRV,
-        newton_rtol=cfg.newton_rtol, newton_atol=cfg.newton_atol,
+        Cm=cfg.Cm, newton_rtol=cfg.newton_rtol, newton_atol=cfg.newton_atol,
         krylov_rtol=cfg.krylov_rtol,
         newton_linear_rtol=cfg.newton_linear_rtol,
         modified_newton=cfg.modified_newton, smooth_l=cfg.smooth_l,
@@ -102,8 +124,10 @@ def build(cfg: KPPConfig | None = None, device=None, **kw):
         newton_final_residual=cfg.newton_final_residual,
         precise_reductions=cfg.precise_reductions,
         tiled_bf16_planes=cfg.tiled_bf16_planes,
-        xla_bf16_planes=cfg.xla_bf16_planes, use_kernels=cfg.use_kernels,
-        dtype=cfg.dtype, record_metrics=cfg.record_metrics)
+        xla_bf16_planes=cfg.xla_bf16_planes,
+        ell_matvec_backend=cfg.ell_matvec_backend,
+        use_kernels=cfg.use_kernels, dtype=cfg.dtype,
+        record_metrics=cfg.record_metrics)
     bc_val = float(np.pi / 4.0)
     prob = HyperbolicProblem(
         hcfg, host_mesh, flux=FLUX,
@@ -113,7 +137,9 @@ def build(cfg: KPPConfig | None = None, device=None, **kw):
         u0_fn=initial_condition, dt=cfg.dt,
         num_steps=int(np.ceil(cfg.T / cfg.dt)), device=device)
     prob.bc_static = True          # g = pi/4 for all t
-    return structure(prob, n, n)
+    if use_stencil:
+        return structure(prob, n, n)
+    return prob
 
 
 def run(cfg: KPPConfig | None = None, device=None, **kw):

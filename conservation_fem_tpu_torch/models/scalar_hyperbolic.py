@@ -1,13 +1,25 @@
 """Scalar nonlinear conservation law u_t + div f(u) = 0 in 2D, P1 FEM +
-Crank-Nicolson + Newton with RV shock capturing — the configuration and
-the step/solve skeleton ported from
+Crank-Nicolson + Newton with RV or SI shock capturing, ported from
 conservation_fem_tpu/models/scalar_hyperbolic.py.
 
-Per time step: BDF2 residual projection (a mass solve), the RV epsilon,
-and the stabilised CN Newton solve. This base class holds the setup and
-the time loop; the step itself lives in the structured stencil backend
-(models/structured_hyperbolic.py). The JAX ``lax.scan`` time loop is a
-Python loop here.
+Per time step (``HyperbolicProblem.step``, the generic ELL backend):
+  1. BDF2 (or BDF1) residual projection, a mass solve:
+       M RH = M (3 u_n - 4 u_old + u_old_old)/(2 dt) + N(u_n),  RH|bc = 0,
+     N(u)_a = int (f'(u) . grad u) phi_a dx;
+  2. epsilon: the RV patch kernel, the SI kernel on the bc-applied
+     stiffness, or 0 (gfem);
+  3. the stabilised CN Newton solve
+       F(v) = M(v - u_n) + dt/2 [N(v) + N(u_n)] + dt/2 Keps (v + u_n),
+     v|bc = g(t), with the assembled exact Jacobian M + dt/2 (C'(v) +
+     Keps) and BiCGStab (or fixed-iteration) inner solves;
+  4. optional post-solve patch smoothing (smooth_l > 0);
+  5. the history shift.
+Every operator is an (N,K) ELL matrix over the mesh's node patches
+(ops/assembly.py, ops/spmv.py); on the card they are plain PyTorch gathers
+and segmented sums (no hand-written kernel: the JAX package runs this step
+as XLA gathers, not Pallas). The structured stencil backend
+(models/structured_hyperbolic.py) overrides the step. The JAX
+``lax.scan`` time loop is a Python loop here.
 """
 
 from __future__ import annotations
@@ -19,16 +31,27 @@ import numpy as np
 import torch
 
 from conservation_fem_tpu_torch import get_device
+from conservation_fem_tpu_torch.ops import assembly
+from conservation_fem_tpu_torch.ops import stabilization as stab
+from conservation_fem_tpu_torch.ops.bc import constrain_residual, ell_with_bc
+from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
+from conservation_fem_tpu_torch.ops.krylov import (cg, cg_fixed,
+                                                   chebyshev_fixed, dot,
+                                                   jacobi_preconditioner)
 from conservation_fem_tpu_torch.ops.mesh import Mesh
+from conservation_fem_tpu_torch.ops.newton import newton_fixed, newton_solve
+from conservation_fem_tpu_torch.ops.spmv import ell_diag, ell_matvec
 from conservation_fem_tpu_torch.ops.structured import Flux
 
 
 @dataclasses.dataclass(frozen=True)
 class HyperbolicConfig:
-    stabilization: str = "rv"      # rv | gfem (si: not ported yet)
+    stabilization: str = "rv"      # rv | si | gfem
     residual_scheme: str = "bdf2"  # bdf2 | bdf1
     Cvel: float = 0.5
     CRV: float = 4.0
+    Cm: float = 1.0                # SI: eps = psi(alpha) Cm h beta
+    si_eps: float = 1e-8           # SI: floor of alpha's denominator
     newton_rtol: float = 1e-4
     newton_atol: float = 1e-10
     newton_max_it: int = 100
@@ -50,10 +73,17 @@ class HyperbolicConfig:
     # bf16 operator-plane streams of the TPU kernels: not ported
     tiled_bf16_planes: bool = False
     xla_bf16_planes: bool = False
-    precise_reductions: bool = False     # not ported yet
-    smooth_l: float = 0.0                # post-solve smoothing: not ported
+    # f64-accumulated dots in the ELL step's solvers (ops/precision
+    # dot_acc64); the stencil backend's solvers never read it, as in the
+    # JAX package
+    precise_reductions: bool = False
+    smooth_l: float = 0.0          # > 0: post-solve patch smoothing
+    # ELL operator application: "gather" ((N,K) gather and row sum); the
+    # JAX package's banded / blocked / lattice backends are not ported
+    ell_matvec_backend: str = "gather"
     # hand-written kernels: fused whole-step kernel on the fixed path, the
-    # fused adaptive CG on the adaptive path (JAX: use_pallas)
+    # fused adaptive CG on the adaptive path (JAX: use_pallas); stencil
+    # backend only
     use_kernels: bool = False
     # fused kernel: K full time steps per launch (time-independent bc)
     fused_substeps: int = 1
@@ -65,18 +95,19 @@ def check_supported(cfg: HyperbolicConfig):
     """Raise for the features this port does not have yet, naming the
     ROADMAP item that brings each."""
     todo = []
-    if cfg.stabilization == "si":
-        todo.append("stabilization='si' (ROADMAP queue 1 item 7)")
-    elif cfg.stabilization not in ("rv", "gfem"):
+    if cfg.stabilization not in ("rv", "si", "gfem"):
         raise ValueError(f"unknown stabilization {cfg.stabilization!r}")
-    if cfg.smooth_l > 0:
-        todo.append("smooth_l > 0 (ROADMAP queue 1 item 7)")
-    if cfg.precise_reductions:
-        todo.append("precise_reductions (ROADMAP queue 1 items 7, 13 and "
-                    "15)")
     if cfg.tiled_bf16_planes or cfg.xla_bf16_planes:
-        todo.append("bf16 operator planes (ROADMAP queue 2 item 5, only "
+        todo.append("bf16 operator planes (ROADMAP queue 2 item 5c, only "
                     "if the H100 measures a reason)")
+    mv = cfg.ell_matvec_backend
+    if mv in ("banded", "blocked", "blocked2d"):
+        todo.append(f"ell_matvec_backend={mv!r} (the unstructured fast "
+                    "path, ROADMAP queue 1 item 13)")
+    elif mv == "lattice":
+        todo.append("ell_matvec_backend='lattice' (ROADMAP queue 1 item 12)")
+    elif mv != "gather":
+        raise ValueError(f"unknown ell_matvec_backend {mv!r}")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -108,6 +139,61 @@ class HyperbolicProblem:
         self.u0 = u0_fn(self.points[:, 0], self.points[:, 1]).to(self.dtype)
         self._carry = None
         self._start_step = 0
+        self._mesh = self._M = self._h_cg = self._K_bc = None
+        # the boundary nodes, flat: the only nodes at which a step reads g
+        self._frame = torch.as_tensor(host_mesh.boundary_nodes,
+                                      device=self.device)
+        self._g_shape, self._g2 = tuple(self.u0.shape), None
+
+    # -- lazily built ELL operators -------------------------------------------
+
+    @property
+    def mesh(self):
+        """The mesh's tensors (MeshArrays) on the problem's device, built on
+        first use: the stencil backend never reads them."""
+        if self._mesh is None:
+            self._mesh = self.host_mesh.device_arrays(self.dtype,
+                                                      self.device)
+        return self._mesh
+
+    @property
+    def M(self):
+        """ELL consistent mass, built lazily."""
+        if self._M is None:
+            self._M = assembly.assemble_mass(self.mesh)
+        return self._M
+
+    @property
+    def h_cg(self):
+        """Nodal h (the mass-solve projection of the cell sizes), lazily."""
+        if self._h_cg is None:
+            self._h_cg = get_nodal_h_ell(self.mesh, mass_ell=self.M)
+        return self._h_cg
+
+    @property
+    def K_bc(self):
+        """The bc-applied stiffness the SI kernel reads (SI only)."""
+        if self._K_bc is None and self.cfg.stabilization == "si":
+            K = assembly.assemble_stiffness(self.mesh)
+            self._K_bc = ell_with_bc(self.mesh, K, self.mesh.boundary_mask)
+        return self._K_bc
+
+    def _force_lazy_operators(self):
+        """Build the static operators before the time loop, so that the
+        first step's time is a step's."""
+        _ = self.M
+        if self.cfg.stabilization in ("rv", "si"):
+            _ = self.h_cg
+        if self.cfg.stabilization == "si":
+            _ = self.K_bc
+
+    def _linear_op(self, A_ell):
+        """(matvec, diag) of an assembled ELL operator: the gather backend
+        (check_supported refuses the others)."""
+        return ((lambda x: ell_matvec(self.mesh, A_ell, x)),
+                ell_diag(self.mesh, A_ell))
+
+    # -- carry and Dirichlet data ---------------------------------------------
 
     def set_carry(self, u_n, u_old, u_old_old, start_step=0):
         """Start ``solve`` from the history (u_n, u_old, u_old_old), given as
@@ -138,17 +224,172 @@ class HyperbolicProblem:
         ks = torch.arange(start_step, self.num_steps, dtype=self.dtype)
         return ((ks + 1.0) * self.dt).tolist()
 
+    def dirichlet_frames(self, times):
+        """(len(times), boundary nodes): the Dirichlet data of each of
+        ``times`` on the boundary nodes (on a structured grid its frame),
+        from one call of bc_value with t a column (for data that change
+        every step: no kernel a step for them)."""
+        t = torch.tensor(times, dtype=self.dtype, device=self.device)
+        g = self.bc_value(self.points[self._frame], t[:, None])
+        return torch.broadcast_to(g, (len(times), self._frame.numel()))
+
+    def dirichlet_grid(self, frame_values):
+        """g in the step's layout (flat on the ELL backend, (n1x, n1y) on
+        the stencil backend) from one step's boundary values: scattered
+        into the problem's one g buffer, zero inside, so the previous
+        step's g is overwritten (in stream order on the card)."""
+        if self._g2 is None:
+            self._g2 = torch.zeros(self._g_shape, dtype=self.dtype,
+                                   device=self.device)
+        self._g2.view(-1).index_copy_(0, self._frame, frame_values)
+        return self._g2
+
     def step_dirichlet(self, times):
         """The Dirichlet data of each step of ``times``, in the form ``step``
-        takes them (None: the step forms them from its t)."""
-        return [None] * len(times)
+        takes them."""
+        return map(self.dirichlet_grid, self.dirichlet_frames(times))
+
+    # -- step pieces ------------------------------------------------------------
+
+    def _nonlinear_rhs(self, u):
+        """N(u)_a = int (f'(u) . grad u) phi_a dx."""
+        return assembly.convection_rhs_flux(self.mesh, u, self.flux)
+
+    def _assemble_keps(self, eps):
+        return assembly.assemble_eps_stiffness(self.mesh, eps)
+
+    def _assemble_flux_jacobian(self, u):
+        return assembly.assemble_flux_jacobian(self.mesh, u, self.flux)
+
+    @property
+    def _dot(self):
+        """Inner product of the solvers: f64-accumulated under
+        precise_reductions (ops/precision.dot_acc64)."""
+        if self.cfg.precise_reductions:
+            from conservation_fem_tpu_torch.ops.precision import dot_acc64
+
+            return dot_acc64
+        return dot
+
+    def _residual_bdf2(self, u_n, u_old, u_old_old, N_un=None):
+        """BDF1/BDF2 residual projection with RH|bc = 0."""
+        cfg, dt = self.cfg, self.dt
+        bc = self.mesh.boundary_mask
+        if cfg.residual_scheme == "bdf1":
+            du = (u_n - u_old) / dt
+        else:
+            du = (3.0 * u_n - 4.0 * u_old + u_old_old) / (2.0 * dt)
+        if N_un is None:
+            N_un = self._nonlinear_rhs(u_n)
+        M_mv, M_diag = self._linear_op(self.M)
+        rhs = torch.where(bc, 0.0, M_mv(du) + N_un)
+        op = lambda x: torch.where(bc, x, M_mv(torch.where(bc, 0.0, x)))
+        pre = jacobi_preconditioner(torch.where(bc, 1.0, M_diag))
+        if cfg.cg_iters is not None:
+            if cfg.inner_solver == "cheby":
+                lo, hi = cfg.cheby_mass_bounds
+                return chebyshev_fixed(op, rhs, precond=pre,
+                                       iters=cfg.cg_iters, lmin=lo,
+                                       lmax=hi).x
+            return cg_fixed(op, rhs, precond=pre, iters=cfg.cg_iters,
+                            dot=self._dot).x
+        return cg(op, rhs, precond=pre, rtol=cfg.krylov_rtol,
+                  dot=self._dot).x
+
+    def _epsilon(self, u_n, RH):
+        cfg = self.cfg
+        if cfg.stabilization == "rv":
+            return stab.rv_epsilon_nonlinear(
+                self.mesh, cfg.Cvel, cfg.CRV, u_n, u_n,
+                self.flux.fprime_norm, RH, self.h_cg)
+        if cfg.stabilization == "si":
+            return stab.si_epsilon(
+                self.mesh, cfg.Cm, self.K_bc, u_n,
+                self.flux.fprime_norm(u_n), self.h_cg,
+                eps_floor=cfg.si_eps).epsilon
+        return torch.zeros_like(u_n)     # gfem
+
+    def _newton_cn(self, u_n, eps, g, N_un=None):
+        """Stabilised CN Newton solve with u|bc = g."""
+        dt = self.dt
+        bc = self.mesh.boundary_mask
+        Keps = self._assemble_keps(eps)
+        if N_un is None:
+            N_un = self._nonlinear_rhs(u_n)
+        M_mv, _ = self._linear_op(self.M)
+        K_mv, _ = self._linear_op(Keps)
+        Keps_un = K_mv(u_n)
+
+        def residual(v):
+            F = (M_mv(v - u_n)
+                 + 0.5 * dt * (self._nonlinear_rhs(v) + N_un)
+                 + 0.5 * dt * (K_mv(v) + Keps_un))
+            return constrain_residual(F, v, g, bc)
+
+        base = self.M + 0.5 * dt * Keps
+
+        def jacobian(u):
+            """J = M + dt/2 (C'(u) + Keps), assembled: an inner iteration
+            is one ELL product."""
+            J = base + 0.5 * dt * self._assemble_flux_jacobian(u)
+            J_mv, J_diag = self._linear_op(J)
+            matvec = lambda v: torch.where(bc, v,
+                                           J_mv(torch.where(bc, 0.0, v)))
+            return matvec, jacobi_preconditioner(torch.where(bc, 1.0,
+                                                             J_diag))
+
+        return self._newton_dispatch(residual, jacobian,
+                                     torch.where(bc, g, u_n))
+
+    def _newton_dispatch(self, residual, jacobian, u_init):
+        """Fixed-iteration or adaptive Newton, per the config."""
+        cfg = self.cfg
+        if cfg.newton_iters is not None:
+            return newton_fixed(
+                residual, u_init, iters=cfg.newton_iters,
+                linear_iters=cfg.newton_linear_iters, jacobian_fn=jacobian,
+                freeze_jacobian=cfg.modified_newton, rtol=cfg.newton_rtol,
+                atol=cfg.newton_atol, linear_solver=cfg.inner_solver,
+                cheby_bounds=cfg.cheby_lin_bounds,
+                final_residual=cfg.newton_final_residual, dot=self._dot)
+        return newton_solve(
+            residual, u_init, rtol=cfg.newton_rtol, atol=cfg.newton_atol,
+            max_it=cfg.newton_max_it,
+            linear_rtol=cfg.newton_linear_rtol or cfg.krylov_rtol,
+            jacobian_fn=jacobian, freeze_jacobian=cfg.modified_newton,
+            dot=self._dot)
+
+    def _smooth(self, u):
+        """Post-solve patch smoothing."""
+        return stab.smooth_vector(self.mesh, u, self.cfg.smooth_l)
 
     def step(self, carry, t, g=None):
         """One full stabilised time step; carry = (u_n, u_old, u_old_old),
-        g: the step's Dirichlet data from ``step_dirichlet``."""
-        raise NotImplementedError(
-            "the unstructured (ELL) step is not ported yet (ROADMAP queue 1 "
-            "item 7); build on a structured mesh")
+        g: the step's Dirichlet data from ``step_dirichlet`` (None: formed
+        from t)."""
+        if g is None:
+            g = self.dirichlet_grid(self.dirichlet_frames([t])[0])
+        u_n, u_old, u_old_old = carry
+        N_un = self._nonlinear_rhs(u_n)
+        RH = None
+        if self.cfg.stabilization == "rv":
+            RH = self._residual_bdf2(u_n, u_old, u_old_old, N_un=N_un)
+        eps = self._epsilon(u_n, RH)
+        res = self._newton_cn(u_n, eps, g, N_un=N_un)
+        uh = res.u
+        if self.cfg.smooth_l > 0:
+            uh = self._smooth(uh)
+        metrics = None
+        if self.cfg.record_metrics:
+            metrics = {
+                "eps_max": eps.max(),
+                "newton_iters": res.iters,
+                "newton_converged": res.converged,
+                "residual_norm": res.residual_norm,
+                "u_min": uh.min(),
+                "u_max": uh.max(),
+            }
+        return (uh, u_n, u_old), metrics
 
     def solve(self, checkpoint_path: str | None = None,
               checkpoint_every: int = 0, resume: bool = False,
@@ -160,6 +401,7 @@ class HyperbolicProblem:
             raise NotImplementedError(
                 "checkpointing and streaming are not ported yet (ROADMAP "
                 "queue 1 item 14)")
+        self._force_lazy_operators()
         carry = self._initial_carry()
         per_step = []
         times = self.step_times(self._start_step)

@@ -1,10 +1,16 @@
 """Structured (stencil-backend) scalar conservation-law solver, ported from
 conservation_fem_tpu/models/structured_hyperbolic.py.
 
-Same pipeline as the JAX model — BDF2 residual projection, RV epsilon,
-stabilised CN Newton — with every operator a 7-plane stencil
-(ops/structured.py). With ``use_kernels`` and fixed iteration counts each
-step is one of three whole-step kernels, chosen by ``_fused_mode`` with
+Same pipeline as the JAX model — BDF2 residual projection, RV or SI
+epsilon, stabilised CN Newton, optional post-solve smoothing — with every
+operator a 7-plane stencil (ops/structured.py). SI reads the bc-applied
+stiffness as stencil planes (``stiffness_bc_coef``, built once), and the
+smoothing is ``smooth_vector_grid``; neither has a whole-step kernel, as
+in the JAX package. ``precise_reductions`` is accepted and changes nothing
+here: the JAX structured step never reads its f64 dots either.
+
+With ``use_kernels`` and fixed iteration counts each step is one of three
+whole-step kernels, chosen by ``_fused_mode`` with
 the JAX package's rule and thresholds so that a configuration launches
 the counterpart of the kernel the JAX package launches: "single"
 (ops/fused_step.fused_rv_step, one launch), "split"
@@ -40,33 +46,15 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
             area=float(hm.area[0]), h=float(hm.h_cell[0]),
             grads=np.stack([hm.grads[0], hm.grads[nx * ny]]),
             phi=st._quad_basis(), qw=st._DUN4_W * 0.5)
-        # the frame nodes, flat: the only nodes at which a step reads g
-        self._frame = torch.nonzero(self.sd.bc2.reshape(-1))[:, 0]
-        self._g2 = None
+        # g in grid form (the frame nodes are the mesh's boundary nodes)
+        self._g_shape, self._g2 = self._shape2, None
+        self._K_bc_coef = (st.stiffness_bc_coef(self.sd)
+                           if self.cfg.stabilization == "si" else None)
         return self
 
-    # -- Dirichlet data --------------------------------------------------------
-
-    def dirichlet_frames(self, times):
-        """(len(times), frame nodes): the Dirichlet data of each of ``times``
-        on the frame nodes, from one call of bc_value with t a column (for
-        data that change every step: no kernel a step for them)."""
-        t = torch.tensor(times, dtype=self.dtype, device=self.device)
-        g = self.bc_value(self.points[self._frame], t[:, None])
-        return torch.broadcast_to(g, (len(times), self._frame.numel()))
-
-    def dirichlet_grid(self, frame_values):
-        """g2 (n1x, n1y) from one step's frame values: scattered into the
-        problem's one g2 buffer, zero inside, so the previous step's g2 is
-        overwritten (in stream order on the card)."""
-        if self._g2 is None:
-            self._g2 = torch.zeros(self._shape2, dtype=self.dtype,
-                                   device=self.device)
-        self._g2.view(-1).index_copy_(0, self._frame, frame_values)
-        return self._g2
-
-    def step_dirichlet(self, times):
-        return map(self.dirichlet_grid, self.dirichlet_frames(times))
+    def _force_lazy_operators(self):
+        """Nothing to build: the stencil step reads sd's planes, not the
+        ELL operators."""
 
     # -- 2D pipeline ---------------------------------------------------------
 
@@ -224,14 +212,22 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
         # one quadrature pass for N(u_n), shared by the residual
         # projection and the Newton frozen term
         N_un = st.nonlinear_rhs(self.sd, u2, self.flux)
-        if self.cfg.stabilization == "rv":
+        cfg = self.cfg
+        if cfg.stabilization == "rv":
             RH2 = self._residual_bdf2_2d(u2, uo2, uoo2, N_u=N_un)
-            eps2 = st.rv_epsilon(self.sd, self.cfg.Cvel, self.cfg.CRV, u2,
-                                 RH2, self.flux.fprime_norm)
+            eps2 = st.rv_epsilon(self.sd, cfg.Cvel, cfg.CRV, u2, RH2,
+                                 self.flux.fprime_norm)
+        elif cfg.stabilization == "si":
+            eps2 = st.si_epsilon_grid(self.sd, cfg.Cm, self._K_bc_coef, u2,
+                                      self.flux.fprime_norm(u2),
+                                      eps_floor=cfg.si_eps)
         else:
             eps2 = torch.zeros_like(u2)
         res = self._newton_cn_2d(u2, eps2, g2, N_un=N_un)
-        uh = res.u.reshape(-1)
+        uh = res.u
+        if cfg.smooth_l > 0:
+            uh = st.smooth_vector_grid(self.sd, uh, cfg.smooth_l)
+        uh = uh.reshape(-1)
         metrics = None
         if self.cfg.record_metrics:
             metrics = {

@@ -5,6 +5,9 @@ The adaptive solvers (``cg``, ``bicgstab``) run the JAX ``while_loop`` as
 a Python loop whose stopping test reads one scalar per iteration on the
 host. The fixed-iteration solvers read nothing on the host and keep the
 JAX breakdown guards exactly (``safe_div``, the CG ``rz > 0`` freeze).
+Every solver with inner products takes ``dot=`` as the JAX ones do (the
+ELL step passes ops/precision.dot_acc64 under ``precise_reductions``);
+the default is the module's ``dot``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def dot(a, b):
 
 
 def cg(matvec: Callable, b, *, precond: Callable = _identity, rtol=1e-12,
-       maxiter=1000) -> KrylovResult:
+       maxiter=1000, dot: Callable = dot) -> KrylovResult:
     """Preconditioned conjugate gradient for SPD operators, from x = 0."""
     x = torch.zeros_like(b)
     r = b - matvec(x)
@@ -56,7 +59,7 @@ def cg(matvec: Callable, b, *, precond: Callable = _identity, rtol=1e-12,
 
 
 def bicgstab(matvec: Callable, b, *, precond: Callable = _identity,
-             rtol=1e-12, maxiter=2000) -> KrylovResult:
+             rtol=1e-12, maxiter=2000, dot: Callable = dot) -> KrylovResult:
     """Preconditioned BiCGStab for nonsymmetric operators (CN Newton
     Jacobians), from x = 0; stops on convergence, maxiter or breakdown."""
     x = torch.zeros_like(b)
@@ -93,7 +96,8 @@ def bicgstab(matvec: Callable, b, *, precond: Callable = _identity,
 
 
 def cg_fixed(matvec: Callable, b, *, iters: int,
-             precond: Callable = _identity) -> KrylovResult:
+             precond: Callable = _identity,
+             dot: Callable = dot) -> KrylovResult:
     """CG with a FIXED iteration count (no adaptive stopping reduction),
     from x = 0."""
     x = torch.zeros_like(b)
@@ -125,7 +129,8 @@ def safe_div(num, den, tiny):
 
 
 def bicgstab_fixed(matvec: Callable, b, *, iters: int,
-                   precond: Callable = _identity) -> KrylovResult:
+                   precond: Callable = _identity,
+                   dot: Callable = dot) -> KrylovResult:
     """BiCGStab with a FIXED iteration count, from x = 0. Breakdown-safe:
     when a denominator underflows the remaining iterations take zero
     steps."""

@@ -1,26 +1,79 @@
-"""Structured rectangle meshes (host-side numpy), ported from
+"""Triangle meshes (host-side numpy), ported from
 conservation_fem_tpu/ops/mesh.py.
 
-Only the fields the stencil path reads are kept: points, cells, the
-boundary mask and the per-cell geometry. Node id = i * (ny+1) + j and the
-cell order (all lower triangles, then all upper ones, "/" diagonal) are
-the JAX package's, so fields and the committed anchors keep its flat
-order. The ELL adjacency and scatter orderings of the JAX Mesh belong to
-the unstructured backend, which this package does not have yet.
+A mesh is dense arrays plus precomputed sparse structure:
+
+  * ``points (N,2)`` / ``cells (M,3)``, the boundary mask and the per-cell
+    geometry (area, P1 basis gradients, shortest edge ``h_cell``);
+  * the ELL node adjacency ``patch_cols (N,K)`` + ``patch_mask`` (the
+    node patch, self included, columns sorted per row, padding holding the
+    row index), ``diag_slot``, ``cell_slots`` (the ELL slot of each local
+    pair of a cell) and the sorted scatter orderings (``mat_perm`` /
+    ``mat_segs``, ``vec_perm`` / ``vec_segs``) that make every assembly a
+    deterministic segmented sum.
+
+Node and cell numbering, and every ELL structure, are the JAX package's
+(its numpy path; the JAX package's native preprocessor computes the same
+structures), so fields, anchors and states carry across unchanged. The ELL
+structure is built the first time it is read: the structured stencil
+backend never reads it, and at mesh 256 it would cost seconds and GBs of
+host memory for nothing. ``rectangle_mesh_lean`` has none (1-element
+placeholders, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 Array = np.ndarray
 
 
+class MeshArrays(NamedTuple):
+    """The mesh as tensors on one device, read by the ELL kernels.
+
+    Float fields in the compute dtype; index fields int64 (torch indexes
+    with int64). ``mat_lens`` / ``vec_lens`` are the lengths of the sorted
+    segments of ``mat_segs`` / ``vec_segs`` (one per ELL entry / node), the
+    form torch.segment_reduce takes."""
+
+    points: torch.Tensor        # (N,2) float
+    cells: torch.Tensor         # (M,3) int64
+    boundary_mask: torch.Tensor  # (N,) bool
+    patch_cols: torch.Tensor    # (N,K) int64
+    patch_mask: torch.Tensor    # (N,K) bool
+    diag_slot: torch.Tensor     # (N,) int64
+    cell_slots: torch.Tensor    # (M,3,3) int64
+    area: torch.Tensor          # (M,) float
+    grads: torch.Tensor         # (M,3,2) float
+    h_cell: torch.Tensor        # (M,) float
+    mat_perm: torch.Tensor      # (9M,) int64: sort order of matrix scatter
+    mat_segs: torch.Tensor      # (9M,) int64: sorted targets row*K+slot
+    vec_perm: torch.Tensor      # (3M,) int64: sort order of vector scatter
+    vec_segs: torch.Tensor      # (3M,) int64: sorted row targets
+    mat_lens: torch.Tensor      # (N*K,) int64
+    vec_lens: torch.Tensor      # (N,) int64
+
+
+class EllStructure(NamedTuple):
+    patch_cols: Array   # (N,K) i64, sorted cols, padded with row index
+    patch_mask: Array   # (N,K) bool
+    diag_slot: Array    # (N,) i64
+    cell_slots: Array   # (M,3,3) i64
+    mat_perm: Array     # (9M,) i64
+    mat_segs: Array     # (9M,) i64
+    vec_perm: Array     # (3M,) i64
+    vec_segs: Array     # (3M,) i64
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """An immutable 2D triangle mesh (host numpy arrays)."""
+    """An immutable 2D triangle mesh (host numpy arrays). ``lean``: made by
+    rectangle_mesh_lean, without ELL structure."""
 
     points: Array          # (N,2) f64
     cells: Array           # (M,3) i32
@@ -28,6 +81,7 @@ class Mesh:
     area: Array            # (M,) f64
     grads: Array           # (M,3,2) f64
     h_cell: Array          # (M,) f64
+    lean: bool = False
 
     @property
     def n_nodes(self) -> int:
@@ -36,6 +90,76 @@ class Mesh:
     @property
     def n_cells(self) -> int:
         return self.cells.shape[0]
+
+    @property
+    def boundary_nodes(self) -> Array:
+        return np.nonzero(self.boundary_mask)[0]
+
+    @property
+    def hmin(self) -> float:
+        return float(self.h_cell.min())
+
+    @functools.cached_property
+    def ell(self) -> EllStructure:
+        """The ELL structure, built on first use; 1-element placeholders on
+        a lean mesh (any ELL consumer then fails on their shapes)."""
+        if self.lean:
+            z1 = np.zeros(1, dtype=np.int64)
+            return EllStructure(z1.reshape(1, 1), np.zeros((1, 1), bool), z1,
+                                z1.reshape(1, 1, 1), z1, z1, z1, z1)
+        cells = self.cells.astype(np.int64)
+        patch_cols, patch_mask, diag_slot, K = _build_patches(
+            self.n_nodes, cells)
+        cell_slots = _build_cell_slots(cells, patch_cols, patch_mask)
+        return EllStructure(patch_cols, patch_mask, diag_slot, cell_slots,
+                            *_scatter_orderings(cells, cell_slots, K))
+
+    patch_cols = property(lambda self: self.ell.patch_cols)
+    patch_mask = property(lambda self: self.ell.patch_mask)
+    diag_slot = property(lambda self: self.ell.diag_slot)
+    cell_slots = property(lambda self: self.ell.cell_slots)
+    mat_perm = property(lambda self: self.ell.mat_perm)
+    mat_segs = property(lambda self: self.ell.mat_segs)
+    vec_perm = property(lambda self: self.ell.vec_perm)
+    vec_segs = property(lambda self: self.ell.vec_segs)
+
+    @property
+    def max_patch(self) -> int:
+        return self.patch_cols.shape[1]
+
+    def device_arrays(self, dtype=torch.float64, device="cpu") -> MeshArrays:
+        """The mesh as tensors on ``device``, floats in ``dtype``. A lean
+        mesh ships 1-element placeholders for the cell arrays and the ELL
+        structure, as the JAX package does: the stencil path reads none of
+        them, and a generic-path consumer fails loudly on their shapes."""
+        f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                      device=device)
+        i = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,
+                                      device=device)
+        lean = self.lean and self.n_nodes > 1
+        z1 = np.zeros(1, dtype=np.int64)
+        e = self.ell
+        n, K = e.patch_cols.shape
+        return MeshArrays(
+            points=f(self.points),
+            cells=i(z1.reshape(1, 1) if lean else self.cells),
+            boundary_mask=torch.as_tensor(self.boundary_mask, device=device),
+            patch_cols=i(e.patch_cols),
+            patch_mask=torch.as_tensor(e.patch_mask, device=device),
+            diag_slot=i(e.diag_slot), cell_slots=i(e.cell_slots),
+            area=f(z1 if lean else self.area),
+            grads=f(z1.reshape(1, 1, 1) if lean else self.grads),
+            h_cell=f(z1 if lean else self.h_cell),
+            mat_perm=i(e.mat_perm), mat_segs=i(e.mat_segs),
+            vec_perm=i(e.vec_perm), vec_segs=i(e.vec_segs),
+            mat_lens=i(np.bincount(e.mat_segs, minlength=n * K)),
+            vec_lens=i(np.bincount(e.vec_segs, minlength=n)),
+        )
+
+
+# ---------------------------------------------------------------------------
+# construction
+# ---------------------------------------------------------------------------
 
 
 def _cell_geometry(points: Array, cells: Array):
@@ -66,11 +190,81 @@ def _boundary_mask(n_nodes: int, cells: Array) -> Array:
     """Nodes on edges that belong to exactly one cell."""
     edges = np.concatenate(
         [cells[:, [0, 1]], cells[:, [1, 2]], cells[:, [2, 0]]], axis=0)
-    edges = np.sort(edges, axis=1)
-    uniq, counts = np.unique(edges, axis=0, return_counts=True)
+    edges = np.sort(edges, axis=1).astype(np.int64)
+    key = edges[:, 0] * n_nodes + edges[:, 1]
+    uniq, counts = np.unique(key, return_counts=True)
+    once = uniq[counts == 1]
     mask = np.zeros(n_nodes, dtype=bool)
-    mask[uniq[counts == 1].ravel()] = True
+    mask[once // n_nodes] = True
+    mask[once % n_nodes] = True
     return mask
+
+
+def _pair_keys(n_nodes: int, cells: Array):
+    """row * N + col of every ordered pair (a, b) of every cell, (M,3,3)
+    flattened in cell-major order."""
+    rows = np.repeat(cells, 3, axis=1).reshape(-1)
+    cols = np.tile(cells, (1, 3)).reshape(-1)
+    return rows * n_nodes + cols
+
+
+def _build_patches(n_nodes: int, cells: Array):
+    """ELL node adjacency (self included) with the columns of a row sorted
+    (the JAX package's np.unique of the pairs, lexicographic; here on the
+    equivalent key row * N + col)."""
+    pairs = np.unique(_pair_keys(n_nodes, cells))
+    rows, cols = pairs // n_nodes, pairs % n_nodes
+    deg = np.bincount(rows, minlength=n_nodes)
+    K = int(deg.max())
+    patch_cols = np.tile(np.arange(n_nodes, dtype=np.int64)[:, None], (1, K))
+    patch_mask = np.zeros((n_nodes, K), dtype=bool)
+    offsets = np.concatenate([[0], np.cumsum(deg)])
+    slot = np.arange(len(rows)) - offsets[rows]
+    patch_cols[rows, slot] = cols
+    patch_mask[rows, slot] = True
+    diag_slot = np.argmax(
+        (patch_cols == np.arange(n_nodes)[:, None]) & patch_mask, axis=1)
+    return patch_cols, patch_mask, diag_slot.astype(np.int64), K
+
+
+def _build_cell_slots(cells: Array, patch_cols: Array, patch_mask: Array):
+    """For each cell and local pair (a, b): the ELL slot k with
+    patch_cols[cells[m, a], k] == cells[m, b] (unique among the masked
+    entries of the row, whose columns are sorted)."""
+    n, K = patch_cols.shape
+    M = cells.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int64), K)
+    keys = (rows * n + patch_cols.reshape(-1))[patch_mask.reshape(-1)]
+    start = np.concatenate([[0], np.cumsum(patch_mask.sum(axis=1))])
+    want = _pair_keys(n, cells)
+    pos = np.searchsorted(keys, want)
+    if not (keys[np.minimum(pos, len(keys) - 1)] == want).all():
+        raise AssertionError("cell pair missing from patch")
+    slot = pos - start[want // n]
+    return slot.reshape(M, 3, 3).astype(np.int64)
+
+
+def _scatter_orderings(cells: Array, cell_slots: Array, K: int):
+    """Stable sort orders for the deterministic segmented sums."""
+    M = cells.shape[0]
+    rows = np.repeat(cells, 3, axis=1).reshape(M, 3, 3)
+    mat_target = (rows * K + cell_slots).reshape(-1)
+    mat_perm = np.argsort(mat_target, kind="stable")
+    vec_target = cells.reshape(-1)
+    vec_perm = np.argsort(vec_target, kind="stable")
+    return (mat_perm, mat_target[mat_perm], vec_perm,
+            vec_target[vec_perm])
+
+
+def mesh_from_arrays(points: Array, cells: Array) -> Mesh:
+    """A full Mesh from raw geometry and topology (the JAX package's numpy
+    path; the ELL structure follows on first use)."""
+    points = np.ascontiguousarray(np.asarray(points, dtype=np.float64)[:, :2])
+    cells = np.ascontiguousarray(np.asarray(cells, dtype=np.int64))
+    area, grads, h_cell = _cell_geometry(points, cells)
+    return Mesh(points=points, cells=cells.astype(np.int32),
+                boundary_mask=_boundary_mask(points.shape[0], cells),
+                area=area, grads=grads, h_cell=h_cell)
 
 
 def _grid(p0, p1, nx, ny):
@@ -92,22 +286,19 @@ def _grid(p0, p1, nx, ny):
 def rectangle_mesh(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
                    ny: int | None = None) -> Mesh:
     """Structured "/"-diagonal triangulation (JAX ``rectangle_mesh`` with
-    diagonal='right'): per-cell geometry and the edge-count boundary mask
-    computed for every cell."""
+    diagonal='right'): node id = i * (ny+1) + j, all lower triangles, then
+    all upper ones."""
     if ny is None:
         ny = nx
-    points, tris = _grid(p0, p1, nx, ny)
-    area, grads, h_cell = _cell_geometry(points, tris)
-    return Mesh(points=points, cells=tris.astype(np.int32),
-                boundary_mask=_boundary_mask(points.shape[0], tris),
-                area=area, grads=grads, h_cell=h_cell)
+    return mesh_from_arrays(*_grid(p0, p1, nx, ny))
 
 
 def rectangle_mesh_lean(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
                         ny: int | None = None) -> Mesh:
-    """rectangle_mesh in O(N) host memory: the geometry of the two exemplar
-    cells (first lower, first upper) is broadcast and the boundary mask is
-    the grid frame. Values are identical to rectangle_mesh."""
+    """rectangle_mesh in O(N) host memory, for the stencil backend only:
+    the geometry of the two exemplar cells (first lower, first upper) is
+    broadcast, the boundary mask is the grid frame, and there is no ELL
+    structure. Values are identical to rectangle_mesh."""
     if ny is None:
         ny = nx
     points, tris = _grid(p0, p1, nx, ny)
@@ -122,7 +313,7 @@ def rectangle_mesh_lean(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
     return Mesh(points=points, cells=tris.astype(np.int32),
                 boundary_mask=bnd.reshape(-1),
                 area=np.broadcast_to(area0[:1], (M,)), grads=grads,
-                h_cell=np.broadcast_to(h0[:1], (M,)))
+                h_cell=np.broadcast_to(h0[:1], (M,)), lean=True)
 
 
 def rectangle_cell_sizes(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
@@ -136,3 +327,155 @@ def rectangle_cell_sizes(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
     points, tris = _grid(p0, p1, nx, ny)
     area, _, h_cell = _cell_geometry(points, tris)
     return h_cell, area
+
+
+def irregular_mesh(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
+                   jitter: float = 0.35, seed: int = 0) -> Mesh:
+    """Unstructured rectangle triangulation: the interior lattice points
+    jittered by ``jitter * h`` (numpy default_rng(seed)) and triangulated
+    with scipy's Delaunay (Qhull), cells turned counter-clockwise; boundary
+    points stay exact. The committed anchors hold only for the same
+    triangulation: check ``mesh_fingerprint`` against the JAX package's."""
+    from scipy.spatial import Delaunay
+
+    x = np.linspace(p0[0], p1[0], nx + 1)
+    y = np.linspace(p0[1], p1[1], nx + 1)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    points = np.stack([X.ravel(), Y.ravel()], axis=1)
+    h = (p1[0] - p0[0]) / nx
+    interior = ((points[:, 0] > p0[0]) & (points[:, 0] < p1[0])
+                & (points[:, 1] > p0[1]) & (points[:, 1] < p1[1]))
+    rng = np.random.default_rng(seed)
+    points[interior] += (rng.uniform(-jitter, jitter,
+                                     (int(interior.sum()), 2)) * h)
+    tris = Delaunay(points).simplices.astype(np.int64)
+    p = points[tris]
+    cross = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+             - (p[:, 1, 1] - p[:, 0, 1]) * (p[:, 2, 0] - p[:, 0, 0]))
+    flip = cross < 0
+    tris[flip] = tris[flip][:, [0, 2, 1]]
+    return mesh_from_arrays(points, tris)
+
+
+def disk_mesh(hmax: float, radius: float = 1.0, center=(0.0, 0.0)) -> Mesh:
+    """Unit-disk triangulation from concentric rings: ring k (k = 1..nr)
+    holds 6k nodes at radius k*dr, and 6(2k-1) triangles join rings k-1
+    and k."""
+    nr = max(1, int(round(radius / hmax)))
+    dr = radius / nr
+    pts = [np.array([[center[0], center[1]]])]
+    ring_start = [None, 1]
+    for k in range(1, nr + 1):
+        m = 6 * k
+        th = 2 * np.pi * np.arange(m) / m
+        pts.append(np.stack([center[0] + k * dr * np.cos(th),
+                             center[1] + k * dr * np.sin(th)], axis=1))
+        ring_start.append(ring_start[-1] + m)
+    points = np.concatenate(pts, axis=0)
+
+    tris = [[0, 1 + i, 1 + (i + 1) % 6] for i in range(6)]
+    for k in range(1, nr):
+        s_in, n_in = ring_start[k], 6 * k
+        s_out, n_out = ring_start[k + 1], 6 * (k + 1)
+        for sec in range(6):
+            for j in range(k + 1):
+                o0 = s_out + (sec * (k + 1) + j) % n_out
+                o1 = s_out + (sec * (k + 1) + j + 1) % n_out
+                i0 = s_in + (sec * k + j) % n_in
+                tris.append([i0, o0, o1])
+                if j < k:
+                    i1 = s_in + (sec * k + j + 1) % n_in
+                    tris.append([i0, o1, i1])
+    return mesh_from_arrays(points, np.asarray(tris))
+
+
+def rcm_permutation(mesh: Mesh) -> Array:
+    """Reverse Cuthill-McKee node ordering (old -> new), the JAX package's
+    ``rcm_permutation``: a breadth-first search from the lowest-numbered
+    node of least degree (again for each further component), each node's
+    unvisited neighbours queued by degree, ties in column order, the whole
+    order reversed. That is the rule of the JAX package's native
+    preprocessor (native/mesh_preprocess.cpp), which its rcm_permutation
+    calls; scipy's reverse_cuthill_mckee (``rcm_from_connectivity``) seeds
+    its search from np.argsort(degree)[0], an unstable sort, and gives
+    another order on some meshes (irregular_mesh nx 640, disk_mesh(1/8)).
+    The committed irregular-mesh anchors are in this order."""
+    n = mesh.n_nodes
+    cols = mesh.patch_cols[mesh.patch_mask]
+    rowptr = np.concatenate([[0], np.cumsum(mesh.patch_mask.sum(axis=1))])
+    degree = np.diff(rowptr) - 1
+    visited = np.zeros(n, dtype=bool)
+    seeds = np.argsort(degree, kind="stable")
+    order, n_done, k = [], 0, 0
+    while n_done < n:
+        while visited[seeds[k]]:
+            k += 1
+        level = seeds[k:k + 1]
+        visited[level] = True
+        while level.size:
+            order.append(level)
+            n_done += level.size
+            lens = rowptr[level + 1] - rowptr[level]
+            idx = (np.repeat(rowptr[level] - np.cumsum(lens) + lens, lens)
+                   + np.arange(lens.sum()))
+            nbr = cols[idx]
+            parent = np.repeat(np.arange(level.size), lens)
+            new = ~visited[nbr]
+            nbr, parent = nbr[new], parent[new]
+            first = np.sort(np.unique(nbr, return_index=True)[1])
+            nbr, parent = nbr[first], parent[first]
+            level = nbr[np.lexsort((degree[nbr], parent))]
+            visited[level] = True
+    order = np.concatenate(order)
+    perm = np.empty(n, dtype=np.int64)
+    perm[order[::-1]] = np.arange(n)
+    return perm
+
+
+def rcm_from_connectivity(n: int, conn) -> Array:
+    """Reverse Cuthill-McKee (old -> new) from an (M, nloc) connectivity
+    array, through scipy's reverse_cuthill_mckee (the JAX package's
+    function of the same name)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    conn = np.asarray(conn, dtype=np.int64)
+    nloc = conn.shape[1]
+    rows = np.repeat(conn, nloc, axis=1).reshape(-1)
+    cols = np.tile(conn, (1, nloc)).reshape(-1)
+    A = sp.coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n)).tocsr()
+    order = reverse_cuthill_mckee(A, symmetric_mode=True)
+    perm = np.empty(n, dtype=np.int64)
+    perm[order] = np.arange(n)
+    return perm
+
+
+def reorder_mesh(mesh: Mesh, perm: Array) -> Mesh:
+    """Renumber nodes by perm (old -> new); rebuilds all derived structure."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return mesh_from_arrays(mesh.points[inv],
+                            perm[mesh.cells.astype(np.int64)])
+
+
+def load_h5_mesh(path: str, geometry="Mesh/mesh/geometry",
+                 topology="Mesh/mesh/topology") -> Mesh:
+    """A DOLFINx XDMF/HDF5 mesh snapshot (geometry (N,2|3) f64, topology
+    (M,3) i64). Needs h5py (imported here, not at module import)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        points = np.asarray(f[geometry])
+        cells = np.asarray(f[topology])
+    return mesh_from_arrays(points, cells)
+
+
+def mesh_fingerprint(mesh: Mesh) -> str:
+    """sha256 of the points (f64) and cells (int64), in that order: equal
+    fingerprints mean the same numbering and triangulation."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(mesh.points, dtype=np.float64).tobytes())
+    h.update(np.ascontiguousarray(mesh.cells, dtype=np.int64).tobytes())
+    return h.hexdigest()

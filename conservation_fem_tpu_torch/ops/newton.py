@@ -29,9 +29,10 @@ class NewtonResult(NamedTuple):
 
 def newton_solve(residual_fn: Callable, u0, *, jacobian_fn: Callable,
                  rtol=1e-4, atol=1e-10, max_it=100, linear_rtol=1e-12,
-                 linear_maxiter=2000,
-                 freeze_jacobian: bool = False) -> NewtonResult:
-    """Solve residual_fn(u) = 0 with BiCGStab inner solves."""
+                 linear_maxiter=2000, freeze_jacobian: bool = False,
+                 dot: Callable = dot) -> NewtonResult:
+    """Solve residual_fn(u) = 0 with BiCGStab inner solves; ``dot``: the
+    inner product of the norms and of the inner solves."""
     norm = lambda v: torch.sqrt(dot(v, v))
     F = residual_fn(u0)
     r0_norm = norm(F)
@@ -40,7 +41,7 @@ def newton_solve(residual_fn: Callable, u0, *, jacobian_fn: Callable,
     def linear_solve(u, F):
         matvec, precond = frozen if frozen is not None else jacobian_fn(u)
         return bicgstab(matvec, -F, precond=precond, rtol=linear_rtol,
-                        maxiter=linear_maxiter).x
+                        maxiter=linear_maxiter, dot=dot).x
 
     # the first iteration always runs (the loop tests after an update)
     u = u0 + linear_solve(u0, F)
@@ -65,7 +66,8 @@ def newton_fixed(residual_fn: Callable, u0, *, iters: int,
                  freeze_jacobian: bool = False, rtol=1e-4, atol=1e-10,
                  linear_solver: str = "bicgstab",
                  cheby_bounds: tuple = (0.4, 2.2),
-                 final_residual: bool = True) -> NewtonResult:
+                 final_residual: bool = True,
+                 dot: Callable = dot) -> NewtonResult:
     """Newton with FIXED outer and inner iteration counts. The returned
     ``converged`` flag reports the residual criterion; with
     final_residual=False the last iterate's residual is skipped and the
@@ -83,7 +85,7 @@ def newton_fixed(residual_fn: Callable, u0, *, iters: int,
                                  lmax=cheby_bounds[1]).x
         else:
             du = bicgstab_fixed(matvec, -F, precond=precond,
-                                iters=linear_iters).x
+                                iters=linear_iters, dot=dot).x
         u = u + du
         if k < iters - 1 or final_residual:
             F = residual_fn(u)

@@ -1,0 +1,40 @@
+"""ELL sparse matrix-vector products, ported from
+conservation_fem_tpu/ops/spmv.py.
+
+An ELL matrix is an (N,K) tensor of values aligned with
+``MeshArrays.patch_cols`` (padding entries zero): a product is one (N,K)
+gather and a row sum. On the card these are plain PyTorch gathers; a
+GPU-native ELL kernel is ROADMAP queue 1 item 13's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from conservation_fem_tpu_torch.ops.mesh import MeshArrays
+
+
+def ell_matvec(mesh: MeshArrays, A, x):
+    """y = A @ x for A in (N,K) ELL layout."""
+    return (A * x[mesh.patch_cols]).sum(dim=1)
+
+
+def ell_diag(mesh: MeshArrays, A):
+    """The diagonal of an ELL matrix."""
+    return A.gather(1, mesh.diag_slot[:, None])[:, 0]
+
+
+def ell_transpose_matvec(mesh: MeshArrays, A, x):
+    """y = A.T @ x by a scatter-add over the same structure (index_add_:
+    sequential on the CPU, atomic on the card)."""
+    out = torch.zeros_like(x)
+    return out.index_add_(0, mesh.patch_cols.reshape(-1),
+                          (A * x[:, None]).reshape(-1))
+
+
+def ell_add(*ops):
+    """Sum of ELL matrices sharing one structure."""
+    out = ops[0]
+    for a in ops[1:]:
+        out = out + a
+    return out

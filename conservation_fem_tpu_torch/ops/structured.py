@@ -289,3 +289,85 @@ def rv_epsilon(sd: StructuredData, Cvel, Crv, u2, Rh2, fprime_norm,
     beta = _patch_reduce(fprime_norm(u2), torch.maximum, -np.inf)
     return torch.minimum(Cvel * sd.h_cg2 * beta,
                          Crv * sd.h_cg2 ** 2 * R_i.abs())
+
+
+# ---------------------------------------------------------------------------
+# grid versions of the stabilisation library (cf. ops/stabilization.py)
+# ---------------------------------------------------------------------------
+
+
+def lumped_mass_grid(sd: StructuredData):
+    """Row-sum lumped mass on the grid: M_coef applied to ones."""
+    ones = torch.ones((sd.nx + 1, sd.ny + 1), dtype=sd.M_coef.dtype,
+                      device=sd.M_coef.device)
+    return matvec(sd, sd.M_coef, ones)
+
+
+def stiffness_bc_coef(sd: StructuredData):
+    """The bc-applied stiffness as stencil planes: rows and columns at
+    Dirichlet nodes zeroed, unit diagonal (cf. bc.ell_with_bc; the SI
+    kernel reads these entries)."""
+    nx, ny = sd.nx, sd.ny
+    gg = torch.einsum("tad,tbd->tab", sd.grads, sd.grads)
+    loc = (sd.area * gg)[:, None, None].expand(2, nx, ny, 3, 3)
+    K = local_to_stencil(sd, loc)
+    bc = sd.bc2
+    n1x, n1y = nx + 1, ny + 1
+    bcp = F.pad(bc, (1, 1, 1, 1))
+    planes = []
+    for k, (di, dj) in enumerate(OFFSETS):
+        v = torch.where(bc | _shifted(bcp, di, dj, n1x, n1y), 0.0, K[k])
+        if k == 0:
+            v = torch.where(bc, 1.0, v)
+        planes.append(v)
+    return torch.stack(planes)
+
+
+def si_epsilon_grid(sd: StructuredData, Cm, K_bc_coef, u2, beta2,
+                    eps_floor=1e-8):
+    """Grid SI (cf. stabilization.si_epsilon): alpha_i = |sum_k b_ik du_ik|
+    / max(sum_k |b_ik| |du_ik|, eps), eps_i = psi(alpha_i) Cm h_i beta_i."""
+    from conservation_fem_tpu_torch.ops.stabilization import (
+        sigmoid_activation)
+
+    n1x, n1y = u2.shape
+    up = F.pad(u2, (1, 1, 1, 1))
+    num = torch.zeros_like(u2)
+    den = torch.zeros_like(u2)
+    for k, (di, dj) in enumerate(OFFSETS[1:], start=1):
+        du = _shifted(up, di, dj, n1x, n1y) - u2
+        b = K_bc_coef[k]
+        num = num + b * du
+        den = den + b.abs() * du.abs()
+    alpha = num.abs() / den.clamp_min(eps_floor)
+    return sigmoid_activation(alpha) * Cm * sd.h_cg2 * beta2
+
+
+def rv_epsilon_system_grid(sd: StructuredData, Cvel, Crv, rho2, Rh2, beta2):
+    """Grid version of stabilization.rv_epsilon_system (Euler: density
+    normalisation, precomputed wavespeed field)."""
+    abs_term = (rho2 - rho2.mean()).abs().max()
+    r_max = _patch_reduce(rho2, torch.maximum, -np.inf)
+    r_min = _patch_reduce(rho2, torch.minimum, np.inf)
+    n_i = ((r_max - r_min) - abs_term).abs()
+    Rh_i = _patch_reduce(Rh2.abs(), torch.maximum, -np.inf)
+    beta_i = _patch_reduce(beta2, torch.maximum, -np.inf)
+    return torch.minimum(
+        Cvel * sd.h_cg2 * beta_i,
+        Crv * sd.h_cg2 ** 2 * (Rh_i / n_i.clamp_min(tiny_of(rho2.dtype)))
+        .abs())
+
+
+def smooth_vector_grid(sd: StructuredData, u2, l):
+    """Grid version of stabilization.smooth_vector (Jacobi variant):
+    u_i <- (sum_{j!=i} u_j + (l-1) d u_i) / (l d)."""
+    n1x, n1y = u2.shape
+    up = F.pad(u2, (1, 1, 1, 1))
+    onesp = F.pad(torch.ones_like(u2), (1, 1, 1, 1))
+    nbr_sum = torch.zeros_like(u2)
+    d = torch.zeros_like(u2)
+    for (di, dj) in OFFSETS[1:]:
+        nbr_sum = nbr_sum + _shifted(up, di, dj, n1x, n1y)
+        d = d + _shifted(onesp, di, dj, n1x, n1y)
+    d = d.clamp_min(1.0)
+    return (nbr_sum + (l - 1.0) * d * u2) / (l * d)

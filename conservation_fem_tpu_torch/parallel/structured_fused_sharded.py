@@ -66,6 +66,11 @@ class ShardedFusedStructured:
                 "'cheby' (no dot products: the property that lets a block "
                 "run the whole step alone), stabilization rv or gfem, no "
                 "smoothing")
+        if cfg.precise_reductions:
+            raise NotImplementedError(
+                "not ported yet: precise_reductions on the sharded path "
+                "(f64-accumulated dots across blocks, ROADMAP queue 1 item "
+                "15)")
         dev = getattr(blocks, "device", p.device)
         if dev.type != p.device.type:
             raise ValueError(f"blocks on {dev}, problem on {p.device}")

@@ -44,9 +44,10 @@ def main(argv):
             jnp.dtype(dtype))
         dt_jax = 0.5 * float(get_nodal_h(m).min())
         dt, steps = burgers.time_step(
-            rectangle_mesh_lean((0, 0), (1, 1), nx=N),
             burgers.BurgersConfig(mesh_size=N, dtype=dtype),
-            rectangle_cell_sizes((0, 0), (1, 1), nx=N))
+            burgers.stencil_min_h(
+                rectangle_mesh_lean((0, 0), (1, 1), nx=N), N,
+                rectangle_cell_sizes((0, 0), (1, 1), nx=N)))
         print(f"N {N} {dtype}: dt JAX {dt_jax!r}, port {dt!r} (relative "
               f"{(dt - dt_jax) / dt_jax:.2e}); steps JAX "
               f"{int(np.ceil(0.5 / dt_jax))}, port {steps}", flush=True)

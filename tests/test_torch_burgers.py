@@ -24,6 +24,7 @@ size), so every JAX model runs at mesh 12: one build's compiles serve
 them all.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -52,9 +53,14 @@ JAX_DT = {50: 0.009999999999999964, 100: 0.0049999999999999585,
           200: 0.0024999999999999567, 400: 0.0012499999999999731,
           800: 0.0006249999999999866}
 # the reference config (adaptive solvers, exact Newton) at mesh 12: 13
-# steps to T = 0.5
+# steps to T = 0.5; SI with the l = 4 smoothing (Exact_Burger_SI.py) on
+# both backends, RV on the ELL backend
 REFERENCE = {"rv": dict(), "gfem": dict(stabilization="gfem"),
-             "bdf1_bump": dict(residual_scheme="bdf1", ic="bump")}
+             "bdf1_bump": dict(residual_scheme="bdf1", ic="bump"),
+             "si_l4": dict(stabilization="si", smooth_l=4.0),
+             "si_l4_ell": dict(stabilization="si", smooth_l=4.0,
+                               backend="ell"),
+             "rv_ell": dict(backend="ell")}
 # the fixed-iteration config of the JAX fused-kernel test
 # (test_pallas_fused.py:test_fused_burgers_solve_matches_plain), there at
 # mesh 16, here at 12 (3 steps to T 0.1)
@@ -141,8 +147,9 @@ def test_time_step_matches_jax_at_reference_sizes(N):
     """N + 1 steps: h_CG lies a few 1e-15 below 1/N. Through the lean
     mesh and every cell's size, as build takes them at N >= 512."""
     mesh = rectangle_mesh_lean((0, 0), (1, 1), nx=N)
-    dt, steps = tb.time_step(mesh, tb.BurgersConfig(mesh_size=N),
-                             rectangle_cell_sizes((0, 0), (1, 1), nx=N))
+    cells = rectangle_cell_sizes((0, 0), (1, 1), nx=N)
+    dt, steps = tb.time_step(tb.BurgersConfig(mesh_size=N),
+                             tb.stencil_min_h(mesh, N, cells))
     assert steps == int(np.ceil(0.5 / JAX_DT[N])) == N + 1
     assert abs(dt - JAX_DT[N]) <= (1e-14 if N <= 50 else 5e-14) * JAX_DT[N]
 
@@ -157,9 +164,9 @@ def test_f32_time_step_matches_jax_at_n20():
     m = jrect((0, 0), (1, 1), nx=N).device_arrays(jnp.float32)
     dt_jax = 0.5 * float(jax.jit(jget_nodal_h)(m).min())
     dt, steps = tb.time_step(
-        rectangle_mesh_lean((0, 0), (1, 1), nx=N),
         tb.BurgersConfig(mesh_size=N, dtype="float32"),
-        rectangle_cell_sizes((0, 0), (1, 1), nx=N))
+        tb.stencil_min_h(rectangle_mesh_lean((0, 0), (1, 1), nx=N), N,
+                         rectangle_cell_sizes((0, 0), (1, 1), nx=N)))
     assert steps == int(np.ceil(0.5 / dt_jax)) == N + 1
     assert abs(dt - dt_jax) <= 2e-7 * dt_jax
 
@@ -257,22 +264,50 @@ def test_build_targets_the_card_by_default():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(stabilization="si"), "item 7"),
-    (dict(smooth_l=4.0), "item 7"),
-    (dict(degree=2), "item 10"),
-    (dict(backend="ell"), "items 7 and 13"),
-    (dict(ell_matvec_backend="banded"), "items 7 and 13"),
+    (dict(degree=2), "queue 1 item 10"),
+    (dict(ell_matvec_backend="banded"), "queue 1 item 13"),
+    (dict(backend="ell", ell_matvec_backend="blocked"), "queue 1 item 13"),
+    (dict(backend="ell", ell_matvec_backend="lattice"), "queue 1 item 12"),
 ])
 def test_unported_options_raise(over, item):
     with pytest.raises(NotImplementedError, match=item):
         tb.build(tb.BurgersConfig(mesh_size=4, **over), device="cpu")
 
 
+@pytest.mark.parametrize("over", [
+    dict(stabilization="si"), dict(smooth_l=4.0), dict(backend="ell")])
+def test_ported_options_build_and_step(over):
+    """SI, the smoothing and the ELL backend build and take the JAX
+    package's steps at mesh 4 (the mesh-12 trajectories against JAX:
+    test_reference_config_matches_jax)."""
+    jp = jb.build(jb.BurgersConfig(mesh_size=4, T=0.25, **over))
+    p = tb.build(tb.BurgersConfig(mesh_size=4, T=0.25, **over), device="cpu")
+    assert p.num_steps == jp.num_steps == 2
+    assert hasattr(p, "sd") == ("backend" not in over)
+    u = p.solve().u
+    assert bool(torch.isfinite(u).all())
+    assert float((u - p.u0).abs().max()) > 1e-2
+
+
 def test_precise_reductions_names_its_roadmap_items():
+    """precise_reductions is ported (the ELL step's f64 dots; a no-op on
+    the stencil backend, as in the JAX package); the sharded path still
+    raises, naming ROADMAP queue 1 item 15."""
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    check_supported(HyperbolicConfig(precise_reductions=True))
+    cfg = tb.BurgersConfig(mesh_size=8, T=0.25, inner_solver="cheby",
+                           cg_iters=10, newton_iters=2,
+                           newton_linear_iters=16, modified_newton=True)
+    p = tb.build(cfg, device="cpu")
+    q = tb.build(dataclasses.replace(cfg), device="cpu")
+    q.cfg = dataclasses.replace(q.cfg, precise_reductions=True)
+    torch.testing.assert_close(q.solve().u, p.solve().u, rtol=0, atol=0)
     with pytest.raises(NotImplementedError,
-                       match=r"precise_reductions \(ROADMAP queue 1 items 7, "
-                             r"13 and 15\)"):
-        check_supported(HyperbolicConfig(precise_reductions=True))
+                       match=r"precise_reductions on the sharded path .*"
+                             r"ROADMAP queue 1 item 15"):
+        ShardedFusedStructured(q, LocalBlocks(2, "cpu"))
 
 
 def test_golden_final_frame_matches_the_h5():

@@ -153,13 +153,69 @@ def test_record_metrics_and_cli(capsys):
     assert out["device"] == "cpu"
 
 
+def test_cli_runs_si_and_the_ell_backend(capsys):
+    """--stabilization si on the stencil backend, and --backend ell (the
+    ELL step on the structured mesh), each one JSON line equal to the same
+    build called directly."""
+    assert tmain.main(["kpp", "--stabilization", "si", "--Cm", "0.5",
+                       "--mesh_size", "2", "--T", "0.02", "--device",
+                       "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out["stabilization"], out["backend"]) == ("si", "stencil")
+    assert tmain.main(["kpp", "--backend", "ell", "--mesh_size", "2",
+                       "--T", "0.04", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["backend"] == "ell" and out["n_nodes"] == 81
+    p = tkpp.build(tkpp.KPPConfig(mesh_size=2, T=0.04, backend="ell"),
+                   device="cpu")
+    assert not hasattr(p, "sd")
+    u = p.solve().u
+    assert out["u_min"] == float(u.min()) and out["u_max"] == float(u.max())
+
+
+@pytest.mark.parametrize("over,item", [
+    (dict(xla_bf16_planes=True), "queue 2 item 5c"),
+    (dict(tiled_bf16_planes=True), "queue 2 item 5c"),
+    (dict(backend="ell", ell_matvec_backend="banded"), "queue 1 item 13")])
+def test_unported_options_raise(over, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tkpp.build(tkpp.KPPConfig(mesh_size=2, **over), device="cpu")
+
+
 @pytest.mark.parametrize("over", [
     dict(stabilization="si"), dict(smooth_l=1.0),
-    dict(precise_reductions=True), dict(xla_bf16_planes=True),
-    dict(tiled_bf16_planes=True), dict(backend="ell")])
-def test_unported_options_raise(over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkpp.build(tkpp.KPPConfig(mesh_size=2, **over), device="cpu")
+    dict(precise_reductions=True), dict(backend="ell")])
+def test_ported_options_build_step_and_match_jax(over):
+    """SI, the smoothing, precise_reductions (f64: the same solve) and the
+    ELL backend: 3 steps at mesh 2 against the JAX package."""
+    cfg = dict(mesh_size=2, T=0.03, **over)
+    ref = np.asarray(jkpp.build(jkpp.KPPConfig(**cfg)).solve().u)
+    p = tkpp.build(tkpp.KPPConfig(**cfg), device="cpu")
+    assert hasattr(p, "sd") == (over.get("backend") != "ell")
+    got = p.solve().u.numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
+    assert np.abs(got - p.u0.numpy()).max() > 0.5
+
+
+def test_mesh_source_and_host_mesh_take_the_ell_backend():
+    """mesh_source (a DOLFINx .h5 mesh) and host_mesh run the ELL backend
+    under backend="auto", as in the JAX package; the stencil backend
+    refuses them."""
+    pytest.importorskip("h5py")
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    path = os.path.join(REPO, "golden", "kpp_rv8.h5")
+    cfg = dict(mesh_source=path, T=0.02)
+    ref = np.asarray(jkpp.build(jkpp.KPPConfig(**cfg)).solve().u)
+    p = tkpp.build(tkpp.KPPConfig(**cfg), device="cpu")
+    assert not hasattr(p, "sd") and p.num_steps == 2
+    np.testing.assert_allclose(p.solve().u.numpy(), ref, rtol=0, atol=TOL)
+    host = tmesh.rectangle_mesh((-2, -2), (2, 2), nx=8, ny=8)
+    assert not hasattr(tkpp.build(tkpp.KPPConfig(T=0.01), device="cpu",
+                                  host_mesh=host), "sd")
+    with pytest.raises(ValueError, match="structured mesh only"):
+        tkpp.build(tkpp.KPPConfig(backend="stencil", T=0.01), device="cpu",
+                   host_mesh=host)
 
 
 def test_cuda_device_without_a_card_raises():
@@ -182,7 +238,8 @@ def test_build_targets_the_card_by_default():
 
 def test_package_imports_without_jax():
     """In a fresh interpreter, importing every module of the port pulls in
-    neither jax nor the JAX package nor triton, and builds nothing."""
+    neither jax nor the JAX package nor triton nor h5py, and builds
+    nothing."""
     code = (
         "import sys\n"
         "import conservation_fem_tpu_torch\n"
@@ -190,8 +247,11 @@ def test_package_imports_without_jax():
         "from conservation_fem_tpu_torch.models import kpp\n"
         "from conservation_fem_tpu_torch.ops import _build, fused_step, "
         "stencil_kernels\n"
+        "from conservation_fem_tpu_torch.models import burgers\n"
+        "from conservation_fem_tpu_torch.ops import assembly, bc, helpers, "
+        "mesh, precision, spmv, stabilization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'conservation_fem_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'conservation_fem_tpu', 'triton', 'h5py')]\n"
         "assert not bad, bad\n"
         "assert _build._lib is None\n"
         "print('ok')\n")

@@ -173,3 +173,51 @@ def test_newton_fixed_converged_flag_and_final_residual(sides):
     assert torch.equal(a.u, b.u)
     assert float(b.residual_norm) > float(a.residual_norm)
     assert bool(a.converged)
+
+
+def _with_dot(side, name, r, dot):
+    """_solve / _newton with an explicit dot= (the JAX keyword)."""
+    k, nw = side.k, side.nw
+    mop, mpre = side.mass_op()
+    jop, jpre = side.jacobian(side.u)
+    b = side.rhs(r)
+    u0 = side.where(side.bc, np.pi / 4, side.u)
+    if name == "cg":
+        return k.cg(mop, b, precond=mpre, rtol=1e-12, dot=dot).x
+    if name == "bicgstab":
+        return k.bicgstab(jop, b, precond=jpre, rtol=1e-12, dot=dot).x
+    if name == "cg_fixed":
+        return k.cg_fixed(mop, b, precond=mpre, iters=6, dot=dot).x
+    if name == "bicgstab_fixed":
+        return k.bicgstab_fixed(jop, b, precond=jpre, iters=4, dot=dot).x
+    if name == "newton_solve":
+        return nw.newton_solve(side.residual, u0, jacobian_fn=side.jacobian,
+                               rtol=1e-10, linear_rtol=1e-12, dot=dot).u
+    return nw.newton_fixed(side.residual, u0, iters=2, linear_iters=4,
+                           jacobian_fn=side.jacobian, dot=dot).u
+
+
+@pytest.mark.parametrize("name", ["cg", "bicgstab", "cg_fixed",
+                                  "bicgstab_fixed", "newton_solve",
+                                  "newton_fixed"])
+def test_dot_keyword_matches_jax(sides, name):
+    """dot= reaches every inner product: the f64-accumulated dot of
+    ops/precision (in f64 the plain sum) keeps the default's bits and
+    matches the JAX solver given its dot_acc64; a counting dot is
+    called."""
+    from conservation_fem_tpu.ops.precision import dot_acc64 as jdot
+    from conservation_fem_tpu_torch.ops.precision import dot_acc64 as tdot
+
+    js, ts, r = sides
+    got = _with_dot(ts, name, r, tdot)
+    assert torch.equal(got, _with_dot(ts, name, r, tk.dot))
+    ref = np.asarray(jax.jit(lambda: _with_dot(js, name, r, jdot))())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL)
+    calls = []
+
+    def counting(a, b):
+        calls.append(1)
+        return tk.dot(a, b)
+
+    assert torch.equal(_with_dot(ts, name, r, counting), got)
+    assert len(calls) > 3

@@ -98,6 +98,23 @@ OPS = {
                                         jkpp.flux_prime_norm),
         lambda sd, x, I: tst.rv_epsilon(sd, 0.5, 4.0, x(I["u"]), x(I["rh"]),
                                         tkpp.flux_prime_norm)),
+    "lumped_mass_grid": (lambda sd, x, I: jst.lumped_mass_grid(sd),
+                         lambda sd, x, I: tst.lumped_mass_grid(sd)),
+    "stiffness_bc_coef": (lambda sd, x, I: jst.stiffness_bc_coef(sd),
+                          lambda sd, x, I: tst.stiffness_bc_coef(sd)),
+    "si_epsilon_grid": (
+        lambda sd, x, I: jst.si_epsilon_grid(
+            sd, 0.5, jst.stiffness_bc_coef(sd), x(I["u"]), x(I["eps"]) + 1),
+        lambda sd, x, I: tst.si_epsilon_grid(
+            sd, 0.5, tst.stiffness_bc_coef(sd), x(I["u"]), x(I["eps"]) + 1)),
+    "rv_epsilon_system_grid": (
+        lambda sd, x, I: jst.rv_epsilon_system_grid(
+            sd, 0.5, 4.0, x(I["u"]), x(I["rh"]), x(I["eps"]) + 1),
+        lambda sd, x, I: tst.rv_epsilon_system_grid(
+            sd, 0.5, 4.0, x(I["u"]), x(I["rh"]), x(I["eps"]) + 1)),
+    "smooth_vector_grid": (
+        lambda sd, x, I: jst.smooth_vector_grid(sd, x(I["u"]), 4.0),
+        lambda sd, x, I: tst.smooth_vector_grid(sd, x(I["u"]), 4.0)),
 }
 
 
@@ -123,3 +140,79 @@ def test_rv_epsilon_constant_state_hair_trigger(setup):
     got = tst.rv_epsilon(sdt, 0.5, 4.0, _t(u), _t(rh),
                          tkpp.flux_prime_norm).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
+
+
+# -- the port's stencil backend against its own ELL backend on the same
+# rectangle (cf. tests/test_structured.py, the JAX package's identity) --
+
+
+@pytest.fixture(scope="module")
+def stencil_and_ell():
+    from conservation_fem_tpu_torch.ops import assembly as tasm
+
+    host = tmesh.rectangle_mesh((-2, -2), (2, 2), nx=12, ny=12)
+    m = host.device_arrays(torch.float64, "cpu")
+    sd = tst.build_structured(host, 12, 12, torch.float64, "cpu")
+    x = torch.tensor(np.random.default_rng(0).normal(size=host.n_nodes))
+    return m, sd, x, tasm
+
+
+def _grid(v):
+    return v.reshape(13, 13)
+
+
+@pytest.mark.parametrize("op", ["mass", "nonlinear_rhs", "keps",
+                                "flux_jacobian", "rv_epsilon", "si_epsilon",
+                                "smooth_vector", "lumped_mass"])
+def test_stencil_op_matches_ell(stencil_and_ell, op):
+    from conservation_fem_tpu_torch.ops import bc as tbc
+    from conservation_fem_tpu_torch.ops import stabilization as tstab
+    from conservation_fem_tpu_torch.ops.spmv import ell_matvec
+
+    m, sd, x, asm = stencil_and_ell
+    v, eps = torch.sin(x), x.abs() * 0.01
+    if op == "mass":
+        got = tst.mass_matvec(sd, _grid(x))
+        ref = ell_matvec(m, asm.assemble_mass(m), x)
+    elif op == "nonlinear_rhs":
+        got = tst.nonlinear_rhs(sd, _grid(x), tkpp.FLUX)
+        ref = asm.convection_rhs_flux(m, x, tkpp.FLUX)
+    elif op == "keps":
+        got = tst.matvec(sd, tst.keps_coef(sd, _grid(eps)), _grid(v))
+        ref = ell_matvec(m, asm.assemble_eps_stiffness(m, eps), v)
+    elif op == "flux_jacobian":
+        got = tst.matvec(sd, tst.flux_jacobian_coef(sd, _grid(x), tkpp.FLUX),
+                         _grid(v))
+        ref = ell_matvec(m, asm.assemble_flux_jacobian(m, x, tkpp.FLUX), v)
+    elif op == "rv_epsilon":
+        Rh = torch.sin(5 * x)
+        got = tst.rv_epsilon(sd, 0.5, 4.0, _grid(x), _grid(Rh),
+                             tkpp.flux_prime_norm)
+        ref = tstab.rv_epsilon_nonlinear(m, 0.5, 4.0, x, x,
+                                         tkpp.flux_prime_norm, Rh,
+                                         sd.h_cg2.reshape(-1))
+    elif op == "si_epsilon":
+        K = tbc.ell_with_bc(m, asm.assemble_stiffness(m), m.boundary_mask)
+        got = tst.si_epsilon_grid(sd, 0.5, tst.stiffness_bc_coef(sd),
+                                  _grid(x), _grid(eps + 1))
+        ref = tstab.si_epsilon(m, 0.5, K, x, eps + 1,
+                               sd.h_cg2.reshape(-1)).epsilon
+    elif op == "smooth_vector":
+        got = tst.smooth_vector_grid(sd, _grid(x), 4.0)
+        ref = tstab.smooth_vector(m, x, 4.0)
+    else:
+        got = tst.lumped_mass_grid(sd)
+        ref = asm.lumped_mass(m)
+    torch.testing.assert_close(got.reshape(-1), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("over", [dict(), dict(stabilization="si"),
+                                  dict(stabilization="gfem", smooth_l=2.0)])
+def test_full_kpp_solve_stencil_matches_ell(over):
+    """End to end, the port's two backends on the KPP mesh 4 (5 steps):
+    within 1e-10, the JAX package's bound for its own pair."""
+    cfg = dict(mesh_size=4, T=0.05, **over)
+    a = tkpp.build(tkpp.KPPConfig(backend="stencil", **cfg), device="cpu")
+    b = tkpp.build(tkpp.KPPConfig(backend="ell", **cfg), device="cpu")
+    assert hasattr(a, "sd") and not hasattr(b, "sd")
+    torch.testing.assert_close(a.solve().u, b.solve().u, rtol=0, atol=1e-10)
