@@ -109,6 +109,28 @@ exits non-zero:
      (timed, the f64 errors below mesh 100's); Burgers RV on the ELL
      backend at mesh 50 against the golden frame (1e-9). A JSON line
      {"ell": ...} holds these readings.
+  8. linear advection and the Pk layer, which launch no hand-written
+     kernel either (0 launches gated on every run, counts zeroed just
+     before it): (a) linear_advection.run, the f64 reference config
+     (disk, T = 1, adaptive to 1e-12): the convergence sweep h = 1/4 ...
+     1/32 of gfem and rv_node, errors within 1e-8 relative of the JAX
+     package's (ADVECTION_REFERENCE, scripts/advection_reference_errors.py)
+     and slopes within 0.01; rv_cell, rv_node_simple, si and rk4 at mesh
+     16 the same way; (b) rv_node, f32 fixed Chebyshev config
+     (bench_advection.py's), one rotation on disk_mesh(1/64), within 1e-2
+     of the card's f64 adaptive end state, timed (µs/step, DOF-steps/s)
+     and profiled (kernels per step, idle share); (c) advection_ho: P2
+     gfem at mesh 8 and 16, straight and curved, the degree sweep 1, 2, 3
+     at mesh 8 (P2 and P3 below half of P1's error), within 1e-8 of the
+     JAX package's, and P3 rv_simple at mesh 4, a chaotic run, within 3 x
+     the JAX package's own spread (SPREAD_FACTOR); (d) P2 SI Burgers at
+     mesh 32, T = 0.25: the f64 default config, its steps and dofs the JAX
+     package's and its L1 and L2 errors within 3 x the JAX package's own
+     spread (a renumbering of the dofs), its L2rel against
+     golden/burgers_p2si_anchor_mesh32.npy
+     printed; the f32 fixed Chebyshev config (bench_pk.py's) within 5e-2
+     of that anchor; mesh 64 in f32 timed and profiled. A JSON line
+     {"advection": ...} holds these readings.
 The second-to-last line is the per-kernel JSON summary (all eight ported
 kernels, each with its bound; a step kernel's row also holds its Burgers
 instance's numbers under "burgers"; cg_solve's row the plan, iterations
@@ -299,6 +321,82 @@ BURGERS_SI_JAX_MESH100 = dict(num_steps=101, l1=0.015444565370997209,
 # reach the reference config's 1e-12)
 BURGERS_SI_FIXED = dict(cg_iters=10, newton_iters=2, newton_linear_iters=8,
                         modified_newton=True)
+
+# Linear advection and the Pk layer (phase 8), which launch no
+# hand-written kernel either. The JAX package's readings, f64 on the CPU,
+# printed by  python3 scripts/advection_reference_errors.py  (needs JAX):
+# linear advection's f64 reference config (AdvectionConfig defaults: disk,
+# T = 1, CFL 0.5, adaptive solvers to 1e-12) swept over mesh 4 ... 32 for
+# gfem and rv_node and at mesh 16 for the other steps; advection_ho's P2
+# gfem (straight and curved), its degree sweep at mesh 8 and P3 rv_simple
+# at mesh 4; P2 SI Burgers at mesh 32, T = 0.25, f64 default config.
+ADVECTION_REFERENCE = {
+    "burgers_p2si": {"anchor_l2rel": 1.294177470969401e-05, "dofs": 4225,
+                     "dt": 0.00390625, "l1": 0.020301354136689664,
+                     "l2": 0.08249753749410113,
+                     "rcm_l1": 0.0203013541656951,
+                     "rcm_l2": 0.0824975375320464,
+                     "rcm_max_abs": 2.343681060335001e-08, "steps": 64},
+    "ho": {"p1_gfem_mesh8": {"dofs": 217, "error": 0.06070859923820846,
+                             "steps": 143},
+           "p2_gfem_mesh16": {"dofs": 3169, "error": 0.006394186409848222,
+                              "steps": 285},
+           "p2_gfem_mesh16_curved": {"dofs": 3169,
+                                     "error": 0.006393644658432842,
+                                     "steps": 285},
+           "p2_gfem_mesh8": {"dofs": 817, "error": 0.01739049746777819,
+                             "steps": 143},
+           "p2_gfem_mesh8_curved": {"dofs": 817,
+                                    "error": 0.017383336019917782,
+                                    "steps": 143},
+           "p3_gfem_mesh8": {"dofs": 1801, "error": 0.013971767623146268,
+                             "steps": 143},
+           "p3_rv_simple_mesh4": {"dofs": 469, "error": 0.2581202163391251,
+                                  "noise_spread": 0.00589860278373311,
+                                  "steps": 72}},
+    "mesh16": {"rk4": {"error": 0.019010843064974407, "steps": 285},
+               "rv_cell": {"error": 0.018636137428760864, "steps": 285},
+               "rv_node_simple": {"error": 0.01504142965083981,
+                                  "steps": 285},
+               "si": {"error": 0.09766374539898391, "steps": 285}},
+    "sweep": {"gfem": {"errors": [0.17374867096216892,
+                                  0.060708599238208455,
+                                  0.019122190863613362,
+                                  0.00441480050082785],
+                       "slope": 1.7562182719721386,
+                       "steps": [72, 143, 285, 569]},
+              "rv_node": {"errors": [0.26460227883035575,
+                                     0.16949885282042107,
+                                     0.02477300444699655,
+                                     0.0046741549954463415],
+                          "slope": 2.0243363060676502,
+                          "steps": [72, 143, 285, 569]}}}
+ADV_SWEEP = (4, 8, 16, 32)
+ADV_ERR_RTOL = 1e-8      # an L2 error against the JAX package's, relative
+ADV_SLOPE_TOL = 0.01     # a convergence slope against the JAX package's
+# Runs that grow roundoff without bound are held to the JAX package's
+# errors at this many times the JAX package's own spread (as
+# BURGERS_ERR_RTOL is): P3 rv_simple at mesh 4 (its error moves by up to
+# "noise_spread" when u0 moves by 4e-16) and P2 SI Burgers (its errors
+# move by "rcm_*" when the dofs are renumbered, the same sums in another
+# order); both spreads from scripts/advection_reference_errors.py
+SPREAD_FACTOR = 3.0
+# the f32 fixed-iteration Chebyshev config of scripts/bench_advection.py
+# (gather): rv_node, one rotation on disk_mesh(1/64), gated against the
+# card's own f64 adaptive end state at that script's tolerance for it (its
+# anchor, on the reference's gmsh disk, is not in this repository)
+ADV_FIXED = dict(cg_iters=8, krylov_iters=12, inner_solver="cheby")
+ADV_F32_MESH = 64
+ADV_F32_GATE = 1e-2
+# P2 SI Burgers (higher_order_SI.py) at mesh 32, T = 0.25: the f64
+# default config against the JAX package's errors; the f32 fixed-iteration
+# Chebyshev config of scripts/bench_pk.py on gather against the committed
+# anchor golden/burgers_p2si_anchor_mesh32.npy at that script's gate
+PK_BURGERS = dict(degree=2, stabilization="si", T=0.25)
+PK_BURGERS_FIXED = dict(modified_newton=True, cg_iters=12, newton_iters=2,
+                        newton_linear_iters=10, inner_solver="cheby")
+PK_BURGERS_ANCHOR_GATE = 5e-2
+PK_BURGERS_TIMED_MESH = 64
 
 # The least time of a kernel's work: max(bytes / HBM rate, operations /
 # peak rate), H100 SXM data sheet (700 W): 3.35 TB/s; 67 TFLOP/s f32 and
@@ -2228,11 +2326,12 @@ def run_burgers_paths(card):
     return counts, runs
 
 
-def idle_profiled(p, steps=None):
+def idle_profiled(p, steps=None, solve=None):
     """Device idle share of one solve under torch.profiler, recording the
     device's activity only: the union of the kernels' spans over the
     host's wall time. steps: solve only the trajectory's first steps (a
-    copy of p with num_steps = steps); None: the whole solve."""
+    copy of p with num_steps = steps); None: the whole solve. solve: the
+    function that solves p (None: p.solve)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2242,7 +2341,7 @@ def idle_profiled(p, steps=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        p.solve()
+        p.solve() if solve is None else solve(p)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -2547,6 +2646,279 @@ def run_burgers_si(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Linear advection and the Pk layer (phase 8): no hand-written kernel
+# ---------------------------------------------------------------------------
+
+# advection_ho runs of ADVECTION_REFERENCE["ho"] (T = 1, CFL 0.5, gfem
+# unless given)
+HO_RUNS = {"p2_gfem_mesh8": dict(mesh_size=8, degree=2),
+           "p2_gfem_mesh16": dict(mesh_size=16, degree=2),
+           "p2_gfem_mesh8_curved": dict(mesh_size=8, degree=2,
+                                        curved_boundary=True),
+           "p2_gfem_mesh16_curved": dict(mesh_size=16, degree=2,
+                                         curved_boundary=True),
+           "p1_gfem_mesh8": dict(mesh_size=8, degree=1),
+           "p3_gfem_mesh8": dict(mesh_size=8, degree=3),
+           "p3_rv_simple_mesh4": dict(mesh_size=4, degree=3,
+                                      stabilization="rv_simple")}
+
+
+def _no_launch(label, fn):
+    """fn() with the launch counts zeroed just before it and read just
+    after it; raises if it launched a hand-written kernel."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+
+    _build.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    if _build.launches:
+        raise AssertionError(f"{label}: launched hand-written kernels "
+                             f"{dict(_build.launches)}; this path has none")
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _adv_check(label, err, steps, ref, card):
+    """Gate one L2 error and step count against the JAX package's (within
+    ADV_ERR_RTOL, or SPREAD_FACTOR x its own noise spread where it has
+    one)."""
+    rel = _rel(err, ref["error"])
+    gate = (SPREAD_FACTOR * ref["noise_spread"] if "noise_spread" in ref
+            else ADV_ERR_RTOL)
+    log(f"{label}, {steps} steps: L2 error {err!r}, the JAX package's "
+        f"{ref['error']!r}, relative {rel:.3e} (gate {gate:.3g}) "
+        f"({card})")
+    if steps != ref["steps"] or not rel <= gate:
+        raise AssertionError(f"{label}: {steps} steps (JAX {ref['steps']}), "
+                             f"error {err} off the JAX package's by {rel}")
+    return dict(steps=steps, error=err, rel_to_jax=rel)
+
+
+def run_advection_f64(card, device="cuda"):
+    """(a) Linear advection's f64 reference config through
+    linear_advection.run: the convergence sweep h = 1/4 ... 1/32 of gfem
+    and rv_node (utils/convergence.run_convergence), each error within
+    ADV_ERR_RTOL of the JAX package's and each slope within ADV_SLOPE_TOL
+    of its; rv_cell (last-cell-wins), rv_node_simple, si and rk4 at mesh
+    16 the same way. No hand-written launch; seconds of each run."""
+    from conservation_fem_tpu_torch.models import linear_advection as la
+    from conservation_fem_tpu_torch.utils.convergence import run_convergence
+
+    out = {}
+    for stab in ("gfem", "rv_node"):
+        ref = ADVECTION_REFERENCE["sweep"][stab]
+        runs = {}
+
+        def err(n):
+            t0 = time.perf_counter()
+            r = _no_launch(f"advection {stab} mesh {n}", lambda: la.run(
+                mesh_size=n, stabilization=stab, device=device))
+            runs[n] = dict(steps=r.num_steps, error=float(r.error_l2),
+                           seconds=time.perf_counter() - t0)
+            return runs[n]["error"]
+
+        c = run_convergence(err, ADV_SWEEP)
+        rels = [_rel(e, r) for e, r in zip(c.errors, ref["errors"])]
+        steps = [runs[n]["steps"] for n in ADV_SWEEP]
+        d_slope = abs(c.slope - ref["slope"])
+        log(f"advection {stab} f64 reference config, mesh {ADV_SWEEP}, "
+            f"{steps} steps: L2 errors {[float(e) for e in c.errors]!r}, "
+            f"the JAX package's {ref['errors']!r}, relative "
+            f"{max(rels):.3e} at most (gate {ADV_ERR_RTOL}); slope "
+            f"{c.slope!r}, the JAX package's {ref['slope']!r} (|diff| "
+            f"{d_slope:.2e}, gate {ADV_SLOPE_TOL}); rates "
+            f"{c.rates().tolist()!r}; seconds "
+            f"{[round(runs[n]['seconds'], 2) for n in ADV_SWEEP]} ({card})")
+        if (steps != ref["steps"] or not max(rels) <= ADV_ERR_RTOL
+                or not d_slope <= ADV_SLOPE_TOL):
+            raise AssertionError(f"advection {stab} sweep: steps {steps}, "
+                                 f"relative errors {rels}, slope {c.slope}")
+        out[stab] = dict(runs=runs, slope=c.slope, max_rel_to_jax=max(rels),
+                         rates=c.rates().tolist())
+    for stab, ref in ADVECTION_REFERENCE["mesh16"].items():
+        t0 = time.perf_counter()
+        r = _no_launch(f"advection {stab} mesh 16", lambda: la.run(
+            mesh_size=16, stabilization=stab, device=device))
+        out[f"{stab}_mesh16"] = _adv_check(
+            f"advection {stab} mesh 16 f64 reference config",
+            float(r.error_l2), r.num_steps, ref, card)
+        out[f"{stab}_mesh16"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_advection_f32(card):
+    """(b) rv_node, one rotation on disk_mesh(1/64), f32 fixed-iteration
+    Chebyshev config (ADV_FIXED): L2rel <= ADV_F32_GATE against the card's
+    f64 adaptive end state on the same mesh; no hand-written launch;
+    µs/step and DOF-steps/s (CUDA events, a solve after the first),
+    kernels per step and idle share (torch.profiler, the first 3 steps);
+    the f64 run's µs/step beside it."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import linear_advection as la
+    from conservation_fem_tpu_torch.ops.mesh import disk_mesh
+
+    n = ADV_F32_MESH
+    m = disk_mesh(1.0 / n)
+    cfg = la.AdvectionConfig(mesh_size=n, stabilization="rv_node")
+    p64 = la.build(cfg, host_mesh=m)
+    u64 = _no_launch("advection rv_node f64 mesh 64",
+                     lambda: la.solve(p64).u)
+    _, us64 = _timed(lambda: la.solve(p64).u, p64.num_steps)
+    p = la.build(dataclasses.replace(cfg, dtype="float32", **ADV_FIXED),
+                 host_mesh=m)
+    label = f"advection rv_node f32 fixed Chebyshev mesh {n}"
+    u = _no_launch(label, lambda: la.solve(p).u)
+    u2, us = _timed(lambda: la.solve(p).u, p.num_steps)
+    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: repeated solves differ or not "
+                             "finite")
+    rel = float((u.double() - u64).norm() / u64.norm())
+    err = float(la.l2_error_vs_ic(p, u))
+    prof = idle_profiled(p, steps=3, solve=la.solve)
+    nodes = m.n_nodes
+    log(f"{label} ({nodes} nodes), {p.num_steps} steps: L2rel {rel:.4e} "
+        f"against the card's f64 adaptive end state (gate {ADV_F32_GATE}); "
+        f"L2 error against the IC {err!r}; {us:.1f} us/step, "
+        f"{nodes / us * 1e6:.4g} DOF-steps/s; "
+        f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+        f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); f64 "
+        f"adaptive {us64:.1f} us/step ({card})")
+    if not rel <= ADV_F32_GATE:
+        raise AssertionError(f"{label}: L2rel {rel} against f64")
+    return dict(nodes=nodes, steps=p.num_steps, l2rel_vs_f64=rel,
+                error_vs_ic=err, us_per_step=us,
+                dof_steps_per_s=nodes / us * 1e6, f64_us_per_step=us64,
+                hand_written_launches=0, **prof)
+
+
+def run_pk_advection(card, device="cuda"):
+    """(c) advection_ho through advection_ho.run, f64, T = 1 (HO_RUNS): P2
+    gfem at mesh 8 and 16, straight and curved, the degree sweep 1, 2, 3
+    at mesh 8 and P3 rv_simple at mesh 4, each error within ADV_ERR_RTOL
+    of the JAX package's; P2 and P3 each below half of P1's error at mesh
+    8 (tests/test_advection_ho.py)."""
+    from conservation_fem_tpu_torch.models import advection_ho as ho
+
+    out = {}
+    for name, kw in HO_RUNS.items():
+        t0 = time.perf_counter()
+        p, _, err = _no_launch(f"advection_ho {name}", lambda: ho.run(
+            ho.HOAdvectionConfig(**kw), device=device))
+        ref = ADVECTION_REFERENCE["ho"][name]
+        if p.space.ndof != ref["dofs"]:
+            raise AssertionError(f"advection_ho {name}: {p.space.ndof} dofs")
+        out[name] = _adv_check(f"advection_ho {name} ({ref['dofs']} dofs)",
+                               err, p.num_steps, ref, card)
+        out[name]["seconds"] = time.perf_counter() - t0
+    e = {k: out[f"p{k}_gfem_mesh8"]["error"] for k in (1, 2, 3)}
+    log(f"advection_ho degree sweep, gfem mesh 8: P1 {e[1]!r}, P2 "
+        f"{e[2]!r}, P3 {e[3]!r} (P2 and P3 below P1 / 2) ({card})")
+    if not (e[2] < e[1] / 2 and e[3] < e[1] / 2):
+        raise AssertionError(f"advection_ho degree sweep: {e}")
+    return out
+
+
+def run_pk_burgers(card, device="cuda"):
+    """(d) P2 SI Burgers (PK_BURGERS) through burgers.build(...).solve():
+    the f64 default config at mesh 32, its steps and dofs the JAX
+    package's and its L1 and L2 errors against the exact solution within
+    SPREAD_FACTOR x the JAX package's own spread under a renumbering of
+    the dofs, its L2rel against the anchor printed; the f32 fixed Chebyshev config (PK_BURGERS_FIXED) at
+    mesh 32 gated at L2rel < PK_BURGERS_ANCHOR_GATE against the anchor.
+    No hand-written launch."""
+    from conservation_fem_tpu_torch.models import burgers
+
+    ref = ADVECTION_REFERENCE["burgers_p2si"]
+    anchor = np.load(os.path.join(REPO, "golden",
+                                  "burgers_p2si_anchor_mesh32.npy"))
+    an = lambda u: float(np.linalg.norm(u.double().cpu().numpy() - anchor)
+                         / np.linalg.norm(anchor))
+    p = burgers.build(burgers.BurgersConfig(mesh_size=32, **PK_BURGERS),
+                      device=device)
+    t0 = time.perf_counter()
+    u = _no_launch("burgers P2 SI mesh 32 f64", lambda: p.solve().u)
+    secs = time.perf_counter() - t0
+    t = p.num_steps * p.dt
+    l1 = float(burgers.l1_error_vs_exact(p, u, t))
+    l2 = float(burgers.l2_error_vs_exact(p, u, t))
+    rel = max(_rel(l1, ref["l1"]), _rel(l2, ref["l2"]))
+    spread = max(_rel(ref["rcm_l1"], ref["l1"]), _rel(ref["rcm_l2"],
+                                                     ref["l2"]))
+    gate = SPREAD_FACTOR * spread
+    a64 = an(u)
+    log(f"burgers P2 SI mesh 32 f64 default config ({u.numel()} dofs), "
+        f"{p.num_steps} steps: L1 {l1!r}, L2 {l2!r} against the exact "
+        f"solution at t = {t!r}; the JAX package's {ref['l1']!r}, "
+        f"{ref['l2']!r}: relative {rel:.3e} at most (gate {gate:.3g}: "
+        f"{SPREAD_FACTOR} x {spread:.3e}, the JAX package's own spread); "
+        f"L2rel against "
+        f"golden/burgers_p2si_anchor_mesh32.npy {a64:.4e} (the JAX "
+        f"package's {ref['anchor_l2rel']:.4e}); {secs:.2f} s ({card})")
+    if ((p.num_steps, u.numel(), p.dt) != (ref["steps"], ref["dofs"],
+                                           ref["dt"])
+            or not rel <= gate):
+        raise AssertionError(f"burgers P2 SI f64: {p.num_steps} steps, "
+                             f"{u.numel()} dofs, dt {p.dt}, relative {rel}")
+    q = burgers.build(burgers.BurgersConfig(
+        mesh_size=32, dtype="float32", **PK_BURGERS, **PK_BURGERS_FIXED),
+        device=device)
+    uq = _no_launch("burgers P2 SI mesh 32 f32", lambda: q.solve().u)
+    a32 = an(uq)
+    log(f"burgers P2 SI mesh 32 f32 fixed Chebyshev config, {q.num_steps} "
+        f"steps: L2rel against the anchor {a32:.4e} (gate "
+        f"{PK_BURGERS_ANCHOR_GATE}) ({card})")
+    if not a32 < PK_BURGERS_ANCHOR_GATE:
+        raise AssertionError(f"burgers P2 SI f32: L2rel {a32}")
+    return dict(f64=dict(steps=p.num_steps, dofs=u.numel(), l1=l1, l2=l2,
+                         rel_to_jax=rel, anchor_l2rel=a64, seconds=secs),
+                f32=dict(steps=q.num_steps, anchor_l2rel=a32))
+
+
+def time_pk_burgers(card):
+    """(d) P2 SI Burgers at mesh PK_BURGERS_TIMED_MESH, f32 fixed
+    Chebyshev config: finite, no hand-written launch, µs/step and
+    DOF-steps/s (CUDA events, a solve after the first), kernels per step
+    and idle share (torch.profiler, the first 3 steps)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import burgers
+
+    n = PK_BURGERS_TIMED_MESH
+    p = burgers.build(burgers.BurgersConfig(
+        mesh_size=n, dtype="float32", **PK_BURGERS, **PK_BURGERS_FIXED))
+    label = f"burgers P2 SI mesh {n} f32 fixed Chebyshev config"
+    u = _no_launch(label, lambda: p.solve().u)
+    u2, us = _timed(lambda: p.solve().u, p.num_steps)
+    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: repeated solves differ or not "
+                             "finite")
+    prof = idle_profiled(p, steps=3)
+    dofs = int(u.numel())
+    log(f"{label} ({dofs} dofs), {p.num_steps} steps: {us:.1f} us/step, "
+        f"{dofs / us * 1e6:.4g} DOF-steps/s; {prof['kernels_per_step']:.1f} "
+        f"kernels/step, idle share {prof['profiled_idle']:.4f} (profiled, "
+        f"first 3 steps) ({card})")
+    return dict(dofs=dofs, steps=p.num_steps, us_per_step=us,
+                dof_steps_per_s=dofs / us * 1e6, hand_written_launches=0,
+                **prof)
+
+
+def advection_phase(card):
+    """Phase 8: (a) - (d); {part: readings}."""
+    return dict(advection_f64=run_advection_f64(card),
+                advection_f32=run_advection_f32(card),
+                pk_advection=run_pk_advection(card),
+                pk_burgers=run_pk_burgers(card),
+                pk_burgers_timed=time_pk_burgers(card))
+
+
 def _busy_us(events):
     """Microseconds covered by the union of the events' time ranges."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -2820,6 +3192,11 @@ def smoke(card, regs):
                burgers=run_burgers_si(card))
     meshes.clear()
     log(f"ELL and stabilisation phase: {time.perf_counter() - t_ell:.0f} s")
+    # linear advection and the Pk layer: no hand-written kernel either
+    t_adv = time.perf_counter()
+    advection = advection_phase(card)
+    log(f"advection and Pk phase: {time.perf_counter() - t_adv:.0f} s "
+        f"({card})")
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -2861,6 +3238,7 @@ def smoke(card, regs):
         rows.append(row)
     log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
     log(json.dumps({"ell": ell}))
+    log(json.dumps({"advection": advection}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -1,7 +1,8 @@
-"""CLI: ``python -m conservation_fem_tpu_torch kpp|burgers [--key value ...]``.
+"""CLI: ``python -m conservation_fem_tpu_torch WORKLOAD [--key value ...]``.
 
-Runs a workload of the port with overrides of its config (KPPConfig,
-BurgersConfig), e.g.::
+WORKLOAD is kpp, burgers, advection, advection_ho or convergence. Runs a
+workload of the port with overrides of its config (KPPConfig,
+BurgersConfig, AdvectionConfig, HOAdvectionConfig), e.g.::
 
     python -m conservation_fem_tpu_torch kpp --mesh_size 8 --device cpu
     python -m conservation_fem_tpu_torch kpp --mesh_size 64 --dtype float32 \\
@@ -19,6 +20,15 @@ BurgersConfig), e.g.::
         --T 0.05 --device cpu
     python -m conservation_fem_tpu_torch burgers --stabilization si \\
         --smooth_l 4 --backend ell --mesh_size 12 --device cpu
+    python -m conservation_fem_tpu_torch burgers --degree 2 \\
+        --stabilization si --mesh_size 8 --T 0.1 --device cpu
+    python -m conservation_fem_tpu_torch advection --mesh_size 8 --device cpu
+    python -m conservation_fem_tpu_torch advection --stabilization rv_node \\
+        --mesh_size 8 --device cpu
+    python -m conservation_fem_tpu_torch advection_ho --degree 2 \\
+        --mesh_size 4 --device cpu
+    python -m conservation_fem_tpu_torch convergence \\
+        --stabilization rv_node --device cpu
 
 Runs on the card unless ``--device cpu`` is given. ``--backend ell``
 runs the ELL step on the structured mesh; ``--mesh_source`` reads a
@@ -27,7 +37,11 @@ DOLFINx .h5 mesh (KPP, the ELL backend, needs h5py). Other meshes
 ``burgers.build`` as ``host_mesh=``. Prints a one-line JSON result. As in
 the JAX package's CLI, kpp records per-step metrics, so its run takes the
 composed step (the fused kernel records none); burgers reports the L2
-error against the exact solution (at t = 0.5 for T = 0.5).
+error against the exact solution (at t = 0.5 for T = 0.5); advection and
+advection_ho the L2 error against the IC's interpolant after T;
+convergence the errors of linear advection at mesh 4, 8, 16 and 32 (T =
+1, the config's defaults but --stabilization), their least-squares slope
+in log-log and the pairwise rates.
 """
 
 from __future__ import annotations
@@ -60,7 +74,8 @@ def _parse(cfg_cls, workload, args_list):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("kpp", "burgers"):
+    if not argv or argv[0] not in ("kpp", "burgers", "advection",
+                                   "advection_ho", "convergence"):
         print(__doc__)
         return 2
     t0 = time.perf_counter()
@@ -80,15 +95,49 @@ def main(argv=None):
                "u_max": float(u.max()),
                "newton_all_converged":
                    bool(res.metrics["newton_converged"].all())}
-    else:
+    elif argv[0] == "burgers":
         from conservation_fem_tpu_torch.models import burgers
 
         cfg, device = _parse(burgers.BurgersConfig, "burgers", argv[1:])
         res, err = burgers.run(cfg, device=device)
+        ell = cfg.backend == "ell" or cfg.degree > 1
         out = {"workload": "burgers", "stabilization": cfg.stabilization,
-               "backend": "ell" if cfg.backend == "ell" else "stencil",
+               "backend": "ell" if ell else "stencil",
                "mesh_size": cfg.mesh_size, "num_steps": res.num_steps,
                "L2_error_vs_exact": err, "device": device}
+    elif argv[0] == "advection":
+        from conservation_fem_tpu_torch.models import linear_advection as la
+
+        cfg, device = _parse(la.AdvectionConfig, "advection", argv[1:])
+        res = la.run(cfg, device=device)
+        out = {"workload": "advection", "stabilization": cfg.stabilization,
+               "mesh_size": cfg.mesh_size, "num_steps": res.num_steps,
+               "L2_error_vs_ic": float(res.error_l2), "device": device}
+    elif argv[0] == "advection_ho":
+        from conservation_fem_tpu_torch.models import advection_ho as ho
+
+        cfg, device = _parse(ho.HOAdvectionConfig, "advection_ho", argv[1:])
+        _, _, err = ho.run(cfg, device=device)
+        out = {"workload": "advection_ho", "degree": cfg.degree,
+               "stabilization": cfg.stabilization, "L2_error_vs_ic": err,
+               "device": device}
+    else:
+        from conservation_fem_tpu_torch.models import linear_advection as la
+        from conservation_fem_tpu_torch.utils.convergence import \
+            run_convergence
+
+        parser = argparse.ArgumentParser(
+            prog="conservation_fem_tpu_torch convergence")
+        parser.add_argument("--device", default="cuda")
+        parser.add_argument("--stabilization", default="gfem")
+        ns = parser.parse_args(argv[1:])
+        res = run_convergence(
+            lambda n: la.run(mesh_size=n, stabilization=ns.stabilization,
+                             device=ns.device).error_l2, (4, 8, 16, 32))
+        out = {"workload": "convergence", "stabilization": ns.stabilization,
+               "errors": [float(e) for e in res.errors],
+               "slope": res.slope, "rates": res.rates().tolist(),
+               "device": ns.device}
     out["wall_s"] = round(time.perf_counter() - t0, 2)
     print(json.dumps(out))
     return 0

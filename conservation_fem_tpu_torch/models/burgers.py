@@ -15,9 +15,14 @@ the stencil backend runs the whole-step kernel that ``_fused_mode`` picks,
 as for KPP; the Dirichlet data change every step, so a launch takes one
 step.
 
+degree 2 or 3 runs the Pk ELL step (models/pk_hyperbolic.py) on the
+structured mesh's Pk space, with dt = CFL min(h_CG) / degree^2 (h_CG the
+P1 projection of degree 1, ``time_step``: the JAX package's step counts
+in f64 and f32) and the Chebyshev bounds of that degree.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-degree > 1 (queue 1 item 10), the ELL matvec backends banded / blocked
-(item 13) and lattice (item 12).
+the ELL matvec backends banded / blocked (item 13) and lattice (item
+12).
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ import math
 import numpy as np
 import torch
 
+from conservation_fem_tpu_torch.models.advection_ho import (
+    CN_BOUNDS as LIN_BOUNDS, MASS_BOUNDS)
+from conservation_fem_tpu_torch.models.pk_hyperbolic import \
+    PkHyperbolicProblem
 from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
     HyperbolicConfig, HyperbolicProblem)
 from conservation_fem_tpu_torch.models.structured_hyperbolic import structure
@@ -60,7 +69,7 @@ class BurgersConfig:
     backend: str = "auto"          # "auto" | "stencil" | "ell"
     ic: str = "riemann"            # riemann | bump
     residual_scheme: str = "bdf2"  # bdf2 | bdf1
-    degree: int = 1                # > 1 not ported yet
+    degree: int = 1                # 2, 3: the Pk ELL step
     ell_matvec_backend: str = "gather"   # banded / blocked: item 13
     # fixed-iteration solvers (throughput paths; see KPPConfig)
     cg_iters: int | None = None
@@ -68,8 +77,10 @@ class BurgersConfig:
     newton_linear_iters: int = 8
     inner_solver: str = "bicgstab"
     newton_final_residual: bool = True
-    cheby_mass_bounds: tuple | None = None   # None: (0.5, 2.0) for P1
-    cheby_lin_bounds: tuple | None = None    # None: (0.4, 2.2) for P1
+    # None: the degree's Jacobi bounds (models/advection_ho.MASS_BOUNDS,
+    # CN_BOUNDS; the CN Jacobian's as the CN advection operator's)
+    cheby_mass_bounds: tuple | None = None
+    cheby_lin_bounds: tuple | None = None
     use_kernels: bool = False      # see HyperbolicConfig (JAX: use_pallas)
 
 
@@ -146,12 +157,13 @@ FLUX = st.Flux(name="burgers", fprime_xy=flux_prime_xy,
 
 
 def _check_ported(cfg: BurgersConfig):
-    """Raise for the options this port does not have yet, naming the
-    ROADMAP item of each (the ELL matvec backends raise in
-    HyperbolicProblem)."""
-    if cfg.degree > 1:
-        raise NotImplementedError(
-            "not ported yet: degree > 1 (ROADMAP queue 1 item 10)")
+    """Raise for unknown options (the ELL matvec backends this port does
+    not have yet raise in HyperbolicProblem, naming their ROADMAP
+    items)."""
+    if cfg.degree not in (1, 2, 3):
+        raise ValueError("degree must be 1, 2 or 3")
+    if cfg.degree > 1 and cfg.backend == "stencil":
+        raise ValueError("the stencil backend is P1 only (degree 1)")
     if cfg.ic not in ("riemann", "bump"):
         raise ValueError(f"unknown ic {cfg.ic!r}")
     if cfg.backend not in ("auto", "stencil", "ell"):
@@ -198,11 +210,16 @@ def time_step(cfg: BurgersConfig, min_h):
     and the f32 one, wherever that is below 1/N, lies below the f64 one,
     so this changes dt only where f32 rounded up; it gives the JAX
     package's f32 step counts at N = 8, 12, 16, 20, 24, 50, 100, 200, 400,
-    800 (scripts/burgers_time_steps.py --dtype float32)."""
+    800 (scripts/burgers_time_steps.py --dtype float32).
+
+    Degree k > 1 divides that dt by k^2, after the product, as the JAX
+    package does."""
     h = min_h(getattr(torch, cfg.dtype))
     if cfg.dtype != "float64":
         h = min(h, min_h(torch.float64))
     dt = cfg.CFL * h
+    if cfg.degree > 1:
+        dt = dt / cfg.degree**2
     return dt, int(np.ceil(cfg.T / dt))
 
 
@@ -210,7 +227,8 @@ def build(cfg: BurgersConfig | None = None, device=None,
           host_mesh: Mesh | None = None, **kw):
     """The Burgers problem on ``device`` (None: the card; raises without
     one. device="cpu" for the CPU): the stencil backend on the structured
-    mesh, or the ELL backend (backend="ell", or a host_mesh given)."""
+    mesh, or the ELL backend (backend="ell", or a host_mesh given); degree
+    2 or 3: the Pk ELL step."""
     if cfg is None:
         cfg = BurgersConfig(**kw)
     _check_ported(cfg)
@@ -219,7 +237,8 @@ def build(cfg: BurgersConfig | None = None, device=None,
     if cfg.backend == "stencil" and not built_structured:
         raise ValueError("the stencil backend runs on the structured mesh "
                          "only (no host_mesh)")
-    use_stencil = built_structured and cfg.backend != "ell"
+    use_stencil = (built_structured and cfg.backend != "ell"
+                   and cfg.degree == 1)
     if not built_structured:
         min_h = ell_min_h(host_mesh)
     else:
@@ -240,8 +259,8 @@ def build(cfg: BurgersConfig | None = None, device=None,
         newton_linear_iters=cfg.newton_linear_iters,
         inner_solver=cfg.inner_solver,
         newton_final_residual=cfg.newton_final_residual,
-        cheby_mass_bounds=cfg.cheby_mass_bounds or (0.5, 2.0),
-        cheby_lin_bounds=cfg.cheby_lin_bounds or (0.4, 2.2),
+        cheby_mass_bounds=cfg.cheby_mass_bounds or MASS_BOUNDS[cfg.degree],
+        cheby_lin_bounds=cfg.cheby_lin_bounds or LIN_BOUNDS[cfg.degree],
         ell_matvec_backend=cfg.ell_matvec_backend,
         use_kernels=cfg.use_kernels, dtype=cfg.dtype,
         record_metrics=cfg.record_metrics)
@@ -252,9 +271,14 @@ def build(cfg: BurgersConfig | None = None, device=None,
         bc_fn = lambda pts, t: torch.zeros(pts.shape[0], dtype=pts.dtype,
                                            device=pts.device)
         ic_fn = initial_condition_bump
-    prob = HyperbolicProblem(hcfg, host_mesh, flux=FLUX, bc_value=bc_fn,
-                             u0_fn=ic_fn, dt=dt, num_steps=num_steps,
-                             device=device)
+    if cfg.degree > 1:
+        prob = PkHyperbolicProblem(hcfg, host_mesh, cfg.degree, flux=FLUX,
+                                   bc_value=bc_fn, u0_fn=ic_fn, dt=dt,
+                                   num_steps=num_steps, device=device)
+    else:
+        prob = HyperbolicProblem(hcfg, host_mesh, flux=FLUX, bc_value=bc_fn,
+                                 u0_fn=ic_fn, dt=dt, num_steps=num_steps,
+                                 device=device)
     prob.bc_static = False         # g = exact solution at each step's t
     if use_stencil:
         return structure(prob, N, N)
@@ -278,8 +302,13 @@ def l2_error_vs_exact(problem, u, t):
 
 def l1_error_vs_exact(problem, u, t):
     """int |u - u_ex| dx, u_ex the nodal interpolant, by the degree-4
-    quadrature on every cell."""
+    quadrature on every cell (a Pk space: by its own rule)."""
     d = _exact_difference(problem, u, t)
+    if hasattr(problem, "space"):
+        sp = problem.mesh
+        d_q = torch.einsum("qc,mc->mq", sp.phi, d[sp.cell_dofs])
+        return ((d_q.abs() * sp.quad_w[None, :]).sum(dim=1)
+                * 2.0 * sp.area).sum()
     phi = torch.as_tensor(_quad_basis(), dtype=u.dtype, device=u.device)
     w = torch.as_tensor(_DUN4_W * 0.5, dtype=u.dtype, device=u.device)
     if hasattr(problem, "sd"):

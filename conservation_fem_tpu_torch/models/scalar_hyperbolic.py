@@ -130,7 +130,8 @@ class HyperbolicProblem:
         self.host_mesh = host_mesh
         self.device = get_device(device)
         self.dtype = getattr(torch, cfg.dtype)
-        self.points = torch.as_tensor(host_mesh.points, dtype=self.dtype,
+        points, boundary_nodes = self._host_nodes(host_mesh)
+        self.points = torch.as_tensor(points, dtype=self.dtype,
                                       device=self.device)
         self.flux = flux
         self.bc_value = bc_value
@@ -141,9 +142,13 @@ class HyperbolicProblem:
         self._start_step = 0
         self._mesh = self._M = self._h_cg = self._K_bc = None
         # the boundary nodes, flat: the only nodes at which a step reads g
-        self._frame = torch.as_tensor(host_mesh.boundary_nodes,
-                                      device=self.device)
+        self._frame = torch.as_tensor(boundary_nodes, device=self.device)
         self._g_shape, self._g2 = tuple(self.u0.shape), None
+
+    def _host_nodes(self, host_mesh):
+        """(coordinates (N,2), boundary node ids) of the unknowns, host
+        numpy: the mesh's vertices for P1 (the Pk subclass: its dofs)."""
+        return host_mesh.points, host_mesh.boundary_nodes
 
     # -- lazily built ELL operators -------------------------------------------
 

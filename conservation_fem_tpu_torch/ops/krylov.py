@@ -34,10 +34,11 @@ def dot(a, b):
     return torch.sum(a * b)
 
 
-def cg(matvec: Callable, b, *, precond: Callable = _identity, rtol=1e-12,
-       maxiter=1000, dot: Callable = dot) -> KrylovResult:
-    """Preconditioned conjugate gradient for SPD operators, from x = 0."""
-    x = torch.zeros_like(b)
+def cg(matvec: Callable, b, x0=None, *, precond: Callable = _identity,
+       rtol=1e-12, maxiter=1000, dot: Callable = dot) -> KrylovResult:
+    """Preconditioned conjugate gradient for SPD operators, from x0 (None:
+    0)."""
+    x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = precond(r)
     p = z
@@ -58,11 +59,13 @@ def cg(matvec: Callable, b, *, precond: Callable = _identity, rtol=1e-12,
     return KrylovResult(x, k, rnorm, rnorm <= torch.sqrt(tol2))
 
 
-def bicgstab(matvec: Callable, b, *, precond: Callable = _identity,
-             rtol=1e-12, maxiter=2000, dot: Callable = dot) -> KrylovResult:
+def bicgstab(matvec: Callable, b, x0=None, *,
+             precond: Callable = _identity, rtol=1e-12, maxiter=2000,
+             dot: Callable = dot) -> KrylovResult:
     """Preconditioned BiCGStab for nonsymmetric operators (CN Newton
-    Jacobians), from x = 0; stops on convergence, maxiter or breakdown."""
-    x = torch.zeros_like(b)
+    Jacobians, the CN advection operator), from x0 (None: 0); stops on
+    convergence, maxiter or breakdown."""
+    x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     rhat = r
     tol = rtol * torch.sqrt(dot(b, b))
@@ -95,13 +98,20 @@ def bicgstab(matvec: Callable, b, *, precond: Callable = _identity,
     return KrylovResult(x, k, rnorm, rnorm <= tol)
 
 
+def _start(matvec, b, x0):
+    """(x, r) at the start of a fixed-iteration solve: (0, b), or (x0, b -
+    A x0) as the JAX solvers form them."""
+    if x0 is None:
+        return torch.zeros_like(b), b
+    return x0, b - matvec(x0)
+
+
 def cg_fixed(matvec: Callable, b, *, iters: int,
-             precond: Callable = _identity,
+             precond: Callable = _identity, x0=None,
              dot: Callable = dot) -> KrylovResult:
     """CG with a FIXED iteration count (no adaptive stopping reduction),
-    from x = 0."""
-    x = torch.zeros_like(b)
-    r = b
+    from x0 (None: 0)."""
+    x, r = _start(matvec, b, x0)
     p = precond(r)
     rz = dot(r, p)
     tiny = tiny_of(b.dtype)
@@ -129,13 +139,12 @@ def safe_div(num, den, tiny):
 
 
 def bicgstab_fixed(matvec: Callable, b, *, iters: int,
-                   precond: Callable = _identity,
+                   precond: Callable = _identity, x0=None,
                    dot: Callable = dot) -> KrylovResult:
-    """BiCGStab with a FIXED iteration count, from x = 0. Breakdown-safe:
-    when a denominator underflows the remaining iterations take zero
-    steps."""
-    x = torch.zeros_like(b)
-    r = b
+    """BiCGStab with a FIXED iteration count, from x0 (None: 0).
+    Breakdown-safe: when a denominator underflows the remaining iterations
+    take zero steps."""
+    x, r = _start(matvec, b, x0)
     rhat = r
     tiny = tiny_of(b.dtype)
     p, rho = r, dot(rhat, r)
@@ -159,17 +168,16 @@ def bicgstab_fixed(matvec: Callable, b, *, iters: int,
 
 
 def chebyshev_fixed(matvec: Callable, b, *, iters: int, lmin: float,
-                    lmax: float,
-                    precond: Callable = _identity) -> KrylovResult:
+                    lmax: float, precond: Callable = _identity,
+                    x0=None) -> KrylovResult:
     """Preconditioned Chebyshev semi-iteration over eigenvalue bounds
-    [lmin, lmax] of the preconditioned operator, from x = 0 — zero inner
-    products."""
+    [lmin, lmax] of the preconditioned operator, from x0 (None: 0) — zero
+    inner products."""
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma1 = theta / delta
     f = lambda c: torch.tensor(c, dtype=b.dtype, device=b.device)
-    x = torch.zeros_like(b)
-    r = b
+    x, r = _start(matvec, b, x0)
     d = precond(r) / f(theta)
     rho = f(1.0 / sigma1)
     for _ in range(iters):

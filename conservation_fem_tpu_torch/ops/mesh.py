@@ -73,7 +73,11 @@ class EllStructure(NamedTuple):
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """An immutable 2D triangle mesh (host numpy arrays). ``lean``: made by
-    rectangle_mesh_lean, without ELL structure."""
+    rectangle_mesh_lean, without ELL structure. ``periodic``: made by
+    make_periodic, whose cells index the surviving master nodes while
+    area, grads and h_cell keep the pre-fold geometry, so geometry
+    recomputed from points[cells] is wrong on seam cells (Pk build_space
+    refuses such a mesh)."""
 
     points: Array          # (N,2) f64
     cells: Array           # (M,3) i32
@@ -82,6 +86,7 @@ class Mesh:
     grads: Array           # (M,3,2) f64
     h_cell: Array          # (M,) f64
     lean: bool = False
+    periodic: bool = False
 
     @property
     def n_nodes(self) -> int:
@@ -201,10 +206,12 @@ def _boundary_mask(n_nodes: int, cells: Array) -> Array:
 
 
 def _pair_keys(n_nodes: int, cells: Array):
-    """row * N + col of every ordered pair (a, b) of every cell, (M,3,3)
-    flattened in cell-major order."""
-    rows = np.repeat(cells, 3, axis=1).reshape(-1)
-    cols = np.tile(cells, (1, 3)).reshape(-1)
+    """row * N + col of every ordered pair (a, b) of every cell, (M,n,n)
+    flattened in cell-major order; cells (M,n): a mesh's (n = 3) or a Pk
+    space's dofs (ops/spaces.py)."""
+    n = cells.shape[1]
+    rows = np.repeat(cells, n, axis=1).reshape(-1)
+    cols = np.tile(cells, (1, n)).reshape(-1)
     return rows * n_nodes + cols
 
 
@@ -230,9 +237,10 @@ def _build_patches(n_nodes: int, cells: Array):
 def _build_cell_slots(cells: Array, patch_cols: Array, patch_mask: Array):
     """For each cell and local pair (a, b): the ELL slot k with
     patch_cols[cells[m, a], k] == cells[m, b] (unique among the masked
-    entries of the row, whose columns are sorted)."""
+    entries of the row, whose columns are sorted); (M,n,n) for cells
+    (M,n)."""
     n, K = patch_cols.shape
-    M = cells.shape[0]
+    M, nloc = cells.shape
     rows = np.repeat(np.arange(n, dtype=np.int64), K)
     keys = (rows * n + patch_cols.reshape(-1))[patch_mask.reshape(-1)]
     start = np.concatenate([[0], np.cumsum(patch_mask.sum(axis=1))])
@@ -241,13 +249,13 @@ def _build_cell_slots(cells: Array, patch_cols: Array, patch_mask: Array):
     if not (keys[np.minimum(pos, len(keys) - 1)] == want).all():
         raise AssertionError("cell pair missing from patch")
     slot = pos - start[want // n]
-    return slot.reshape(M, 3, 3).astype(np.int64)
+    return slot.reshape(M, nloc, nloc).astype(np.int64)
 
 
 def _scatter_orderings(cells: Array, cell_slots: Array, K: int):
     """Stable sort orders for the deterministic segmented sums."""
-    M = cells.shape[0]
-    rows = np.repeat(cells, 3, axis=1).reshape(M, 3, 3)
+    M, nloc = cells.shape
+    rows = np.repeat(cells, nloc, axis=1).reshape(M, nloc, nloc)
     mat_target = (rows * K + cell_slots).reshape(-1)
     mat_perm = np.argsort(mat_target, kind="stable")
     vec_target = cells.reshape(-1)
@@ -291,6 +299,46 @@ def rectangle_mesh(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,
     if ny is None:
         ny = nx
     return mesh_from_arrays(*_grid(p0, p1, nx, ny))
+
+
+def make_periodic(host: Mesh, axes=(0, 1), tol: float = 1e-9) -> Mesh:
+    """Identify opposite-boundary nodes to make the mesh topologically
+    periodic along ``axes`` (the JAX package's ``make_periodic``): every
+    node on an axis' high side becomes a slave of the low-side node with
+    the same other coordinates (to ``tol``; corners chain through both
+    folds), the surviving masters keep their order and are renumbered
+    densely. Cell connectivity moves onto the masters while the cell
+    geometry (area, gradients, h) keeps the original coordinates, so seam
+    cells integrate over their true shape; seam edges then have two cells
+    and drop out of the boundary mask."""
+    pts = np.asarray(host.points, np.float64)
+    cells = np.asarray(host.cells, np.int64)
+    n = pts.shape[0]
+    master_of = np.arange(n)
+    for ax in axes:
+        lo, hi = pts[:, ax].min(), pts[:, ax].max()
+        other = [a for a in range(pts.shape[1]) if a != ax]
+        key = lambda ids: [tuple(np.round(pts[i, other] / tol).astype(
+            np.int64)) for i in ids]
+        lo_ids = np.nonzero(np.isclose(pts[:, ax], lo, atol=tol))[0]
+        lut = dict(zip(key(lo_ids), lo_ids))
+        hi_ids = np.nonzero(np.isclose(pts[:, ax], hi, atol=tol))[0]
+        for s, k in zip(hi_ids, key(hi_ids)):
+            if k not in lut:
+                raise ValueError(
+                    f"periodic axis {ax}: no matching low-side node for "
+                    f"point {pts[s]}")
+            master_of[s] = lut[k]
+    for _ in range(len(axes)):          # corner: x-fold then y-fold
+        master_of = master_of[master_of]
+    keep = master_of == np.arange(n)
+    new_id = np.cumsum(keep) - 1
+    cells_new = new_id[master_of[cells]]
+    area, grads, h_cell = _cell_geometry(pts, cells)
+    return Mesh(points=np.ascontiguousarray(pts[keep]),
+                cells=cells_new.astype(np.int32),
+                boundary_mask=_boundary_mask(int(keep.sum()), cells_new),
+                area=area, grads=grads, h_cell=h_cell, periodic=True)
 
 
 def rectangle_mesh_lean(p0=(0.0, 0.0), p1=(1.0, 1.0), nx: int = 8,

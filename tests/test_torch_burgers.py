@@ -264,7 +264,7 @@ def test_build_targets_the_card_by_default():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(degree=2), "queue 1 item 10"),
+    (dict(degree=3, ell_matvec_backend="banded"), "queue 1 item 13"),
     (dict(ell_matvec_backend="banded"), "queue 1 item 13"),
     (dict(backend="ell", ell_matvec_backend="blocked"), "queue 1 item 13"),
     (dict(backend="ell", ell_matvec_backend="lattice"), "queue 1 item 12"),
