@@ -129,8 +129,29 @@ exits non-zero:
      spread (a renumbering of the dofs), its L2rel against
      golden/burgers_p2si_anchor_mesh32.npy
      printed; the f32 fixed Chebyshev config (bench_pk.py's) within 5e-2
-     of that anchor; mesh 64 in f32 timed and profiled. A JSON line
-     {"advection": ...} holds these readings.
+     of that anchor (the state after 64 steps, the anchor's count, printed
+     beside the gated 65-step one); mesh 64 in f32 timed and profiled. A
+     JSON line {"advection": ...} holds these readings.
+  9. compressible Euler and Stokes/IPCS, which launch no hand-written
+     kernel either (0 launches gated on every run): (a) Euler through
+     euler.build(...) and euler.solve, scripts/bench_euler.py's f32 cells
+     (sod nx 100, riemann2d nx 128, 256, 512; stencil backend) with the
+     JAX package's step counts and dt, gated at L2rel < 1e-3 against
+     golden/euler_*_anchor_nx*.npy; sod 100 and riemann2d 128 in f64
+     against the same anchors (the state rounded to f32 as they are
+     stored; gate 1e-9 or 3 x the JAX package's own spread); riemann2d 128
+     f64 on the ELL backend against the stencil run; (b) Stokes through
+     stokes.solve: the f64 reference config (nx 10, 500 steps, ell,
+     adaptive) within 1e-8 of the JAX package's Poiseuille L2 error;
+     lattice and lattice + multigrid against ell at nx 16, 20 steps, f64,
+     Linf <= 1e-9; the five f32 variants of scripts/bench_stokes.py at nx
+     32 and 64 (ell adaptive, lattice adaptive, lattice fixed, lattice +
+     multigrid adaptive and fixed), 10 steps timed after a warm-up, each
+     against the ell run (fixed 1e-2, adaptive 1e-4). Every run: µs/step
+     (CUDA events around a second solve), DOF-steps/s, kernels per step
+     and idle share (torch.profiler, the first 3 steps). The JAX package's
+     readings are EULER_STOKES_REFERENCE (scripts/euler_stokes_reference.py,
+     CPU). A JSON line {"euler_stokes": ...} holds these readings.
 The second-to-last line is the per-kernel JSON summary (all eight ported
 kernels, each with its bound; a step kernel's row also holds its Burgers
 instance's numbers under "burgers"; cg_solve's row the plan, iterations
@@ -396,7 +417,84 @@ PK_BURGERS = dict(degree=2, stabilization="si", T=0.25)
 PK_BURGERS_FIXED = dict(modified_newton=True, cg_iters=12, newton_iters=2,
                         newton_linear_iters=10, inner_solver="cheby")
 PK_BURGERS_ANCHOR_GATE = 5e-2
+# the anchor is the f64 state after 64 steps (dt = 1/256); the f32 dt lies
+# one ulp-level below 1/256, so the f32 run takes 65 steps, as the JAX
+# package's does (ROADMAP queue 3): the gate reads the 65-step state, and
+# the state after 64 steps, at the anchor's time, is printed beside it
+PK_BURGERS_ANCHOR_STEPS = 64
 PK_BURGERS_TIMED_MESH = 64
+
+# Phase 9, Euler and Stokes (no hand-written kernel on either path).
+# Euler: the f32 cells of scripts/bench_euler.py (config
+# scripts/make_anchor.py:euler_problem, model defaults, stencil backend),
+# each gated at its L2rel gate (bench_euler.py:27) against
+# golden/euler_*_anchor_nx*.npy; sod 100 and riemann2d 128 again in f64,
+# rounded to f32 as the anchors are stored, gated at
+# max(EULER_F64_GATE, SPREAD_FACTOR x the JAX package's own spread);
+# riemann2d 128 in f64 on the ELL backend against the stencil run at the
+# same gate
+EULER_CELLS = (("sod", 100), ("riemann2d", 128), ("riemann2d", 256),
+               ("riemann2d", 512))
+EULER_GATE = 1e-3
+EULER_F64 = (("sod", 100), ("riemann2d", 128))
+EULER_F64_GATE = 1e-9
+EULER_ELL = ("riemann2d", 128)
+# Stokes (IPCS, P2-P1): (a) the f64 reference config (nx 10, 500 steps to
+# T = 10, ell, adaptive) within max(STOKES_ORACLE_RTOL, SPREAD_FACTOR x
+# the JAX package's own spread) of its Poiseuille L2 error (the error,
+# ~6e-8, is a small difference of O(1) fields: the JAX package's own run
+# moves by up to 2.6e-8 relative under ulp-level changes of u0 or of its
+# operators); (b) lattice, and lattice + multigrid, against ell
+# at nx 16, 20 steps, f64 (tests/test_multigrid.py:60-67); (c) the five
+# f32 variants of scripts/bench_stokes.py at nx 32 and 64 (krylov_rtol
+# 1e-6), 10 steps timed after a warm-up, each against the ell run after
+# the same steps: the fixed ones at the bar of RESULTS.md:28, the
+# adaptive ones at STOKES_ADAPTIVE_GATE
+STOKES_ORACLE_RTOL = 1e-8
+STOKES_TIMED_ORACLE_STEPS = 20
+STOKES_IDENTITY = dict(nx=16, num_steps=20, T=0.4)
+STOKES_IDENTITY_GATE = 1e-9
+STOKES_BENCH = dict(num_steps=10, T=0.2, dtype="float32", krylov_rtol=1e-6)
+STOKES_BENCH_NX = (32, 64)
+STOKES_FIXED_GATE = 1e-2
+STOKES_ADAPTIVE_GATE = 1e-4
+# printed on the CPU by scripts/euler_stokes_reference.py (needs JAX):
+# the JAX package's step counts, dt and nodes of each Euler cell; for the
+# f64-gated ones its f64 L2rel against the anchor (unrounded, and rounded
+# to f32) and its own noise spread; the Stokes reference config's error
+EULER_STOKES_REFERENCE = {
+    "euler": {
+        "sod:100": {"steps": 95, "dt": 0.00211288563682127, "nodes": 2626,
+            "f64_l2rel": 2.298468108004719e-08, "f64_l2rel_f32_rounded":
+            6.346033735191172e-16, "f64_noise_spread": 9.347259394577994e-16},
+        "riemann2d:128": {"steps": 346, "dt": 0.0008688486046240095, "nodes":
+            16641, "f64_l2rel": 2.158511203592871e-08,
+            "f64_l2rel_f32_rounded": 0.0, "f64_noise_spread":
+            1.4424567369563713e-12},
+        "riemann2d:256": {"steps": 691, "dt": 0.00043442430231200473, "nodes":
+            66049},
+        "riemann2d:512": {"steps": 1382, "dt": 0.00021721215115600237,
+            "nodes": 263169},
+    },
+    "stokes": {
+        "reference_error_l2": 5.790093812143546e-08,
+        "noise_spread": 2.6345881041245656e-08,
+        "spreads": {"lattice": 6.131017193816399e-09, "u0 seed 0":
+            9.382516238044298e-10, "operators seed 0": 9.746838964356392e-10,
+            "u0 seed 1": 5.935252573013281e-09, "operators seed 1":
+            1.4320525050419223e-08, "u0 seed 2": 1.0260545517366719e-09,
+            "operators seed 2": 8.860001768570315e-09, "u0 seed 3":
+            6.564783450384404e-09, "operators seed 3": 1.3402714599868033e-08,
+            "u0 seed 4": 1.0491237337917584e-08, "operators seed 4":
+            6.488043819603971e-09, "u0 seed 5": 1.8912364928104976e-08,
+            "operators seed 5": 7.929357225874803e-09, "u0 seed 6":
+            4.584201481369144e-09, "operators seed 6": 9.159775965886942e-10,
+            "u0 seed 7": 6.101560897998984e-09, "operators seed 7":
+            1.0747274476108461e-08, "u0 seed 8": 1.677564681930561e-08,
+            "operators seed 8": 4.915158425332983e-09, "u0 seed 9":
+            7.31495707969373e-10, "operators seed 9": 2.6345881041245656e-08},
+    },
+}
 
 # The least time of a kernel's work: max(bytes / HBM rate, operations /
 # peak rate), H100 SXM data sheet (700 W): 3.35 TB/s; 67 TFLOP/s f32 and
@@ -2332,16 +2430,22 @@ def idle_profiled(p, steps=None, solve=None):
     host's wall time. steps: solve only the trajectory's first steps (a
     copy of p with num_steps = steps); None: the whole solve. solve: the
     function that solves p (None: p.solve)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     if steps is not None:
         p = copy.copy(p)
         p.num_steps = steps
+    return profiled(lambda: p.solve() if solve is None else solve(p),
+                    p.num_steps)
+
+
+def profiled(fn, steps):
+    """idle_profiled's readings of fn(), which takes ``steps`` steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        p.solve() if solve is None else solve(p)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -2350,8 +2454,8 @@ def idle_profiled(p, steps=None, solve=None):
     return dict(profiled_wall_us=wall_us, profiled_device_busy_us=busy,
                 profiled_idle=1.0 - busy / wall_us,
                 device_kernels=len(kernels),
-                kernels_per_step=len(kernels) / p.num_steps,
-                device_busy_us_per_step=busy / p.num_steps)
+                kernels_per_step=len(kernels) / steps,
+                device_busy_us_per_step=busy / steps)
 
 
 def run_burgers_sharded():
@@ -2871,14 +2975,23 @@ def run_pk_burgers(card, device="cuda"):
         device=device)
     uq = _no_launch("burgers P2 SI mesh 32 f32", lambda: q.solve().u)
     a32 = an(uq)
+    q_at = copy.copy(q)
+    q_at.num_steps = PK_BURGERS_ANCHOR_STEPS
+    a32_at = an(_no_launch("burgers P2 SI mesh 32 f32, the anchor's steps",
+                           lambda: q_at.solve().u))
     log(f"burgers P2 SI mesh 32 f32 fixed Chebyshev config, {q.num_steps} "
-        f"steps: L2rel against the anchor {a32:.4e} (gate "
-        f"{PK_BURGERS_ANCHOR_GATE}) ({card})")
+        f"steps (the JAX package's count; t = {q.num_steps * q.dt!r}): "
+        f"L2rel against the anchor {a32:.4e} (gate "
+        f"{PK_BURGERS_ANCHOR_GATE}); after {PK_BURGERS_ANCHOR_STEPS} steps, "
+        f"the anchor's (t = {PK_BURGERS_ANCHOR_STEPS * q.dt!r}): "
+        f"{a32_at:.4e}, printed ({card})")
     if not a32 < PK_BURGERS_ANCHOR_GATE:
         raise AssertionError(f"burgers P2 SI f32: L2rel {a32}")
     return dict(f64=dict(steps=p.num_steps, dofs=u.numel(), l1=l1, l2=l2,
                          rel_to_jax=rel, anchor_l2rel=a64, seconds=secs),
-                f32=dict(steps=q.num_steps, anchor_l2rel=a32))
+                f32=dict(steps=q.num_steps, anchor_l2rel=a32,
+                         anchor_steps=PK_BURGERS_ANCHOR_STEPS,
+                         anchor_l2rel_at_anchor_steps=a32_at))
 
 
 def time_pk_burgers(card):
@@ -2917,6 +3030,230 @@ def advection_phase(card):
                 pk_advection=run_pk_advection(card),
                 pk_burgers=run_pk_burgers(card),
                 pk_burgers_timed=time_pk_burgers(card))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: compressible Euler and Stokes/IPCS (no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+
+def _l2rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _euler_run(card, prob, nx, dtype, backend="auto"):
+    """One Euler run through euler.build(...) and euler.solve: the JAX
+    package's steps and dt, no hand-written launch, a second solve timed
+    (CUDA events) and equal to the first, the first 3 steps profiled.
+    (end state (N,4) f64 numpy, readings)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import euler
+
+    ref = EULER_STOKES_REFERENCE["euler"][f"{prob}:{nx}"]
+    name = "stencil" if backend == "auto" else backend
+    label = f"euler {prob}:{nx} {dtype} {name}"
+    t0 = time.perf_counter()
+    p = euler.build(euler.EulerConfig(problem=prob, nx=nx, dtype=dtype,
+                                      backend=backend))
+    build_s = time.perf_counter() - t0
+    U = _no_launch(label, lambda: euler.solve(p).U)
+    U2, us = _timed(lambda: euler.solve(p).U, p.num_steps)
+    nodes = int(U.shape[0])
+    if (p.num_steps, p.dt, nodes) != (ref["steps"], ref["dt"], ref["nodes"]):
+        raise AssertionError(f"{label}: {p.num_steps} steps, dt {p.dt}, "
+                             f"{nodes} nodes; the JAX package's {ref}")
+    if not torch.equal(U2, U) or not bool(torch.isfinite(U).all()):
+        raise AssertionError(f"{label}: repeated solves differ or not "
+                             "finite")
+    prof = profiled(lambda: euler.solve(p, num_steps=3), 3)
+    row = dict(nodes=nodes, steps=p.num_steps, build_s=build_s,
+               us_per_step=us, dof_steps_per_s=nodes / us * 1e6,
+               hand_written_launches=0, **prof)
+    log(f"{label} ({nodes} nodes), {p.num_steps} steps: {us:.1f} us/step, "
+        f"{nodes / us * 1e6:.4g} DOF-steps/s; "
+        f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+        f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); build "
+        f"{build_s:.2f} s ({card})")
+    return U.double().cpu().numpy(), row
+
+
+def run_euler(card):
+    """Phase 9 Euler: EULER_CELLS in f32 against their anchors (gate
+    EULER_GATE); EULER_F64 in f64 against the same anchors, the state
+    rounded to f32 (gate max(EULER_F64_GATE, SPREAD_FACTOR x the JAX
+    package's own spread)); riemann2d 128 f64 on the ELL backend against
+    the stencil run (the same gate)."""
+    out, f64 = {}, {}
+    anchor = lambda prob, nx: np.load(os.path.join(
+        REPO, "golden", f"euler_{prob}_anchor_nx{nx}.npy")).astype(
+            np.float64)
+    for prob, nx in EULER_CELLS:
+        U, row = _euler_run(card, prob, nx, "float32")
+        rel = _l2rel(U, anchor(prob, nx))
+        log(f"euler {prob}:{nx} f32: L2rel against the f64 anchor "
+            f"{rel:.4e} (gate {EULER_GATE}) ({card})")
+        if not rel < EULER_GATE:
+            raise AssertionError(f"euler {prob}:{nx} f32: L2rel {rel}")
+        out[f"{prob}:{nx} f32"] = dict(l2rel_vs_anchor=rel, **row)
+    for prob, nx in EULER_F64:
+        ref = EULER_STOKES_REFERENCE["euler"][f"{prob}:{nx}"]
+        U, row = _euler_run(card, prob, nx, "float64")
+        a = anchor(prob, nx)
+        rel = _l2rel(U.astype(np.float32).astype(np.float64), a)
+        gate = max(EULER_F64_GATE, SPREAD_FACTOR * ref["f64_noise_spread"])
+        log(f"euler {prob}:{nx} f64: L2rel against the anchor, rounded to "
+            f"f32 as it is stored, {rel:.4e} (gate {gate:.3g}; the JAX "
+            f"package's {ref['f64_l2rel_f32_rounded']:.4e}, its own spread "
+            f"{ref['f64_noise_spread']:.3e}); unrounded {_l2rel(U, a):.4e} "
+            f"(the JAX package's {ref['f64_l2rel']:.4e}) ({card})")
+        if not rel <= gate:
+            raise AssertionError(f"euler {prob}:{nx} f64: L2rel {rel}")
+        out[f"{prob}:{nx} f64"] = dict(l2rel_vs_anchor_f32_rounded=rel,
+                                       l2rel_vs_anchor=_l2rel(U, a), **row)
+        f64[(prob, nx)] = U
+    prob, nx = EULER_ELL
+    ref = EULER_STOKES_REFERENCE["euler"][f"{prob}:{nx}"]
+    U, row = _euler_run(card, prob, nx, "float64", backend="ell")
+    rel = _l2rel(U, f64[(prob, nx)])
+    gate = max(EULER_F64_GATE, SPREAD_FACTOR * ref["f64_noise_spread"])
+    log(f"euler {prob}:{nx} f64 ELL against the stencil run: L2rel "
+        f"{rel:.4e} (gate {gate:.3g}) ({card})")
+    if not rel <= gate:
+        raise AssertionError(f"euler {prob}:{nx} ELL: L2rel {rel}")
+    out[f"{prob}:{nx} f64 ell"] = dict(l2rel_vs_stencil=rel, **row)
+    return out
+
+
+def _stokes_stepper(**kw):
+    """(problem, run): run(n) marches n IPCS steps from rest with the
+    operators built once (stokes.make_step) and returns (u, p)."""
+    from conservation_fem_tpu_torch.models import stokes
+
+    p, fd = stokes.build(stokes.StokesConfig(**kw))
+    step = stokes.make_step(p, fd)
+
+    def run(n):
+        c = (p.u0, p.p0)
+        for _ in range(n):
+            c = step(c)
+        return c
+    return p, run
+
+
+def _stokes_timed(card, label, n, **kw):
+    """One Stokes configuration: n steps with no hand-written launch, n
+    more timed (CUDA events) and equal to the first, the first 3 steps
+    profiled. (u (2,N2) f64 numpy, readings)."""
+    import torch
+
+    t0 = time.perf_counter()
+    p, run = _stokes_stepper(**kw)
+    build_s = time.perf_counter() - t0
+    u, pr = _no_launch(label, lambda: run(n))
+    (u2, _), us = _timed(lambda: run(n), n)
+    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: repeated runs differ or not finite")
+    prof = profiled(lambda: run(3), 3)
+    dofs = int(u.numel() + pr.numel())
+    row = dict(dofs=dofs, steps=n, build_s=build_s, us_per_step=us,
+               dof_steps_per_s=dofs / us * 1e6, hand_written_launches=0,
+               **prof)
+    log(f"{label} ({dofs} dofs), {n} steps: {us:.1f} us/step, "
+        f"{dofs / us * 1e6:.4g} DOF-steps/s; {prof['kernels_per_step']:.1f} "
+        f"kernels/step, idle share {prof['profiled_idle']:.4f} (profiled, "
+        f"first 3 steps); build {build_s:.2f} s ({card})")
+    return u.double().cpu().numpy(), row
+
+
+def stokes_oracle(card):
+    """Phase 9 Stokes (a): the f64 reference config through stokes.solve
+    against the JAX package's Poiseuille L2 error; its first
+    STOKES_TIMED_ORACLE_STEPS steps timed."""
+    from conservation_fem_tpu_torch.models import stokes
+
+    ref = EULER_STOKES_REFERENCE["stokes"]["reference_error_l2"]
+    gate = max(STOKES_ORACLE_RTOL, SPREAD_FACTOR
+               * EULER_STOKES_REFERENCE["stokes"]["noise_spread"])
+    t0 = time.perf_counter()
+    r = _no_launch("stokes reference config",
+                   lambda: stokes.solve(cfg=stokes.StokesConfig()))
+    secs = time.perf_counter() - t0
+    rel = _rel(r.error_l2, ref)
+    _, timed = _stokes_timed(card, "stokes reference config, its first "
+                             f"{STOKES_TIMED_ORACLE_STEPS} steps",
+                             STOKES_TIMED_ORACLE_STEPS)
+    log(f"stokes reference config (nx 10, {r.num_steps} steps to T = 10, "
+        f"ell, adaptive, f64): Poiseuille L2 error {r.error_l2!r}, the JAX "
+        f"package's {ref!r}, relative {rel:.3e} (gate {gate:.3g}: "
+        f"{STOKES_ORACLE_RTOL} or {SPREAD_FACTOR} x the JAX package's own "
+        f"spread); {secs:.2f} s with the build ({card})")
+    if not rel <= gate:
+        raise AssertionError(f"stokes oracle: error {r.error_l2}, relative "
+                             f"{rel}")
+    return dict(error_l2=r.error_l2, rel_to_jax=rel, gate=gate,
+                seconds=secs, timed=timed)
+
+
+def stokes_identity(card):
+    """Phase 9 Stokes (b): lattice and lattice + multigrid against ell,
+    f64 (STOKES_IDENTITY)."""
+    out = {}
+    n = STOKES_IDENTITY["num_steps"]
+    kw = dict(STOKES_IDENTITY)
+    tag = f"stokes nx {kw['nx']} f64"
+    base, out["identity ell"] = _stokes_timed(card, f"{tag} ell", n, **kw)
+    for name, over in (("lattice", dict(backend="lattice")),
+                       ("lattice mg", dict(backend="lattice",
+                                           multigrid=True))):
+        u, row = _stokes_timed(card, f"{tag} {name}", n, **kw, **over)
+        d = float(np.abs(u - base).max())
+        log(f"{tag} {name} against ell after {n} steps: Linf {d:.3e} (gate "
+            f"{STOKES_IDENTITY_GATE}) ({card})")
+        if not d <= STOKES_IDENTITY_GATE:
+            raise AssertionError(f"stokes {name}: Linf {d} against ell")
+        out[f"identity {name}"] = dict(linf_vs_ell=d, **row)
+    return out
+
+
+def stokes_bench(card):
+    """Phase 9 Stokes (c): the five f32 variants of bench_stokes.py at
+    STOKES_BENCH_NX, each against the ell run after the same steps."""
+    out = {}
+    n = STOKES_BENCH["num_steps"]
+    for nx in STOKES_BENCH_NX:
+        kw = dict(nx=nx, **STOKES_BENCH)
+        ki = max(25, nx)
+        base, out[f"nx {nx} ell"] = _stokes_timed(
+            card, f"stokes nx {nx} f32 ell adaptive", n, **kw)
+        for name, over, gate in (
+                ("lattice adaptive", dict(backend="lattice"),
+                 STOKES_ADAPTIVE_GATE),
+                (f"lattice fixed ki={ki} kip={3 * nx}",
+                 dict(backend="lattice", krylov_iters=ki),
+                 STOKES_FIXED_GATE),
+                ("lattice mg adaptive", dict(backend="lattice",
+                                             multigrid=True),
+                 STOKES_ADAPTIVE_GATE),
+                ("lattice mg fixed ki=6 kip=6",
+                 dict(backend="lattice", multigrid=True, krylov_iters=6),
+                 STOKES_FIXED_GATE)):
+            u, row = _stokes_timed(card, f"stokes nx {nx} f32 {name}", n,
+                                   **kw, **over)
+            d = float(np.abs(u - base).max())
+            log(f"stokes nx {nx} f32 {name} against ell after {n} steps: "
+                f"Linf {d:.3e} (gate {gate}) ({card})")
+            if not d <= gate:
+                raise AssertionError(f"stokes nx {nx} {name}: Linf {d}")
+            out[f"nx {nx} {name}"] = dict(linf_vs_ell=d, **row)
+    return out
+
+
+def euler_stokes_phase(card):
+    """Phase 9: Euler, then Stokes (a) - (c); {part: readings}."""
+    return dict(euler=run_euler(card), stokes_oracle=stokes_oracle(card),
+                stokes_identity=stokes_identity(card),
+                stokes_bench=stokes_bench(card))
 
 
 def _busy_us(events):
@@ -3197,6 +3534,11 @@ def smoke(card, regs):
     advection = advection_phase(card)
     log(f"advection and Pk phase: {time.perf_counter() - t_adv:.0f} s "
         f"({card})")
+    # compressible Euler and Stokes/IPCS: no hand-written kernel either
+    t_es = time.perf_counter()
+    euler_stokes = euler_stokes_phase(card)
+    log(f"Euler and Stokes phase: {time.perf_counter() - t_es:.0f} s "
+        f"({card})")
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -3239,6 +3581,7 @@ def smoke(card, regs):
     log(f"smoke run: {time.perf_counter() - T_START:.0f} s in all")
     log(json.dumps({"ell": ell}))
     log(json.dumps({"advection": advection}))
+    log(json.dumps({"euler_stokes": euler_stokes}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -1,8 +1,9 @@
 """CLI: ``python -m conservation_fem_tpu_torch WORKLOAD [--key value ...]``.
 
-WORKLOAD is kpp, burgers, advection, advection_ho or convergence. Runs a
-workload of the port with overrides of its config (KPPConfig,
-BurgersConfig, AdvectionConfig, HOAdvectionConfig), e.g.::
+WORKLOAD is kpp, burgers, advection, advection_ho, convergence, euler or
+stokes. Runs a workload of the port with overrides of its config
+(KPPConfig, BurgersConfig, AdvectionConfig, HOAdvectionConfig,
+EulerConfig, StokesConfig), e.g.::
 
     python -m conservation_fem_tpu_torch kpp --mesh_size 8 --device cpu
     python -m conservation_fem_tpu_torch kpp --mesh_size 64 --dtype float32 \\
@@ -29,6 +30,10 @@ BurgersConfig, AdvectionConfig, HOAdvectionConfig), e.g.::
         --mesh_size 4 --device cpu
     python -m conservation_fem_tpu_torch convergence \\
         --stabilization rv_node --device cpu
+    python -m conservation_fem_tpu_torch euler --problem sod --nx 16 \\
+        --device cpu
+    python -m conservation_fem_tpu_torch stokes --nx 4 --num_steps 10 \\
+        --device cpu
 
 Runs on the card unless ``--device cpu`` is given. ``--backend ell``
 runs the ELL step on the structured mesh; ``--mesh_source`` reads a
@@ -41,7 +46,9 @@ error against the exact solution (at t = 0.5 for T = 0.5); advection and
 advection_ho the L2 error against the IC's interpolant after T;
 convergence the errors of linear advection at mesh 4, 8, 16 and 32 (T =
 1, the config's defaults but --stabilization), their least-squares slope
-in log-log and the pairwise rates.
+in log-log and the pairwise rates; euler the step count (and for sod the
+L1 density error against the exact Riemann solution); stokes the L2
+error against the Poiseuille profile.
 """
 
 from __future__ import annotations
@@ -75,7 +82,8 @@ def _parse(cfg_cls, workload, args_list):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] not in ("kpp", "burgers", "advection",
-                                   "advection_ho", "convergence"):
+                                   "advection_ho", "convergence", "euler",
+                                   "stokes"):
         print(__doc__)
         return 2
     t0 = time.perf_counter()
@@ -121,6 +129,24 @@ def main(argv=None):
         out = {"workload": "advection_ho", "degree": cfg.degree,
                "stabilization": cfg.stabilization, "L2_error_vs_ic": err,
                "device": device}
+    elif argv[0] == "euler":
+        from conservation_fem_tpu_torch.models import euler
+
+        cfg, device = _parse(euler.EulerConfig, "euler", argv[1:])
+        p = euler.build(cfg, device=device)
+        res = euler.solve(p)
+        out = {"workload": "euler", "problem": cfg.problem, "nx": cfg.nx,
+               "num_steps": res.num_steps, "device": device}
+        if cfg.problem == "sod":
+            out["L1_rho_error"] = euler.sod_density_error(
+                p, res.U, res.num_steps * res.dt)
+    elif argv[0] == "stokes":
+        from conservation_fem_tpu_torch.models import stokes
+
+        cfg, device = _parse(stokes.StokesConfig, "stokes", argv[1:])
+        res = stokes.solve(stokes.build(cfg, device=device))
+        out = {"workload": "stokes", "num_steps": res.num_steps,
+               "L2_error_vs_poiseuille": res.error_l2, "device": device}
     else:
         from conservation_fem_tpu_torch.models import linear_advection as la
         from conservation_fem_tpu_torch.utils.convergence import \

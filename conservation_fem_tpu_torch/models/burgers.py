@@ -20,9 +20,10 @@ structured mesh's Pk space, with dt = CFL min(h_CG) / degree^2 (h_CG the
 P1 projection of degree 1, ``time_step``: the JAX package's step counts
 in f64 and f32) and the Chebyshev bounds of that degree.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the ELL matvec backends banded / blocked (item 13) and lattice (item
-12).
+``ell_matvec_backend="lattice"`` applies the ELL step's operators as
+lattice-stencil planes (ops/lattice.py). Not ported yet, each raising
+NotImplementedError with its ROADMAP item: the ELL matvec backends
+banded / blocked (item 13).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ class BurgersConfig:
     ic: str = "riemann"            # riemann | bump
     residual_scheme: str = "bdf2"  # bdf2 | bdf1
     degree: int = 1                # 2, 3: the Pk ELL step
-    ell_matvec_backend: str = "gather"   # banded / blocked: item 13
+    ell_matvec_backend: str = "gather"   # | lattice; banded / blocked: item 13
     # fixed-iteration solvers (throughput paths; see KPPConfig)
     cg_iters: int | None = None
     newton_iters: int | None = None

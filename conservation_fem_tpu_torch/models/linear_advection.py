@@ -1,6 +1,6 @@
 """Linear advection u_t + w . grad u = 0: solid-body rotation on the unit
-disk (or the unit square), Crank-Nicolson in time, P1 in space, ported
-from conservation_fem_tpu/models/linear_advection.py.
+disk (or the unit square), Crank-Nicolson in time, P1 in space; the port
+of conservation_fem_tpu/models/linear_advection.py.
 
 Steps (``AdvectionConfig.stabilization``):
 

@@ -17,7 +17,11 @@ Per time step (``HyperbolicProblem.step``, the generic ELL backend):
 Every operator is an (N,K) ELL matrix over the mesh's node patches
 (ops/assembly.py, ops/spmv.py); on the card they are plain PyTorch gathers
 and segmented sums (no hand-written kernel: the JAX package runs this step
-as XLA gathers, not Pallas). The structured stencil backend
+as XLA gathers, not Pallas). ``ell_matvec_backend="lattice"`` applies them
+as lattice-stencil planes instead (ops/lattice.py; dofs on a regular
+lattice: a structured rectangle mesh, any degree): each assembled operator
+is laid out once, and its products are shifted multiply-adds between one
+scatter onto the grid and one gather back. The structured stencil backend
 (models/structured_hyperbolic.py) overrides the step. The JAX
 ``lax.scan`` time loop is a Python loop here.
 """
@@ -32,6 +36,7 @@ import torch
 
 from conservation_fem_tpu_torch import get_device
 from conservation_fem_tpu_torch.ops import assembly
+from conservation_fem_tpu_torch.ops import lattice as lat
 from conservation_fem_tpu_torch.ops import stabilization as stab
 from conservation_fem_tpu_torch.ops.bc import constrain_residual, ell_with_bc
 from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
@@ -78,8 +83,8 @@ class HyperbolicConfig:
     # JAX package
     precise_reductions: bool = False
     smooth_l: float = 0.0          # > 0: post-solve patch smoothing
-    # ELL operator application: "gather" ((N,K) gather and row sum); the
-    # JAX package's banded / blocked / lattice backends are not ported
+    # ELL operator application: "gather" ((N,K) gather and row sum) or
+    # "lattice" (ops/lattice.py planes); banded / blocked: item 13
     ell_matvec_backend: str = "gather"
     # hand-written kernels: fused whole-step kernel on the fixed path, the
     # fused adaptive CG on the adaptive path (JAX: use_pallas); stencil
@@ -104,9 +109,7 @@ def check_supported(cfg: HyperbolicConfig):
     if mv in ("banded", "blocked", "blocked2d"):
         todo.append(f"ell_matvec_backend={mv!r} (the unstructured fast "
                     "path, ROADMAP queue 1 item 13)")
-    elif mv == "lattice":
-        todo.append("ell_matvec_backend='lattice' (ROADMAP queue 1 item 12)")
-    elif mv != "gather":
+    elif mv not in ("gather", "lattice"):
         raise ValueError(f"unknown ell_matvec_backend {mv!r}")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
@@ -131,6 +134,9 @@ class HyperbolicProblem:
         self.device = get_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         points, boundary_nodes = self._host_nodes(host_mesh)
+        self._lattice = None
+        if cfg.ell_matvec_backend == "lattice":
+            self._lattice = (lat.build_plan(points), None)
         self.points = torch.as_tensor(points, dtype=self.dtype,
                                       device=self.device)
         self.flux = flux
@@ -193,8 +199,17 @@ class HyperbolicProblem:
             _ = self.K_bc
 
     def _linear_op(self, A_ell):
-        """(matvec, diag) of an assembled ELL operator: the gather backend
-        (check_supported refuses the others)."""
+        """(matvec, diag) of an assembled ELL operator: the gather SpMV, or
+        on the lattice backend its planes, laid out here (the converter
+        made at the first call)."""
+        if self._lattice is not None:
+            plan, conv = self._lattice
+            if conv is None:
+                conv = lat.ell_to_planes_fn(plan, self.mesh)
+                self._lattice = (plan, conv)
+            op = conv(A_ell)
+            return ((lambda x: lat.from_grid(plan, op(lat.to_grid(plan, x)))),
+                    ell_diag(self.mesh, A_ell))
         return ((lambda x: ell_matvec(self.mesh, A_ell, x)),
                 ell_diag(self.mesh, A_ell))
 

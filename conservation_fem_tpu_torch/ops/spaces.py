@@ -1,5 +1,5 @@
-"""Pk Lagrange function spaces (k = 1, 2, 3) on triangle meshes, ported
-from conservation_fem_tpu/ops/spaces.py (its host half is numpy, copied
+"""Pk Lagrange function spaces (k = 1, 2, 3) on triangle meshes, the port
+of conservation_fem_tpu/ops/spaces.py (its host half is numpy, copied
 here; ``device_arrays`` ships it as tensors).
 
 A FunctionSpace is host arrays:

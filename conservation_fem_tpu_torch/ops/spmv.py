@@ -15,8 +15,20 @@ from conservation_fem_tpu_torch.ops.mesh import MeshArrays
 
 
 def ell_matvec(mesh: MeshArrays, A, x):
-    """y = A @ x for A in (N,K) ELL layout."""
-    return (A * x[mesh.patch_cols]).sum(dim=1)
+    """y = A @ x for A in (N,K) ELL layout. An f32 product on the CPU sums
+    each row in slot order 0, 1, ..., K-1, as the JAX package's XLA row
+    sum does (torch's f32 row sum takes another order): the host
+    projections that set a time step (``get_nodal_h_ell``, dt = CFL min h)
+    then give the JAX package's f32 values and step counts. Elsewhere the
+    row sum is one reduction (in f64 on the CPU the same values at K = 7;
+    on the card its own order)."""
+    P = A * x[mesh.patch_cols]
+    if P.device.type != "cpu" or P.dtype != torch.float32:
+        return P.sum(dim=1)
+    y = P[:, 0]
+    for k in range(1, P.shape[1]):
+        y = y + P[:, k]
+    return y
 
 
 def ell_diag(mesh: MeshArrays, A):

@@ -105,12 +105,15 @@ def structured_data_from_numpy(d: Mapping, device, dtype):
 
 
 def _shifted(xp, di, dj, n1x, n1y):
-    return xp[1 + di:1 + di + n1x, 1 + dj:1 + dj + n1y]
+    return xp[..., 1 + di:1 + di + n1x, 1 + dj:1 + dj + n1y]
 
 
 def matvec(sd: StructuredData, coef, x2):
-    """y = A x for a 7-plane stencil operator (zero-padded boundary)."""
-    n1x, n1y = x2.shape
+    """y = A x for a 7-plane stencil operator (zero-padded boundary); x2
+    (..., nx+1, ny+1): leading dimensions are fields that share the
+    operator (Euler's four components), each formed as its own product
+    would be."""
+    n1x, n1y = x2.shape[-2:]
     xp = F.pad(x2, (1, 1, 1, 1))
     out = coef[0] * x2
     for k, (di, dj) in enumerate(OFFSETS[1:], start=1):
@@ -294,6 +297,18 @@ def rv_epsilon(sd: StructuredData, Cvel, Crv, u2, Rh2, fprime_norm,
 # ---------------------------------------------------------------------------
 # grid versions of the stabilisation library (cf. ops/stabilization.py)
 # ---------------------------------------------------------------------------
+
+
+def directional_convection_coefs(sd: StructuredData):
+    """Stencil forms of Cx, Cy with (Cd)_ab = (A/3) g_b[d] per cell
+    (cf. assembly.assemble_directional_convection; group-FEM Euler)."""
+    nx, ny = sd.nx, sd.ny
+    coefs = []
+    for d in range(2):
+        loc_t = sd.area / 3.0 * sd.grads[:, :, d]        # (2,3): type, b
+        loc = loc_t[:, None, None, None, :].expand(2, nx, ny, 3, 3)
+        coefs.append(local_to_stencil(sd, loc))
+    return coefs[0], coefs[1]
 
 
 def lumped_mass_grid(sd: StructuredData):

@@ -44,6 +44,8 @@ from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
     HyperbolicConfig, check_supported)
 from conservation_fem_tpu_torch.ops.mesh import (rectangle_cell_sizes,
                                                  rectangle_mesh_lean)
+from conservation_fem_tpu_torch.ops.mesh import \
+    rectangle_mesh as trectangle_mesh
 
 TOL = 1e-11
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,6 +154,25 @@ def test_time_step_matches_jax_at_reference_sizes(N):
                              tb.stencil_min_h(mesh, N, cells))
     assert steps == int(np.ceil(0.5 / JAX_DT[N])) == N + 1
     assert abs(dt - JAX_DT[N]) <= (1e-14 if N <= 50 else 5e-14) * JAX_DT[N]
+
+
+@pytest.mark.parametrize("N", [8, 12, 16, 20, 32])
+def test_f32_ell_step_count_matches_jax(N):
+    """burgers.build(..., host_mesh=rectangle_mesh(N)) in f32 projects
+    min h_CG through the ELL mass (ell_min_h): the JAX package's f32
+    projection lands a few ulps below 1/N and takes N + 1 steps. The row
+    sums of the ELL products must run in JAX's slot order for the port's
+    to land there too (ops/spmv.ell_matvec; a tree-ordered f32 row sum
+    lands on 1/N at N = 8, 16 and 32 and takes N steps). N = 12 and 20
+    are controls that agree either way."""
+    m = jrect((0, 0), (1, 1), nx=N).device_arrays(jnp.float32)
+    h = float(jax.jit(jget_nodal_h)(m).min())
+    jax_steps = int(np.ceil(0.5 / (0.5 * h)))
+    p = tb.build(tb.BurgersConfig(mesh_size=N, dtype="float32"),
+                 device="cpu", host_mesh=trectangle_mesh(nx=N))
+    assert p.num_steps == jax_steps == N + 1
+    if N in (8, 16, 32):
+        assert p.dt == 0.5 * h
 
 
 def test_f32_time_step_matches_jax_at_n20():
@@ -267,7 +288,6 @@ def test_build_targets_the_card_by_default():
     (dict(degree=3, ell_matvec_backend="banded"), "queue 1 item 13"),
     (dict(ell_matvec_backend="banded"), "queue 1 item 13"),
     (dict(backend="ell", ell_matvec_backend="blocked"), "queue 1 item 13"),
-    (dict(backend="ell", ell_matvec_backend="lattice"), "queue 1 item 12"),
 ])
 def test_unported_options_raise(over, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -275,11 +295,13 @@ def test_unported_options_raise(over, item):
 
 
 @pytest.mark.parametrize("over", [
-    dict(stabilization="si"), dict(smooth_l=4.0), dict(backend="ell")])
+    dict(stabilization="si"), dict(smooth_l=4.0), dict(backend="ell"),
+    dict(backend="ell", ell_matvec_backend="lattice")])
 def test_ported_options_build_and_step(over):
-    """SI, the smoothing and the ELL backend build and take the JAX
-    package's steps at mesh 4 (the mesh-12 trajectories against JAX:
-    test_reference_config_matches_jax)."""
+    """SI, the smoothing, the ELL backend and its lattice application
+    build and take the JAX package's steps at mesh 4 (the mesh-12
+    trajectories against JAX: test_reference_config_matches_jax; the
+    lattice backend's: test_torch_lattice.py)."""
     jp = jb.build(jb.BurgersConfig(mesh_size=4, T=0.25, **over))
     p = tb.build(tb.BurgersConfig(mesh_size=4, T=0.25, **over), device="cpu")
     assert p.num_steps == jp.num_steps == 2

@@ -78,10 +78,11 @@ def test_per_degree_chebyshev_bounds():
 
 
 def test_pk_options_that_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tb.build(tb.BurgersConfig(mesh_size=4, degree=2,
+    # the lattice backend is ported (test_torch_lattice.py): it builds
+    p = tb.build(tb.BurgersConfig(mesh_size=4, degree=2,
                                   ell_matvec_backend="lattice"),
                  device="cpu")
+    assert p._lattice[0].full
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         tb.build(tb.BurgersConfig(mesh_size=4, degree=2,
                                   ell_matvec_backend="blocked"),
