@@ -99,7 +99,8 @@ exits non-zero:
      unstructured bench config (IRR_FIXED), gated at L2rel <= 2e-2 against
      golden/kpp_rv_anchor_irr*.npy with no hand-written launch, timed
      (µs/step, DOF-steps/s), profiled (kernels per step, idle share), and
-     again with precise_reductions; irr140 in f64: the adaptive config
+     at irr140 and irr640 again with precise_reductions; irr140 in f64:
+     the adaptive config
      against its anchor, and RV, SI and GFEM for 5 fixed-config steps
      against the CPU (1e-10); KPP SI at mesh 64 on the stencil backend (5
      f64 steps against the CPU, the f32 bench trajectory timed, its L2rel
@@ -152,8 +153,35 @@ exits non-zero:
      and idle share (torch.profiler, the first 3 steps). The JAX package's
      readings are EULER_STOKES_REFERENCE (scripts/euler_stokes_reference.py,
      CPU). A JSON line {"euler_stokes": ...} holds these readings.
-The second-to-last line is the per-kernel JSON summary (all eight ported
-kernels, each with its bound; a step kernel's row also holds its Burgers
+ 10. the unstructured fast path (ROADMAP queue 1 item 13) on the four
+     hand-written ELL kernels of csrc/ell.cu (ell_spmv, ell_assemble,
+     p1_newton_locals, ell_rv_epsilon; no TPU kernel under them), on phase
+     7's meshes: (b) KPP RV, f32 bench config (IRR_FIXED), through
+     kpp.build(cfg, host_mesh=m).solve() with ell_matvec_backend="blocked"
+     at irr140 ... irr640 and "blocked2d" at irr140 and irr640 (the RCM
+     mesh tiled, u[slot_of_node] gated), each at L2rel <= IRR_GATE against
+     its anchor with the gather run's step count, repeated solves
+     bit-equal, the launches of each kernel (counts zeroed just before
+     the solve, read just after) equal to what the code predicts
+     (blocked_launches), µs/step in turns with the gather run on the same
+     mesh, DOF-steps/s, kernels per step and idle share (the first 3
+     steps); (a) each kernel against its plain version on the card at the
+     end states of the blocked irr140 and irr640 runs, f32 (within 1e-5 of
+     the plain version's scale) and f64 (F64_TOL), repeated launches
+     bit-equal, timed at irr640 f32 beside its plain version, its bound
+     and a PyTorch call (a torch CSR product, torch.segment_reduce), with
+     what ptxas gave each instance; (c) irr140 f64, 5 fixed-config steps,
+     rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
+     against gather on the card (1e-9); (d) P2 SI Burgers mesh 32 f64
+     blocked against phase 8's gather run through dof_perm (a chaotic run:
+     3 x the JAX package's own move under the RCM dof order), linear
+     advection rv_node f32 fixed Chebyshev on disk_mesh(1/64) blocked under
+     phase 8's gate, advection_ho P2 gfem at mesh 8 blocked against gather
+     (F64_TOL). A JSON line {"unstructured_fast_path": ...} holds these
+     readings.
+The second-to-last line is the per-kernel JSON summary (the eight ported
+TPU kernels and the four ELL kernels, each with its bound; a step
+kernel's row also holds its Burgers
 instance's numbers under "burgers"; cg_solve's row the plan, iterations
 and times of each shape it was checked at, both instances' registers and
 spills, and the launches of the Burgers reference runs); the last line is
@@ -203,6 +231,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
+# end states of phase 8's gather runs that phase 10 holds the blocked runs
+# against
+STATES = {}
 F64_TOL = 1e-11          # kernel vs plain, f64
 TILED_F64_TOL = 1e-10    # tiled kernel vs plain / single kernel, f64
 F32_TOL = 1e-4           # kernel vs plain, f32
@@ -307,6 +338,9 @@ IRR = {140: (0.005, 0.5), 224: (0.0025, 0.25), 316: (0.0018, 0.18),
 IRR_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
                  newton_linear_iters=8)
 IRR_GATE = 2e-2
+# the meshes whose run is repeated with precise_reductions (the smallest
+# and the largest: the smoke run's time limit)
+PRECISE_IRR = (140, 640)
 # make_anchor.py:139-142's window, set for the f64 runs: printed, not gated
 IRR_WINDOW = (0.2, 12.5)
 # sha256 of points (f64) and cells (int64) of each anchored mesh in RCM
@@ -2564,8 +2598,8 @@ def run_ell_paths(card, meshes):
     at L2rel <= IRR_GATE against each anchor, min and max beside the
     anchor's, no hand-written launch, µs/step and DOF-steps/s (CUDA events
     around a solve after the first), kernels per step and idle share
-    (torch.profiler, the first 3 steps), and the same run with
-    precise_reductions, timed the same way.
+    (torch.profiler, the first 3 steps), and at PRECISE_IRR the same run
+    with precise_reductions, timed the same way.
     Returns {nx: readings}."""
     from conservation_fem_tpu_torch.models import kpp
 
@@ -2579,10 +2613,12 @@ def run_ell_paths(card, meshes):
         u, counts, us = _ell_run(p, label)
         rel, lo, hi, rlo, rhi = _irr_gate(u, nx, label)
         prof = idle_profiled(p, steps=3)
-        q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
-                      host_mesh=m)
-        uq, _, usq = _ell_run(q, label + " precise_reductions")
-        relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
+        relq = usq = None
+        if nx in PRECISE_IRR:
+            q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
+                          host_mesh=m)
+            uq, _, usq = _ell_run(q, label + " precise_reductions")
+            relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
         n = m.n_nodes
         out[nx] = dict(nodes=n, steps=p.num_steps, l2rel=rel, u_min=lo,
                        u_max=hi, anchor_min=rlo, anchor_max=rhi,
@@ -2595,9 +2631,9 @@ def run_ell_paths(card, meshes):
             f"{IRR_WINDOW}, not gated); hand-written launches 0; {us:.1f} "
             f"us/step, {n / us * 1e6:.4g} DOF-steps/s; "
             f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
-            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
-            f"precise_reductions: L2rel {relq:.4e}, {usq:.1f} us/step "
-            f"({card})")
+            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps)"
+            + ("" if relq is None else f"; precise_reductions: L2rel "
+               f"{relq:.4e}, {usq:.1f} us/step") + f" ({card})")
     return out
 
 
@@ -2886,6 +2922,8 @@ def run_advection_f32(card):
     rel = float((u.double() - u64).norm() / u64.norm())
     err = float(la.l2_error_vs_ic(p, u))
     prof = idle_profiled(p, steps=3, solve=la.solve)
+    STATES["advection_f64"] = (m, u64)
+    STATES["advection_f32_us"] = us
     nodes = m.n_nodes
     log(f"{label} ({nodes} nodes), {p.num_steps} steps: L2rel {rel:.4e} "
         f"against the card's f64 adaptive end state (gate {ADV_F32_GATE}); "
@@ -2949,6 +2987,7 @@ def run_pk_burgers(card, device="cuda"):
     t0 = time.perf_counter()
     u = _no_launch("burgers P2 SI mesh 32 f64", lambda: p.solve().u)
     secs = time.perf_counter() - t0
+    STATES["pk_burgers_f64"] = (u, secs)
     t = p.num_steps * p.dt
     l1 = float(burgers.l1_error_vs_exact(p, u, t))
     l2 = float(burgers.l2_error_vs_exact(p, u, t))
@@ -3466,6 +3505,459 @@ def against(other, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the unstructured fast path (banded, blocked, blocked2d) on the
+# hand-written ELL kernels (csrc/ell.cu)
+# ---------------------------------------------------------------------------
+
+# name: (source, the JAX function it stands in for; no pallas_call)
+ELL_KERNELS = {
+    "ell_spmv": ("ell.cu", "ops/blocked.py:564 (spmv; ops/banded.py:64 "
+                           "banded_matvec; no pallas_call)"),
+    "ell_assemble": ("ell.cu", "ops/blocked.py:641 (assemble_matrix_"
+                               "components; :611 scatter_components; no "
+                               "pallas_call)"),
+    "p1_newton_locals": ("ell.cu", "ops/blocked.py:741 (conv_plus_locals_"
+                                   "rhs_components; :775, :789; no "
+                                   "pallas_call)"),
+    "ell_rv_epsilon": ("ell.cu", "ops/blocked.py:876 (rv_epsilon_nonlinear; "
+                                 "no pallas_call)"),
+}
+# the meshes of each backend's KPP RV f32 bench-config runs (IRR, IRR_FIXED)
+BLOCKED_PATHS = {"blocked": (140, 224, 316, 448, 640),
+                 "blocked2d": (140, 640)}
+BLOCKED_VS_GATHER_F64 = 1e-9
+ELL_F32_RTOL = 1e-5          # a kernel against its plain version, f32
+ELL_KERNEL_MESHES = (140, 640)
+# operations a P1 cell of kernel C does (Dunavant degree 4, 6 points; the
+# flux's own operations per point, FLUX_POINT_OPS, added): the gradient
+# 12, per point u_q 5, f' and f'' 2, conv 3, f'' . grad u 3, the rhs 9
+# and in Jacobian mode the 9 locals 63; K_eps 40, the rhs 24, the
+# Jacobian's assembly 45
+OPS_LOCALS_RHS = 12 + 6 * 22 + 40 + 24
+OPS_LOCALS_JAC = OPS_LOCALS_RHS + 6 * 63 + 45
+
+
+def blocked_launches(cfg, steps, flux="kpp"):
+    """The hand-written launches the blocked P1 step makes in ``steps``
+    steps of cfg (HyperbolicConfig fields; fixed-iteration solvers): per
+    step, N(u_n) (C, B) and the mass projection (A: 1 + cg_iters) under
+    RV, the RV kernel (D), NK(u_n) (C, B), each Newton residual (A, C, B)
+    and each linearisation (C, B), and the inner products (A, constrained:
+    2 a BiCGStab iteration, 1 a Chebyshev one)."""
+    from conservation_fem_tpu_torch.ops import _build
+
+    rv = cfg.stabilization == "rv"
+    res = 1 + cfg.newton_iters - (0 if cfg.newton_final_residual else 1)
+    jac = 1 if cfg.modified_newton else cfg.newton_iters
+    lin = 2 if cfg.inner_solver == "bicgstab" else 1
+    spmv = ((1 + cfg.cg_iters) if rv else 0) + res \
+        + cfg.newton_iters * lin * cfg.newton_linear_iters
+    loc = (1 if rv else 0) + 1 + res + jac
+    want = {"ell_spmv": spmv, "ell_assemble": loc,
+            _build.launch_key("p1_newton_locals", flux): loc}
+    if rv:
+        want[_build.launch_key("ell_rv_epsilon", flux)] = 1
+    return {k: v * steps for k, v in want.items()}
+
+
+def _blocked_cfg(kpp, nx, backend, **kw):
+    dt, T = IRR[nx]
+    return kpp.KPPConfig(**{**dict(dtype="float32", dt=dt, T=T,
+                                   backend="ell", ell_matvec_backend=backend,
+                                   **IRR_FIXED), **kw})
+
+
+def run_blocked_paths(card, meshes):
+    """(b) KPP RV, f32 bench config, on the blocked backend at irr140 ...
+    irr640 and on blocked2d at irr140 and irr640 (the RCM mesh tiled,
+    gated through slot_of_node): L2rel <= IRR_GATE against each anchor,
+    the gather run's step count, repeated solves bit-equal, the launch
+    counts of each kernel against blocked_launches; µs/step (CUDA events)
+    in turns with the gather run on the same mesh (blocked, gather,
+    blocked), DOF-steps/s, kernels per step and idle share
+    (torch.profiler, the first 3 steps). Returns (readings, {nx: (p, u)}
+    of the blocked runs at ELL_KERNEL_MESHES, irr640's counts)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops.tiling import tile_mesh
+
+    out, states, main_counts = {}, {}, None
+    for backend, nxs in BLOCKED_PATHS.items():
+        for nx in nxs:
+            m, slot = meshes[nx], None
+            t0 = time.perf_counter()
+            if backend == "blocked2d":
+                m, slot = tile_mesh(m)
+            p = kpp.build(_blocked_cfg(kpp, nx, backend), host_mesh=m)
+            setup = time.perf_counter() - t0
+            g = kpp.build(_blocked_cfg(kpp, nx, "gather"),
+                          host_mesh=meshes[nx])
+            label = f"{backend} irr{nx} f32 bench config"
+            if p.num_steps != g.num_steps:
+                raise AssertionError(f"{label}: {p.num_steps} steps, gather "
+                                     f"{g.num_steps}")
+            p._force_lazy_operators()     # M, h_cg: set-up, not steps
+            u, counts = _counted_solve(p)
+            want = blocked_launches(p.cfg, p.num_steps)
+            if counts != want:
+                raise AssertionError(f"{label}: launched {counts}, the code "
+                                     f"predicts {want}")
+            un = u if slot is None else u[torch.as_tensor(slot,
+                                                          device=u.device)]
+            rel, lo, hi, _, _ = _irr_gate(un, nx, label)
+            # timed in turns, blocked, gather, blocked; each blocked solve
+            # repeats the counted one's bits
+            us = {}
+            for name, q in ((backend, p), ("gather", g), (backend, p)):
+                got, t = _timed(lambda: q.solve().u, q.num_steps)
+                us.setdefault(name, []).append(t)
+                if q is p and not torch.equal(got, u):
+                    raise AssertionError(f"{label}: repeated solves differ")
+            us = {k: sum(v) / len(v) for k, v in us.items()}
+            prof = idle_profiled(p, steps=3)
+            n = int(p.plan.row_valid.sum()) if slot is not None else m.n_nodes
+            per_step = {k: v / p.num_steps for k, v in counts.items()}
+            out[f"{backend}_irr{nx}"] = dict(
+                nodes=n, slots=m.n_nodes, steps=p.num_steps, l2rel=rel,
+                u_min=lo, u_max=hi, us_per_step=us[backend],
+                gather_us_per_step=us["gather"],
+                speedup_vs_gather=us["gather"] / us[backend],
+                dof_steps_per_s=n / us[backend] * 1e6,
+                launches_per_step=per_step, setup_s=setup,
+                bandwidth=p.plan.B, **prof)
+            log(f"{label} ({n} nodes"
+                + (f" in {m.n_nodes} slots, window k {(p.plan.rw - 1) // 2}"
+                   if slot is not None else f", bandwidth {p.plan.B}")
+                + f"), {p.num_steps} steps: L2rel {rel:.4e} against "
+                f"golden/kpp_rv_anchor_irr{nx}.npy (gate {IRR_GATE}); u in "
+                f"[{lo:.4f}, {hi:.4f}]; repeated solve bit-equal; launches "
+                f"per step {per_step} (as predicted); {us[backend]:.1f} "
+                f"us/step against gather {us['gather']:.1f} in turns "
+                f"({us['gather'] / us[backend]:.3f} x), "
+                f"{n / us[backend] * 1e6:.4g} DOF-steps/s; "
+                f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+                f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
+                f"set-up {setup:.1f} s ({card})")
+            if backend == "blocked" and nx in ELL_KERNEL_MESHES:
+                states[nx] = (p, u)
+            if backend == "blocked" and nx == 640:
+                main_counts = counts
+    return out, states, main_counts
+
+
+def _ell_bounds(n, K, nnz, M, s):
+    """{kernel: (bytes, operations)} of one call at these sizes (each input
+    read once, each output written once; s the float size): A constrained
+    (values, int32 columns, x, the bc mask, y; a multiply-add per stored
+    entry of the patches), B matrix mode (9M locals and their int32 order,
+    N K + 1 offsets, the N K outputs; an add per local), C Jacobian mode
+    (cells, area, grads, u, eps in; 3 + 9 locals out), D (columns, u_n,
+    Rh, h, the abs term; eps out; 3 compares per entry, 10 per node)."""
+    return {
+        "ell_spmv": (n * K * (s + 4) + n * (2 * s + 1), 2 * nnz),
+        "ell_assemble": (9 * M * (s + 4) + (n * K + 1) * 4 + n * K * s,
+                         9 * M),
+        "p1_newton_locals": (3 * M * 4 + 7 * M * s + 2 * n * s
+                             + 12 * M * s, OPS_LOCALS_JAC * M),
+        "ell_rv_epsilon": (n * K * 4 + 4 * n * s + s, 3 * nnz + 10 * n),
+    }
+
+
+def check_ell_kernels(states, regs, card):
+    """(a) Each ELL kernel against its plain version on the card, at the
+    operands of the blocked runs' end states at irr140 and irr640 (f32, and
+    the same state in f64 on the f64 problem): A constrained on the
+    assembled Newton Jacobian, B on its locals (matrix mode) and the rhs
+    locals (vector mode), C in both modes, D with the residual N(u) as Rh.
+    Gates: f64 within F64_TOL, f32 within ELL_F32_RTOL of the plain
+    version's scale; times on CUDA events (kernel, plain version, one
+    PyTorch call where there is one: a torch CSR product for A,
+    torch.segment_reduce over the sorted locals for B), each beside its
+    bound, and what ptxas gave each instance (registers and spills,
+    printed: these memory-bound kernels are not held to the band kernels'
+    no-spill rule). Returns {kernel: row}."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops import assembly, blocked
+    from conservation_fem_tpu_torch.ops import ell_kernels as ek
+
+    rows = {k: dict(errs={}, times={}) for k in ELL_KERNELS}
+    for nx, (p32, u32) in states.items():
+        p64 = kpp.build(_blocked_cfg(kpp, nx, "blocked", dtype="float64"),
+                        host_mesh=p32.host_mesh)
+        for dn, p, u in (("f32", p32, u32), ("f64", p64, u32.double())):
+            m, plan, flux = p.mesh, p.plan, kpp.FLUX
+            n, K = m.patch_cols.shape
+            M = m.cells.shape[0]
+            nnz = int(m.patch_mask.sum())
+            s = u.element_size()
+            rh = blocked.conv_rhs_components(plan, u, flux)
+            h = p.h_cg
+            abs_term = (u - u.mean()).abs().max()
+            eps = ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, h, abs_term, flux)
+            half = 0.5 * p.dt
+            rhs, jac = ek.p1_newton_locals(m, u, eps, half, flux, True)
+            J = ek.assemble_matrix(m, jac)
+            bc = m.boundary_mask
+            cases = {
+                "ell_spmv": (lambda: ek.ell_spmv(m, J, u, bc),
+                             lambda: ek.ell_spmv_plain(m, J, u, bc)),
+                "ell_assemble": (lambda: ek.assemble_matrix(m, jac),
+                                 lambda: assembly.scatter_matrix(m, jac)),
+                "p1_newton_locals": (
+                    lambda: torch.cat([t.reshape(-1) for t in
+                                       ek.p1_newton_locals(m, u, eps, half,
+                                                           flux, True)]),
+                    lambda: torch.cat([t.reshape(-1) for t in
+                                       ek.p1_newton_locals_plain(
+                                           m, u, eps, half, flux, True)])),
+                "ell_rv_epsilon": (
+                    lambda: ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, h,
+                                              abs_term, flux),
+                    lambda: ek.ell_rv_epsilon_plain(m, 0.5, 4.0, u, rh, u,
+                                                    h, abs_term, flux)),
+            }
+            extra = {
+                "ell_assemble": (lambda: ek.assemble_vector(m, rhs),
+                                 lambda: assembly.scatter_vector(m, rhs)),
+                "p1_newton_locals": (
+                    lambda: ek.p1_newton_locals(m, u, eps, half, flux)[0],
+                    lambda: ek.p1_newton_locals_plain(m, u, eps, half,
+                                                      flux, False)[0]),
+            }
+            # what is timed: one call of each (the checks above also
+            # concatenate C's two outputs)
+            timed = dict(cases, p1_newton_locals=(
+                lambda: ek.p1_newton_locals(m, u, eps, half, flux, True),
+                lambda: ek.p1_newton_locals_plain(m, u, eps, half, flux,
+                                                  True)))
+            bounds = _ell_bounds(n, K, nnz, M, s)
+            for name, (kern, plain) in cases.items():
+                errs = []
+                for k_fn, p_fn in [(kern, plain)] + (
+                        [extra[name]] if name in extra else []):
+                    a, b = k_fn(), p_fn()
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(b.abs().max()))
+                    e = max_err(a, b)
+                    tol = (F64_TOL if dn == "f64" else ELL_F32_RTOL) * scale
+                    if not e <= tol:
+                        raise AssertionError(f"{name} irr{nx} {dn}: kernel "
+                                             f"off its plain version by {e}")
+                    if not torch.equal(k_fn(), a):
+                        raise AssertionError(f"{name} irr{nx} {dn}: repeated "
+                                             "launches differ")
+                    errs.append(e)
+                rows[name]["errs"][f"irr{nx} {dn}"] = max(errs)
+                if nx != max(ELL_KERNEL_MESHES) or dn != "f32":
+                    continue
+                t = _alternated(dict(zip(("kernel", "plain"),
+                                         timed[name])), 20)
+                lib = None
+                if name == "ell_spmv":
+                    mask = m.patch_mask
+                    crow = torch.zeros(n + 1, dtype=torch.int64,
+                                       device=u.device)
+                    crow[1:] = torch.cumsum(mask.sum(1), 0)
+                    csr = torch.sparse_csr_tensor(
+                        crow, m.patch_cols[mask], J[mask], (n, n))
+                    if not max_err(csr @ u, ek.ell_spmv(m, J, u)) \
+                            <= ELL_F32_RTOL * max(1.0, float(u.abs().max())):
+                        raise AssertionError("CSR yardstick differs")
+                    lib = cuda_ms(lambda: csr @ u, 20)
+                elif name == "ell_assemble":
+                    flat = jac.reshape(-1)[m.mat_perm]
+                    lib = cuda_ms(lambda: torch.segment_reduce(
+                        flat, "sum", lengths=m.mat_lens, unsafe=True), 20)
+                b_ms, b_by = bound(*bounds[name], dn)
+                rows[name]["times"] = dict(
+                    ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib,
+                    bytes=bounds[name][0], operations=bounds[name][1])
+                log(f"{name} irr{nx} f32 (N {n}, K {K}, cells {M}): kernel "
+                    f"{t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, "
+                    f"library {lib if lib is None else round(lib, 5)} ms, "
+                    f"bound {b_ms:.5f} ms ({b_by}: {bounds[name][0]} bytes, "
+                    f"{bounds[name][1]} operations); max|kernel - plain| "
+                    f"{rows[name]['errs']} ({card})")
+    out = {}
+    for name, r in rows.items():
+        ptxas = {}
+        for dn in ("f32", "f64"):
+            for tag in ("", " burgers"):
+                info = regs.get(f"{name}{tag} {dn}")
+                if info is not None:
+                    ptxas[f"{name}{tag} {dn}"] = info
+        if not ptxas:
+            raise AssertionError(f"{name}: ptxas reported nothing")
+        e64 = max(v for k, v in r["errs"].items() if k.endswith("f64"))
+        e32 = max(v for k, v in r["errs"].items() if k.endswith("f32"))
+        out[name] = dict(max_abs_err=e64, err_case="f64, irr140 and irr640",
+                         max_abs_err_f32=e32, **r["times"],
+                         timed_case="irr640 f32, the blocked run's end "
+                                    "state", ptxas=ptxas)
+        log(f"{name} ptxas: " + json.dumps(ptxas))
+    return out
+
+
+def run_blocked_f64(meshes):
+    """(c) irr140, 5 steps of the f64 fixed config, rv and si, blocked:
+    the card against the CPU (F64_CARD_VS_CPU) and against the gather
+    backend on the card (BLOCKED_VS_GATHER_F64)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+
+    m = meshes[140]
+    dt = IRR[140][0]
+    out = {}
+    for stab in ("rv", "si"):
+        cfg = kpp.KPPConfig(dt=dt, T=5 * dt, backend="ell",
+                            ell_matvec_backend="blocked",
+                            **_ell_f64_fixed(stab))
+        uc = kpp.build(cfg, host_mesh=m).solve().u
+        ug = kpp.build(dataclasses.replace(cfg, ell_matvec_backend="gather"),
+                       host_mesh=m).solve().u
+        torch.cuda.synchronize()
+        ref = kpp.build(cfg, host_mesh=m, device="cpu").solve().u
+        e, eg = max_err(uc.cpu(), ref), max_err(uc, ug)
+        log(f"blocked irr140 f64 fixed config {stab}, 5 steps: max|card - "
+            f"CPU| = {e:.3e} (gate {F64_CARD_VS_CPU}); max|blocked - gather| "
+            f"on the card = {eg:.3e} (gate {BLOCKED_VS_GATHER_F64})")
+        if not (e <= F64_CARD_VS_CPU and eg <= BLOCKED_VS_GATHER_F64):
+            raise AssertionError(f"blocked irr140 f64 {stab}: {e}, {eg}")
+        out[stab] = dict(card_vs_cpu=e, blocked_vs_gather=eg)
+    return out
+
+
+def _some_launches(label, fn, kernels):
+    """fn() with the launch counts zeroed just before it and read just
+    after; raises unless each of ``kernels`` launched."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+
+    _build.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    c = dict(_build.launches)
+    if any(not c.get(k) for k in kernels):
+        raise AssertionError(f"{label}: launched {c}, expected {kernels}")
+    return out, c
+
+
+def run_blocked_pk_advection(card):
+    """(d) P2 SI Burgers mesh 32 f64 (PK_BURGERS) on the blocked backend
+    against phase 8's gather run through dof_perm, and its L1 and L2
+    errors against the JAX package's on the same RCM dof order (a chaotic
+    run: gated at SPREAD_FACTOR x the JAX package's own move under that
+    renumbering);
+    linear advection rv_node f32 fixed Chebyshev on disk_mesh(1/64)
+    (ADV_FIXED) under phase 8's gate against its f64 end state, through
+    the RCM order, timed; advection_ho P2 gfem at mesh 8, f64, T = 1,
+    blocked against gather (F64_TOL)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import advection_ho as ho
+    from conservation_fem_tpu_torch.models import burgers
+    from conservation_fem_tpu_torch.models import linear_advection as la
+    from conservation_fem_tpu_torch.ops.mesh import rcm_permutation
+
+    out = {}
+    ug, secs_g = STATES["pk_burgers_f64"]
+    p = burgers.build(burgers.BurgersConfig(mesh_size=32,
+                                            ell_matvec_backend="blocked",
+                                            **PK_BURGERS))
+    t0 = time.perf_counter()
+    u, c = _some_launches("burgers P2 SI blocked", lambda: p.solve().u,
+                          ("ell_spmv", "ell_assemble"))
+    secs = time.perf_counter() - t0
+    e = max_err(u[torch.as_tensor(p.dof_perm, device=u.device)], ug)
+    # a chaotic run in the JAX package itself: its own run on the RCM dof
+    # numbering (the blocked backend's) moves the state by rcm_max_abs
+    # and the errors by the spread of run_pk_burgers; both gated at
+    # SPREAD_FACTOR x those
+    ref = ADVECTION_REFERENCE["burgers_p2si"]
+    t = p.num_steps * p.dt
+    l1 = float(burgers.l1_error_vs_exact(p, u, t))
+    l2 = float(burgers.l2_error_vs_exact(p, u, t))
+    rel = max(_rel(l1, ref["rcm_l1"]), _rel(l2, ref["rcm_l2"]))
+    spread = max(_rel(ref["rcm_l1"], ref["l1"]), _rel(ref["rcm_l2"],
+                                                     ref["l2"]))
+    gate_u = SPREAD_FACTOR * ref["rcm_max_abs"]
+    log(f"burgers P2 SI mesh 32 f64 blocked, {p.num_steps} steps: "
+        f"max|blocked[dof_perm] - gather| = {e:.3e} (gate {gate_u:.3g}: "
+        f"{SPREAD_FACTOR} x {ref['rcm_max_abs']:.3e}, the JAX package's own "
+        f"move under the RCM dof order); L1 {l1!r}, L2 {l2!r}, relative to "
+        f"the JAX package's on the RCM order {rel:.3e} (gate "
+        f"{SPREAD_FACTOR * spread:.3g}); {secs:.2f} s against gather "
+        f"{secs_g:.2f} s; launches {c} ({card})")
+    if not (e <= gate_u and rel <= SPREAD_FACTOR * spread):
+        raise AssertionError(f"burgers P2 SI blocked: {e}, {rel}")
+    out["pk_burgers_p2si_mesh32_f64"] = dict(
+        blocked_vs_gather=e, l1=l1, l2=l2, rel_to_jax_rcm=rel,
+        seconds=secs, gather_seconds=secs_g, launches=c)
+    m, u64 = STATES["advection_f64"]
+    cfg = la.AdvectionConfig(mesh_size=ADV_F32_MESH, stabilization="rv_node",
+                             dtype="float32", ell_matvec_backend="blocked",
+                             **ADV_FIXED)
+    q = la.build(cfg, host_mesh=m)
+    label = f"advection rv_node f32 fixed Chebyshev mesh {ADV_F32_MESH} " \
+            "blocked"
+    uq, c = _some_launches(label, lambda: la.solve(q).u,
+                           ("ell_spmv", "ell_assemble"))
+    uq2, us = _timed(lambda: la.solve(q).u, q.num_steps)
+    if not torch.equal(uq2, uq):
+        raise AssertionError(f"{label}: repeated solves differ")
+    perm = torch.as_tensor(rcm_permutation(m), device=uq.device)
+    rel = float((uq.double()[perm] - u64).norm() / u64.norm())
+    prof = idle_profiled(q, steps=3, solve=la.solve)
+    log(f"{label}, {q.num_steps} steps: L2rel {rel:.4e} against the card's "
+        f"f64 gather end state (gate {ADV_F32_GATE}); {us:.1f} us/step "
+        f"(gather {STATES['advection_f32_us']:.1f}, phase 8), "
+        f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
+        f"{prof['profiled_idle']:.4f}; launches per step "
+        f"{ {k: v / q.num_steps for k, v in c.items()} } ({card})")
+    if not rel <= ADV_F32_GATE:
+        raise AssertionError(f"{label}: L2rel {rel}")
+    out["advection_rv_node_f32_mesh64"] = dict(
+        l2rel_vs_f64=rel, us_per_step=us,
+        gather_us_per_step=STATES["advection_f32_us"], **prof)
+    # gfem: P2 rv at mesh 8 to T = 1 is chaotic in the JAX package itself
+    # (its blocked run leaves its gather run by 7.2e-3, CPU f64)
+    kw = dict(mesh_size=8, degree=2, stabilization="gfem")
+    pg, ugh, _ = ho.run(ho.HOAdvectionConfig(**kw))
+    (pb, ub, _), c = _some_launches(
+        "advection_ho P2 gfem blocked",
+        lambda: ho.run(ho.HOAdvectionConfig(**kw,
+                                            ell_matvec_backend="blocked")),
+        ("ell_spmv", "ell_assemble"))
+    e = max_err(ub[torch.as_tensor(pb.space_perm, device=ub.device)], ugh)
+    log(f"advection_ho P2 gfem mesh 8 f64 T = 1 blocked, {pb.num_steps} "
+        f"steps: max|blocked[perm] - gather| = {e:.3e} (gate {F64_TOL})")
+    if not e <= F64_TOL:
+        raise AssertionError(f"advection_ho blocked: {e}")
+    out["advection_ho_p2_gfem_mesh8_f64"] = dict(blocked_vs_gather=e)
+    return out
+
+
+def blocked_phase(card, meshes, regs):
+    """Phase 10: (b), (a), (c), (d). Returns (readings, kernel rows,
+    irr640's launch counts)."""
+    t0 = time.perf_counter()
+    paths, states, counts = run_blocked_paths(card, meshes)
+    rows = check_ell_kernels(states, regs, card)
+    states.clear()
+    out = dict(paths=paths, f64=run_blocked_f64(meshes),
+               pk_advection=run_blocked_pk_advection(card))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"unstructured fast path phase: {out['seconds']:.0f} s ({card})")
+    return out, rows, counts
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -3527,7 +4019,6 @@ def smoke(card, regs):
     ell = dict(irr=run_ell_paths(card, meshes),
                irr140_f64=run_ell_f64(meshes), kpp_si_mesh64=run_kpp_si(card),
                burgers=run_burgers_si(card))
-    meshes.clear()
     log(f"ELL and stabilisation phase: {time.perf_counter() - t_ell:.0f} s")
     # linear advection and the Pk layer: no hand-written kernel either
     t_adv = time.perf_counter()
@@ -3539,6 +4030,15 @@ def smoke(card, regs):
     euler_stokes = euler_stokes_phase(card)
     log(f"Euler and Stokes phase: {time.perf_counter() - t_es:.0f} s "
         f"({card})")
+    # the unstructured fast path on the hand-written ELL kernels, on phase
+    # 7's meshes
+    fast, ell_rows, ell_counts = blocked_phase(card, meshes, regs)
+    meshes.clear()
+    summary.update(ell_rows)
+    for name in ELL_KERNELS:
+        counts[name] = ell_counts.get(name, 0)
+        runs[name] = "blocked irr640 f32 bench config (KPP RV), " \
+                     "the unstructured main path"
     # name: (source, TPU kernel it replaces)
     sources = {
         "stencil_matvec": ("stencil.cu", "ops/pallas_stencil.py:40"),
@@ -3549,6 +4049,7 @@ def smoke(card, regs):
         "tiled_rv_step": ("tiled_step.cu", "ops/pallas_tiled.py:120"),
         "tiled_rv_step_block": ("tiled_step.cu", "ops/pallas_tiled.py:135"),
         "fused_rv_block_step": ("block_step.cu", "ops/pallas_fused.py:491"),
+        **ELL_KERNELS,
     }
     rows = []
     for name, (src, tpu) in sources.items():
@@ -3582,6 +4083,7 @@ def smoke(card, regs):
     log(json.dumps({"ell": ell}))
     log(json.dumps({"advection": advection}))
     log(json.dumps({"euler_stokes": euler_stokes}))
+    log(json.dumps({"unstructured_fast_path": fast}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -19,6 +19,12 @@ EulerConfig, StokesConfig), e.g.::
         --device cpu
     python -m conservation_fem_tpu_torch kpp --mesh_source golden/kpp_rv8.h5 \\
         --T 0.05 --device cpu
+    python -m conservation_fem_tpu_torch kpp --backend ell \\
+        --ell_matvec_backend blocked --mesh_size 8 --T 0.05 --device cpu
+    python -m conservation_fem_tpu_torch kpp --backend ell \\
+        --ell_matvec_backend blocked2d --mesh_size 32 --T 0.02 --device cpu
+    python -m conservation_fem_tpu_torch burgers --degree 2 \\
+        --ell_matvec_backend blocked --mesh_size 8 --T 0.1 --device cpu
     python -m conservation_fem_tpu_torch burgers --stabilization si \\
         --smooth_l 4 --backend ell --mesh_size 12 --device cpu
     python -m conservation_fem_tpu_torch burgers --degree 2 \\
@@ -36,7 +42,12 @@ EulerConfig, StokesConfig), e.g.::
         --device cpu
 
 Runs on the card unless ``--device cpu`` is given. ``--backend ell``
-runs the ELL step on the structured mesh; ``--mesh_source`` reads a
+runs the ELL step on the structured mesh; ``--ell_matvec_backend``
+(gather, lattice, banded, blocked, blocked2d; advection: gather, banded,
+blocked; advection_ho: gather, blocked) picks how it applies and
+assembles its operators (banded and blocked RCM-order a mesh built here,
+blocked2d tiles it; the hand-written ELL kernels on the card);
+``--mesh_source`` reads a
 DOLFINx .h5 mesh (KPP, the ELL backend, needs h5py). Other meshes
 (ops/mesh.irregular_mesh, disk_mesh) go to ``kpp.build`` or
 ``burgers.build`` as ``host_mesh=``. Prints a one-line JSON result. As in
@@ -97,6 +108,7 @@ def main(argv=None):
         ell = cfg.backend == "ell" or cfg.mesh_source != "structured"
         out = {"workload": "kpp", "stabilization": cfg.stabilization,
                "backend": "ell" if ell else "stencil",
+               "ell_matvec_backend": cfg.ell_matvec_backend,
                "n_nodes": int(u.numel()),
                "mesh_size": cfg.mesh_size, "num_steps": res.num_steps,
                "device": device, "u_min": float(u.min()),

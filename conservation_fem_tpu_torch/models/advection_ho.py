@@ -16,8 +16,11 @@ global normalisation or SI.
     circle, isoparametric boundary cells.
 
 The Chebyshev bounds of the fixed-iteration solvers default per degree
-(the Jacobi-preconditioned spectra widen with it). The JAX package's
-blocked backend is not ported (ROADMAP queue 1 item 13).
+(the Jacobi-preconditioned spectra widen with it). ``ell_matvec_backend=
+"blocked"`` permutes the dofs by RCM (ops/spaces.rcm_dof_permutation; the
+solution then in the permuted numbering, ``u[problem.space_perm]`` the
+native one, as in the JAX package) and runs the products and assemblies on
+the hand-written ELL kernels (ops/blocked.py, ops/blocked_pk.py).
 """
 
 from __future__ import annotations
@@ -30,11 +33,15 @@ import torch
 from conservation_fem_tpu_torch import get_device
 from conservation_fem_tpu_torch.models import linear_advection as la
 from conservation_fem_tpu_torch.ops import assembly_pk as apk
+from conservation_fem_tpu_torch.ops import blocked
+from conservation_fem_tpu_torch.ops import blocked_pk as bpk
 from conservation_fem_tpu_torch.ops import stabilization as stab
 from conservation_fem_tpu_torch.ops.bc import ell_with_bc
 from conservation_fem_tpu_torch.ops.krylov import cg, jacobi_preconditioner
 from conservation_fem_tpu_torch.ops.mesh import Mesh, disk_mesh, rectangle_mesh
-from conservation_fem_tpu_torch.ops.spaces import FunctionSpace, build_space
+from conservation_fem_tpu_torch.ops.spaces import (FunctionSpace, build_space,
+                                                   permute_dofs,
+                                                   rcm_dof_permutation)
 from conservation_fem_tpu_torch.ops.spmv import ell_diag, ell_matvec
 
 STABILIZATIONS = ("gfem", "rv", "rv_simple", "si")
@@ -62,7 +69,7 @@ class HOAdvectionConfig:
     # project the disk's boundary dofs onto the unit circle (isoparametric
     # boundary cells)
     curved_boundary: bool = False
-    # "gather"; the JAX package's "blocked" is not ported (item 13)
+    # "gather" or "blocked" (RCM dof order, the ELL kernels)
     ell_matvec_backend: str = "gather"
     # fixed-iteration solvers (None = adaptive)
     cg_iters: int | None = None
@@ -70,7 +77,8 @@ class HOAdvectionConfig:
     inner_solver: str = "bicgstab"   # bicgstab | cheby
     cheby_mass_bounds: tuple | None = None   # None: MASS_BOUNDS[degree]
     cheby_cn_bounds: tuple | None = None     # None: CN_BOUNDS[degree]
-    # the JAX package's blocked backend only (not ported: item 13)
+    # blocked backend: the JAX package's quality flag, recorded (the port
+    # computes f32 at f32 either way)
     blocked_precise: bool = True
     dtype: str = "float64"
 
@@ -86,11 +94,7 @@ def check_supported(cfg: HOAdvectionConfig):
         raise ValueError(f"unknown domain {cfg.domain!r}")
     if cfg.inner_solver not in ("bicgstab", "cheby"):
         raise ValueError(f"unknown inner_solver {cfg.inner_solver!r}")
-    if cfg.ell_matvec_backend == "blocked":
-        raise NotImplementedError(
-            "not ported yet: ell_matvec_backend='blocked' (the blocked Pk "
-            "fast path, ROADMAP queue 1 item 13)")
-    if cfg.ell_matvec_backend != "gather":
+    if cfg.ell_matvec_backend not in ("gather", "blocked"):
         raise ValueError(
             f"unknown ell_matvec_backend {cfg.ell_matvec_backend!r}")
 
@@ -112,6 +116,10 @@ class HOProblem:
     h_cg: torch.Tensor | None
     K_bc: torch.Tensor | None
     u0: torch.Tensor
+    plan: object = None    # ops/blocked.BlockedPlan (blocked backend)
+    # blocked: the RCM dof permutation (old -> new); u[space_perm] is the
+    # solution in the native dof order
+    space_perm: np.ndarray | None = None
 
 
 def get_nodal_h_pk(sp, M=None, rtol=1e-14):
@@ -147,21 +155,33 @@ def build(cfg: HOAdvectionConfig | None = None, device=None,
     projector = (unit_disk_projector
                  if cfg.curved_boundary and cfg.domain == "disk" else None)
     space = build_space(host_mesh, cfg.degree, boundary_projector=projector)
-    sp = space.device_arrays(dtype, device)
+    plan = perm = None
+    if cfg.ell_matvec_backend == "blocked":
+        perm = rcm_dof_permutation(space)
+        space = permute_dofs(space, perm)
+        plan = bpk.make_blocked_pk_plan(space, dtype=dtype,
+                                        precise=cfg.blocked_precise,
+                                        device=device)
+        sp = plan.mesh
+    else:
+        sp = space.device_arrays(dtype, device)
     w = la.velocity(sp.dof_coords)
     dt, num_steps = la.cfl_time_step(cfg.CFL, hmax, cfg.T, w)
-    M = apk.assemble_mass(sp)
-    C = apk.assemble_convection(sp, w)
+    asm = ((lambda L: blocked.assemble_matrix(plan, L)) if plan is not None
+           else (lambda L: apk.scatter_matrix(sp, L)))
+    M = asm(apk.mass_locals(sp))
+    C = asm(apk.convection_locals(sp, w))
     h_cg = K_bc = None
     if cfg.stabilization in ("rv", "rv_simple", "si"):
         h_cg = get_nodal_h_pk(sp, M)
     if cfg.stabilization == "si":
-        K_bc = ell_with_bc(sp, apk.assemble_stiffness(sp), sp.boundary_mask)
+        K_bc = ell_with_bc(sp, asm(apk.stiffness_locals(sp)),
+                           sp.boundary_mask)
     icfn = ic_discontinuous if cfg.discontinuous_ic else la.initial_condition
     u0 = icfn(sp.dof_coords[:, 0], sp.dof_coords[:, 1]).to(dtype)
     return HOProblem(cfg=cfg, host_mesh=host_mesh, space=space, dt=dt,
                      num_steps=num_steps, mesh=sp, w=w, M=M, C=C, h_cg=h_cg,
-                     K_bc=K_bc, u0=u0)
+                     K_bc=K_bc, u0=u0, plan=plan, space_perm=perm)
 
 
 def _cn_solve(p: HOProblem, Keps, u_n):
@@ -187,6 +207,9 @@ def _epsilon(p: HOProblem, stabilization, u_n, u_old):
         return stab.si_epsilon(p.mesh, cfg.Cm, p.K_bc, u_n, beta, p.h_cg,
                                eps_floor=cfg.si_eps).epsilon
     Rh = _residual(p, u_n, u_old)
+    if stabilization == "rv" and p.plan is not None:
+        return blocked.rv_epsilon_linear(p.plan, cfg.Cvel, cfg.CRV, u_n, u_n,
+                                         beta, Rh, p.h_cg)
     if stabilization == "rv":
         return stab.rv_epsilon_linear(p.mesh, cfg.Cvel, cfg.CRV, u_n, u_n,
                                       p.w, Rh, p.h_cg)
@@ -199,8 +222,11 @@ def _step(p: HOProblem, u_n, u_old, stabilization=None):
     stabilization = stabilization or p.cfg.stabilization
     Keps = None
     if stabilization != "gfem":
-        Keps = apk.assemble_eps_stiffness(
-            p.mesh, _epsilon(p, stabilization, u_n, u_old))
+        eps = _epsilon(p, stabilization, u_n, u_old)
+        Keps = (blocked.assemble_matrix(p.plan, bpk.pk_eps_locals(p.plan,
+                                                                  eps))
+                if p.plan is not None
+                else apk.assemble_eps_stiffness(p.mesh, eps))
     return _cn_solve(p, Keps, u_n)
 
 

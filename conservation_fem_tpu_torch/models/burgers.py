@@ -21,9 +21,10 @@ P1 projection of degree 1, ``time_step``: the JAX package's step counts
 in f64 and f32) and the Chebyshev bounds of that degree.
 
 ``ell_matvec_backend="lattice"`` applies the ELL step's operators as
-lattice-stencil planes (ops/lattice.py). Not ported yet, each raising
-NotImplementedError with its ROADMAP item: the ELL matvec backends
-banded / blocked (item 13).
+lattice-stencil planes (ops/lattice.py); "banded" applies them through
+the ELL SpMV kernel, and "blocked" at degree 2 or 3 runs the blocked Pk
+step (models/blocked_pk_hyperbolic.py) on the hand-written ELL kernels;
+degree 1 with "blocked" is the gather step, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import torch
 
 from conservation_fem_tpu_torch.models.advection_ho import (
     CN_BOUNDS as LIN_BOUNDS, MASS_BOUNDS)
+from conservation_fem_tpu_torch.models.blocked_pk_hyperbolic import \
+    BlockedPkHyperbolicProblem
 from conservation_fem_tpu_torch.models.pk_hyperbolic import \
     PkHyperbolicProblem
 from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
@@ -71,7 +74,10 @@ class BurgersConfig:
     ic: str = "riemann"            # riemann | bump
     residual_scheme: str = "bdf2"  # bdf2 | bdf1
     degree: int = 1                # 2, 3: the Pk ELL step
-    ell_matvec_backend: str = "gather"   # | lattice; banded / blocked: item 13
+    # "gather" | "lattice" | "banded"; "blocked": at degree 2, 3 the
+    # blocked Pk step (models/blocked_pk_hyperbolic.py, u in dof_perm
+    # order), at degree 1 the gather step, as in the JAX package
+    ell_matvec_backend: str = "gather"
     # fixed-iteration solvers (throughput paths; see KPPConfig)
     cg_iters: int | None = None
     newton_iters: int | None = None
@@ -273,7 +279,11 @@ def build(cfg: BurgersConfig | None = None, device=None,
                                            device=pts.device)
         ic_fn = initial_condition_bump
     if cfg.degree > 1:
-        prob = PkHyperbolicProblem(hcfg, host_mesh, cfg.degree, flux=FLUX,
+        # blocked: the RCM-permuted space (results in dof_perm order); P1
+        # with blocked runs as gather, as in the JAX package
+        cls = (BlockedPkHyperbolicProblem
+               if cfg.ell_matvec_backend == "blocked" else PkHyperbolicProblem)
+        prob = cls(hcfg, host_mesh, cfg.degree, flux=FLUX,
                                    bc_value=bc_fn, u0_fn=ic_fn, dt=dt,
                                    num_steps=num_steps, device=device)
     else:

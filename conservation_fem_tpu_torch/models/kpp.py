@@ -21,13 +21,18 @@ import math
 import numpy as np
 import torch
 
+from conservation_fem_tpu_torch.models.blocked_hyperbolic import \
+    BlockedHyperbolicProblem
 from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
     HyperbolicConfig, HyperbolicProblem)
 from conservation_fem_tpu_torch.models.structured_hyperbolic import structure
 from conservation_fem_tpu_torch.ops.mesh import (Mesh, load_h5_mesh,
+                                                 rcm_permutation,
                                                  rectangle_mesh,
-                                                 rectangle_mesh_lean)
+                                                 rectangle_mesh_lean,
+                                                 reorder_mesh)
 from conservation_fem_tpu_torch.ops.structured import Flux
+from conservation_fem_tpu_torch.ops.tiling import tile_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +62,16 @@ class KPPConfig:
     lean_mesh: bool | None = None
     tiled_bf16_planes: bool = False
     xla_bf16_planes: bool = False
-    # ELL operator application: "gather" (banded / blocked: ROADMAP queue
-    # 1 item 13)
+    # ELL operator application: "gather", "banded" (the ELL SpMV kernel),
+    # "blocked" or "blocked2d" (the hand-written ELL kernels, models/
+    # blocked_hyperbolic.py). A mesh built here is RCM-ordered for banded
+    # and blocked and laid out in tile slots for blocked2d (the solution
+    # then in slot order: u_native = u[prob.slot_of_node]); a caller's
+    # host_mesh keeps its order (give an RCM-ordered or tile_mesh one)
     ell_matvec_backend: str = "gather"
+    # blocked backends: the per-step operators matrix-free from the cell
+    # locals (see HyperbolicConfig)
+    blocked_matrix_free: bool = False
     use_kernels: bool = False      # see HyperbolicConfig
     dtype: str = "float64"
     record_metrics: bool = False
@@ -92,8 +104,12 @@ def build(cfg: KPPConfig | None = None, device=None,
           host_mesh: Mesh | None = None, **kw):
     """The KPP problem on ``device`` (None: the card; raises without one.
     device="cpu" for the CPU). host_mesh: a mesh to run on (the ELL
-    backend; its node order is kept, so give an RCM-ordered one where the
-    order matters)."""
+    backend; its node order is kept, so give an RCM-ordered one for banded
+    and blocked, a tiling.tile_mesh one for blocked2d). A mesh built here
+    on the ELL backend is RCM-ordered (banded, blocked) or tiled
+    (blocked2d, slot map in ``prob.slot_of_node``), as in the JAX
+    package; on the stencil backend (a structured mesh, backend "auto")
+    the ELL backends are not read."""
     if cfg is None:
         cfg = KPPConfig(**kw)
     if cfg.backend not in ("auto", "stencil", "ell"):
@@ -104,6 +120,8 @@ def build(cfg: KPPConfig | None = None, device=None,
                          "only (mesh_source='structured', no host_mesh)")
     use_stencil = built_structured and cfg.backend != "ell"
     n = 4 * cfg.mesh_size   # [-2,2] spans 4 units
+    mv = cfg.ell_matvec_backend
+    slot_of_node = None
     if host_mesh is None:
         if built_structured:
             lean = (cfg.lean_mesh if cfg.lean_mesh is not None
@@ -112,6 +130,10 @@ def build(cfg: KPPConfig | None = None, device=None,
             host_mesh = mesh_fn((-2, -2), (2, 2), nx=n, ny=n)
         else:
             host_mesh = load_h5_mesh(cfg.mesh_source)
+        if not use_stencil and mv in ("banded", "blocked"):
+            host_mesh = reorder_mesh(host_mesh, rcm_permutation(host_mesh))
+        elif not use_stencil and mv == "blocked2d":
+            host_mesh, slot_of_node = tile_mesh(host_mesh)
     hcfg = HyperbolicConfig(
         stabilization=cfg.stabilization, Cvel=cfg.Cvel, CRV=cfg.CRV,
         Cm=cfg.Cm, newton_rtol=cfg.newton_rtol, newton_atol=cfg.newton_atol,
@@ -126,10 +148,14 @@ def build(cfg: KPPConfig | None = None, device=None,
         tiled_bf16_planes=cfg.tiled_bf16_planes,
         xla_bf16_planes=cfg.xla_bf16_planes,
         ell_matvec_backend=cfg.ell_matvec_backend,
+        blocked_matrix_free=cfg.blocked_matrix_free,
         use_kernels=cfg.use_kernels, dtype=cfg.dtype,
         record_metrics=cfg.record_metrics)
     bc_val = float(np.pi / 4.0)
-    prob = HyperbolicProblem(
+    cls = (BlockedHyperbolicProblem
+           if mv in ("blocked", "blocked2d") and not use_stencil
+           else HyperbolicProblem)
+    prob = cls(
         hcfg, host_mesh, flux=FLUX,
         bc_value=lambda pts, t: torch.full((pts.shape[0],), bc_val,
                                            dtype=pts.dtype,
@@ -137,6 +163,8 @@ def build(cfg: KPPConfig | None = None, device=None,
         u0_fn=initial_condition, dt=cfg.dt,
         num_steps=int(np.ceil(cfg.T / cfg.dt)), device=device)
     prob.bc_static = True          # g = pi/4 for all t
+    if slot_of_node is not None:
+        prob.slot_of_node = slot_of_node
     if use_stencil:
         return structure(prob, n, n)
     return prob

@@ -30,8 +30,14 @@ Reference behaviours kept on purpose, as in the JAX package:
 
 The operators are (N,K) ELL matrices over the mesh's node patches (plain
 PyTorch gathers and segmented sums on the card: the JAX package runs this
-model as XLA gathers, not Pallas). The JAX ``lax.scan`` time loop is a
-Python loop; the adaptive solvers read one scalar a iteration on the host.
+model as XLA gathers, not Pallas). ``ell_matvec_backend="banded"`` applies
+them through the hand-written ELL SpMV kernel (ops/ell_kernels.ell_spmv);
+``"blocked"`` RCM-orders the mesh (the solution then in RCM numbering, as
+in the JAX package) and also assembles through the ELL assembly kernel
+(ops/blocked.py); rv_cell's last-cell-wins scatter has no blocked form and
+is refused there, as in the JAX package (``rv_cell_scatter="max"`` runs).
+The JAX ``lax.scan`` time loop is a Python loop; the adaptive solvers read
+one scalar a iteration on the host.
 """
 
 from __future__ import annotations
@@ -44,16 +50,19 @@ import numpy as np
 import torch
 
 from conservation_fem_tpu_torch import get_device
-from conservation_fem_tpu_torch.ops import assembly
+from conservation_fem_tpu_torch.ops import assembly, blocked
 from conservation_fem_tpu_torch.ops import stabilization as stab
 from conservation_fem_tpu_torch.ops.bc import ell_with_bc
+from conservation_fem_tpu_torch.ops.ell_kernels import ell_spmv
 from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
 from conservation_fem_tpu_torch.ops.krylov import (bicgstab, bicgstab_fixed,
                                                    cg, cg_fixed,
                                                    chebyshev_fixed,
                                                    jacobi_preconditioner)
 from conservation_fem_tpu_torch.ops.mesh import (Mesh, MeshArrays, disk_mesh,
-                                                 rectangle_mesh)
+                                                 rcm_permutation,
+                                                 rectangle_mesh, reorder_mesh,
+                                                 with_kernel_index)
 from conservation_fem_tpu_torch.ops.spmv import ell_diag, ell_matvec
 
 STABILIZATIONS = ("gfem", "rv_node", "rv_node_simple", "rv_cell", "si", "rk4")
@@ -77,11 +86,12 @@ class AdvectionConfig:
     # rv_cell epsilon scatter: "last" = last-cell-wins in file cell order
     # (the reference's loop), "max" = the order-independent variant
     rv_cell_scatter: str = "last"
-    # the JAX package's blocked backend only (not ported: item 13)
+    # blocked backend: the JAX package's quality flag, recorded (the port
+    # computes f32 at f32 either way; see HyperbolicConfig)
     blocked_precise: bool = True
     krylov_rtol: float = 1e-12
-    # "gather" ((N,K) gather and row sum); the JAX package's "banded" and
-    # "blocked" backends are not ported (ROADMAP queue 1 item 13)
+    # "gather" ((N,K) gather and row sum), "banded" (the ELL SpMV kernel)
+    # or "blocked" (RCM order, the ELL SpMV and assembly kernels)
     ell_matvec_backend: str = "gather"
     # fixed-iteration solvers (None = adaptive to krylov_rtol). cg_iters:
     # the BDF1-residual and RK4 mass solves; krylov_iters: the CN solve.
@@ -109,12 +119,15 @@ def check_supported(cfg: AdvectionConfig):
     if cfg.inner_solver not in ("bicgstab", "cheby"):
         raise ValueError(f"unknown inner_solver {cfg.inner_solver!r}")
     mv = cfg.ell_matvec_backend
-    if mv in ("banded", "blocked"):
-        raise NotImplementedError(
-            f"not ported yet: ell_matvec_backend={mv!r} (the unstructured "
-            "fast path, ROADMAP queue 1 item 13)")
-    if mv != "gather":
+    if mv not in ("gather", "banded", "blocked"):
         raise ValueError(f"unknown ell_matvec_backend {mv!r}")
+    if (mv == "blocked" and cfg.stabilization == "rv_cell"
+            and cfg.rv_cell_scatter == "last"):
+        raise NotImplementedError(
+            "rv_cell's last-cell-wins scatter is cell-order-dependent "
+            "and has no window form; use rv_cell_scatter='max' (the "
+            "order-independent variant the distributed path uses) or "
+            "the gather backend")
 
 
 def initial_condition(x, y, r0=0.25, x0=0.3, y0=0.0):
@@ -155,6 +168,7 @@ class AdvectionProblem:
     h_cg: torch.Tensor | None   # nodal h (rv / si variants)
     K_bc: torch.Tensor | None   # bc-applied ELL stiffness (si)
     u0: torch.Tensor     # (N,) initial condition
+    plan: object = None  # ops/blocked.BlockedPlan (blocked backend)
 
 
 def build(cfg: AdvectionConfig | None = None, device=None,
@@ -171,23 +185,40 @@ def build(cfg: AdvectionConfig | None = None, device=None,
     if host_mesh is None:
         host_mesh = (disk_mesh(hmax) if cfg.domain == "disk" else
                      rectangle_mesh((0, 0), (1, 1), nx=cfg.mesh_size))
-    m = host_mesh.device_arrays(dtype, device)
+    plan = None
+    if cfg.ell_matvec_backend == "blocked":
+        host_mesh = reorder_mesh(host_mesh, rcm_permutation(host_mesh))
+        plan = blocked.make_blocked_plan(host_mesh, dtype=dtype,
+                                         precise=cfg.blocked_precise,
+                                         device=device)
+        m = plan.mesh
+    else:
+        m = host_mesh.device_arrays(dtype, device)
+        if cfg.ell_matvec_backend == "banded":
+            m = with_kernel_index(m)
     w = velocity(m.points)
     dt, num_steps = cfl_time_step(cfg.CFL, hmax, cfg.T, w)
-    M = assembly.assemble_mass(m)
-    C = assembly.assemble_convection(m, w)
+    if plan is not None:
+        M = blocked.assemble_matrix(plan, assembly.local_mass(m.area))
+        C = blocked.assemble_matrix(plan, assembly.local_convection(
+            m.area, m.grads, w[m.cells]))
+    else:
+        M = assembly.assemble_mass(m)
+        C = assembly.assemble_convection(m, w)
     h_cg = K_bc = None
     if cfg.stabilization in ("rv_node", "rv_node_simple", "rv_cell", "si"):
         h_cg = get_nodal_h_ell(m, mass_ell=M)
     if cfg.stabilization == "si":
-        K_bc = ell_with_bc(m, assembly.assemble_stiffness(m),
-                           m.boundary_mask)
+        K = (blocked.assemble_matrix(plan, assembly.local_stiffness(
+            m.area, m.grads)) if plan is not None
+            else assembly.assemble_stiffness(m))
+        K_bc = ell_with_bc(m, K, m.boundary_mask)
     icfn = (initial_condition_discont if cfg.discontinuous_ic
             else initial_condition)
     u0 = icfn(m.points[:, 0], m.points[:, 1]).to(dtype)
     return AdvectionProblem(cfg=cfg, host_mesh=host_mesh, dt=dt,
                             num_steps=num_steps, mesh=m, w=w, M=M, C=C,
-                            h_cg=h_cg, K_bc=K_bc, u0=u0)
+                            h_cg=h_cg, K_bc=K_bc, u0=u0, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +227,21 @@ def build(cfg: AdvectionConfig | None = None, device=None,
 
 
 def _linear_op(p, A):
-    """(matvec, diag) of an ELL operator."""
+    """(matvec, diag) of an ELL operator: the gather product, or the ELL
+    SpMV kernel on the banded and blocked backends (p: an advection
+    problem of either degree)."""
+    if p.cfg.ell_matvec_backend in ("banded", "blocked"):
+        return (lambda x: ell_spmv(p.mesh, A, x)), ell_diag(p.mesh, A)
     return (lambda x: ell_matvec(p.mesh, A, x)), ell_diag(p.mesh, A)
+
+
+def _assemble_keps(p, eps):
+    """The eps-stiffness of the P1 problem p (the assembly kernel on the
+    blocked backend)."""
+    if p.plan is not None:
+        return blocked.assemble_matrix(
+            p.plan, blocked.eps_locals_components(p.plan, eps))
+    return assembly.assemble_eps_stiffness(p.mesh, eps)
 
 
 def _constrained(bc, mv):
@@ -288,9 +332,13 @@ def _step_gfem(p, u_n, u_old):
 def _step_rv_node(p, u_n, u_old):
     cfg = p.cfg
     Rh = residual_bdf1(p, u_n, u_old)
-    eps = stab.rv_epsilon_linear(p.mesh, cfg.Cvel, cfg.CRV, u_n, u_n, p.w,
-                                 Rh, p.h_cg)
-    return _cn(p, assembly.assemble_eps_stiffness(p.mesh, eps), u_n)
+    if p.plan is not None:
+        eps = blocked.rv_epsilon_linear(p.plan, cfg.Cvel, cfg.CRV, u_n, u_n,
+                                        _wnorm(p), Rh, p.h_cg)
+    else:
+        eps = stab.rv_epsilon_linear(p.mesh, cfg.Cvel, cfg.CRV, u_n, u_n,
+                                     p.w, Rh, p.h_cg)
+    return _cn(p, _assemble_keps(p, eps), u_n)
 
 
 def _step_rv_node_simple(p, u_n, u_old):
@@ -298,7 +346,7 @@ def _step_rv_node_simple(p, u_n, u_old):
     Rh = residual_bdf1_nobc(p, u_n, u_old)
     eps = stab.rv_epsilon_linear_simple(cfg.Cvel, cfg.CRV, p.w, Rh, u_n,
                                         p.h_cg)
-    return _cn(p, assembly.assemble_eps_stiffness(p.mesh, eps), u_n)
+    return _cn(p, _assemble_keps(p, eps), u_n)
 
 
 def _step_rv_cell(p, u_n, u_old):
@@ -307,16 +355,21 @@ def _step_rv_cell(p, u_n, u_old):
     # the plain max of u_n - mean(u_n), not the inf-norm (reference)
     Rh = Rh / (u_n - u_n.mean()).max()
     beta_cell = _wnorm(p)[m.cells].amax(dim=1)
-    eps = stab.rv_epsilon_cell(m, cfg.Cvel, cfg.CRV, Rh, beta_cell,
-                               m.h_cell, scatter=cfg.rv_cell_scatter)
-    return _cn(p, assembly.assemble_eps_stiffness(m, eps), u_n)
+    if p.plan is not None:
+        eps = blocked.rv_epsilon_cell_max(
+            p.plan, cfg.Cvel, cfg.CRV, Rh, beta_cell,
+            torch.ones_like(m.boundary_mask))
+    else:
+        eps = stab.rv_epsilon_cell(m, cfg.Cvel, cfg.CRV, Rh, beta_cell,
+                                   m.h_cell, scatter=cfg.rv_cell_scatter)
+    return _cn(p, _assemble_keps(p, eps), u_n)
 
 
 def _step_si(p, u_n, u_old):
     cfg = p.cfg
     eps = stab.si_epsilon(p.mesh, cfg.Cm, p.K_bc, u_n, _wnorm(p), p.h_cg,
                           eps_floor=cfg.si_eps).epsilon
-    return _cn(p, assembly.assemble_eps_stiffness(p.mesh, eps), u_n)
+    return _cn(p, _assemble_keps(p, eps), u_n)
 
 
 def _step_rk4(p, u_n, u_old):

@@ -20,7 +20,7 @@ from conservation_fem_tpu_torch.models.scalar_hyperbolic import (
     HyperbolicConfig, HyperbolicProblem)
 from conservation_fem_tpu_torch.ops import assembly_pk as apk
 from conservation_fem_tpu_torch.ops.bc import ell_with_bc
-from conservation_fem_tpu_torch.ops.mesh import Mesh
+from conservation_fem_tpu_torch.ops.mesh import Mesh, with_kernel_index
 from conservation_fem_tpu_torch.ops.spaces import build_space
 
 
@@ -30,10 +30,13 @@ class PkHyperbolicProblem(HyperbolicProblem):
     def __init__(self, cfg: HyperbolicConfig, host_mesh: Mesh, degree: int,
                  flux, bc_value, u0_fn, dt, num_steps, device=None):
         self.degree = degree
-        self.space = build_space(host_mesh, degree)
+        self.space = self._make_space(host_mesh, degree)
         super().__init__(cfg, host_mesh, flux=flux, bc_value=bc_value,
                          u0_fn=u0_fn, dt=dt, num_steps=num_steps,
                          device=device)
+
+    def _make_space(self, host_mesh, degree):
+        return build_space(host_mesh, degree)
 
     def _host_nodes(self, host_mesh):
         return (self.space.dof_coords,
@@ -43,7 +46,10 @@ class PkHyperbolicProblem(HyperbolicProblem):
     def mesh(self):
         """The space's tensors (SpaceArrays) on the problem's device."""
         if self._mesh is None:
-            self._mesh = self.space.device_arrays(self.dtype, self.device)
+            m = self.space.device_arrays(self.dtype, self.device)
+            if self.cfg.ell_matvec_backend == "banded":
+                m = with_kernel_index(m)
+            self._mesh = m
         return self._mesh
 
     @property

@@ -21,7 +21,13 @@ as XLA gathers, not Pallas). ``ell_matvec_backend="lattice"`` applies them
 as lattice-stencil planes instead (ops/lattice.py; dofs on a regular
 lattice: a structured rectangle mesh, any degree): each assembled operator
 is laid out once, and its products are shifted multiply-adds between one
-scatter onto the grid and one gather back. The structured stencil backend
+scatter onto the grid and one gather back. ``"banded"`` (an RCM-ordered
+mesh) applies the products through the hand-written ELL SpMV kernel
+(ops/banded.py says why not as diagonals) and assembles as the gather
+backend does; ``"blocked"`` and ``"blocked2d"`` are the unstructured fast
+path of models/blocked_hyperbolic.py, which this class, built directly
+with them, runs as the gather backend (the JAX package's base class does
+the same). The structured stencil backend
 (models/structured_hyperbolic.py) overrides the step. The JAX
 ``lax.scan`` time loop is a Python loop here.
 """
@@ -39,11 +45,12 @@ from conservation_fem_tpu_torch.ops import assembly
 from conservation_fem_tpu_torch.ops import lattice as lat
 from conservation_fem_tpu_torch.ops import stabilization as stab
 from conservation_fem_tpu_torch.ops.bc import constrain_residual, ell_with_bc
+from conservation_fem_tpu_torch.ops.ell_kernels import ell_spmv
 from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
 from conservation_fem_tpu_torch.ops.krylov import (cg, cg_fixed,
                                                    chebyshev_fixed, dot,
                                                    jacobi_preconditioner)
-from conservation_fem_tpu_torch.ops.mesh import Mesh
+from conservation_fem_tpu_torch.ops.mesh import Mesh, with_kernel_index
 from conservation_fem_tpu_torch.ops.newton import newton_fixed, newton_solve
 from conservation_fem_tpu_torch.ops.spmv import ell_diag, ell_matvec
 from conservation_fem_tpu_torch.ops.structured import Flux
@@ -83,9 +90,22 @@ class HyperbolicConfig:
     # JAX package
     precise_reductions: bool = False
     smooth_l: float = 0.0          # > 0: post-solve patch smoothing
-    # ELL operator application: "gather" ((N,K) gather and row sum) or
-    # "lattice" (ops/lattice.py planes); banded / blocked: item 13
+    # ELL operator application: "gather" ((N,K) gather and row sum),
+    # "lattice" (ops/lattice.py planes), "banded" (the ELL SpMV kernel on
+    # an RCM-ordered mesh), "blocked" / "blocked2d" (models/
+    # blocked_hyperbolic.py, the hand-written ELL kernels)
     ell_matvec_backend: str = "gather"
+    # blocked backends: the JAX package's quality flag (f32 one-hots and
+    # HIGHEST contractions there, bf16 streams when False). Accepted and
+    # recorded: the port computes f32 at f32 either way, so f32 blocked
+    # runs are held by the anchor gates, not elementwise against the JAX
+    # package's f32 blocked runs (whose default streams bf16)
+    blocked_precise: bool = False
+    # blocked backends: apply the per-step operators (eps-stiffness, flux
+    # Jacobian) matrix-free from the cell locals (ops/blocked.local_apply)
+    # instead of assembling the Jacobian; the same contributions, summed
+    # in another order
+    blocked_matrix_free: bool = False
     # hand-written kernels: fused whole-step kernel on the fixed path, the
     # fused adaptive CG on the adaptive path (JAX: use_pallas); stencil
     # backend only
@@ -94,6 +114,9 @@ class HyperbolicConfig:
     fused_substeps: int = 1
     dtype: str = "float64"
     record_metrics: bool = False
+
+
+ELL_BACKENDS = ("gather", "lattice", "banded", "blocked", "blocked2d")
 
 
 def check_supported(cfg: HyperbolicConfig):
@@ -105,12 +128,9 @@ def check_supported(cfg: HyperbolicConfig):
     if cfg.tiled_bf16_planes or cfg.xla_bf16_planes:
         todo.append("bf16 operator planes (ROADMAP queue 2 item 5c, only "
                     "if the H100 measures a reason)")
-    mv = cfg.ell_matvec_backend
-    if mv in ("banded", "blocked", "blocked2d"):
-        todo.append(f"ell_matvec_backend={mv!r} (the unstructured fast "
-                    "path, ROADMAP queue 1 item 13)")
-    elif mv not in ("gather", "lattice"):
-        raise ValueError(f"unknown ell_matvec_backend {mv!r}")
+    if cfg.ell_matvec_backend not in ELL_BACKENDS:
+        raise ValueError(
+            f"unknown ell_matvec_backend {cfg.ell_matvec_backend!r}")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -163,8 +183,10 @@ class HyperbolicProblem:
         """The mesh's tensors (MeshArrays) on the problem's device, built on
         first use: the stencil backend never reads them."""
         if self._mesh is None:
-            self._mesh = self.host_mesh.device_arrays(self.dtype,
-                                                      self.device)
+            m = self.host_mesh.device_arrays(self.dtype, self.device)
+            if self.cfg.ell_matvec_backend == "banded":
+                m = with_kernel_index(m)
+            self._mesh = m
         return self._mesh
 
     @property
@@ -210,8 +232,20 @@ class HyperbolicProblem:
             op = conv(A_ell)
             return ((lambda x: lat.from_grid(plan, op(lat.to_grid(plan, x)))),
                     ell_diag(self.mesh, A_ell))
+        if self.cfg.ell_matvec_backend == "banded":
+            return ((lambda x: ell_spmv(self.mesh, A_ell, x)),
+                    ell_diag(self.mesh, A_ell))
         return ((lambda x: ell_matvec(self.mesh, A_ell, x)),
                 ell_diag(self.mesh, A_ell))
+
+    def _constrained_op(self, A_ell):
+        """(x -> A_bc x, diag of A with 1 on the bc rows): the operator
+        with its bc rows and columns replaced by the identity, as the
+        solves with Dirichlet rows take it."""
+        bc = self.mesh.boundary_mask
+        mv, diag = self._linear_op(A_ell)
+        return ((lambda x: torch.where(bc, x, mv(torch.where(bc, 0.0, x)))),
+                torch.where(bc, 1.0, diag))
 
     # -- carry and Dirichlet data ---------------------------------------------
 
@@ -301,10 +335,10 @@ class HyperbolicProblem:
             du = (3.0 * u_n - 4.0 * u_old + u_old_old) / (2.0 * dt)
         if N_un is None:
             N_un = self._nonlinear_rhs(u_n)
-        M_mv, M_diag = self._linear_op(self.M)
+        M_mv, _ = self._linear_op(self.M)
         rhs = torch.where(bc, 0.0, M_mv(du) + N_un)
-        op = lambda x: torch.where(bc, x, M_mv(torch.where(bc, 0.0, x)))
-        pre = jacobi_preconditioner(torch.where(bc, 1.0, M_diag))
+        op, M_diag = self._constrained_op(self.M)
+        pre = jacobi_preconditioner(M_diag)
         if cfg.cg_iters is not None:
             if cfg.inner_solver == "cheby":
                 lo, hi = cfg.cheby_mass_bounds
@@ -352,11 +386,8 @@ class HyperbolicProblem:
             """J = M + dt/2 (C'(u) + Keps), assembled: an inner iteration
             is one ELL product."""
             J = base + 0.5 * dt * self._assemble_flux_jacobian(u)
-            J_mv, J_diag = self._linear_op(J)
-            matvec = lambda v: torch.where(bc, v,
-                                           J_mv(torch.where(bc, 0.0, v)))
-            return matvec, jacobi_preconditioner(torch.where(bc, 1.0,
-                                                             J_diag))
+            matvec, J_diag = self._constrained_op(J)
+            return matvec, jacobi_preconditioner(J_diag)
 
         return self._newton_dispatch(residual, jacobian,
                                      torch.where(bc, g, u_n))
@@ -390,9 +421,9 @@ class HyperbolicProblem:
         if g is None:
             g = self.dirichlet_grid(self.dirichlet_frames([t])[0])
         u_n, u_old, u_old_old = carry
-        N_un = self._nonlinear_rhs(u_n)
-        RH = None
+        N_un = RH = None
         if self.cfg.stabilization == "rv":
+            N_un = self._nonlinear_rhs(u_n)
             RH = self._residual_bdf2(u_n, u_old, u_old_old, N_un=N_un)
         eps = self._epsilon(u_n, RH)
         res = self._newton_cn(u_n, eps, g, N_un=N_un)

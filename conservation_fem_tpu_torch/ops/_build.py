@@ -77,10 +77,19 @@ _SIGNATURES = {
     "cft_split_setup_occupancy": [_I, _P],
     "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
+    # the ELL kernels (csrc/ell.cu): A, x, cols, bc (null: unconstrained),
+    # y, n, K; vals, perm, offs, out, n_out; cells, area, grads, u, eps
+    # (null: none), dt/2, rhs, jac (null: rhs only), M; cols, u_n, Rh,
+    # u_h, h, abs_term, valid (null: all), Cvel, CRV, tiny, eps, n, K
+    "cft_ell_spmv": [_P] * 5 + [_I, _I, _P],
+    "cft_ell_assemble": [_P] * 4 + [_I, _P],
+    "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P, _I, _P],
+    "cft_ell_rv_epsilon": [_P] * 7 + [_D] * 3 + [_P, _I, _I, _P],
 }
 FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
                                          "cft_cg_solve",
-                                         "cft_cg_cluster_occupancy"}
+                                         "cft_cg_cluster_occupancy",
+                                         "cft_ell_spmv", "cft_ell_assemble"}
 # the entry points of the ablation library, KPP f32 alone: (design, the
 # arguments of the kernel's own entry point)
 _ABLATE_SIGNATURES = {

@@ -57,6 +57,17 @@ class MeshArrays(NamedTuple):
     vec_segs: torch.Tensor      # (3M,) int64: sorted row targets
     mat_lens: torch.Tensor      # (N*K,) int64
     vec_lens: torch.Tensor      # (N,) int64
+    # int32 copies read by the hand-written ELL kernels (ops/ell_kernels),
+    # set by ``with_kernel_index`` for the backends that launch them
+    # (banded, blocked, blocked2d) and None elsewhere: the gather path's
+    # memory is unchanged. *_offs32 are the segments' start offsets (the
+    # exclusive cumsum of *_lens, one more entry than segments)
+    patch_cols32: torch.Tensor | None = None   # (N,K) int32
+    cells32: torch.Tensor | None = None        # (M,3) int32
+    mat_perm32: torch.Tensor | None = None     # (9M,) int32
+    mat_offs32: torch.Tensor | None = None     # (N*K+1,) int32
+    vec_perm32: torch.Tensor | None = None     # (3M,) int32
+    vec_offs32: torch.Tensor | None = None     # (N+1,) int32
 
 
 class EllStructure(NamedTuple):
@@ -87,6 +98,12 @@ class Mesh:
     h_cell: Array          # (M,) f64
     lean: bool = False
     periodic: bool = False
+    # set by ops/tiling.pad_mesh_to_slots (the tile-slot layout of the
+    # blocked2d backend): slot_valid (N,) bool marks the real nodes (False:
+    # a phantom padding slot, Dirichlet-pinned and in no cell); tile_T is
+    # the tile stride T (blocks per strip). 0: not a tile-slot mesh
+    slot_valid: Array | None = None
+    tile_T: int = 0
 
     @property
     def n_nodes(self) -> int:
@@ -160,6 +177,35 @@ class Mesh:
             mat_lens=i(np.bincount(e.mat_segs, minlength=n * K)),
             vec_lens=i(np.bincount(e.vec_segs, minlength=n)),
         )
+
+
+def with_kernel_index(arrays):
+    """``arrays`` (a MeshArrays, or a SpaceArrays: any NamedTuple with the
+    ELL fields) with the int32 index copies the hand-written ELL kernels
+    read: patch_cols, the cells (MeshArrays) and the contribution orders
+    mat_perm / vec_perm with their segment offsets. Built once per
+    problem, for the backends that launch the kernels."""
+    if arrays.patch_cols32 is not None:
+        return arrays
+    i32 = lambda t: t.to(torch.int32).contiguous()
+
+    def offsets(lens):
+        out = torch.zeros(lens.numel() + 1, dtype=torch.int64,
+                          device=lens.device)
+        torch.cumsum(lens, 0, out=out[1:])
+        if int(out[-1]) >= 2**31:
+            raise ValueError("ELL kernels index with int32: too many "
+                             "contributions")
+        return i32(out)
+
+    extra = dict(patch_cols32=i32(arrays.patch_cols),
+                 mat_perm32=i32(arrays.mat_perm),
+                 mat_offs32=offsets(arrays.mat_lens),
+                 vec_perm32=i32(arrays.vec_perm),
+                 vec_offs32=offsets(arrays.vec_lens))
+    if "cells32" in arrays._fields:
+        extra["cells32"] = i32(arrays.cells)
+    return arrays._replace(**extra)
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,13 @@ class SpaceArrays(NamedTuple):
     h_cell: torch.Tensor         # (M,)
     jinv_t_q: torch.Tensor       # (M,Q,2,2) isoparametric J^{-T}
     detj_q: torch.Tensor         # (M,Q) |det J|: dx = detj_q dxi
+    # int32 copies for the hand-written ELL kernels (ops/mesh.
+    # with_kernel_index; None on the gather path)
+    patch_cols32: torch.Tensor | None = None
+    mat_perm32: torch.Tensor | None = None
+    mat_offs32: torch.Tensor | None = None
+    vec_perm32: torch.Tensor | None = None
+    vec_offs32: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -3,8 +3,10 @@ conservation_fem_tpu/ops/spmv.py.
 
 An ELL matrix is an (N,K) tensor of values aligned with
 ``MeshArrays.patch_cols`` (padding entries zero): a product is one (N,K)
-gather and a row sum. On the card these are plain PyTorch gathers; a
-GPU-native ELL kernel is ROADMAP queue 1 item 13's.
+gather and a row sum. On the card these are plain PyTorch gathers (the
+gather backend); the banded and blocked backends take the hand-written
+ELL SpMV kernel instead (ops/ell_kernels.ell_spmv), whose plain version
+is ``ell_matvec``.
 """
 
 from __future__ import annotations

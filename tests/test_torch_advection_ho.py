@@ -68,10 +68,12 @@ def test_curved_boundary_changes_the_run():
 
 
 def test_unported_and_unknown_options_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tho.build(tho.HOAdvectionConfig(mesh_size=4,
+    # the blocked backend is ported (ROADMAP queue 1 item 13;
+    # tests/test_torch_blocked_model.py holds it against the gather run)
+    p = tho.build(tho.HOAdvectionConfig(mesh_size=4,
                                         ell_matvec_backend="blocked"),
                   device="cpu")
+    assert p.plan is not None and p.plan.nd == 6
     for over in (dict(stabilization="rv_node"), dict(degree=4),
                  dict(domain="ring"), dict(ell_matvec_backend="banded")):
         with pytest.raises(ValueError):
@@ -97,3 +99,22 @@ def test_cli_advection_ho(capsys):
     assert (out["workload"], out["degree"], out["stabilization"],
             out["device"]) == ("advection_ho", 2, "rv", "cpu")
     assert abs(out["L2_error_vs_ic"] - _jax_run("p2_rv_m4")[1]) <= TOL
+
+
+@pytest.mark.parametrize("case", ["p2_rv_m8", "p2_si_m4", "p2_rv_m4_cheby"])
+def test_blocked_matches_jax(case):
+    """The blocked backend (RCM dof order, the ELL kernels' plain versions
+    here) against the JAX package's run of the same case, through the dof
+    permutation; from the JAX package's u0, as above."""
+    u, err, dt, steps, u0 = _jax_run(case)
+    p = tho.build(tho.HOAdvectionConfig(**SHORT, **CASES[case],
+                                        ell_matvec_backend="blocked"),
+                  device="cpu")
+    assert (p.dt, p.num_steps) == (dt, steps)
+    perm = p.space_perm
+    start = np.empty_like(u0)
+    start[perm] = u0
+    p.u0 = torch.tensor(start)
+    ut, et = tho.solve(p)
+    np.testing.assert_allclose(ut.numpy()[perm], u, rtol=0, atol=TOL)
+    assert abs(float(et) - err) <= TOL

@@ -83,12 +83,33 @@ def test_pk_options_that_raise():
                                   ell_matvec_backend="lattice"),
                  device="cpu")
     assert p._lattice[0].full
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tb.build(tb.BurgersConfig(mesh_size=4, degree=2,
+    # the blocked Pk backend is ported (ROADMAP queue 1 item 13;
+    # tests/test_torch_blocked_model.py holds it against the JAX package)
+    p = tb.build(tb.BurgersConfig(mesh_size=4, degree=2,
                                   ell_matvec_backend="blocked"),
                  device="cpu")
+    assert p.plan.nd == 6 and len(p.dof_perm) == p.u0.numel()
     with pytest.raises(ValueError, match="P1 only"):
         tb.build(tb.BurgersConfig(mesh_size=4, degree=2, backend="stencil"),
                  device="cpu")
     with pytest.raises(ValueError, match="degree"):
         tb.build(tb.BurgersConfig(mesh_size=4, degree=4), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["p2_si_m8", "p2_rv_m8",
+                                  "p2_si_m8_fixed_cheby"])
+def test_pk_burgers_blocked_matches_jax(case):
+    """The blocked Pk step (RCM-permuted dofs, the ELL kernels' plain
+    versions here) against the JAX package's run of the same case, through
+    dof_perm (the JAX package holds its own blocked backend to this run
+    at 1e-12, tests/test_blocked_pk.py)."""
+    u, dt, steps, l1, l2 = _jax_run(case)
+    p = tb.build(tb.BurgersConfig(T=0.1, ell_matvec_backend="blocked",
+                                  **CASES[case]), device="cpu")
+    assert type(p).__name__ == "BlockedPkHyperbolicProblem"
+    assert (p.dt, p.num_steps) == (dt, steps)
+    r = p.solve()
+    np.testing.assert_allclose(r.u.numpy()[p.dof_perm], u, rtol=0,
+                               atol=TOL)
+    t = r.num_steps * r.dt
+    assert abs(float(tb.l2_error_vs_exact(p, r.u, t)) - l2) <= TOL

@@ -18,6 +18,7 @@ from conservation_fem_tpu.models import linear_advection as jla
 from conservation_fem_tpu.utils import convergence as jconv
 from conservation_fem_tpu_torch import __main__ as tmain
 from conservation_fem_tpu_torch.models import linear_advection as tla
+from conservation_fem_tpu_torch.ops.mesh import rcm_permutation
 from conservation_fem_tpu_torch.utils import convergence as tconv
 
 TOL = 1e-11
@@ -79,9 +80,42 @@ def test_steps_and_time_step_match_jax_at_full_size():
 
 @pytest.mark.parametrize("backend", ["banded", "blocked"])
 def test_unported_backends_raise_naming_item_13(backend):
-    cfg = tla.AdvectionConfig(mesh_size=4, ell_matvec_backend=backend)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tla.build(cfg, device="cpu")
+    """Ported since (ROADMAP queue 1 item 13): both backends run the gather
+    backend's trajectory, blocked in RCM numbering; rv_cell's
+    last-cell-wins scatter is refused on blocked, as in the JAX
+    package."""
+    cfg = dict(mesh_size=4, T=0.1, stabilization="rv_node")
+    pg = tla.build(tla.AdvectionConfig(**cfg), device="cpu")
+    ref = tla.solve(pg).u.numpy()
+    p = tla.build(tla.AdvectionConfig(**cfg, ell_matvec_backend=backend),
+                  device="cpu")
+    u = tla.solve(p).u.numpy()
+    if backend == "blocked":
+        u = u[rcm_permutation(pg.host_mesh)]
+        with pytest.raises(NotImplementedError, match="last-cell-wins"):
+            tla.build(tla.AdvectionConfig(mesh_size=4, stabilization="rv_cell",
+                                          ell_matvec_backend=backend),
+                      device="cpu")
+    np.testing.assert_allclose(u, ref, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("case", ["rv_node", "rv_cell_max", "si",
+                                  "rv_node_cheby"])
+def test_blocked_matches_jax(case):
+    """The blocked backend (RCM numbering, the ELL kernels' plain versions
+    here) against the JAX package's run of the same case, through the RCM
+    permutation (the JAX package holds its own blocked backend to this run
+    at 1e-11, tests/test_blocked_advection.py)."""
+    u, err, dt, steps = _jax_run(case)
+    p = tla.build(tla.AdvectionConfig(**SHORT, **CASES[case],
+                                      ell_matvec_backend="blocked"),
+                  device="cpu")
+    assert (p.dt, p.num_steps) == (dt, steps)
+    r = tla.solve(p)
+    perm = rcm_permutation(tla.build(tla.AdvectionConfig(**SHORT),
+                                     device="cpu").host_mesh)
+    np.testing.assert_allclose(r.u.numpy()[perm], u, rtol=0, atol=TOL)
+    assert abs(float(r.error_l2) - err) <= TOL
 
 
 def test_unknown_options_raise():

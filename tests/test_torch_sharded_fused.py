@@ -15,6 +15,7 @@ Tolerances, all absolute on O(1-10) fields:
     arithmetic on the same blocks, sums in the same order.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -65,6 +66,25 @@ def _jax_trajectory(cfg, steps=None):
     return pj, out
 
 
+@functools.lru_cache(maxsize=None)
+def _trim_trajectory(mesh_size):
+    """The carries of 4 JAX steps of the TRIM config at mesh_size (dt
+    0.01: T only sets how many of them a test reads), built once for the
+    tests that share that mesh: one JAX build and step program each."""
+    return _jax_trajectory(dict(mesh_size=mesh_size, T=0.04, **TRIM),
+                           steps=4)[1]
+
+
+def _trajectory(cfg):
+    """The JAX carries of cfg's whole run, from _trim_trajectory where
+    cfg is the TRIM config of at most 4 steps."""
+    steps = int(np.ceil(cfg["T"] / 0.01))
+    rest = {k: v for k, v in cfg.items() if k not in ("mesh_size", "T")}
+    if rest == TRIM and steps <= 4:
+        return _trim_trajectory(cfg["mesh_size"])[:steps + 1]
+    return _jax_trajectory(cfg)[1]
+
+
 def test_required_halo_matches_jax():
     for cg in (0, 4, 10):
         for newton in (0, 1, 2, 3):
@@ -80,7 +100,7 @@ def test_block_step_matches_pallas_interpret(block):
     rows below it) of 3 uneven blocks at mesh 6, from a state two steps
     into the trajectory, against the JAX block kernel in interpret mode."""
     cfg = dict(mesh_size=6, T=0.05, **TRIM)
-    pj, traj = _jax_trajectory(cfg, steps=2)
+    traj = _trim_trajectory(6)[:3]
     pt = tkpp.build(tkpp.KPPConfig(**cfg), device="cpu")
     n1x, n1y = pt._shape2
     L = -(-n1x // 3)
@@ -125,7 +145,7 @@ def test_sharded_solve_matches_jax_single_device(name):
     a halo deeper than a block, a halo within a block, gfem on uneven
     blocks, and the tiled kernel's block mode."""
     cfg, n, extra = CASES[name]
-    _, traj = _jax_trajectory(cfg)
+    traj = _trajectory(cfg)
     sh = ShardedFusedStructured(
         tkpp.build(tkpp.KPPConfig(**cfg), device="cpu"),
         LocalBlocks(n, "cpu"), **extra)
@@ -165,7 +185,7 @@ def test_sharded_solve_matches_jax_sharded_class():
 def test_set_carry_starts_from_a_jax_state():
     """Two more steps from a JAX state two steps into the trajectory."""
     cfg = dict(mesh_size=6, T=0.04, **TRIM)
-    _, traj = _jax_trajectory(cfg)
+    traj = _trajectory(cfg)
     p = tkpp.build(tkpp.KPPConfig(**{**cfg, "T": 0.02}), device="cpu")
     sh = ShardedFusedStructured(p, LocalBlocks(3, "cpu"))
     sh.set_carry(*(np.asarray(c) for c in traj[2]))
