@@ -99,8 +99,7 @@ exits non-zero:
      unstructured bench config (IRR_FIXED), gated at L2rel <= 2e-2 against
      golden/kpp_rv_anchor_irr*.npy with no hand-written launch, timed
      (µs/step, DOF-steps/s), profiled (kernels per step, idle share), and
-     at irr140 and irr640 again with precise_reductions; irr140 in f64:
-     the adaptive config
+     again with precise_reductions; irr140 in f64: the adaptive config
      against its anchor, and RV, SI and GFEM for 5 fixed-config steps
      against the CPU (1e-10); KPP SI at mesh 64 on the stencil backend (5
      f64 steps against the CPU, the f32 bench trajectory timed, its L2rel
@@ -164,13 +163,16 @@ exits non-zero:
      bit-equal, the launches of each kernel (counts zeroed just before
      the solve, read just after) equal to what the code predicts
      (blocked_launches), µs/step in turns with the gather run on the same
-     mesh, DOF-steps/s, kernels per step and idle share (the first 3
-     steps); (a) each kernel against its plain version on the card at the
-     end states of the blocked irr140 and irr640 runs, f32 (within 1e-5 of
-     the plain version's scale) and f64 (F64_TOL), repeated launches
-     bit-equal, timed at irr640 f32 beside its plain version, its bound
-     and a PyTorch call (a torch CSR product, torch.segment_reduce), with
-     what ptxas gave each instance; (c) irr140 f64, 5 fixed-config steps,
+     mesh (BLOCKED_TURNS), DOF-steps/s, kernels per step and idle share
+     (the first 3 steps); (a) each kernel against its plain version on the
+     card at the end states of the blocked irr140 and irr640 runs, f32 and
+     f64, each output on its own: ell_assemble (against its plain version
+     on the CPU, which sums in its order), ell_rv_epsilon and ell_spmv's
+     bc rows bit-equal, the other outputs within 1e-5 (f32) or F64_TOL
+     (f64) of max|plain|, repeated launches bit-equal, timed at irr640
+     f32 beside its plain version, its bound and a PyTorch call (a torch
+     CSR product, torch.segment_reduce), with what ptxas gave each
+     instance; (c) irr140 f64, 5 fixed-config steps,
      rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
      against gather on the card (1e-9); (d) P2 SI Burgers mesh 32 f64
      blocked against phase 8's gather run through dof_perm (a chaotic run:
@@ -338,9 +340,6 @@ IRR = {140: (0.005, 0.5), 224: (0.0025, 0.25), 316: (0.0018, 0.18),
 IRR_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
                  newton_linear_iters=8)
 IRR_GATE = 2e-2
-# the meshes whose run is repeated with precise_reductions (the smallest
-# and the largest: the smoke run's time limit)
-PRECISE_IRR = (140, 640)
 # make_anchor.py:139-142's window, set for the f64 runs: printed, not gated
 IRR_WINDOW = (0.2, 12.5)
 # sha256 of points (f64) and cells (int64) of each anchored mesh in RCM
@@ -2598,8 +2597,8 @@ def run_ell_paths(card, meshes):
     at L2rel <= IRR_GATE against each anchor, min and max beside the
     anchor's, no hand-written launch, µs/step and DOF-steps/s (CUDA events
     around a solve after the first), kernels per step and idle share
-    (torch.profiler, the first 3 steps), and at PRECISE_IRR the same run
-    with precise_reductions, timed the same way.
+    (torch.profiler, the first 3 steps), and the same run with
+    precise_reductions, timed the same way.
     Returns {nx: readings}."""
     from conservation_fem_tpu_torch.models import kpp
 
@@ -2613,12 +2612,10 @@ def run_ell_paths(card, meshes):
         u, counts, us = _ell_run(p, label)
         rel, lo, hi, rlo, rhi = _irr_gate(u, nx, label)
         prof = idle_profiled(p, steps=3)
-        relq = usq = None
-        if nx in PRECISE_IRR:
-            q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
-                          host_mesh=m)
-            uq, _, usq = _ell_run(q, label + " precise_reductions")
-            relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
+        q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
+                      host_mesh=m)
+        uq, _, usq = _ell_run(q, label + " precise_reductions")
+        relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
         n = m.n_nodes
         out[nx] = dict(nodes=n, steps=p.num_steps, l2rel=rel, u_min=lo,
                        u_max=hi, anchor_min=rlo, anchor_max=rhi,
@@ -2631,9 +2628,9 @@ def run_ell_paths(card, meshes):
             f"{IRR_WINDOW}, not gated); hand-written launches 0; {us:.1f} "
             f"us/step, {n / us * 1e6:.4g} DOF-steps/s; "
             f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
-            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps)"
-            + ("" if relq is None else f"; precise_reductions: L2rel "
-               f"{relq:.4e}, {usq:.1f} us/step") + f" ({card})")
+            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
+            f"precise_reductions: L2rel {relq:.4e}, {usq:.1f} us/step "
+            f"({card})")
     return out
 
 
@@ -3526,6 +3523,11 @@ ELL_KERNELS = {
 # the meshes of each backend's KPP RV f32 bench-config runs (IRR, IRR_FIXED)
 BLOCKED_PATHS = {"blocked": (140, 224, 316, 448, 640),
                  "blocked2d": (140, 640)}
+# the turns a run is timed in: blocked, gather, blocked at irr140 and
+# irr640; blocked, gather at the mid sizes; blocked2d at irr140 once,
+# untimed against gather (the smoke run's time limit)
+BLOCKED_TURNS = {("blocked", 140): 3, ("blocked", 640): 3,
+                 ("blocked2d", 640): 3, ("blocked2d", 140): 1}
 BLOCKED_VS_GATHER_F64 = 1e-9
 ELL_F32_RTOL = 1e-5          # a kernel against its plain version, f32
 ELL_KERNEL_MESHES = (140, 640)
@@ -3574,8 +3576,8 @@ def run_blocked_paths(card, meshes):
     gated through slot_of_node): L2rel <= IRR_GATE against each anchor,
     the gather run's step count, repeated solves bit-equal, the launch
     counts of each kernel against blocked_launches; µs/step (CUDA events)
-    in turns with the gather run on the same mesh (blocked, gather,
-    blocked), DOF-steps/s, kernels per step and idle share
+    in turns with the gather run on the same mesh (BLOCKED_TURNS),
+    DOF-steps/s, kernels per step and idle share
     (torch.profiler, the first 3 steps). Returns (readings, {nx: (p, u)}
     of the blocked runs at ELL_KERNEL_MESHES, irr640's counts)."""
     import torch
@@ -3607,36 +3609,39 @@ def run_blocked_paths(card, meshes):
             un = u if slot is None else u[torch.as_tensor(slot,
                                                           device=u.device)]
             rel, lo, hi, _, _ = _irr_gate(un, nx, label)
-            # timed in turns, blocked, gather, blocked; each blocked solve
-            # repeats the counted one's bits
+            # timed in turns (BLOCKED_TURNS); each blocked solve repeats
+            # the counted one's bits
             us = {}
-            for name, q in ((backend, p), ("gather", g), (backend, p)):
+            turns = ((backend, p), ("gather", g), (backend, p))
+            for name, q in turns[:BLOCKED_TURNS.get((backend, nx), 2)]:
                 got, t = _timed(lambda: q.solve().u, q.num_steps)
                 us.setdefault(name, []).append(t)
                 if q is p and not torch.equal(got, u):
                     raise AssertionError(f"{label}: repeated solves differ")
             us = {k: sum(v) / len(v) for k, v in us.items()}
+            gus = us.get("gather")
             prof = idle_profiled(p, steps=3)
             n = int(p.plan.row_valid.sum()) if slot is not None else m.n_nodes
             per_step = {k: v / p.num_steps for k, v in counts.items()}
             out[f"{backend}_irr{nx}"] = dict(
                 nodes=n, slots=m.n_nodes, steps=p.num_steps, l2rel=rel,
                 u_min=lo, u_max=hi, us_per_step=us[backend],
-                gather_us_per_step=us["gather"],
-                speedup_vs_gather=us["gather"] / us[backend],
+                gather_us_per_step=gus,
+                speedup_vs_gather=None if gus is None else gus / us[backend],
                 dof_steps_per_s=n / us[backend] * 1e6,
                 launches_per_step=per_step, setup_s=setup,
                 bandwidth=p.plan.B, **prof)
             log(f"{label} ({n} nodes"
-                + (f" in {m.n_nodes} slots, window k {(p.plan.rw - 1) // 2}"
-                   if slot is not None else f", bandwidth {p.plan.B}")
+                + (f" in {m.n_nodes} slots" if slot is not None
+                   else f", bandwidth {p.plan.B}")
                 + f"), {p.num_steps} steps: L2rel {rel:.4e} against "
                 f"golden/kpp_rv_anchor_irr{nx}.npy (gate {IRR_GATE}); u in "
                 f"[{lo:.4f}, {hi:.4f}]; repeated solve bit-equal; launches "
                 f"per step {per_step} (as predicted); {us[backend]:.1f} "
-                f"us/step against gather {us['gather']:.1f} in turns "
-                f"({us['gather'] / us[backend]:.3f} x), "
-                f"{n / us[backend] * 1e6:.4g} DOF-steps/s; "
+                f"us/step"
+                + ("" if gus is None else f" against gather {gus:.1f} in "
+                   f"turns ({gus / us[backend]:.3f} x)")
+                + f", {n / us[backend] * 1e6:.4g} DOF-steps/s; "
                 f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
                 f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
                 f"set-up {setup:.1f} s ({card})")
@@ -3647,22 +3652,29 @@ def run_blocked_paths(card, meshes):
     return out, states, main_counts
 
 
-def _ell_bounds(n, K, nnz, M, s):
+def _ell_bounds(n, nnz, M, s):
     """{kernel: (bytes, operations)} of one call at these sizes (each input
-    read once, each output written once; s the float size): A constrained
-    (values, int32 columns, x, the bc mask, y; a multiply-add per stored
-    entry of the patches), B matrix mode (9M locals and their int32 order,
-    N K + 1 offsets, the N K outputs; an add per local), C Jacobian mode
-    (cells, area, grads, u, eps in; 3 + 9 locals out), D (columns, u_n,
-    Rh, h, the abs term; eps out; 3 compares per entry, 10 per node)."""
+    read once, each output written once; s the float size; nnz the stored
+    entries of the patches, the ELL padding left out, as a CSR form of the
+    same operator needs none of it): A constrained (nnz values and int32
+    columns, x, the bc mask, y; a multiply-add per entry), B matrix mode
+    (9M locals and their int32 order, nnz + 1 offsets, the nnz outputs; an
+    add per local), C Jacobian mode (cells, area, grads, u, eps in; 3 + 9
+    locals out), D (nnz columns, u_n, Rh, h, the abs term; eps out; 3
+    compares per entry, 10 per node)."""
     return {
-        "ell_spmv": (n * K * (s + 4) + n * (2 * s + 1), 2 * nnz),
-        "ell_assemble": (9 * M * (s + 4) + (n * K + 1) * 4 + n * K * s,
-                         9 * M),
+        "ell_spmv": (nnz * (s + 4) + n * (2 * s + 1), 2 * nnz),
+        "ell_assemble": (9 * M * (s + 4) + (nnz + 1) * 4 + nnz * s, 9 * M),
         "p1_newton_locals": (3 * M * 4 + 7 * M * s + 2 * n * s
                              + 12 * M * s, OPS_LOCALS_JAC * M),
-        "ell_rv_epsilon": (n * K * 4 + 4 * n * s + s, 3 * nnz + 10 * n),
+        "ell_rv_epsilon": (nnz * 4 + 4 * n * s + s, 3 * nnz + 10 * n),
     }
+
+
+def _rel_err(a, b):
+    """(max|a - b|, max|a - b| / max|b|), in f64."""
+    e = float((a.double() - b.double()).abs().max())
+    return e, e / float(b.double().abs().max())
 
 
 def check_ell_kernels(states, regs, card):
@@ -3671,8 +3683,11 @@ def check_ell_kernels(states, regs, card):
     the same state in f64 on the f64 problem): A constrained on the
     assembled Newton Jacobian, B on its locals (matrix mode) and the rhs
     locals (vector mode), C in both modes, D with the residual N(u) as Rh.
-    Gates: f64 within F64_TOL, f32 within ELL_F32_RTOL of the plain
-    version's scale; times on CUDA events (kernel, plain version, one
+    Gates, each output held on its own: B (its plain version run on the
+    CPU, which sums in the kernel's order) and D bit-equal, and A's bc
+    rows (y = x); A's other rows and C's outputs within max|kernel - plain|
+    / max|plain| <= F64_TOL (f64) or ELL_F32_RTOL (f32). Times on CUDA
+    events (kernel, plain version, one
     PyTorch call where there is one: a torch CSR product for A,
     torch.segment_reduce over the sorted locals for B), each beside its
     bound, and what ptxas gave each instance (registers and spills,
@@ -3684,7 +3699,7 @@ def check_ell_kernels(states, regs, card):
     from conservation_fem_tpu_torch.ops import assembly, blocked
     from conservation_fem_tpu_torch.ops import ell_kernels as ek
 
-    rows = {k: dict(errs={}, times={}) for k in ELL_KERNELS}
+    rows = {k: dict(errs={}, rels={}, times={}) for k in ELL_KERNELS}
     for nx, (p32, u32) in states.items():
         p64 = kpp.build(_blocked_cfg(kpp, nx, "blocked", dtype="float64"),
                         host_mesh=p32.host_mesh)
@@ -3702,55 +3717,92 @@ def check_ell_kernels(states, regs, card):
             rhs, jac = ek.p1_newton_locals(m, u, eps, half, flux, True)
             J = ek.assemble_matrix(m, jac)
             bc = m.boundary_mask
-            cases = {
+            # B's reference: its plain version on the CPU, which sums each
+            # segment in the kernel's order (torch.segment_reduce on the
+            # card takes another); the card's plain version is what is
+            # timed
+            mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
+            jac_c, rhs_c = jac.cpu(), rhs.cpu()
+            # name: [(what, kernel, reference, gate)]; gate "equal": bit-
+            # equal (the same order of operations), "rel": max|kernel -
+            # plain| / max|plain| within the dtype's tolerance, with A's bc
+            # rows (y = x) bit-equal and its other rows held relative to
+            # their own scale
+            checks = {
+                "ell_spmv": [("constrained, interior rows",
+                              lambda: ek.ell_spmv(m, J, u, bc)[~bc],
+                              lambda: ek.ell_spmv_plain(m, J, u, bc)[~bc],
+                              "rel"),
+                             ("constrained, bc rows",
+                              lambda: ek.ell_spmv(m, J, u, bc)[bc],
+                              lambda: u[bc], "equal")],
+                "ell_assemble": [("matrix", lambda: ek.assemble_matrix(
+                                      m, jac).cpu(),
+                                  lambda: assembly.scatter_matrix(mc, jac_c),
+                                  "equal"),
+                                 ("vector", lambda: ek.assemble_vector(
+                                      m, rhs).cpu(),
+                                  lambda: assembly.scatter_vector(mc, rhs_c),
+                                  "equal")],
+                "p1_newton_locals": [
+                    ("rhs", lambda: ek.p1_newton_locals(
+                        m, u, eps, half, flux, True)[0],
+                     lambda: ek.p1_newton_locals_plain(
+                         m, u, eps, half, flux, True)[0], "rel"),
+                    ("jac", lambda: ek.p1_newton_locals(
+                        m, u, eps, half, flux, True)[1],
+                     lambda: ek.p1_newton_locals_plain(
+                         m, u, eps, half, flux, True)[1], "rel"),
+                    ("rhs alone", lambda: ek.p1_newton_locals(
+                        m, u, eps, half, flux)[0],
+                     lambda: ek.p1_newton_locals_plain(
+                         m, u, eps, half, flux, False)[0], "rel")],
+                "ell_rv_epsilon": [("eps", lambda: ek.ell_rv_epsilon(
+                    m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
+                    lambda: ek.ell_rv_epsilon_plain(
+                        m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
+                    "equal")],
+            }
+            # what is timed: one call of each, beside its plain version on
+            # the card
+            timed = {
                 "ell_spmv": (lambda: ek.ell_spmv(m, J, u, bc),
                              lambda: ek.ell_spmv_plain(m, J, u, bc)),
                 "ell_assemble": (lambda: ek.assemble_matrix(m, jac),
                                  lambda: assembly.scatter_matrix(m, jac)),
                 "p1_newton_locals": (
-                    lambda: torch.cat([t.reshape(-1) for t in
-                                       ek.p1_newton_locals(m, u, eps, half,
-                                                           flux, True)]),
-                    lambda: torch.cat([t.reshape(-1) for t in
-                                       ek.p1_newton_locals_plain(
-                                           m, u, eps, half, flux, True)])),
+                    lambda: ek.p1_newton_locals(m, u, eps, half, flux, True),
+                    lambda: ek.p1_newton_locals_plain(m, u, eps, half, flux,
+                                                      True)),
                 "ell_rv_epsilon": (
                     lambda: ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, h,
                                               abs_term, flux),
                     lambda: ek.ell_rv_epsilon_plain(m, 0.5, 4.0, u, rh, u,
                                                     h, abs_term, flux)),
             }
-            extra = {
-                "ell_assemble": (lambda: ek.assemble_vector(m, rhs),
-                                 lambda: assembly.scatter_vector(m, rhs)),
-                "p1_newton_locals": (
-                    lambda: ek.p1_newton_locals(m, u, eps, half, flux)[0],
-                    lambda: ek.p1_newton_locals_plain(m, u, eps, half,
-                                                      flux, False)[0]),
-            }
-            # what is timed: one call of each (the checks above also
-            # concatenate C's two outputs)
-            timed = dict(cases, p1_newton_locals=(
-                lambda: ek.p1_newton_locals(m, u, eps, half, flux, True),
-                lambda: ek.p1_newton_locals_plain(m, u, eps, half, flux,
-                                                  True)))
-            bounds = _ell_bounds(n, K, nnz, M, s)
-            for name, (kern, plain) in cases.items():
-                errs = []
-                for k_fn, p_fn in [(kern, plain)] + (
-                        [extra[name]] if name in extra else []):
+            bounds = _ell_bounds(n, nnz, M, s)
+            tol = F64_TOL if dn == "f64" else ELL_F32_RTOL
+            for name, cases in checks.items():
+                errs, rels = [], []
+                for what, k_fn, p_fn, gate in cases:
                     a, b = k_fn(), p_fn()
                     torch.cuda.synchronize()
-                    scale = max(1.0, float(b.abs().max()))
-                    e = max_err(a, b)
-                    tol = (F64_TOL if dn == "f64" else ELL_F32_RTOL) * scale
-                    if not e <= tol:
-                        raise AssertionError(f"{name} irr{nx} {dn}: kernel "
-                                             f"off its plain version by {e}")
+                    e, rel = _rel_err(a, b)
+                    if gate == "equal" and not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{name} {what} irr{nx} {dn}: kernel not "
+                            f"bit-equal to its plain version (off by {e})")
+                    if not rel <= tol:
+                        raise AssertionError(
+                            f"{name} {what} irr{nx} {dn}: kernel off its "
+                            f"plain version by {e}, {rel} of its scale "
+                            f"(gate {tol})")
                     if not torch.equal(k_fn(), a):
-                        raise AssertionError(f"{name} irr{nx} {dn}: repeated "
-                                             "launches differ")
+                        raise AssertionError(f"{name} {what} irr{nx} {dn}: "
+                                             "repeated launches differ")
                     errs.append(e)
+                    rels.append(rel)
+                rows[name]["rels"][f"irr{nx} {dn}"] = max(rels)
                 rows[name]["errs"][f"irr{nx} {dn}"] = max(errs)
                 if nx != max(ELL_KERNEL_MESHES) or dn != "f32":
                     continue
@@ -3764,8 +3816,8 @@ def check_ell_kernels(states, regs, card):
                     crow[1:] = torch.cumsum(mask.sum(1), 0)
                     csr = torch.sparse_csr_tensor(
                         crow, m.patch_cols[mask], J[mask], (n, n))
-                    if not max_err(csr @ u, ek.ell_spmv(m, J, u)) \
-                            <= ELL_F32_RTOL * max(1.0, float(u.abs().max())):
+                    if not _rel_err(csr @ u,
+                                    ek.ell_spmv(m, J, u))[1] <= ELL_F32_RTOL:
                         raise AssertionError("CSR yardstick differs")
                     lib = cuda_ms(lambda: csr @ u, 20)
                 elif name == "ell_assemble":
@@ -3782,7 +3834,8 @@ def check_ell_kernels(states, regs, card):
                     f"library {lib if lib is None else round(lib, 5)} ms, "
                     f"bound {b_ms:.5f} ms ({b_by}: {bounds[name][0]} bytes, "
                     f"{bounds[name][1]} operations); max|kernel - plain| "
-                    f"{rows[name]['errs']} ({card})")
+                    f"{rows[name]['errs']}, over max|plain| "
+                    f"{rows[name]['rels']} ({card})")
     out = {}
     for name, r in rows.items():
         ptxas = {}
@@ -3793,10 +3846,13 @@ def check_ell_kernels(states, regs, card):
                     ptxas[f"{name}{tag} {dn}"] = info
         if not ptxas:
             raise AssertionError(f"{name}: ptxas reported nothing")
-        e64 = max(v for k, v in r["errs"].items() if k.endswith("f64"))
-        e32 = max(v for k, v in r["errs"].items() if k.endswith("f32"))
-        out[name] = dict(max_abs_err=e64, err_case="f64, irr140 and irr640",
-                         max_abs_err_f32=e32, **r["times"],
+        def worst(key, dn):
+            return max(v for k, v in r[key].items() if k.endswith(dn))
+        out[name] = dict(max_abs_err=worst("errs", "f64"),
+                         err_case="f64, irr140 and irr640",
+                         max_abs_err_f32=worst("errs", "f32"),
+                         max_rel_err=worst("rels", "f64"),
+                         max_rel_err_f32=worst("rels", "f32"), **r["times"],
                          timed_case="irr640 f32, the blocked run's end "
                                     "state", ptxas=ptxas)
         log(f"{name} ptxas: " + json.dumps(ptxas))

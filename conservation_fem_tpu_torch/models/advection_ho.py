@@ -77,8 +77,8 @@ class HOAdvectionConfig:
     inner_solver: str = "bicgstab"   # bicgstab | cheby
     cheby_mass_bounds: tuple | None = None   # None: MASS_BOUNDS[degree]
     cheby_cn_bounds: tuple | None = None     # None: CN_BOUNDS[degree]
-    # blocked backend: the JAX package's quality flag, recorded (the port
-    # computes f32 at f32 either way)
+    # blocked backend: the JAX package's quality flag, accepted and read by
+    # nothing (see HyperbolicConfig.blocked_precise)
     blocked_precise: bool = True
     dtype: str = "float64"
 
@@ -159,9 +159,7 @@ def build(cfg: HOAdvectionConfig | None = None, device=None,
     if cfg.ell_matvec_backend == "blocked":
         perm = rcm_dof_permutation(space)
         space = permute_dofs(space, perm)
-        plan = bpk.make_blocked_pk_plan(space, dtype=dtype,
-                                        precise=cfg.blocked_precise,
-                                        device=device)
+        plan = bpk.make_blocked_pk_plan(space, dtype=dtype, device=device)
         sp = plan.mesh
     else:
         sp = space.device_arrays(dtype, device)

@@ -42,18 +42,13 @@ class BlockedHyperbolicProblem(HyperbolicProblem):
     solution lives in slot numbering, and ``make_tiled_plan`` raises
     WindowCoverageError where the JAX package's would)."""
 
-    def __init__(self, *args, nb: int = 128, **kwargs):
+    def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        cfg = self.cfg
         arrays = self.host_mesh.device_arrays(self.dtype, self.device)
-        if cfg.ell_matvec_backend == "blocked2d":
-            self.plan = blocked.make_tiled_plan(
-                self.host_mesh, nb=nb, dtype=self.dtype,
-                precise=cfg.blocked_precise, arrays=arrays)
-        else:
-            self.plan = blocked.make_blocked_plan(
-                self.host_mesh, nb=nb, dtype=self.dtype,
-                precise=cfg.blocked_precise, arrays=arrays)
+        make = (blocked.make_tiled_plan
+                if self.cfg.ell_matvec_backend == "blocked2d"
+                else blocked.make_blocked_plan)
+        self.plan = make(self.host_mesh, dtype=self.dtype, arrays=arrays)
         self._mesh = self.plan.mesh
 
     # -- operators ----------------------------------------------------------

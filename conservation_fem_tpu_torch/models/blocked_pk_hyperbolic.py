@@ -34,11 +34,10 @@ from conservation_fem_tpu_torch.ops.spaces import (build_space, permute_dofs,
 class BlockedPkHyperbolicProblem(PkHyperbolicProblem):
     """PkHyperbolicProblem on the blocked backend."""
 
-    def __init__(self, *args, nb: int = 128, **kwargs):
+    def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.plan = bpk.make_blocked_pk_plan(
-            self.space, nb=nb, dtype=self.dtype,
-            precise=self.cfg.blocked_precise,
+            self.space, dtype=self.dtype,
             arrays=self.space.device_arrays(self.dtype, self.device))
         self._mesh = self.plan.mesh
 

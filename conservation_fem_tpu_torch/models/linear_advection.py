@@ -86,8 +86,8 @@ class AdvectionConfig:
     # rv_cell epsilon scatter: "last" = last-cell-wins in file cell order
     # (the reference's loop), "max" = the order-independent variant
     rv_cell_scatter: str = "last"
-    # blocked backend: the JAX package's quality flag, recorded (the port
-    # computes f32 at f32 either way; see HyperbolicConfig)
+    # blocked backend: the JAX package's quality flag, accepted and read by
+    # nothing (see HyperbolicConfig.blocked_precise)
     blocked_precise: bool = True
     krylov_rtol: float = 1e-12
     # "gather" ((N,K) gather and row sum), "banded" (the ELL SpMV kernel)
@@ -189,7 +189,6 @@ def build(cfg: AdvectionConfig | None = None, device=None,
     if cfg.ell_matvec_backend == "blocked":
         host_mesh = reorder_mesh(host_mesh, rcm_permutation(host_mesh))
         plan = blocked.make_blocked_plan(host_mesh, dtype=dtype,
-                                         precise=cfg.blocked_precise,
                                          device=device)
         m = plan.mesh
     else:

@@ -23,8 +23,14 @@ lattice: a structured rectangle mesh, any degree): each assembled operator
 is laid out once, and its products are shifted multiply-adds between one
 scatter onto the grid and one gather back. ``"banded"`` (an RCM-ordered
 mesh) applies the products through the hand-written ELL SpMV kernel
-(ops/banded.py says why not as diagonals) and assembles as the gather
-backend does; ``"blocked"`` and ``"blocked2d"`` are the unstructured fast
+(ops/ell_kernels.ell_spmv) and assembles as the gather backend does. The
+JAX package stores each operator as its 2B+1 diagonals (B the bandwidth)
+and applies it as shifted multiply-adds, because a gather is slow on the
+TPU; on the card that costs 2B+1 multiply-adds a row where the ELL row
+holds K entries (after RCM B is 1210 at irregular_mesh nx 640, K 11),
+while a gather runs at the memory rate, so the diagonal storage is not
+ported, and the Jacobi preconditioner reads ``ell_diag``, the band's
+middle row there. ``"blocked"`` and ``"blocked2d"`` are the unstructured fast
 path of models/blocked_hyperbolic.py, which this class, built directly
 with them, runs as the gather backend (the JAX package's base class does
 the same). The structured stencil backend
@@ -96,10 +102,11 @@ class HyperbolicConfig:
     # blocked_hyperbolic.py, the hand-written ELL kernels)
     ell_matvec_backend: str = "gather"
     # blocked backends: the JAX package's quality flag (f32 one-hots and
-    # HIGHEST contractions there, bf16 streams when False). Accepted and
-    # recorded: the port computes f32 at f32 either way, so f32 blocked
-    # runs are held by the anchor gates, not elementwise against the JAX
-    # package's f32 blocked runs (whose default streams bf16)
+    # HIGHEST contractions there, bf16 streams when False). Accepted so
+    # that the JAX package's configurations build, and read by nothing:
+    # the port computes f32 at f32 either way, so f32 blocked runs are held
+    # by the anchor gates, not elementwise against the JAX package's f32
+    # blocked runs (whose default streams bf16)
     blocked_precise: bool = False
     # blocked backends: apply the per-step operators (eps-stiffness, flux
     # Jacobian) matrix-free from the cell locals (ops/blocked.local_apply)

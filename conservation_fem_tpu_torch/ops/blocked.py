@@ -29,11 +29,12 @@ local vectors (M, nd), in the mesh's cell order, where the JAX package has
 
 ``make_tiled_plan`` keeps the JAX coverage check of the tiled window
 (``WindowCoverageError`` on the same meshes), so a configuration the JAX
-package refuses is refused here too. ``precise`` is accepted and recorded:
-the port computes f32 at f32 throughout, which is what the JAX package's
+package refuses is refused here too. The plans take no ``precise``: the
+port computes f32 at f32 throughout, which is what the JAX package's
 ``precise=True`` does; its default bf16 streams (``precise=False``) are a
 TPU saving the port does not make, so f32 blocked runs are held by the
-anchor gates, not elementwise against JAX f32 runs.
+anchor gates, not elementwise against JAX f32 runs (models/
+scalar_hyperbolic.HyperbolicConfig.blocked_precise).
 """
 
 from __future__ import annotations
@@ -68,20 +69,13 @@ class BlockedPlan:
     the JAX package's callers read it; mesh: the mesh's (or space's)
     tensors with the kernels' int32 index (ops/mesh.with_kernel_index),
     which also hold the per-cell geometry; row_valid: (n,) bool of the real
-    rows of a tile-slot mesh, None elsewhere; nd: dofs per cell; precise:
-    the JAX quality flag, recorded (the port computes f32 at f32 either
-    way); run_off, rw, T: the tiled window (None, 0, 0 on an RCM plan)."""
+    rows of a tile-slot mesh, None elsewhere; nd: dofs per cell."""
 
     n: int
-    nb: int
     B: int
     mesh: object
     row_valid: torch.Tensor | None = None
     nd: int = 3
-    precise: bool = False
-    run_off: tuple | None = None
-    rw: int = 0
-    T: int = 0
 
     @property
     def patch_float(self):
@@ -111,26 +105,24 @@ def bandwidth(cols, pmask) -> int:
     return int(np.abs(offs[pmask]).max())
 
 
-def make_blocked_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
-                      precise: bool = False, device="cpu",
+def make_blocked_plan(mesh: Mesh, dtype=torch.float32, device="cpu",
                       arrays=None) -> BlockedPlan:
     """The plan of an RCM-ordered mesh (ops/mesh.reorder_mesh(m,
     rcm_permutation(m))). arrays: the mesh's tensors when the caller has
     them (made here otherwise)."""
     if arrays is None:
         arrays = mesh.device_arrays(dtype, device)
-    return BlockedPlan(n=mesh.n_nodes, nb=nb,
+    return BlockedPlan(n=mesh.n_nodes,
                        B=bandwidth(mesh.patch_cols, mesh.patch_mask),
-                       mesh=with_kernel_index(arrays),
-                       precise=bool(precise) and dtype == torch.float32)
+                       mesh=with_kernel_index(arrays))
 
 
 def _tiled_coverage(n_slots, cols, pmask, nb, T, k):
     """The JAX plan's coverage check (blocked._plan_struct_tiled): the
     window of block b is 3 runs of rw = 2k + 1 blocks at block offsets
     (-T-k, -k, T-k); every patch column of a row (and so every dof of each
-    of its cells) must lie in its block's window. Returns (run_off, rw,
-    diagonal offset) or raises WindowCoverageError."""
+    of its cells) must lie in its block's window. Returns the window's
+    diagonal offset (rw + k) nb or raises WindowCoverageError."""
     if n_slots % nb:
         raise ValueError("tiled layout must be slot-padded to nb")
     rw = 2 * k + 1
@@ -147,12 +139,12 @@ def _tiled_coverage(n_slots, cols, pmask, nb, T, k):
     if not covered.all():
         raise WindowCoverageError(
             f"patch column outside the 3-run window at k={k}")
-    return run_off, rw, (rw + k) * nb
+    return (rw + k) * nb
 
 
 def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
-                    precise: bool = False, k: int | None = None,
-                    device="cpu", arrays=None) -> BlockedPlan:
+                    k: int | None = None, device="cpu",
+                    arrays=None) -> BlockedPlan:
     """The plan of a tile-slot mesh (ops/tiling.tile_mesh): k, the tile
     neighbourhood halfwidth, raised 1 -> 3 until the JAX window covers
     every patch (or fixed by the caller); row_valid = the mesh's
@@ -164,7 +156,7 @@ def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
     ks = (k,) if k is not None else (1, 2, 3)
     for kk in ks:
         try:
-            run_off, rw, B = _tiled_coverage(
+            B = _tiled_coverage(
                 mesh.n_nodes, mesh.patch_cols, mesh.patch_mask, nb,
                 int(mesh.tile_T), kk)
             break
@@ -175,10 +167,8 @@ def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
         arrays = mesh.device_arrays(dtype, device)
     dev = arrays.boundary_mask.device
     return BlockedPlan(
-        n=mesh.n_nodes, nb=nb, B=B, mesh=with_kernel_index(arrays),
-        row_valid=torch.as_tensor(np.asarray(mesh.slot_valid), device=dev),
-        precise=bool(precise) and dtype == torch.float32, run_off=run_off,
-        rw=rw, T=int(mesh.tile_T))
+        n=mesh.n_nodes, B=B, mesh=with_kernel_index(arrays),
+        row_valid=torch.as_tensor(np.asarray(mesh.slot_valid), device=dev))
 
 
 # ---------------------------------------------------------------------------

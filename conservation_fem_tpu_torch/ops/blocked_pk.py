@@ -21,18 +21,16 @@ from conservation_fem_tpu_torch.ops.mesh import with_kernel_index
 from conservation_fem_tpu_torch.ops.spaces import FunctionSpace
 
 
-def make_blocked_pk_plan(space: FunctionSpace, nb: int = 128,
-                         dtype=torch.float32, precise: bool = False,
+def make_blocked_pk_plan(space: FunctionSpace, dtype=torch.float32,
                          device="cpu", arrays=None) -> blocked.BlockedPlan:
     """The plan of an (RCM-permuted) space; arrays: the space's tensors
     when the caller has them."""
     if arrays is None:
         arrays = space.device_arrays(dtype, device)
     return blocked.BlockedPlan(
-        n=space.ndof, nb=nb,
+        n=space.ndof,
         B=blocked.bandwidth(space.patch_cols, space.patch_mask),
-        mesh=with_kernel_index(arrays), nd=space.nloc,
-        precise=bool(precise) and dtype == torch.float32)
+        mesh=with_kernel_index(arrays), nd=space.nloc)
 
 
 def pk_conv_plus_locals_rhs(plan, u, flux, L=None):

@@ -1,11 +1,12 @@
 """The unstructured fast path's host code and operations (ops/tiling.py,
-ops/banded.py, ops/blocked.py, ops/ell_kernels.py) against the JAX
+ops/blocked.py, ops/ell_kernels.py) against the JAX
 package's, f64 on the CPU, on the same inputs (numpy-seeded):
 
   * the tile-slot layout of irregular_mesh(nx=60, seed=1) bit-equal to the
     JAX package's (slot map, padded mesh, slot_valid, tile stride), and
     WindowCoverageError raised for the same meshes and k;
-  * the banded plan's bandwidth and its diagonal products within 1e-12;
+  * the banded backend's ELL products and diagonal against the JAX
+    package's diagonal storage, and the bandwidth, within 1e-12;
   * each ops/blocked.py function the models call against its JAX
     counterpart on an RCM-ordered rectangle_mesh(nx=12) (and the tiled
     plan's RV kernel with its phantom slots), within 1e-12: the port holds
@@ -31,10 +32,11 @@ from conservation_fem_tpu.ops import tiling as jtile
 from conservation_fem_tpu_torch.models import burgers as tburgers
 from conservation_fem_tpu_torch.models import kpp as tkpp
 from conservation_fem_tpu_torch.ops import assembly as tasm
-from conservation_fem_tpu_torch.ops import banded as tband
 from conservation_fem_tpu_torch.ops import blocked as tblk
+from conservation_fem_tpu_torch.ops import ell_kernels as ek
 from conservation_fem_tpu_torch.ops import mesh as tmesh
 from conservation_fem_tpu_torch.ops import tiling as ttile
+from conservation_fem_tpu_torch.ops.spmv import ell_diag
 
 TOL = 1e-12
 F64 = torch.float64
@@ -103,27 +105,29 @@ def test_window_coverage_matches_jax(tiled, mesh, k):
             tblk.make_tiled_plan(mt, dtype=F64, k=k)
         return
     tp = tblk.make_tiled_plan(mt, dtype=F64, k=k)
-    assert (tp.B, tp.rw, tp.run_off, tp.n) == (jp.B, jp.rw, jp.run_off,
-                                               jp.n)
+    assert (tp.B, tp.n) == (jp.B, jp.n)
     assert np.array_equal(tp.row_valid.numpy(), np.asarray(jp.row_valid))
 
 
 def test_banded_matches_jax(rect):
-    jm, _, tm, _, f = rect
-    jb, tb = jband.make_banded_plan(jm), tband.make_banded_plan(tm)
-    assert tb.bandwidth == jb.bandwidth
+    """The banded backend's products (the ELL SpMV, plain and constrained,
+    and the ELL diagonal for Jacobi) against the JAX package's diagonal
+    storage on the same RCM mesh, and the bandwidth against its plan's."""
+    jm, _, tm, tp, f = rect
+    jb = jband.make_banded_plan(jm)
+    assert tblk.bandwidth(tm.patch_cols, tm.patch_mask) == jb.bandwidth
     A = jasm.assemble_stiffness(jm)
     band_j = jband.ell_to_banded(jb, A)
-    band_t = tband.ell_to_banded(tb, _t(A))
-    assert np.abs(band_t.numpy() - np.asarray(band_j)).max() <= TOL
     x, bc = f["x"], tm.boundary_mask
     y_j = jband.banded_matvec(band_j, jnp.asarray(x))
-    assert np.abs(tband.banded_matvec(band_t, _t(x)).numpy()
+    assert np.abs(ek.ell_spmv(tp.mesh, _t(A), _t(x)).numpy()
                   - np.asarray(y_j)).max() <= TOL
     yc_j = jband.constrained_banded_matvec(band_j, jnp.asarray(x),
                                            jnp.asarray(bc))
-    yc_t = tband.constrained_banded_matvec(band_t, _t(x), torch.as_tensor(bc))
+    yc_t = ek.ell_spmv(tp.mesh, _t(A), _t(x), torch.as_tensor(bc))
     assert np.abs(yc_t.numpy() - np.asarray(yc_j)).max() <= TOL
+    assert np.abs(ell_diag(tp.mesh, _t(A)).numpy()
+                  - np.asarray(band_j[jb.bandwidth])).max() <= TOL
 
 
 def _jax_case(name, jm, jp, f):

@@ -91,6 +91,10 @@ def test_ell_assemble(cuda, irr, dtype, degree):
     v = ek.assemble_vector(m, vecs)
     _close(A, assembly.scatter_matrix(m, mats), dtype)
     _close(v, assembly.scatter_vector(m, vecs), dtype)
+    # the plain version on the CPU sums each segment in the kernel's order
+    mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
+    assert torch.equal(A.cpu(), assembly.scatter_matrix(mc, mats.cpu()))
+    assert torch.equal(v.cpu(), assembly.scatter_vector(mc, vecs.cpu()))
     assert torch.equal(A, ek.assemble_matrix(m, mats))
     assert torch.equal(v, ek.assemble_vector(m, vecs))
 
