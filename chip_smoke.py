@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --ablate   # the step ablation and idle share
-    python3 chip_smoke.py --against DIR   # the single and block kernels
-                                          # against another tree's, in turns
+    python3 chip_smoke.py --against DIR [--ell]   # the single and block
+                                  # kernels, cg_solve and the ELL kernels
+                                  # A and C (--ell: those alone) against
+                                  # another tree's, in turns
 
 Phases of the smoke run, in order; any failure raises and the process
 exits non-zero:
@@ -216,7 +218,9 @@ fused_rv_block_step on the interior blocks of KPP and Burgers mesh 64 x 4;
 off the main paths, fused_rv_step at KPP mesh 256 and fused_rv_block_step
 on the interior block of KPP 512 x 4; cg_solve on the f64 mass solves of
 the Burgers reference config at mesh 50 and 100 and of the KPP adaptive
-config at mesh 64 and 256, and that of mesh 256 in f32), and prints each
+config at mesh 64 and 256, and that of mesh 256 in f32; the ELL kernels
+A and C at the blocked irr640 f32 end state, warm and L2-cold on a CUDA
+graph and per wrapper call: with --ell these alone), and prints each
 case's times and the ratio this / DIR.
 """
 
@@ -3468,11 +3472,11 @@ def ablate(card):
     return out
 
 
-def against(other, card):
-    """{case: times} of the single and block kernels of the tree in
-    `other` and of this one, in turns (other, this, this, other, twice),
-    one process each (scripts/torch_kernel_times.py; the first makes the
-    inputs)."""
+def against(other, card, ell_only=False):
+    """{case: times} of the single and block kernels, cg_solve and the ELL
+    kernels A and C (``ell_only``: those alone) of the tree in `other` and
+    of this one, in turns (other, this, this, other, twice), one process
+    each (scripts/torch_kernel_times.py; the first makes the inputs)."""
     import torch
 
     other = os.path.abspath(other)
@@ -3488,7 +3492,8 @@ def against(other, card):
                                              (other, "other"))):
             out = os.path.join(tmp, f"{k}.pt")
             subprocess.run([sys.executable, script, "run", tree, inputs,
-                            out], check=True, cwd=tree)
+                            out] + (["--ell"] if ell_only else []),
+                           check=True, cwd=tree)
             for name, ms in torch.load(out).items():
                 got.setdefault(name, {"this": [], "other": []})[who].append(
                     ms)
@@ -3677,6 +3682,218 @@ def _rel_err(a, b):
     return e, e / float(b.double().abs().max())
 
 
+# the ELL kernels' timing: calls on one CUDA graph, and the operand sets a
+# graph rotates over to read from a cold L2 (their bytes at least twice the
+# 50 MB L2, and at least 2 sets)
+ELL_GRAPH_REPS = 100
+ELL_COLD_BYTES = 100e6
+# the index and geometry fields of a mesh a set clones
+ELL_SET_FIELDS = ("patch_cols32", "patch_cols_bc32", "cells32", "mat_perm32", "mat_offs32",
+                  "area", "grads", "boundary_mask", "mat_lens")
+
+
+def _ell_set(base, clone):
+    """One operand set of the timed ELL calls: the tensors of ``base`` (m,
+    u, J, jac, eps, rh, h, abs_term) and, derived from them, A's torch CSR
+    yardstick and B's locals in the sorted order (torch.segment_reduce's
+    input); ``clone``: every tensor copied, the mesh's ELL_SET_FIELDS
+    too."""
+    import torch
+
+    m = base["m"]
+    if clone:
+        m = m._replace(**{f: getattr(m, f).clone() for f in ELL_SET_FIELDS
+                          if getattr(m, f) is not None})
+    s = {k: (v.clone() if clone else v) for k, v in base.items() if k != "m"}
+    s["m"] = m
+    n = m.patch_cols.shape[0]
+    mask = m.patch_mask
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=s["u"].device)
+    crow[1:] = torch.cumsum(mask.sum(1), 0)
+    s["csr"] = torch.sparse_csr_tensor(crow, m.patch_cols[mask],
+                                       s["J"][mask], (n, n))
+    s["flat"] = s["jac"].reshape(-1)[m.mat_perm]
+    return s
+
+
+def _set_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _graph_or_calls(what, fn, sets, n_cold):
+    """(warm ms, L2-cold ms, how): fn(set) on a CUDA graph of
+    ELL_GRAPH_REPS calls on sets[0], and rotating over sets[:n_cold]; where
+    fn cannot be captured, said so and timed over as many calls back to
+    back (CUDA events)."""
+    import itertools
+
+    turn = itertools.cycle(sets[:n_cold])
+    try:
+        return (graph_ms(lambda: fn(sets[0]), ELL_GRAPH_REPS),
+                graph_ms(lambda: fn(next(turn)), ELL_GRAPH_REPS),
+                "CUDA graph")
+    except RuntimeError as e:
+        log(f"{what} cannot be captured on a CUDA graph ({e}); timed over "
+            f"{ELL_GRAPH_REPS} calls back to back instead")
+        turn = itertools.cycle(sets[:n_cold])
+        return (cuda_ms(lambda: fn(sets[0]), ELL_GRAPH_REPS),
+                cuda_ms(lambda: fn(next(turn)), ELL_GRAPH_REPS),
+                "calls back to back")
+
+
+def _spmv_bc_gather(s):
+    """A in constrained mode on the set s reading the bc byte mask at each
+    column (the plain int32 columns), not the wrapper's flagged columns;
+    timed beside it, not counted."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.ops import ell_kernels as ek
+
+    m, J, u = s["m"], s["J"], s["u"]
+    n, K = J.shape
+    plan = ek.spmv_plan(n, K, J.element_size(),
+                        torch.cuda.get_device_properties(
+                            u.device).multi_processor_count)
+    y = torch.empty_like(u)
+    _build.check(_build.entry("cft_ell_spmv", J.dtype)(
+        J.data_ptr(), m.patch_cols32.data_ptr(), u.data_ptr(),
+        m.boundary_mask.data_ptr(), y.data_ptr(), n, K, plan.rows,
+        plan.stride, plan.ctas, plan.smem, 0, _build.stream_ptr(u)),
+        "ell_spmv bc gather")
+    return y
+
+
+def time_ell_kernels(base, half, bounds, cfg, card):
+    """{kernel: times} of A-D at one state (irr640 f32): warm (one operand
+    set) and L2-cold (a graph rotating over sets whose operands together
+    reach ELL_COLD_BYTES) on a CUDA graph of ELL_GRAPH_REPS calls; per
+    wrapper call back to back (the host's cost: checks, allocation, ctypes);
+    the plain version per call; the library call (A: torch's CSR product,
+    B: torch.segment_reduce over the sorted locals) timed as the kernel is;
+    the bound. Then the rule-2 ranking: kernels slower L2-cold than their
+    library call first, then by launches a step x (L2-cold - bound)."""
+    import math
+
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops import assembly
+    from conservation_fem_tpu_torch.ops import ell_kernels as ek
+
+    flux = kpp.FLUX
+    m = base["m"]
+    kernels = {
+        "ell_spmv": (lambda s: ek.ell_spmv(s["m"], s["J"], s["u"],
+                                           s["m"].boundary_mask),
+                     lambda s: ek.ell_spmv_plain(s["m"], s["J"], s["u"],
+                                                 s["m"].boundary_mask),
+                     lambda s: (s["J"], s["m"].patch_cols_bc32, s["u"],
+                                s["m"].boundary_mask)),
+        "ell_assemble": (lambda s: ek.assemble_matrix(s["m"], s["jac"]),
+                         lambda s: assembly.scatter_matrix(s["m"], s["jac"]),
+                         lambda s: (s["jac"], s["m"].mat_perm32,
+                                    s["m"].mat_offs32)),
+        "p1_newton_locals": (
+            lambda s: ek.p1_newton_locals(s["m"], s["u"], s["eps"], half,
+                                          flux, True),
+            lambda s: ek.p1_newton_locals_plain(s["m"], s["u"], s["eps"],
+                                                half, flux, True),
+            lambda s: (s["m"].cells32, s["m"].area, s["m"].grads, s["u"],
+                       s["eps"])),
+        "ell_rv_epsilon": (
+            lambda s: ek.ell_rv_epsilon(s["m"], 0.5, 4.0, s["u"], s["rh"],
+                                        s["u"], s["h"], s["abs_term"], flux),
+            lambda s: ek.ell_rv_epsilon_plain(s["m"], 0.5, 4.0, s["u"],
+                                              s["rh"], s["u"], s["h"],
+                                              s["abs_term"], flux),
+            lambda s: (s["m"].patch_cols32, s["u"], s["rh"], s["h"])),
+    }
+    library = {
+        "ell_spmv": ("torch CSR product", lambda s: s["csr"] @ s["u"],
+                     lambda s: (s["csr"].crow_indices(),
+                                s["csr"].col_indices(), s["csr"].values(),
+                                s["u"])),
+        "ell_assemble": ("torch.segment_reduce over the sorted locals",
+                         lambda s: torch.segment_reduce(
+                             s["flat"], "sum", lengths=s["m"].mat_lens,
+                             unsafe=True),
+                         lambda s: (s["flat"], s["m"].mat_lens)),
+    }
+    first = _ell_set(base, clone=False)
+    # the yardsticks compute the kernels' functions
+    if not _rel_err(library["ell_spmv"][1](first),
+                    ek.ell_spmv(m, base["J"], base["u"]))[1] <= ELL_F32_RTOL:
+        raise AssertionError("CSR yardstick differs")
+    if not _rel_err(library["ell_assemble"][1](first),
+                    ek.assemble_matrix(m, base["jac"]).reshape(-1))[1] \
+            <= ELL_F32_RTOL:
+        raise AssertionError("segment_reduce yardstick differs")
+    need = lambda b: max(2, math.ceil(ELL_COLD_BYTES / b))
+    n_sets = max(need(_set_bytes(*v[2](first)))
+                 for v in list(kernels.values()) + list(library.values()))
+    sets = [first] + [_ell_set(base, clone=True) for _ in range(n_sets - 1)]
+    per_step = blocked_launches(cfg, 1)
+    out = {}
+    for name, (fn, plain, ops) in kernels.items():
+        set_b = _set_bytes(*ops(first))
+        n_cold = need(set_b)
+        warm, cold, _ = _graph_or_calls(name, fn, sets, n_cold)
+        host = cuda_ms(lambda: fn(first), ELL_GRAPH_REPS)
+        plain_ms = cuda_ms(lambda: plain(first), 20)
+        b_ms, b_by = bound(*bounds[name], "f32")
+        row = dict(ms=cold, warm_ms=warm, host_ms_per_call=host,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=bounds[name][0], operations=bounds[name][1],
+                   share_of_bound_cold=b_ms / cold, cold_sets=n_cold,
+                   set_bytes=set_b, library_ms=None,
+                   launches_per_step=per_step.get(name, 0))
+        lib_txt = "none"
+        if name in library:
+            what, lfn, lops = library[name]
+            lb = _set_bytes(*lops(first))
+            lw, lc, how = _graph_or_calls(what, lfn, sets, need(lb))
+            row.update(library_ms=lc, library_warm_ms=lw, library=what,
+                       library_timed_on=how, library_cold_sets=need(lb))
+            lib_txt = (f"{what} warm {lw:.5f}, L2-cold {lc:.5f} ms ({how}, "
+                       f"{need(lb)} sets)")
+        out[name] = row
+        log(f"{name} irr640 f32: on a CUDA graph of {ELL_GRAPH_REPS} calls "
+            f"warm {warm:.5f} ms, L2-cold {cold:.5f} ms ({n_cold} sets of "
+            f"{set_b} B); per wrapper call back to back {host:.5f} ms; "
+            f"plain {plain_ms:.5f} ms; library {lib_txt}; bound {b_ms:.5f} "
+            f"ms ({b_by}), L2-cold at {b_ms / cold:.1%} of it ({card})")
+    # A's bc test, decided by measurement: the wrapper's bc-flagged
+    # columns against the bc byte mask gathered at each column
+    ref = kernels["ell_spmv"][0](first)
+    if not torch.equal(_spmv_bc_gather(first), ref):
+        raise AssertionError("ell_spmv: the bc-gather variant differs")
+    gw, gc, _ = _graph_or_calls("ell_spmv bc gather", _spmv_bc_gather, sets,
+                                out["ell_spmv"]["cold_sets"])
+    out["ell_spmv"].update(bc_gather_warm_ms=gw, bc_gather_ms=gc)
+    log(f"ell_spmv irr640 f32, the bc test: flagged columns warm "
+        f"{out['ell_spmv']['warm_ms']:.5f}, L2-cold "
+        f"{out['ell_spmv']['ms']:.5f} ms; the bc byte mask gathered at "
+        f"each column warm {gw:.5f}, L2-cold {gc:.5f} ms ({card})")
+    # rule 2: slower than the library call first, then the time lost a step
+    for name, row in out.items():
+        row["slower_than_library"] = (row["library_ms"] is not None
+                                      and row["ms"] > row["library_ms"])
+        row["lost_ms_per_step"] = row["launches_per_step"] * (
+            row["ms"] - row["bound_ms"])
+    rank = sorted(out, key=lambda k: (not out[k]["slower_than_library"],
+                                      -out[k]["lost_ms_per_step"]))
+    for i, name in enumerate(rank):
+        out[name]["rule2_rank"] = i + 1
+    log("ELL kernels by rule 2 (slower than the library call L2-cold first, "
+        "then launches a step x (L2-cold - bound)): " + "; ".join(
+            f"{k} (lost {out[k]['lost_ms_per_step']:.5f} ms a step, "
+            f"{out[k]['share_of_bound_cold']:.1%} of its bound"
+            + (", slower than its library call" if out[k][
+                "slower_than_library"] else "") + ")" for k in rank))
+    return out
+
+
 def check_ell_kernels(states, regs, card):
     """(a) Each ELL kernel against its plain version on the card, at the
     operands of the blocked runs' end states at irr140 and irr640 (f32, and
@@ -3724,10 +3941,12 @@ def check_ell_kernels(states, regs, card):
             mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
             jac_c, rhs_c = jac.cpu(), rhs.cpu()
             # name: [(what, kernel, reference, gate)]; gate "equal": bit-
-            # equal (the same order of operations), "rel": max|kernel -
-            # plain| / max|plain| within the dtype's tolerance, with A's bc
-            # rows (y = x) bit-equal and its other rows held relative to
-            # their own scale
+            # equal (the same order of operations), "equal f32": so in f32
+            # (A against its plain version on the CPU, which sums each row
+            # in slot order with rounded products as the kernel does) and
+            # "rel" in f64, "rel": max|kernel - plain| / max|plain| within
+            # the dtype's tolerance, with A's bc rows (y = x) bit-equal and
+            # its other rows held relative to their own scale
             checks = {
                 "ell_spmv": [("constrained, interior rows",
                               lambda: ek.ell_spmv(m, J, u, bc)[~bc],
@@ -3735,7 +3954,17 @@ def check_ell_kernels(states, regs, card):
                               "rel"),
                              ("constrained, bc rows",
                               lambda: ek.ell_spmv(m, J, u, bc)[bc],
-                              lambda: u[bc], "equal")],
+                              lambda: u[bc], "equal"),
+                             ("constrained, plain on the CPU",
+                              lambda: ek.ell_spmv(m, J, u, bc).cpu(),
+                              lambda: ek.ell_spmv_plain(
+                                  mc, J.cpu(), u.cpu(), mc.boundary_mask),
+                              "equal f32"),
+                             ("unconstrained, plain on the CPU",
+                              lambda: ek.ell_spmv(m, J, u).cpu(),
+                              lambda: ek.ell_spmv_plain(mc, J.cpu(),
+                                                        u.cpu()),
+                              "equal f32")],
                 "ell_assemble": [("matrix", lambda: ek.assemble_matrix(
                                       m, jac).cpu(),
                                   lambda: assembly.scatter_matrix(mc, jac_c),
@@ -3763,23 +3992,6 @@ def check_ell_kernels(states, regs, card):
                         m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
                     "equal")],
             }
-            # what is timed: one call of each, beside its plain version on
-            # the card
-            timed = {
-                "ell_spmv": (lambda: ek.ell_spmv(m, J, u, bc),
-                             lambda: ek.ell_spmv_plain(m, J, u, bc)),
-                "ell_assemble": (lambda: ek.assemble_matrix(m, jac),
-                                 lambda: assembly.scatter_matrix(m, jac)),
-                "p1_newton_locals": (
-                    lambda: ek.p1_newton_locals(m, u, eps, half, flux, True),
-                    lambda: ek.p1_newton_locals_plain(m, u, eps, half, flux,
-                                                      True)),
-                "ell_rv_epsilon": (
-                    lambda: ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, h,
-                                              abs_term, flux),
-                    lambda: ek.ell_rv_epsilon_plain(m, 0.5, 4.0, u, rh, u,
-                                                    h, abs_term, flux)),
-            }
             bounds = _ell_bounds(n, nnz, M, s)
             tol = F64_TOL if dn == "f64" else ELL_F32_RTOL
             for name, cases in checks.items():
@@ -3788,7 +4000,8 @@ def check_ell_kernels(states, regs, card):
                     a, b = k_fn(), p_fn()
                     torch.cuda.synchronize()
                     e, rel = _rel_err(a, b)
-                    if gate == "equal" and not torch.equal(a, b):
+                    if (gate == "equal" or gate == "equal f32"
+                            and dn == "f32") and not torch.equal(a, b):
                         raise AssertionError(
                             f"{name} {what} irr{nx} {dn}: kernel not "
                             f"bit-equal to its plain version (off by {e})")
@@ -3804,46 +4017,20 @@ def check_ell_kernels(states, regs, card):
                     rels.append(rel)
                 rows[name]["rels"][f"irr{nx} {dn}"] = max(rels)
                 rows[name]["errs"][f"irr{nx} {dn}"] = max(errs)
-                if nx != max(ELL_KERNEL_MESHES) or dn != "f32":
-                    continue
-                t = _alternated(dict(zip(("kernel", "plain"),
-                                         timed[name])), 20)
-                lib = None
-                if name == "ell_spmv":
-                    mask = m.patch_mask
-                    crow = torch.zeros(n + 1, dtype=torch.int64,
-                                       device=u.device)
-                    crow[1:] = torch.cumsum(mask.sum(1), 0)
-                    csr = torch.sparse_csr_tensor(
-                        crow, m.patch_cols[mask], J[mask], (n, n))
-                    if not _rel_err(csr @ u,
-                                    ek.ell_spmv(m, J, u))[1] <= ELL_F32_RTOL:
-                        raise AssertionError("CSR yardstick differs")
-                    lib = cuda_ms(lambda: csr @ u, 20)
-                elif name == "ell_assemble":
-                    flat = jac.reshape(-1)[m.mat_perm]
-                    lib = cuda_ms(lambda: torch.segment_reduce(
-                        flat, "sum", lengths=m.mat_lens, unsafe=True), 20)
-                b_ms, b_by = bound(*bounds[name], dn)
-                rows[name]["times"] = dict(
-                    ms=t["kernel"], plain_ms=t["plain"], bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib,
-                    bytes=bounds[name][0], operations=bounds[name][1])
-                log(f"{name} irr{nx} f32 (N {n}, K {K}, cells {M}): kernel "
-                    f"{t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, "
-                    f"library {lib if lib is None else round(lib, 5)} ms, "
-                    f"bound {b_ms:.5f} ms ({b_by}: {bounds[name][0]} bytes, "
-                    f"{bounds[name][1]} operations); max|kernel - plain| "
-                    f"{rows[name]['errs']}, over max|plain| "
-                    f"{rows[name]['rels']} ({card})")
+            if nx == max(ELL_KERNEL_MESHES) and dn == "f32":
+                timed = dict(m=m, u=u, J=J, jac=jac, eps=eps, rh=rh, h=h,
+                             abs_term=abs_term)
+                timed_args = (half, bounds, p.cfg)
+    times = time_ell_kernels(timed, *timed_args, card)
+    for name, t in times.items():
+        rows[name]["times"] = t
     out = {}
     for name, r in rows.items():
-        ptxas = {}
-        for dn in ("f32", "f64"):
-            for tag in ("", " burgers"):
-                info = regs.get(f"{name}{tag} {dn}")
-                if info is not None:
-                    ptxas[f"{name}{tag} {dn}"] = info
+        # each instance, A's by its mode (ptxas names it "design <mode>")
+        ptxas = {k: v for k, v in regs.items()
+                 for dn in ("f32", "f64") for tag in ("", " burgers")
+                 if k == f"{name}{tag} {dn}"
+                 or k.startswith(f"{name}{tag} {dn} design ")}
         if not ptxas:
             raise AssertionError(f"{name}: ptxas reported nothing")
         def worst(key, dn):
@@ -3854,7 +4041,8 @@ def check_ell_kernels(states, regs, card):
                          max_rel_err=worst("rels", "f64"),
                          max_rel_err_f32=worst("rels", "f32"), **r["times"],
                          timed_case="irr640 f32, the blocked run's end "
-                                    "state", ptxas=ptxas)
+                                    "state; ms and library_ms L2-cold on "
+                                    "a CUDA graph", ptxas=ptxas)
         log(f"{name} ptxas: " + json.dumps(ptxas))
     return out
 
@@ -4022,10 +4210,13 @@ def main(argv):
     if argv[1:] == ["--ablate"]:
         log(card)
         log(json.dumps({"ablation": ablate(card)}))
-    elif argv[1:2] == ["--against"] and len(argv) == 3:
-        log(json.dumps({"against": against(argv[2], card)}))
+    elif argv[1:2] == ["--against"] and (len(argv) == 3 or argv[3:] == [
+            "--ell"]):
+        log(json.dumps({"against": against(argv[2], card,
+                                           ell_only=len(argv) == 4)}))
     elif argv[1:]:
-        raise SystemExit(f"usage: {argv[0]} [--ablate | --against DIR]")
+        raise SystemExit(f"usage: {argv[0]} [--ablate | --against DIR "
+                         "[--ell]]")
     else:
         smoke(card, regs)
     print(json.dumps({"ok": True, "device": {

@@ -42,11 +42,18 @@
 // source builds A, B and the KPP instances, ell_burgers.cu the Burgers
 // instances of C and D.
 
+#include <algorithm>
+#include <type_traits>
+
+#include "bulk_copy.cuh"
 #include "fused_step.cuh"
 
 namespace cft {
 
 constexpr int kEllThreads = 256;
+// the most rows of A's tiles (= threads of its CTAs; ops/ell_kernels.py
+// SPMV_TILE_ROWS)
+constexpr int kSpmvMaxRows = 128;
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -65,26 +72,130 @@ inline int ell_blocks(long long n) {
   return (int)((n + kEllThreads - 1) / kEllThreads);
 }
 
+// A persistent kernel's launch: raises its dynamic shared memory limit to
+// smem where that is above the default, and holds its grid to the CTAs
+// the card keeps resident (the plan's ctas count shared memory alone, not
+// registers). Returns a CUDA error code, or 0 and the CTAs in *ctas. Tag:
+// a type of this kernel's own, so that each kernel keeps its own state.
+template <typename Tag, typename K>
+int persistent_grid(K kernel, int threads, int smem, int* ctas) {
+  static int smem_set = 48 * 1024, per_sm = 0, sms = 0;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+    per_sm = 0;
+  }
+  static int per_sm_smem = -1, per_sm_threads = -1;
+  if (per_sm == 0 || per_sm_smem != smem || per_sm_threads != threads) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    per_sm_smem = smem;
+    per_sm_threads = threads;
+  }
+  *ctas = std::max(1, std::min(*ctas, per_sm * sms));
+  return 0;
+}
+
 #ifndef CFT_ELL_FLUX_ONLY
 
-template <typename T>
-__global__ void __launch_bounds__(kEllThreads)
-    ell_spmv_kernel(const T* __restrict__ A, const int* __restrict__ cols,
-                    const T* __restrict__ x,
-                    const unsigned char* __restrict__ bc, T* __restrict__ y,
-                    int n, int K) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T* a = A + (long long)i * K;
-  const int* c = cols + (long long)i * K;
+// A. Row i of y = A x, its slots summed in order with rounded products;
+// kMode 0: unconstrained; 1: constrained, bc the byte mask, gathered at
+// each column; 2: constrained, the columns of bc nodes flagged (~j < 0)
+// in `c` and bc read at the row alone.
+template <typename T, int kMode>
+__device__ __forceinline__ T ell_row(const T* a, const int* c, int K,
+                                     const T* __restrict__ x,
+                                     const unsigned char* __restrict__ bc) {
   T acc = T(0);
   for (int k = 0; k < K; ++k) {
-    int j = __ldg(c + k);
-    T xj = (bc != nullptr && bc[j]) ? T(0) : __ldg(x + j);
-    T p = mul_rn(__ldg(a + k), xj);
+    const int j = c[k];
+    T xj;
+    if (kMode == 2)
+      xj = j < 0 ? T(0) : __ldg(x + j);
+    else if (kMode == 1)
+      xj = __ldg(bc + j) ? T(0) : __ldg(x + j);
+    else
+      xj = __ldg(x + j);
+    const T p = mul_rn(a[k], xj);
     acc = k == 0 ? p : add_rn(acc, p);
   }
-  y[i] = (bc != nullptr && bc[i]) ? x[i] : acc;
+  return acc;
+}
+
+// A persistent grid of CTAs of R threads, each walking tiles of R
+// consecutive rows (tile t, t + grid, ...). A tile's R K values and R K
+// columns are two contiguous ranges; they land in one of two shared-memory
+// stages while the other stage's rows are summed, one thread a row. Odd K
+// (stride Kp = K): two bulk copies a tile, issued by thread 0 (R is a
+// multiple of 4, so every tile's ranges start and end on 16 bytes). Even
+// K: each thread copies values with cp.async into rows padded to Kp = K +
+// 1, so that the threads' rows start in different banks. The n - tiles R
+// rows after the last whole tile are summed by the last CTA straight
+// from device memory.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kSpmvMaxRows)
+    ell_spmv_kernel(const T* __restrict__ A, const int* __restrict__ cols,
+                    const T* __restrict__ x,
+                    const unsigned char* __restrict__ bc,
+                    T* __restrict__ y, int n, int K, int Kp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // one per stage
+  const int R = blockDim.x;
+  const int stage = R * Kp;
+  T* sv = reinterpret_cast<T*>(smem + 16);
+  int* sc = reinterpret_cast<int*>(sv + 2 * stage);
+  const int tiles = n / R;
+  const bool bulk = Kp == K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) mbar_init(&bar[s], bulk ? 1 : R);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int tile, int s) {
+    const long long first = (long long)tile * R * K;
+    if (bulk) {
+      if (threadIdx.x == 0) {
+        async_proxy_fence();
+        mbar_expect_tx(&bar[s], (unsigned)(R * K * (sizeof(T) + 4)));
+        bulk_copy(sv + s * stage, A + first, (unsigned)(R * K * sizeof(T)),
+                  &bar[s]);
+        bulk_copy(sc + s * stage, cols + first, (unsigned)(R * K * 4),
+                  &bar[s]);
+      }
+    } else {
+      for (int e = threadIdx.x; e < R * K; e += R) {
+        const int r = e / K, o = s * stage + r * Kp + (e - r * K);
+        copy_value_async(sv + o, A + first + e);
+        copy_value_async(sc + o, cols + first + e);
+      }
+      mbar_arrive_on_copies(&bar[s]);
+    }
+  };
+  for (int u = 0, t = blockIdx.x; u < 2 && t < tiles; ++u, t += gridDim.x)
+    fill(t, u);
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int s = j & 1;
+    mbar_wait(&bar[s], (j >> 1) & 1);
+    const long long i = (long long)t * R + threadIdx.x;
+    const int o = s * stage + threadIdx.x * Kp;
+    const T acc = ell_row<T, kMode>(sv + o, sc + o, K, x, bc);
+    y[i] = (kMode != 0 && __ldg(bc + i)) ? x[i] : acc;
+    __syncthreads();  // every row of stage s summed: it may be refilled
+    const int next = t + 2 * (int)gridDim.x;
+    if (next < tiles) fill(next, s);
+  }
+  if (blockIdx.x == gridDim.x - 1)
+    for (long long i = (long long)tiles * R + threadIdx.x; i < n; i += R) {
+      const T acc = ell_row<T, kMode>(A + i * K, cols + i * K, K, x, bc);
+      y[i] = (kMode != 0 && __ldg(bc + i)) ? x[i] : acc;
+    }
 }
 
 template <typename T>
@@ -101,15 +212,36 @@ __global__ void __launch_bounds__(kEllThreads)
   out[e] = acc;
 }
 
+// The launch of A on the plan of ops/ell_kernels.spmv_plan: R rows a
+// tile (threads a CTA), stride Kp, ctas CTAs, smem bytes of dynamic shared
+// memory; flagged: the constrained mode reads bc-flagged columns.
+template <typename T, int kMode>
+int launch_ell_spmv(const void* A, const void* cols, const void* x,
+                    const void* bc, void* y, int n, int K, int R, int Kp,
+                    int ctas, int smem, cudaStream_t stream) {
+  auto kernel = ell_spmv_kernel<T, kMode>;
+  using Tag = void(T, std::integral_constant<int, kMode>);
+  if (int e = persistent_grid<Tag>(kernel, R, smem, &ctas)) return e;
+  kernel<<<ctas, R, smem, stream>>>((const T*)A, (const int*)cols,
+                                    (const T*)x, (const unsigned char*)bc,
+                                    (T*)y, n, K, Kp);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int ell_spmv(const void* A, const void* cols, const void* x, const void* bc,
-             void* y, int n, int K, void* stream) {
+             void* y, int n, int K, int R, int Kp, int ctas, int smem,
+             int flagged, void* stream) {
   if (n <= 0) return 0;
-  ell_spmv_kernel<T><<<ell_blocks(n), kEllThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const T*)A, (const int*)cols, (const T*)x, (const unsigned char*)bc,
-      (T*)y, n, K);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bc == nullptr)
+    return launch_ell_spmv<T, 0>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+                                 st);
+  if (flagged)
+    return launch_ell_spmv<T, 2>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+                                 st);
+  return launch_ell_spmv<T, 1>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+                               st);
 }
 
 template <typename T>
@@ -142,26 +274,17 @@ __device__ __forceinline__ void dun4(int q, T (&phi)[3], T& w) {
   w = (T)(wq[q] * 0.5);
 }
 
+// C. The locals of one cell from its nodes, gradients and area (u and
+// eps gathered at the nodes): rhs[3] and, when jac is non-null, jac[9].
 template <typename T, typename Fl>
-__global__ void __launch_bounds__(kEllThreads)
-    p1_newton_locals_kernel(const int* __restrict__ cells,
-                            const T* __restrict__ area,
-                            const T* __restrict__ grads,
-                            const T* __restrict__ u,
-                            const T* __restrict__ eps, T half_dt,
-                            T* __restrict__ rhs, T* __restrict__ jac,
-                            int M) {
-  int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  T uc[3], gx[3], gy[3];
-  int node[3];
-  for (int a = 0; a < 3; ++a) {
-    node[a] = __ldg(cells + 3LL * m + a);
-    uc[a] = __ldg(u + node[a]);
-    gx[a] = __ldg(grads + 6LL * m + 2 * a);
-    gy[a] = __ldg(grads + 6LL * m + 2 * a + 1);
-  }
-  const T ar = __ldg(area + m);
+__device__ __forceinline__ void p1_cell_locals(const int (&node)[3],
+                                               const T (&gx)[3],
+                                               const T (&gy)[3], const T ar,
+                                               const T* __restrict__ u,
+                                               const T* __restrict__ eps,
+                                               T half_dt, T* rhs, T* jac) {
+  T uc[3];
+  for (int a = 0; a < 3; ++a) uc[a] = __ldg(u + node[a]);
   T gux = T(0), guy = T(0);
   for (int a = 0; a < 3; ++a) {
     gux += uc[a] * gx[a];
@@ -199,16 +322,106 @@ __global__ void __launch_bounds__(kEllThreads)
     T v = two_area * r[a];
     if (eps != nullptr)
       v += Ke[a][0] * uc[0] + Ke[a][1] * uc[1] + Ke[a][2] * uc[2];
-    rhs[3LL * m + a] = v;
+    rhs[a] = v;
   }
   if (want_jac) {
     const T m_diag = ar * (T(2) / T(12)), m_off = ar * (T(1) / T(12));
     for (int a = 0; a < 3; ++a)
       for (int b = 0; b < 3; ++b)
-        jac[9LL * m + 3 * a + b] =
-            ((a == b ? m_diag : m_off) + half_dt * Ke[a][b])
-            + half_dt * (two_area * L[a][b]);
+        jac[3 * a + b] = ((a == b ? m_diag : m_off) + half_dt * Ke[a][b])
+                         + half_dt * (two_area * L[a][b]);
   }
+}
+
+// A persistent grid of CTAs of C = kLocalsCells threads, each walking
+// tiles of C consecutive cells (tile t, t + grid, ...). A tile's cells (3C
+// int32), areas (C) and gradients (6C) are three contiguous ranges that
+// land by bulk copies in one of two stages while the other stage's cells
+// are computed, one thread a cell, in registers. The thread leaves its 3
+// rhs and 9 Jacobian locals in a shared output tile, which the CTA then
+// writes out as contiguous 16-byte stores (3C and 9C values: the locals of
+// consecutive cells are consecutive). The cells after the last whole tile
+// are computed by the last CTA from device memory and stored directly.
+constexpr int kLocalsCells = 128;
+
+template <typename T, typename Fl>
+__global__ void __launch_bounds__(kLocalsCells)
+    p1_newton_locals_kernel(const int* __restrict__ cells,
+                            const T* __restrict__ area,
+                            const T* __restrict__ grads,
+                            const T* __restrict__ u,
+                            const T* __restrict__ eps, T half_dt,
+                            T* __restrict__ rhs, T* __restrict__ jac,
+                            int M) {
+  constexpr int C = kLocalsCells;
+  constexpr int kVec = 16 / sizeof(T);  // values a 16-byte store
+  using Vec = typename std::conditional<sizeof(T) == 4, float4,
+                                        double2>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // one per stage
+  T* sg = reinterpret_cast<T*>(smem + 16);  // [2][6C] gradients
+  T* sa = sg + 2 * 6 * C;                   // [2][C] areas
+  int* sn = reinterpret_cast<int*>(sa + 2 * C);  // [2][3C] nodes
+  T* so = reinterpret_cast<T*>(sn + 2 * 3 * C);  // [3C rhs | 9C jac]
+  const int tiles = M / C;
+  const int c = threadIdx.x;
+  if (c == 0) {
+    for (int s = 0; s < 2; ++s) mbar_init(&bar[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int tile, int s) {
+    if (c == 0) {
+      const long long m0 = (long long)tile * C;
+      async_proxy_fence();
+      mbar_expect_tx(&bar[s], (unsigned)(C * (7 * sizeof(T) + 12)));
+      bulk_copy(sg + s * 6 * C, grads + 6 * m0, 6 * C * sizeof(T), &bar[s]);
+      bulk_copy(sa + s * C, area + m0, C * sizeof(T), &bar[s]);
+      bulk_copy(sn + s * 3 * C, cells + 3 * m0, 3 * C * 4, &bar[s]);
+    }
+  };
+  for (int k = 0, t = blockIdx.x; k < 2 && t < tiles; ++k, t += gridDim.x)
+    fill(t, k);
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int s = j & 1;
+    mbar_wait(&bar[s], (j >> 1) & 1);
+    int node[3];
+    T gx[3], gy[3];
+    for (int a = 0; a < 3; ++a) {
+      node[a] = sn[s * 3 * C + 3 * c + a];
+      gx[a] = sg[s * 6 * C + 6 * c + 2 * a];
+      gy[a] = sg[s * 6 * C + 6 * c + 2 * a + 1];
+    }
+    const T ar = sa[s * C + c];
+    p1_cell_locals<T, Fl>(node, gx, gy, ar, u, eps, half_dt, so + 3 * c,
+                          jac != nullptr ? so + 3 * C + 9 * c : nullptr);
+    __syncthreads();  // stage s read, the output tile written
+    const int next = t + 2 * (int)gridDim.x;
+    if (next < tiles) fill(next, s);
+    const long long m0 = (long long)t * C;
+    Vec* dr = reinterpret_cast<Vec*>(rhs + 3 * m0);
+    const Vec* vo = reinterpret_cast<const Vec*>(so);
+    for (int e = c; e < 3 * C / kVec; e += C) dr[e] = vo[e];
+    if (jac != nullptr) {
+      Vec* dj = reinterpret_cast<Vec*>(jac + 9 * m0);
+      for (int e = c; e < 9 * C / kVec; e += C) dj[e] = vo[3 * C / kVec + e];
+    }
+    __syncthreads();  // the output tile stored: it may be rewritten
+  }
+  if (blockIdx.x == gridDim.x - 1)
+    for (long long m = (long long)tiles * C + c; m < M; m += C) {
+      int node[3];
+      T gx[3], gy[3];
+      for (int a = 0; a < 3; ++a) {
+        node[a] = __ldg(cells + 3 * m + a);
+        gx[a] = __ldg(grads + 6 * m + 2 * a);
+        gy[a] = __ldg(grads + 6 * m + 2 * a + 1);
+      }
+      p1_cell_locals<T, Fl>(node, gx, gy, __ldg(area + m), u, eps, half_dt,
+                            rhs + 3 * m,
+                            jac != nullptr ? jac + 9 * m : nullptr);
+    }
 }
 
 template <typename T, typename Fl>
@@ -246,13 +459,19 @@ __global__ void __launch_bounds__(kEllThreads)
                 mul_rn(mul_rn(crv, mul_rn(hi, hi)), fabs(R)));
 }
 
+// The launch of C on the plan of ops/ell_kernels.locals_plan (ctas CTAs
+// of kLocalsCells threads, smem bytes of dynamic shared memory).
 template <typename T>
 int p1_newton_locals(const void* cells, const void* area, const void* grads,
                      const void* u, const void* eps, double half_dt,
-                     void* rhs, void* jac, int M, void* stream) {
+                     void* rhs, void* jac, int M, int ctas, int smem,
+                     void* stream) {
   if (M <= 0) return 0;
-  p1_newton_locals_kernel<T, CFT_FLUX><<<ell_blocks(M), kEllThreads, 0,
-                                         (cudaStream_t)stream>>>(
+  auto kernel = p1_newton_locals_kernel<T, CFT_FLUX>;
+  using Tag = void(T, CFT_FLUX);
+  if (int e = persistent_grid<Tag>(kernel, kLocalsCells, smem, &ctas))
+    return e;
+  kernel<<<ctas, kLocalsCells, smem, (cudaStream_t)stream>>>(
       (const int*)cells, (const T*)area, (const T*)grads, (const T*)u,
       (const T*)eps, (T)half_dt, (T*)rhs, (T*)jac, M);
   return (int)cudaGetLastError();
@@ -277,8 +496,9 @@ int ell_rv_epsilon(const void* cols, const void* u_n, const void* rh,
 #define CFT_LOCALS_ARGS                                                    \
   const void *cells, const void *area, const void *grads, const void *u,   \
       const void *eps, double half_dt, void *rhs, void *jac, int M,        \
-      void *stream
-#define CFT_LOCALS_CALL cells, area, grads, u, eps, half_dt, rhs, jac, M, stream
+      int ctas, int smem, void *stream
+#define CFT_LOCALS_CALL                                                    \
+  cells, area, grads, u, eps, half_dt, rhs, jac, M, ctas, smem, stream
 #define CFT_RV_ARGS                                                        \
   const void *cols, const void *u_n, const void *rh, const void *uh,       \
       const void *h, const void *abs_term, const void *valid, double cvel, \
@@ -290,12 +510,16 @@ extern "C" {
 
 #ifndef CFT_ELL_FLUX_ONLY
 int cft_ell_spmv_f32(const void* A, const void* cols, const void* x,
-                     const void* bc, void* y, int n, int K, void* stream) {
-  return cft::ell_spmv<float>(A, cols, x, bc, y, n, K, stream);
+                     const void* bc, void* y, int n, int K, int R, int Kp,
+                     int ctas, int smem, int flagged, void* stream) {
+  return cft::ell_spmv<float>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+                              flagged, stream);
 }
 int cft_ell_spmv_f64(const void* A, const void* cols, const void* x,
-                     const void* bc, void* y, int n, int K, void* stream) {
-  return cft::ell_spmv<double>(A, cols, x, bc, y, n, K, stream);
+                     const void* bc, void* y, int n, int K, int R, int Kp,
+                     int ctas, int smem, int flagged, void* stream) {
+  return cft::ell_spmv<double>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+                               flagged, stream);
 }
 int cft_ell_assemble_f32(const void* vals, const void* perm,
                          const void* offs, void* out, int n_out,

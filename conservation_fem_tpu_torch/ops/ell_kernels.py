@@ -27,6 +27,9 @@ on the card.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -72,22 +75,91 @@ def ell_spmv_plain(mesh, A, x, bc=None):
     return torch.where(bc, x, ell_matvec(mesh, A, torch.where(bc, 0.0, x)))
 
 
+# A's tile plan (csrc/ell.cu ell_spmv_kernel): a persistent grid of CTAs of
+# R threads, each summing tiles of R rows staged in two shared-memory
+# stages; R the most rows whose two stages fit SPMV_SMEM_CAP, halved from
+# SPMV_TILE_ROWS down to SPMV_MIN_ROWS (multiples of 4: a tile's ranges
+# start and end on the bulk copy's 16 bytes), and as many CTAs an SM as
+# the SM's shared memory holds, at most SPMV_MAX_CTAS_PER_SM
+SPMV_TILE_ROWS = 128      # csrc/ell.cu kSpmvMaxRows
+SPMV_MIN_ROWS = 32
+SPMV_MAX_CTAS_PER_SM = 8
+SPMV_SMEM_CAP = 232448    # shared memory a block may use (227 KB)
+SM_SMEM = 233472          # shared memory of an SM (228 KB)
+SM_SMEM_RESERVED = 1024   # reserved by the system for each resident block
+BULK_ALIGN = 16           # cp.async.bulk: addresses and sizes
+
+
+class SpmvPlan(NamedTuple):
+    rows: int     # R: rows a tile, threads a CTA
+    stride: int   # Kp: a row's stride in shared memory (K odd: K, else K+1)
+    smem: int     # dynamic shared memory of a CTA: 2 barriers, 2 stages
+    tiles: int    # whole tiles; the n - tiles R rows after them are read
+    ctas: int     # from device memory by the last CTA
+    bulk: bool    # K odd: a tile lands by two bulk copies
+
+
+def spmv_plan(n, K, itemsize, sms=132):
+    """A's plan for an (n, K) matrix of ``itemsize``-byte values on a card
+    of ``sms`` SMs."""
+    stride = K if K % 2 else K + 1
+    rows = SPMV_TILE_ROWS
+
+    def smem(r):
+        return 16 + 2 * r * stride * (itemsize + 4)
+
+    while smem(rows) > SPMV_SMEM_CAP and rows > SPMV_MIN_ROWS:
+        rows //= 2
+    if smem(rows) > SPMV_SMEM_CAP:
+        raise ValueError(f"ell_spmv: K = {K} leaves no tile of "
+                         f"{SPMV_MIN_ROWS} rows within shared memory")
+    per_sm = min(SPMV_MAX_CTAS_PER_SM,
+                 SM_SMEM // (smem(rows) + SM_SMEM_RESERVED))
+    tiles = n // rows
+    return SpmvPlan(rows, stride, smem(rows), tiles,
+                    max(1, min(tiles, sms * per_sm)), stride == K)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _spmv_plan(n, K, itemsize, index):
+    return spmv_plan(n, K, itemsize, _sms(index))
+
+
+def _aligned(name, *tensors):
+    for t in tensors:
+        if t.data_ptr() % BULK_ALIGN:
+            raise ValueError(f"{name}: an operand is not {BULK_ALIGN}-byte "
+                             "aligned")
+
+
 def ell_spmv(mesh, A, x, bc=None):
     """y = A x for an (N,K) ELL matrix, each row summed in slot order;
     bc (N,) bool: the constrained product (x zeroed on bc rows before it,
-    y = x there)."""
+    y = x there). The kernel's constrained mode reads the bc-flagged
+    columns of ``mesh``, so bc must be ``mesh.boundary_mask``."""
     tensors = (A, x) if bc is None else (A, x, bc)
     if _build.on_cpu("ell_spmv", *tensors):
         return ell_spmv_plain(mesh, A, x, bc)
-    cols = _index(mesh, "patch_cols32", "ell_spmv")
+    field = "patch_cols32" if bc is None else "patch_cols_bc32"
+    cols = _index(mesh, field, "ell_spmv")
     n, K = cols.shape
     dtype = _build.check_cuda_args("ell_spmv", A, x, shapes=[(n, K), (n,)])
-    bc = _bool(bc)
+    if bc is not None and bc.data_ptr() != mesh.boundary_mask.data_ptr():
+        raise ValueError("ell_spmv: the constrained mode takes the mesh's "
+                         "boundary_mask (its columns are flagged by it)")
+    _aligned("ell_spmv", A, cols)
+    plan = _spmv_plan(n, K, A.element_size(), x.device.index)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = _build.entry("cft_ell_spmv", dtype)(
             A.data_ptr(), cols.data_ptr(), x.data_ptr(), _ptr(bc),
-            y.data_ptr(), n, K, _build.stream_ptr(x))
+            y.data_ptr(), n, K, plan.rows, plan.stride, plan.ctas,
+            plan.smem, 1, _build.stream_ptr(x))
     _build.launches["ell_spmv"] += 1
     _build.check(code, "ell_spmv")
     return y
@@ -160,8 +232,41 @@ def p1_newton_locals_plain(mesh, u, eps, half_dt, flux, jacobian):
     return rhs, J
 
 
+# C's tile plan (csrc/ell.cu p1_newton_locals_kernel): a persistent grid
+# of CTAs of LOCALS_CELLS threads, each computing tiles of as many cells
+# (a multiple of 4: a tile's cells, areas and gradients start and end on
+# the bulk copy's 16 bytes, and so do its 3 and 9 locals a cell) from two
+# shared-memory stages of inputs, its locals staged in one output tile
+LOCALS_CELLS = 128        # csrc/ell.cu kLocalsCells
+
+
+class LocalsPlan(NamedTuple):
+    cells: int    # cells a tile, threads a CTA
+    smem: int     # 2 barriers, 2 input stages, the output tile
+    tiles: int    # whole tiles; the M - tiles cells after them are
+    ctas: int     # computed from device memory by the last CTA
+
+
+def locals_plan(M, itemsize, sms=132):
+    """C's plan for M cells of ``itemsize``-byte values on a card of
+    ``sms`` SMs: per stage 3 int32 nodes, an area and 6 gradients a cell;
+    the output tile 12 locals a cell."""
+    c = LOCALS_CELLS
+    smem = 16 + 2 * c * (3 * 4 + 7 * itemsize) + 12 * c * itemsize
+    per_sm = min(SPMV_MAX_CTAS_PER_SM,
+                 SM_SMEM // (smem + SM_SMEM_RESERVED))
+    tiles = M // c
+    return LocalsPlan(c, smem, tiles, max(1, min(tiles, sms * per_sm)))
+
+
+@functools.lru_cache(maxsize=64)
+def _locals_plan(M, itemsize, index):
+    return locals_plan(M, itemsize, _sms(index))
+
+
 def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
-    """Kernel C: see p1_newton_locals_plain; one thread a cell."""
+    """Kernel C: see p1_newton_locals_plain; one thread a cell, tiles of
+    LOCALS_CELLS cells."""
     tensors = (u,) if eps is None else (u, eps)
     if _build.on_cpu("p1_newton_locals", *tensors):
         return p1_newton_locals_plain(mesh, u, eps, half_dt, flux, jacobian)
@@ -170,6 +275,8 @@ def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
     M = cells.shape[0]
     dtype = _build.check_cuda_args("p1_newton_locals", u, mesh.area,
                                    mesh.grads, *tensors[1:])
+    _aligned("p1_newton_locals", cells, mesh.area, mesh.grads)
+    plan = _locals_plan(M, u.element_size(), u.device.index)
     rhs = torch.empty((M, 3), dtype=u.dtype, device=u.device)
     jac = (torch.empty((M, 3, 3), dtype=u.dtype, device=u.device)
            if jacobian else None)
@@ -177,7 +284,7 @@ def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
         code = _build.entry("cft_p1_newton_locals", dtype, fname)(
             cells.data_ptr(), mesh.area.data_ptr(), mesh.grads.data_ptr(),
             u.data_ptr(), _ptr(eps), float(half_dt), rhs.data_ptr(),
-            _ptr(jac), M, _build.stream_ptr(u))
+            _ptr(jac), M, plan.ctas, plan.smem, _build.stream_ptr(u))
     _build.launches[_build.launch_key("p1_newton_locals", fname)] += 1
     _build.check(code, "p1_newton_locals")
     return rhs, jac

@@ -63,6 +63,9 @@ class MeshArrays(NamedTuple):
     # memory is unchanged. *_offs32 are the segments' start offsets (the
     # exclusive cumsum of *_lens, one more entry than segments)
     patch_cols32: torch.Tensor | None = None   # (N,K) int32
+    # patch_cols32 with the columns of boundary nodes flagged as ~j (< 0):
+    # the constrained ELL SpMV reads bc off its columns
+    patch_cols_bc32: torch.Tensor | None = None  # (N,K) int32
     cells32: torch.Tensor | None = None        # (M,3) int32
     mat_perm32: torch.Tensor | None = None     # (9M,) int32
     mat_offs32: torch.Tensor | None = None     # (N*K+1,) int32
@@ -182,8 +185,9 @@ class Mesh:
 def with_kernel_index(arrays):
     """``arrays`` (a MeshArrays, or a SpaceArrays: any NamedTuple with the
     ELL fields) with the int32 index copies the hand-written ELL kernels
-    read: patch_cols, the cells (MeshArrays) and the contribution orders
-    mat_perm / vec_perm with their segment offsets. Built once per
+    read: patch_cols (and its bc-flagged copy), the cells (MeshArrays)
+    and the contribution orders mat_perm / vec_perm with their segment
+    offsets. Built once per
     problem, for the backends that launch the kernels."""
     if arrays.patch_cols32 is not None:
         return arrays
@@ -198,7 +202,10 @@ def with_kernel_index(arrays):
                              "contributions")
         return i32(out)
 
-    extra = dict(patch_cols32=i32(arrays.patch_cols),
+    cols = i32(arrays.patch_cols)
+    extra = dict(patch_cols32=cols,
+                 patch_cols_bc32=torch.where(arrays.boundary_mask[cols],
+                                             ~cols, cols),
                  mat_perm32=i32(arrays.mat_perm),
                  mat_offs32=offsets(arrays.mat_lens),
                  vec_perm32=i32(arrays.vec_perm),

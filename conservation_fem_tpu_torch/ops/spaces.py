@@ -163,6 +163,7 @@ class SpaceArrays(NamedTuple):
     # int32 copies for the hand-written ELL kernels (ops/mesh.
     # with_kernel_index; None on the gather path)
     patch_cols32: torch.Tensor | None = None
+    patch_cols_bc32: torch.Tensor | None = None
     mat_perm32: torch.Tensor | None = None
     mat_offs32: torch.Tensor | None = None
     vec_perm32: torch.Tensor | None = None

@@ -1,7 +1,8 @@
-"""Times of the single and block step kernels and of cg_solve at the shapes
-that launch them, to compare two trees in turns on one card.
+"""Times of the single and block step kernels, of cg_solve and of the ELL
+kernels A (ell_spmv) and C (p1_newton_locals) at the shapes that launch
+them, to compare two trees in turns on one card.
 
-    python3 scripts/torch_kernel_times.py run DIR INPUTS OUT [REPS]
+    python3 scripts/torch_kernel_times.py run DIR INPUTS OUT [REPS] [--ell]
 
 ``run`` imports conservation_fem_tpu_torch from the tree in DIR (its
 kernels build into that tree's own build directory), loads the inputs from
@@ -24,7 +25,14 @@ through its run at mesh 50 (51 x 51, step 25) and 100 (101 x 101, step
 mesh 64 (257 x 257), rtol 1e-10 and 1e-12, and off the driven paths at
 its first step at mesh 256 (1025 x 1025, rtol 1e-10, and the same solve
 in f32 at rtol 1e-5), each with its iterations (the plain solve's)
-printed. Needs a CUDA device.
+printed. The ELL cases (alone with --ell): the blocked KPP RV f32 bench
+config's end state at irr640 (irregular_mesh nx 640, seed 1, RCM order;
+N 410,881, K 11, 819,200 cells; made in the first process, the mesh's
+tensors saved and each tree's own int32 index copies built from them), A
+constrained on the assembled Newton Jacobian and C in Jacobian mode, each
+on a CUDA graph of GRAPH_REPS calls warm (one operand set) and L2-cold
+(rotating over COLD_SETS sets, beyond the 50 MB L2; the median of ROUNDS
+replays), and per wrapper call back to back. Needs a CUDA device.
 """
 
 import os
@@ -49,6 +57,14 @@ CG_RTOLS = {"burgers50": (1e-12,), "burgers100": (1e-12,),
             "kpp64": (1e-10, 1e-12), "kpp256": (1e-10,)}
 # the solves also timed in f32, cast from the f64 arguments: their rtol
 CG_F32 = {"kpp256": 1e-5}
+# the ELL cases: the irr640 bench run (chip_smoke.py IRR, IRR_FIXED), calls
+# on one CUDA graph, and the operand sets an L2-cold graph rotates over
+# (A: ~40 MB a set, C: ~75 MB)
+ELL_NX, ELL_DT, ELL_T = 640, 0.0009, 0.09
+ELL_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
+                 newton_linear_iters=8)
+GRAPH_REPS = 100
+COLD_SETS = {"ell_spmv": 3, "p1_newton_locals": 2}
 CG_LABELS = {"burgers50": "burgers 51 x 51", "burgers100": "burgers 101 x 101",
              "kpp64": "kpp 257 x 257",
              "kpp256": "kpp 1025 x 1025 (off the driven paths)"}
@@ -216,8 +232,102 @@ def cases(kpp, burgers, fs, torch, inputs):
     return out
 
 
-def run(repo, inputs_path, out_path, reps=20):
+def ell_inputs(kpp, torch):
+    """{name: CPU tensor}: the blocked irr640 f32 bench run's end state u,
+    the RV eps, the Newton Jacobian's locals and the assembled Jacobian at
+    it (this tree's kernels), and the fields of its mesh arrays but the
+    int32 index copies (each tree builds its own)."""
+    from conservation_fem_tpu_torch.ops import blocked
+    from conservation_fem_tpu_torch.ops import ell_kernels as ek
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=ELL_NX, seed=1)
+    host = tmesh.reorder_mesh(host, tmesh.rcm_permutation(host))
+    p = kpp.build(kpp.KPPConfig(dtype="float32", dt=ELL_DT, T=ELL_T,
+                                backend="ell", ell_matvec_backend="blocked",
+                                **ELL_FIXED), host_mesh=host)
+    u = p.solve().u
+    m, flux = p.mesh, kpp.FLUX
+    rh = blocked.conv_rhs_components(p.plan, u, flux)
+    eps = ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, p.h_cg,
+                            (u - u.mean()).abs().max(), flux)
+    _, jac = ek.p1_newton_locals(m, u, eps, 0.5 * p.dt, flux, True)
+    out = {f"ell/mesh/{f}": getattr(m, f).cpu()
+           for f in tmesh.MeshArrays._fields
+           if not f.endswith("32") and getattr(m, f) is not None}
+    out.update({"ell/u": u.cpu(), "ell/eps": eps.cpu(), "ell/jac": jac.cpu(),
+                "ell/J": ek.assemble_matrix(m, jac).cpu(),
+                "ell/half_dt": torch.tensor(0.5 * p.dt)})
+    return out
+
+
+def ell_cases(kpp, torch, inputs):
+    """{case: (fn of an operand set, operand sets)} of A and C: set 0 the
+    inputs, the others copies of every tensor a call reads."""
+    from conservation_fem_tpu_torch.ops import ell_kernels as ek
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    fields = {k.split("/")[-1]: v.to("cuda") for k, v in inputs.items()
+              if k.startswith("ell/mesh/")}
+    m = tmesh.with_kernel_index(tmesh.MeshArrays(**fields))
+    u, eps, J = (inputs[f"ell/{k}"].to("cuda") for k in ("u", "eps", "J"))
+    half = float(inputs["ell/half_dt"])
+    flux = kpp.FLUX
+
+    def copy(m, *ts):
+        idx = {f: getattr(m, f).clone() for f in m._fields
+               if f.endswith("32") or f in ("area", "grads",
+                                             "boundary_mask")
+               if getattr(m, f) is not None}
+        return (m._replace(**idx),) + tuple(t.clone() for t in ts)
+
+    a_sets = [(m, J, u)] + [copy(m, J, u)
+                            for _ in range(COLD_SETS["ell_spmv"] - 1)]
+    c_sets = [(m, u, eps)] + [copy(m, u, eps) for _ in
+                              range(COLD_SETS["p1_newton_locals"] - 1)]
+    label = (f"irr{ELL_NX} f32 (N {J.shape[0]}, K {J.shape[1]}, "
+             f"{m.cells.shape[0]} cells, the blocked bench run's end state)")
+    return {
+        f"ell_spmv {label}, constrained": (
+            lambda s: ek.ell_spmv(s[0], s[1], s[2], s[0].boundary_mask),
+            a_sets),
+        f"p1_newton_locals {label}, Jacobian mode": (
+            lambda s: ek.p1_newton_locals(s[0], s[1], s[2], half, flux,
+                                          True),
+            c_sets),
+    }
+
+
+def graph_replays_ms(fn, torch, reps=GRAPH_REPS):
+    """ms per call of each of ROUNDS replays of a CUDA graph of reps calls
+    of fn (device time, without the host's per-call cost)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return out
+
+
+def run(repo, inputs_path, out_path, reps=20, ell_only=False):
     sys.path.insert(0, os.path.abspath(repo))
+    import itertools
+
     import torch
 
     from conservation_fem_tpu_torch.models import burgers, kpp
@@ -229,15 +339,31 @@ def run(repo, inputs_path, out_path, reps=20):
     if os.path.exists(inputs_path):
         inputs = torch.load(inputs_path)
     else:
-        inputs = make_inputs(kpp, burgers, torch)
-        inputs.update(mass_solves(kpp, burgers, sk, torch))
+        inputs = {} if ell_only else make_inputs(kpp, burgers, torch)
+        if not ell_only:
+            inputs.update(mass_solves(kpp, burgers, sk, torch))
+        inputs.update(ell_inputs(kpp, torch))
         torch.save(inputs, inputs_path)
-    timed = cases(kpp, burgers, fs, torch, inputs)
-    for name, (fn, plain) in cg_cases(sk, inputs).items():
-        timed[name] = fn
-        print(f"{name}: {plain_iterations(sk, plain)} iterations",
-              flush=True)
+    timed = {} if ell_only else cases(kpp, burgers, fs, torch, inputs)
+    if not ell_only:
+        for name, (fn, plain) in cg_cases(sk, inputs).items():
+            timed[name] = fn
+            print(f"{name}: {plain_iterations(sk, plain)} iterations",
+                  flush=True)
+    graphed = {}
+    for name, (fn, sets) in ell_cases(kpp, torch, inputs).items():
+        turn = itertools.cycle(sets)
+        graphed[f"{name}, warm on a CUDA graph"] = lambda f=fn, s=sets: f(
+            s[0])
+        graphed[f"{name}, L2-cold on a CUDA graph ({len(sets)} sets)"] = (
+            lambda f=fn, t=turn: f(next(t)))
+        timed[f"{name}, per wrapper call"] = lambda f=fn, s=sets: f(s[0])
     out = {}
+    for name, fn in graphed.items():
+        times = graph_replays_ms(fn, torch)
+        out[name] = sorted(times)[ROUNDS // 2]
+        print(f"{name}: {out[name]:.5f} ms, rounds {min(times):.5f} to "
+              f"{max(times):.5f} ({repo})", flush=True)
     for name, fn in timed.items():
         fn()
         torch.cuda.synchronize()
@@ -258,8 +384,10 @@ def run(repo, inputs_path, out_path, reps=20):
 
 
 def main(argv):
+    ell_only = "--ell" in argv
+    argv = [a for a in argv if a != "--ell"]
     if len(argv) in (5, 6) and argv[1] == "run":
-        run(*argv[2:])
+        run(*argv[2:], ell_only=ell_only)
         return 0
     raise SystemExit(__doc__)
 

@@ -288,3 +288,100 @@ def test_tiled_rv_epsilon_skips_phantom_slots(tiled):
     assert np.isfinite(got.numpy()).all()
     assert (got.numpy()[~mt.slot_valid] == 0).all()
     assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
+
+
+def _port_patch_widths():
+    """The K of the ELL structures the port builds: P1 on irregular,
+    rectangle and disk meshes; the P2 and P3 spaces on them at mesh 4 and
+    16."""
+    from conservation_fem_tpu_torch.ops import spaces
+
+    ks = {tmesh.irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1).max_patch
+          for nx in (8, 20)}
+    ks |= {tmesh.rectangle_mesh((-2, -2), (2, 2), nx=8).max_patch,
+           tmesh.disk_mesh(1 / 8).max_patch}
+    for degree in (2, 3):
+        for ms in (4, 16):
+            for host in (tmesh.rectangle_mesh((-2, -2), (2, 2), nx=ms),
+                         tmesh.irregular_mesh(nx=ms, seed=2),
+                         tmesh.disk_mesh(1 / ms)):
+                ks.add(spaces.build_space(host, degree).patch_cols.shape[1])
+    return sorted(ks)
+
+
+# the port's widths (and 11, that of the anchored meshes irr140 ... irr640),
+# with even ones and wide ones beside them (a tile narrowed below
+# SPMV_TILE_ROWS)
+SPMV_WIDTHS = sorted(set(_port_patch_widths()) | {11}) + [8, 10, 12, 20, 38,
+                                                         64, 100]
+SPMV_ROWS = (1, 31, 128, 1681, 19881, 410881)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("K", SPMV_WIDTHS)
+def test_spmv_tile_plan(K, itemsize):
+    """Kernel A's plan (csrc/ell.cu ell_spmv_kernel) for every width the
+    port builds, f32 and f64: two stages within shared memory, the bulk
+    copies' sizes and every tile's source offsets on 16 bytes, a row
+    stride that starts the threads' rows in different banks, and the
+    rows after the whole tiles (read by the last CTA) fewer than a
+    tile."""
+    assert {7, 9, 19, 37} <= set(SPMV_WIDTHS)
+    for n in SPMV_ROWS:
+        p = ek.spmv_plan(n, K, itemsize)
+        assert p.smem <= ek.SPMV_SMEM_CAP
+        assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + 4)
+        assert ek.SPMV_MIN_ROWS <= p.rows <= ek.SPMV_TILE_ROWS
+        assert p.rows % 4 == 0
+        assert p.stride % 2 == 1 and p.stride - K in (0, 1)
+        assert p.bulk == (K % 2 == 1)
+        if p.bulk:
+            for size in (p.rows * K * itemsize, p.rows * K * 4):
+                assert size % ek.BULK_ALIGN == 0
+            assert all(t * p.rows * K * s % ek.BULK_ALIGN == 0
+                       for t in (1, p.tiles - 1, p.tiles) for s in
+                       (itemsize, 4))
+        assert 0 <= n - p.tiles * p.rows < p.rows
+        assert 1 <= p.ctas <= max(p.tiles, 1)
+        per_sm = ek.SM_SMEM // (p.smem + ek.SM_SMEM_RESERVED)
+        assert p.ctas <= 132 * min(per_sm, ek.SPMV_MAX_CTAS_PER_SM)
+    with pytest.raises(ValueError):
+        ek.spmv_plan(1000, 4000, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_locals_tile_plan(itemsize):
+    """Kernel C's plan: shared memory within the limit, each tile's
+    input ranges (3 int32 nodes, an area, 6 gradients a cell) and output
+    ranges (3 and 9 locals) on 16 bytes, the cells after the whole tiles
+    fewer than a tile."""
+    for M in (1, 72, 128, 3362, 819200):
+        p = ek.locals_plan(M, itemsize)
+        c = p.cells
+        assert p.smem == 16 + 2 * c * (12 + 7 * itemsize) + 12 * c * itemsize
+        assert p.smem <= ek.SPMV_SMEM_CAP
+        for size in (12 * c, c * itemsize, 6 * c * itemsize,
+                     3 * c * itemsize, 9 * c * itemsize):
+            assert size % ek.BULK_ALIGN == 0
+        # the output tile follows the stages on 16 bytes
+        assert (16 + 2 * c * (12 + 7 * itemsize)) % ek.BULK_ALIGN == 0
+        assert 0 <= M - p.tiles * c < c
+        assert 1 <= p.ctas <= max(p.tiles, 1)
+
+
+@pytest.mark.parametrize("space", ["p1", "p2"])
+def test_bc_flagged_columns_decode(space):
+    """with_kernel_index's bc-flagged columns (kernel A's constrained mode)
+    decode to patch_cols32 and flag exactly the boundary columns."""
+    from conservation_fem_tpu_torch.ops import spaces
+
+    host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=12, seed=3)
+    arrays = (host.device_arrays(F64, "cpu") if space == "p1" else
+              spaces.build_space(host, 2).device_arrays(F64, "cpu"))
+    m = tmesh.with_kernel_index(arrays)
+    c = m.patch_cols_bc32
+    assert c.dtype == torch.int32 and c.shape == m.patch_cols32.shape
+    flagged = c < 0
+    assert torch.equal(torch.where(flagged, ~c, c), m.patch_cols32)
+    assert torch.equal(flagged, m.boundary_mask[m.patch_cols])
+    assert bool(flagged.any()) and not bool(flagged.all())

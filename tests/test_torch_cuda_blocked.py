@@ -73,6 +73,91 @@ def test_ell_spmv(cuda, irr, dtype, constrained):
     assert torch.equal(y, ek.ell_spmv(m, A, x, bc))
 
 
+def _spmv_case(case, dtype, device):
+    """(mesh arrays, ELL matrix) of kernel A's tile edges: "odd" irr nx 40
+    (N 1681, not a multiple of the tile; K 9), "even" the same padded to K
+    10 (a slot of the row's own index and value 0: the padded stride),
+    "tiny" irr nx 8 (N 81, under one tile), "p2" / "p3" the P2 / P3
+    spaces of irr nx 12 (K 19, 37)."""
+    if case in ("p2", "p3"):
+        sp = spaces.build_space(tmesh.irregular_mesh(nx=12, seed=2),
+                                int(case[1]))
+        m = tmesh.with_kernel_index(sp.device_arrays(dtype, device))
+    else:
+        host = tmesh.irregular_mesh((-2, -2), (2, 2),
+                                    nx=8 if case == "tiny" else 40, seed=1)
+        a = host.device_arrays(dtype, device)
+        if case == "even":
+            rows = torch.arange(a.patch_cols.shape[0], device=device)
+            a = a._replace(
+                patch_cols=torch.cat([a.patch_cols, rows[:, None]], 1),
+                patch_mask=torch.cat([a.patch_mask,
+                                      torch.zeros_like(rows[:, None],
+                                                       dtype=torch.bool)],
+                                     1))
+        m = tmesh.with_kernel_index(a)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    A = torch.rand(m.patch_cols.shape, generator=g, dtype=dtype) - 0.5
+    A = torch.where(m.patch_mask.cpu(), A, 0.0).to(device)
+    return m, A
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["odd", "even", "tiny", "p2", "p3"])
+def test_ell_spmv_tiles(cuda, case, dtype):
+    """Kernel A at its tile edges, both modes: in f32 bit-equal to its
+    plain version on the CPU (the same slot order and rounded products),
+    in f64 within F64_TOL; bc rows equal to x; repeated launches equal."""
+    m, A = _spmv_case(case, dtype, cuda)
+    n, K = m.patch_cols.shape
+    assert (K % 2 == 0) == (case == "even")
+    if case != "tiny":
+        assert n % ek.spmv_plan(n, K, A.element_size()).rows
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
+    for bc in (None, m.boundary_mask):
+        y = ek.ell_spmv(m, A, x, bc)
+        ref = ek.ell_spmv_plain(mc, A.cpu(), x.cpu(),
+                                None if bc is None else mc.boundary_mask)
+        if dtype == torch.float32:
+            assert torch.equal(y.cpu(), ref)
+        else:
+            _close(y, ref, dtype)
+        if bc is not None:
+            assert torch.equal(y[bc], x[bc])
+        assert torch.equal(ek.ell_spmv(m, A, x, bc), y)
+
+
+def test_ell_spmv_refuses_another_mask(cuda, irr):
+    m = _arrays(irr, torch.float32, cuda)
+    x = torch.ones(irr.n_nodes, device=cuda)
+    A = assembly.assemble_stiffness(m)
+    with pytest.raises(ValueError):
+        ek.ell_spmv(m, A, x, m.boundary_mask.clone())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx", [8, 41])
+def test_p1_newton_locals_tiles(cuda, nx, dtype):
+    """Kernel C where the cells are not a multiple of its tile (irr nx 41:
+    3362 cells) or under one tile (nx 8: 128 cells, one whole tile; the
+    rhs-only launch too): within the gates of its plain version."""
+    host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1)
+    m = _arrays(host, dtype, cuda)
+    u, eps, _, _ = _fields(host.n_nodes, dtype, cuda, seed=7)
+    eps = eps * 1e-2
+    M = host.n_cells
+    assert nx == 8 or M % ek.locals_plan(M, u.element_size()).cells
+    rhs, jac = ek.p1_newton_locals(m, u, eps, 0.005, kpp.FLUX, True)
+    rr, jr = ek.p1_newton_locals_plain(m, u, eps, 0.005, kpp.FLUX, True)
+    _close(rhs, rr, dtype)
+    _close(jac, jr, dtype)
+    rhs2, _ = ek.p1_newton_locals(m, u, None, 0.005, kpp.FLUX)
+    _close(rhs2, ek.p1_newton_locals_plain(m, u, None, 0.005, kpp.FLUX,
+                                           False)[0], dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("degree", [1, 2, 3])
 def test_ell_assemble(cuda, irr, dtype, degree):
