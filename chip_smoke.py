@@ -171,10 +171,16 @@ exits non-zero:
      f64, each output on its own: ell_assemble (against its plain version
      on the CPU, which sums in its order), ell_rv_epsilon and ell_spmv's
      bc rows bit-equal, the other outputs within 1e-5 (f32) or F64_TOL
-     (f64) of max|plain|, repeated launches bit-equal, timed at irr640
-     f32 beside its plain version, its bound and a PyTorch call (a torch
-     CSR product, torch.segment_reduce), with what ptxas gave each
-     instance; (c) irr140 f64, 5 fixed-config steps,
+     (f64) of max|plain|, ell_spmv in f32 bit-equal to its plain version
+     on the CPU in both modes, repeated launches bit-equal; timed at
+     irr640 f32 on a CUDA graph of 100 calls, warm (one operand set) and
+     L2-cold (rotating over sets of at least 100 MB in all), and per
+     wrapper call back to back, beside its plain version, its bound and a
+     PyTorch call timed the same way (a torch CSR product,
+     torch.segment_reduce), with what ptxas gave each instance;
+     ell_spmv's bc test read both ways; the four ranked by rule 2 (slower
+     than the library call first, then launches a step x (L2-cold -
+     bound)); (c) irr140 f64, 5 fixed-config steps,
      rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
      against gather on the card (1e-9); (d) P2 SI Burgers mesh 32 f64
      blocked against phase 8's gather run through dof_perm (a chaotic run:
@@ -644,6 +650,12 @@ def phase_build():
                       else f" design {m.group(4)}")
             name = (f"{m.group(1)}{flux} "
                     f"{'f32' if m.group(2) == 'f' else 'f64'}{design}")
+            # ell_spmv's instances: its mode and its columns
+            a = re.search(r"ell_spmv_kernelI[fd]Lb([01])E([is])E", line)
+            if a:
+                name += (" constrained" if a.group(1) == "1" else
+                         " unconstrained") + (" int16" if a.group(2) == "s"
+                                              else " int32")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))
@@ -3688,7 +3700,8 @@ def _rel_err(a, b):
 ELL_GRAPH_REPS = 100
 ELL_COLD_BYTES = 100e6
 # the index and geometry fields of a mesh a set clones
-ELL_SET_FIELDS = ("patch_cols32", "patch_cols_bc32", "cells32", "mat_perm32", "mat_offs32",
+ELL_SET_FIELDS = ("patch_cols32", "patch_cols_bc32", "patch_cols_d16",
+                  "cells32", "mat_perm32", "mat_offs32",
                   "area", "grads", "boundary_mask", "mat_lens")
 
 
@@ -3741,29 +3754,6 @@ def _graph_or_calls(what, fn, sets, n_cold):
                 "calls back to back")
 
 
-def _spmv_bc_gather(s):
-    """A in constrained mode on the set s reading the bc byte mask at each
-    column (the plain int32 columns), not the wrapper's flagged columns;
-    timed beside it, not counted."""
-    import torch
-
-    from conservation_fem_tpu_torch.ops import _build
-    from conservation_fem_tpu_torch.ops import ell_kernels as ek
-
-    m, J, u = s["m"], s["J"], s["u"]
-    n, K = J.shape
-    plan = ek.spmv_plan(n, K, J.element_size(),
-                        torch.cuda.get_device_properties(
-                            u.device).multi_processor_count)
-    y = torch.empty_like(u)
-    _build.check(_build.entry("cft_ell_spmv", J.dtype)(
-        J.data_ptr(), m.patch_cols32.data_ptr(), u.data_ptr(),
-        m.boundary_mask.data_ptr(), y.data_ptr(), n, K, plan.rows,
-        plan.stride, plan.ctas, plan.smem, 0, _build.stream_ptr(u)),
-        "ell_spmv bc gather")
-    return y
-
-
 def time_ell_kernels(base, half, bounds, cfg, card):
     """{kernel: times} of A-D at one state (irr640 f32): warm (one operand
     set) and L2-cold (a graph rotating over sets whose operands together
@@ -3788,7 +3778,7 @@ def time_ell_kernels(base, half, bounds, cfg, card):
                                            s["m"].boundary_mask),
                      lambda s: ek.ell_spmv_plain(s["m"], s["J"], s["u"],
                                                  s["m"].boundary_mask),
-                     lambda s: (s["J"], s["m"].patch_cols_bc32, s["u"],
+                     lambda s: (s["J"], s["m"].patch_cols_d16, s["u"],
                                 s["m"].boundary_mask)),
         "ell_assemble": (lambda s: ek.assemble_matrix(s["m"], s["jac"]),
                          lambda s: assembly.scatter_matrix(s["m"], s["jac"]),
@@ -3863,18 +3853,23 @@ def time_ell_kernels(base, half, bounds, cfg, card):
             f"{set_b} B); per wrapper call back to back {host:.5f} ms; "
             f"plain {plain_ms:.5f} ms; library {lib_txt}; bound {b_ms:.5f} "
             f"ms ({b_by}), L2-cold at {b_ms / cold:.1%} of it ({card})")
-    # A's bc test, decided by measurement: the wrapper's bc-flagged
-    # columns against the bc byte mask gathered at each column
-    ref = kernels["ell_spmv"][0](first)
-    if not torch.equal(_spmv_bc_gather(first), ref):
-        raise AssertionError("ell_spmv: the bc-gather variant differs")
-    gw, gc, _ = _graph_or_calls("ell_spmv bc gather", _spmv_bc_gather, sets,
-                                out["ell_spmv"]["cold_sets"])
-    out["ell_spmv"].update(bc_gather_warm_ms=gw, bc_gather_ms=gc)
-    log(f"ell_spmv irr640 f32, the bc test: flagged columns warm "
+    # A's columns: the int16 codes the wrapper reads beside the int32
+    # flagged columns it falls back to (a mesh without the codes)
+    def wide(s):
+        return kernels["ell_spmv"][0](dict(s, m=s["m"]._replace(
+            patch_cols_d16=None)))
+
+    if not torch.equal(wide(first), kernels["ell_spmv"][0](first)):
+        raise AssertionError("ell_spmv: int16 and int32 columns differ")
+    ww, wc, _ = _graph_or_calls("ell_spmv int32 columns", wide, sets,
+                                need(_set_bytes(base["J"],
+                                                m.patch_cols_bc32,
+                                                base["u"], m.boundary_mask)))
+    out["ell_spmv"].update(int32_columns_warm_ms=ww, int32_columns_ms=wc)
+    log(f"ell_spmv irr640 f32, its columns: int16 codes warm "
         f"{out['ell_spmv']['warm_ms']:.5f}, L2-cold "
-        f"{out['ell_spmv']['ms']:.5f} ms; the bc byte mask gathered at "
-        f"each column warm {gw:.5f}, L2-cold {gc:.5f} ms ({card})")
+        f"{out['ell_spmv']['ms']:.5f} ms; int32 flagged columns warm "
+        f"{ww:.5f}, L2-cold {wc:.5f} ms ({card})")
     # rule 2: slower than the library call first, then the time lost a step
     for name, row in out.items():
         row["slower_than_library"] = (row["library_ms"] is not None
@@ -3901,15 +3896,13 @@ def check_ell_kernels(states, regs, card):
     assembled Newton Jacobian, B on its locals (matrix mode) and the rhs
     locals (vector mode), C in both modes, D with the residual N(u) as Rh.
     Gates, each output held on its own: B (its plain version run on the
-    CPU, which sums in the kernel's order) and D bit-equal, and A's bc
-    rows (y = x); A's other rows and C's outputs within max|kernel - plain|
-    / max|plain| <= F64_TOL (f64) or ELL_F32_RTOL (f32). Times on CUDA
-    events (kernel, plain version, one
-    PyTorch call where there is one: a torch CSR product for A,
-    torch.segment_reduce over the sorted locals for B), each beside its
-    bound, and what ptxas gave each instance (registers and spills,
-    printed: these memory-bound kernels are not held to the band kernels'
-    no-spill rule). Returns {kernel: row}."""
+    CPU, which sums in the kernel's order) and D bit-equal, A's bc rows
+    (y = x), and A in f32 against its plain version on the CPU in both
+    modes; A's other rows and C's outputs within max|kernel - plain| /
+    max|plain| <= F64_TOL (f64) or ELL_F32_RTOL (f32). Times at irr640 f32
+    (time_ell_kernels), and what ptxas gave each instance (registers and
+    spills, printed: these memory-bound kernels are not held to the band
+    kernels' no-spill rule). Returns {kernel: row}."""
     import torch
 
     from conservation_fem_tpu_torch.models import kpp
@@ -4026,11 +4019,11 @@ def check_ell_kernels(states, regs, card):
         rows[name]["times"] = t
     out = {}
     for name, r in rows.items():
-        # each instance, A's by its mode (ptxas names it "design <mode>")
+        # each instance (A's by its mode and columns)
         ptxas = {k: v for k, v in regs.items()
                  for dn in ("f32", "f64") for tag in ("", " burgers")
                  if k == f"{name}{tag} {dn}"
-                 or k.startswith(f"{name}{tag} {dn} design ")}
+                 or k.startswith(f"{name}{tag} {dn} ")}
         if not ptxas:
             raise AssertionError(f"{name}: ptxas reported nothing")
         def worst(key, dn):

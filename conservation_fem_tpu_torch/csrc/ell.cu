@@ -35,8 +35,31 @@
 //      stabilization._patch_normalised_residual.
 // A patch's padding entries hold the row's own index (ops/mesh.py), which
 // is in the patch of every node of a cell, so the patch reductions of D
-// read no mask. Products and sums use the _rn intrinsics (no contraction
-// into fma), as the plain versions round each product.
+// read no mask. A, B and D multiply and add with the _rn intrinsics (no
+// contraction into fma): A and B are held bit-equal to their plain
+// versions on the CPU, which round each product. C's products and sums
+// are plain operators, which nvcc may contract into fma: each local is a
+// sum of at most 30 rounded terms, so an fma moves it by a few ulps of
+// its scale, inside C's gates (1e-5 of each output's max in f32, 1e-11
+// in f64).
+//
+// What bounds each, and the design (PR 13 redesigned A and C; B and D
+// are one thread an output, as first written):
+//   A. bytes (the (N,K) values and columns, padding included: the card
+//      reads the K slots of a row), and the latency of the x gathers a
+//      row waits on. A persistent grid walks tiles of R rows; a tile's
+//      values and columns, two contiguous ranges, land by bulk copies in
+//      one of two shared-memory stages while the other's rows are summed,
+//      kSpmvChunk gathers in flight a thread. The constrained mode reads
+//      bc off the columns (with_kernel_index's patch_cols_bc32, bc columns
+//      flagged ~j), not a byte gathered beside each x[j].
+//   C. bytes (the cells, areas, gradients in; 12 locals a cell out), and
+//      in f64 as much the operations of its 6 sincos a cell. Tiles of 128
+//      cells: inputs by bulk copies into two stages, the locals staged in
+//      shared memory and written out as contiguous 16-byte stores (one
+//      thread a cell would store at a 36-byte stride).
+//   B. the scattered reads vals[perm[j]]; D the column gathers (ROADMAP
+//      queue 2: rule-2 items still open).
 //
 // The flux is compiled into C and D (fused_step.cuh Kpp, Burgers): this
 // source builds A, B and the KPP instances, ell_burgers.cu the Burgers
@@ -104,26 +127,52 @@ int persistent_grid(K kernel, int threads, int smem, int* ctas) {
 
 #ifndef CFT_ELL_FLUX_ONLY
 
-// A. Row i of y = A x, its slots summed in order with rounded products;
-// kMode 0: unconstrained; 1: constrained, bc the byte mask, gathered at
-// each column; 2: constrained, the columns of bc nodes flagged (~j < 0)
-// in `c` and bc read at the row alone.
-template <typename T, int kMode>
-__device__ __forceinline__ T ell_row(const T* a, const int* c, int K,
-                                     const T* __restrict__ x,
-                                     const unsigned char* __restrict__ bc) {
+// A. Row i of y = A x, its slots summed in order with rounded products.
+// Its columns come in one of two copies (ops/mesh.with_kernel_index):
+// int32 (Col int), the columns of bc nodes flagged ~j < 0; or int16 (Col
+// short), each the code 2 (j - i) + bc[j], for meshes whose patches stay
+// within 2^14 rows of their node (RCM-ordered ones). kBc: the constrained
+// mode, whose products skip the flagged columns (x zeroed there); the
+// unconstrained mode reads the same copy and ignores the flags. The
+// gathers of x are what a row waits on (x lies in L2): kSpmvChunk of them
+// are issued together, then their products summed in slot order.
+constexpr int kSpmvChunk = 16;
+
+template <bool kBc>
+__device__ __forceinline__ int ell_col(int c, long long, bool& skip) {
+  skip = kBc && c < 0;
+  return c < 0 ? ~c : c;
+}
+template <bool kBc>
+__device__ __forceinline__ int ell_col(short c, long long i, bool& skip) {
+  skip = kBc && (c & 1);
+  return (int)(i + (c >> 1));
+}
+
+template <typename T, bool kBc, typename Col>
+__device__ __forceinline__ T ell_row(const T* a, const Col* c, int K,
+                                     long long i, const T* __restrict__ x) {
   T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int j = c[k];
-    T xj;
-    if (kMode == 2)
-      xj = j < 0 ? T(0) : __ldg(x + j);
-    else if (kMode == 1)
-      xj = __ldg(bc + j) ? T(0) : __ldg(x + j);
-    else
-      xj = __ldg(x + j);
-    const T p = mul_rn(a[k], xj);
-    acc = k == 0 ? p : add_rn(acc, p);
+  for (int k0 = 0; k0 < K; k0 += kSpmvChunk) {
+    T xv[kSpmvChunk], av[kSpmvChunk];
+#pragma unroll
+    for (int u = 0; u < kSpmvChunk; ++u) {
+      const int k = k0 + u;
+      if (k < K) {
+        bool skip;
+        const int j = ell_col<kBc>(c[k], i, skip);
+        xv[u] = skip ? T(0) : __ldg(x + j);
+        av[u] = a[k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSpmvChunk; ++u) {
+      const int k = k0 + u;
+      if (k < K) {
+        const T p = mul_rn(av[u], xv[u]);
+        acc = k == 0 ? p : add_rn(acc, p);
+      }
+    }
   }
   return acc;
 }
@@ -133,14 +182,14 @@ __device__ __forceinline__ T ell_row(const T* a, const int* c, int K,
 // columns are two contiguous ranges; they land in one of two shared-memory
 // stages while the other stage's rows are summed, one thread a row. Odd K
 // (stride Kp = K): two bulk copies a tile, issued by thread 0 (R is a
-// multiple of 4, so every tile's ranges start and end on 16 bytes). Even
-// K: each thread copies values with cp.async into rows padded to Kp = K +
-// 1, so that the threads' rows start in different banks. The n - tiles R
-// rows after the last whole tile are summed by the last CTA straight
-// from device memory.
-template <typename T, int kMode>
+// multiple of 8, so every tile's ranges start and end on 16 bytes). Even
+// K (int32 columns): each thread copies values with cp.async into rows
+// padded to Kp = K + 1, so that the threads' rows start in different
+// banks. The n - tiles R rows after the last whole tile are summed by the
+// last CTA straight from device memory.
+template <typename T, bool kBc, typename Col>
 __global__ void __launch_bounds__(kSpmvMaxRows)
-    ell_spmv_kernel(const T* __restrict__ A, const int* __restrict__ cols,
+    ell_spmv_kernel(const T* __restrict__ A, const Col* __restrict__ cols,
                     const T* __restrict__ x,
                     const unsigned char* __restrict__ bc,
                     T* __restrict__ y, int n, int K, int Kp) {
@@ -149,7 +198,7 @@ __global__ void __launch_bounds__(kSpmvMaxRows)
   const int R = blockDim.x;
   const int stage = R * Kp;
   T* sv = reinterpret_cast<T*>(smem + 16);
-  int* sc = reinterpret_cast<int*>(sv + 2 * stage);
+  Col* sc = reinterpret_cast<Col*>(sv + 2 * stage);
   const int tiles = n / R;
   const bool bulk = Kp == K;
   if (threadIdx.x == 0) {
@@ -162,18 +211,19 @@ __global__ void __launch_bounds__(kSpmvMaxRows)
     if (bulk) {
       if (threadIdx.x == 0) {
         async_proxy_fence();
-        mbar_expect_tx(&bar[s], (unsigned)(R * K * (sizeof(T) + 4)));
+        mbar_expect_tx(&bar[s], (unsigned)(R * K * (sizeof(T) + sizeof(Col))));
         bulk_copy(sv + s * stage, A + first, (unsigned)(R * K * sizeof(T)),
                   &bar[s]);
-        bulk_copy(sc + s * stage, cols + first, (unsigned)(R * K * 4),
-                  &bar[s]);
+        bulk_copy(sc + s * stage, cols + first,
+                  (unsigned)(R * K * sizeof(Col)), &bar[s]);
       }
     } else {
-      for (int e = threadIdx.x; e < R * K; e += R) {
-        const int r = e / K, o = s * stage + r * Kp + (e - r * K);
-        copy_value_async(sv + o, A + first + e);
-        copy_value_async(sc + o, cols + first + e);
-      }
+      if constexpr (sizeof(Col) == 4)  // even K: int32 columns alone
+        for (int e = threadIdx.x; e < R * K; e += R) {
+          const int r = e / K, o = s * stage + r * Kp + (e - r * K);
+          copy_value_async(sv + o, A + first + e);
+          copy_value_async(sc + o, cols + first + e);
+        }
       mbar_arrive_on_copies(&bar[s]);
     }
   };
@@ -185,16 +235,16 @@ __global__ void __launch_bounds__(kSpmvMaxRows)
     mbar_wait(&bar[s], (j >> 1) & 1);
     const long long i = (long long)t * R + threadIdx.x;
     const int o = s * stage + threadIdx.x * Kp;
-    const T acc = ell_row<T, kMode>(sv + o, sc + o, K, x, bc);
-    y[i] = (kMode != 0 && __ldg(bc + i)) ? x[i] : acc;
+    const T acc = ell_row<T, kBc>(sv + o, sc + o, K, i, x);
+    y[i] = (kBc && __ldg(bc + i)) ? x[i] : acc;
     __syncthreads();  // every row of stage s summed: it may be refilled
     const int next = t + 2 * (int)gridDim.x;
     if (next < tiles) fill(next, s);
   }
   if (blockIdx.x == gridDim.x - 1)
     for (long long i = (long long)tiles * R + threadIdx.x; i < n; i += R) {
-      const T acc = ell_row<T, kMode>(A + i * K, cols + i * K, K, x, bc);
-      y[i] = (kMode != 0 && __ldg(bc + i)) ? x[i] : acc;
+      const T acc = ell_row<T, kBc>(A + i * K, cols + i * K, K, i, x);
+      y[i] = (kBc && __ldg(bc + i)) ? x[i] : acc;
     }
 }
 
@@ -214,33 +264,41 @@ __global__ void __launch_bounds__(kEllThreads)
 
 // The launch of A on the plan of ops/ell_kernels.spmv_plan: R rows a
 // tile (threads a CTA), stride Kp, ctas CTAs, smem bytes of dynamic shared
-// memory; flagged: the constrained mode reads bc-flagged columns.
-template <typename T, int kMode>
+// memory; narrow: the int16 column codes, else the flagged int32 columns.
+template <typename T, bool kBc, typename Col>
 int launch_ell_spmv(const void* A, const void* cols, const void* x,
                     const void* bc, void* y, int n, int K, int R, int Kp,
                     int ctas, int smem, cudaStream_t stream) {
-  auto kernel = ell_spmv_kernel<T, kMode>;
-  using Tag = void(T, std::integral_constant<int, kMode>);
+  auto kernel = ell_spmv_kernel<T, kBc, Col>;
+  using Tag = void(T, std::integral_constant<bool, kBc>, Col);
   if (int e = persistent_grid<Tag>(kernel, R, smem, &ctas)) return e;
-  kernel<<<ctas, R, smem, stream>>>((const T*)A, (const int*)cols,
+  kernel<<<ctas, R, smem, stream>>>((const T*)A, (const Col*)cols,
                                     (const T*)x, (const unsigned char*)bc,
                                     (T*)y, n, K, Kp);
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename Col>
+int ell_spmv_cols(const void* A, const void* cols, const void* x,
+                  const void* bc, void* y, int n, int K, int R, int Kp,
+                  int ctas, int smem, cudaStream_t st) {
+  if (bc == nullptr)
+    return launch_ell_spmv<T, false, Col>(A, cols, x, bc, y, n, K, R, Kp,
+                                          ctas, smem, st);
+  return launch_ell_spmv<T, true, Col>(A, cols, x, bc, y, n, K, R, Kp, ctas,
+                                       smem, st);
+}
+
 template <typename T>
 int ell_spmv(const void* A, const void* cols, const void* x, const void* bc,
              void* y, int n, int K, int R, int Kp, int ctas, int smem,
-             int flagged, void* stream) {
+             int narrow, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bc == nullptr)
-    return launch_ell_spmv<T, 0>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                                 st);
-  if (flagged)
-    return launch_ell_spmv<T, 2>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                                 st);
-  return launch_ell_spmv<T, 1>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
+  if (narrow)
+    return ell_spmv_cols<T, short>(A, cols, x, bc, y, n, K, R, Kp, ctas,
+                                   smem, st);
+  return ell_spmv_cols<T, int>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
                                st);
 }
 
@@ -511,15 +569,15 @@ extern "C" {
 #ifndef CFT_ELL_FLUX_ONLY
 int cft_ell_spmv_f32(const void* A, const void* cols, const void* x,
                      const void* bc, void* y, int n, int K, int R, int Kp,
-                     int ctas, int smem, int flagged, void* stream) {
+                     int ctas, int smem, int narrow, void* stream) {
   return cft::ell_spmv<float>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                              flagged, stream);
+                              narrow, stream);
 }
 int cft_ell_spmv_f64(const void* A, const void* cols, const void* x,
                      const void* bc, void* y, int n, int K, int R, int Kp,
-                     int ctas, int smem, int flagged, void* stream) {
+                     int ctas, int smem, int narrow, void* stream) {
   return cft::ell_spmv<double>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                               flagged, stream);
+                               narrow, stream);
 }
 int cft_ell_assemble_f32(const void* vals, const void* perm,
                          const void* offs, void* out, int n_out,

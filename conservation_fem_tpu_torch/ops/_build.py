@@ -78,7 +78,7 @@ _SIGNATURES = {
     "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
     # the ELL kernels (csrc/ell.cu): A, cols, x, bc (null: unconstrained),
-    # y, n, K, the tile plan (rows, stride, ctas, shared memory), flagged
+    # y, n, K, the tile plan (rows, stride, ctas, shared memory), int16
     # columns; vals, perm, offs, out, n_out; cells, area, grads, u, eps
     # (null: none), dt/2, rhs, jac (null: rhs only), M, the plan (ctas,
     # shared memory); cols, u_n, Rh, u_h, h, abs_term, valid (null: all),

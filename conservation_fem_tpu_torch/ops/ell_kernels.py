@@ -7,15 +7,18 @@ launch reads the int32 index copies of the mesh or space
 (ops/mesh.with_kernel_index) and counts one in ``_build.launches``:
 
   * ``ell_spmv`` (kernel A): y = A x for an (N,K) ELL matrix, optionally
-    constrained (bc rows and columns pinned to the identity); plain
-    version ``ops/spmv.ell_matvec``;
+    constrained (bc rows and columns pinned to the identity: the mesh's
+    boundary_mask, read off its bc-flagged columns, int16 or int32);
+    tiles of rows staged in shared memory on the plan of ``spmv_plan``;
+    plain version ``ops/spmv.ell_matvec``;
   * ``assemble_matrix`` / ``assemble_vector`` (kernel B, counted as
     ``ell_assemble``): cell locals (M,nd,nd) / (M,nd) summed into the ELL
     matrix / nodal vector in the sorted contribution order, owner-computes;
     plain versions ``assembly.scatter_matrix`` / ``scatter_vector``;
   * ``p1_newton_locals`` (kernel C, flux compiled in): the P1 cell locals
-    of N(u) + K_eps u and of M + dt/2 (K_eps + C'(u)); plain version the
-    ``assembly.local_*`` formulas;
+    of N(u) + K_eps u and of M + dt/2 (K_eps + C'(u)), tiles of cells on
+    the plan of ``locals_plan``; plain version the ``assembly.local_*``
+    formulas;
   * ``ell_rv_epsilon`` (kernel D, flux compiled in): the RV patch kernel
     given the global term max|u - mean u|; plain version the masked patch
     reductions of ops/stabilization.py.
@@ -78,12 +81,13 @@ def ell_spmv_plain(mesh, A, x, bc=None):
 # A's tile plan (csrc/ell.cu ell_spmv_kernel): a persistent grid of CTAs of
 # R threads, each summing tiles of R rows staged in two shared-memory
 # stages; R the most rows whose two stages fit SPMV_SMEM_CAP, halved from
-# SPMV_TILE_ROWS down to SPMV_MIN_ROWS (multiples of 4: a tile's ranges
-# start and end on the bulk copy's 16 bytes), and as many CTAs an SM as
-# the SM's shared memory holds, at most SPMV_MAX_CTAS_PER_SM
+# SPMV_TILE_ROWS down to SPMV_MIN_ROWS (multiples of 8: a tile's ranges,
+# int16 columns too, start and end on the bulk copy's 16 bytes), and as
+# many CTAs an SM as the SM's shared memory holds, at most
+# SPMV_MAX_CTAS_PER_SM
 SPMV_TILE_ROWS = 128      # csrc/ell.cu kSpmvMaxRows
 SPMV_MIN_ROWS = 32
-SPMV_MAX_CTAS_PER_SM = 8
+SPMV_MAX_CTAS_PER_SM = 16  # 2048 threads of an SM / SPMV_TILE_ROWS
 SPMV_SMEM_CAP = 232448    # shared memory a block may use (227 KB)
 SM_SMEM = 233472          # shared memory of an SM (228 KB)
 SM_SMEM_RESERVED = 1024   # reserved by the system for each resident block
@@ -97,16 +101,20 @@ class SpmvPlan(NamedTuple):
     tiles: int    # whole tiles; the n - tiles R rows after them are read
     ctas: int     # from device memory by the last CTA
     bulk: bool    # K odd: a tile lands by two bulk copies
+    narrow: bool  # int16 column codes (K odd and the mesh has them)
 
 
-def spmv_plan(n, K, itemsize, sms=132):
+def spmv_plan(n, K, itemsize, sms=132, narrow=False):
     """A's plan for an (n, K) matrix of ``itemsize``-byte values on a card
-    of ``sms`` SMs."""
+    of ``sms`` SMs; ``narrow``: the mesh has int16 column codes, read
+    where K is odd (a tile's columns then land by one bulk copy)."""
     stride = K if K % 2 else K + 1
+    narrow = narrow and stride == K
+    colsize = 2 if narrow else 4
     rows = SPMV_TILE_ROWS
 
     def smem(r):
-        return 16 + 2 * r * stride * (itemsize + 4)
+        return 16 + 2 * r * stride * (itemsize + colsize)
 
     while smem(rows) > SPMV_SMEM_CAP and rows > SPMV_MIN_ROWS:
         rows //= 2
@@ -117,7 +125,7 @@ def spmv_plan(n, K, itemsize, sms=132):
                  SM_SMEM // (smem(rows) + SM_SMEM_RESERVED))
     tiles = n // rows
     return SpmvPlan(rows, stride, smem(rows), tiles,
-                    max(1, min(tiles, sms * per_sm)), stride == K)
+                    max(1, min(tiles, sms * per_sm)), stride == K, narrow)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,8 +134,8 @@ def _sms(index):
 
 
 @functools.lru_cache(maxsize=64)
-def _spmv_plan(n, K, itemsize, index):
-    return spmv_plan(n, K, itemsize, _sms(index))
+def _spmv_plan(n, K, itemsize, index, narrow):
+    return spmv_plan(n, K, itemsize, _sms(index), narrow)
 
 
 def _aligned(name, *tensors):
@@ -140,26 +148,29 @@ def _aligned(name, *tensors):
 def ell_spmv(mesh, A, x, bc=None):
     """y = A x for an (N,K) ELL matrix, each row summed in slot order;
     bc (N,) bool: the constrained product (x zeroed on bc rows before it,
-    y = x there). The kernel's constrained mode reads the bc-flagged
-    columns of ``mesh``, so bc must be ``mesh.boundary_mask``."""
+    y = x there). The kernel reads the bc-flagged columns of ``mesh``
+    (int16 codes where it has them and K is odd, else int32), so in the
+    constrained mode bc must be ``mesh.boundary_mask``."""
     tensors = (A, x) if bc is None else (A, x, bc)
     if _build.on_cpu("ell_spmv", *tensors):
         return ell_spmv_plain(mesh, A, x, bc)
-    field = "patch_cols32" if bc is None else "patch_cols_bc32"
-    cols = _index(mesh, field, "ell_spmv")
+    cols = _index(mesh, "patch_cols_bc32", "ell_spmv")
     n, K = cols.shape
     dtype = _build.check_cuda_args("ell_spmv", A, x, shapes=[(n, K), (n,)])
     if bc is not None and bc.data_ptr() != mesh.boundary_mask.data_ptr():
         raise ValueError("ell_spmv: the constrained mode takes the mesh's "
                          "boundary_mask (its columns are flagged by it)")
+    plan = _spmv_plan(n, K, A.element_size(), x.device.index,
+                      mesh.patch_cols_d16 is not None)
+    if plan.narrow:
+        cols = mesh.patch_cols_d16
     _aligned("ell_spmv", A, cols)
-    plan = _spmv_plan(n, K, A.element_size(), x.device.index)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = _build.entry("cft_ell_spmv", dtype)(
             A.data_ptr(), cols.data_ptr(), x.data_ptr(), _ptr(bc),
             y.data_ptr(), n, K, plan.rows, plan.stride, plan.ctas,
-            plan.smem, 1, _build.stream_ptr(x))
+            plan.smem, int(plan.narrow), _build.stream_ptr(x))
     _build.launches["ell_spmv"] += 1
     _build.check(code, "ell_spmv")
     return y

@@ -63,9 +63,12 @@ class MeshArrays(NamedTuple):
     # memory is unchanged. *_offs32 are the segments' start offsets (the
     # exclusive cumsum of *_lens, one more entry than segments)
     patch_cols32: torch.Tensor | None = None   # (N,K) int32
-    # patch_cols32 with the columns of boundary nodes flagged as ~j (< 0):
-    # the constrained ELL SpMV reads bc off its columns
+    # the ELL SpMV's columns: patch_cols32 with the columns of boundary
+    # nodes flagged as ~j (< 0), and, where every patch lies within
+    # D16_REACH rows of its node, the int16 codes 2 (j - i) + bc[j] (half
+    # the bytes; None otherwise)
     patch_cols_bc32: torch.Tensor | None = None  # (N,K) int32
+    patch_cols_d16: torch.Tensor | None = None   # (N,K) int16
     cells32: torch.Tensor | None = None        # (M,3) int32
     mat_perm32: torch.Tensor | None = None     # (9M,) int32
     mat_offs32: torch.Tensor | None = None     # (N*K+1,) int32
@@ -182,12 +185,17 @@ class Mesh:
         )
 
 
+# the reach of the int16 column codes 2 (j - i) + bc: |j - i| < 2^14
+D16_REACH = 2**14
+
+
 def with_kernel_index(arrays):
     """``arrays`` (a MeshArrays, or a SpaceArrays: any NamedTuple with the
     ELL fields) with the int32 index copies the hand-written ELL kernels
-    read: patch_cols (and its bc-flagged copy), the cells (MeshArrays)
-    and the contribution orders mat_perm / vec_perm with their segment
-    offsets. Built once per
+    read: patch_cols (and the SpMV's bc-flagged copies, int32 and, where
+    the patches reach fewer than D16_REACH rows, int16 offsets), the cells
+    (MeshArrays) and the contribution orders mat_perm / vec_perm with their
+    segment offsets. Built once per
     problem, for the backends that launch the kernels."""
     if arrays.patch_cols32 is not None:
         return arrays
@@ -203,9 +211,15 @@ def with_kernel_index(arrays):
         return i32(out)
 
     cols = i32(arrays.patch_cols)
+    on_bc = arrays.boundary_mask[cols]
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
+    delta = arrays.patch_cols - rows
+    d16 = None
+    if cols.numel() and int(delta.abs().max()) < D16_REACH:
+        d16 = (2 * delta + on_bc).to(torch.int16).contiguous()
     extra = dict(patch_cols32=cols,
-                 patch_cols_bc32=torch.where(arrays.boundary_mask[cols],
-                                             ~cols, cols),
+                 patch_cols_bc32=torch.where(on_bc, ~cols, cols),
+                 patch_cols_d16=d16,
                  mat_perm32=i32(arrays.mat_perm),
                  mat_offs32=offsets(arrays.mat_lens),
                  vec_perm32=i32(arrays.vec_perm),

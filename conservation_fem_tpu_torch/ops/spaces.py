@@ -164,6 +164,7 @@ class SpaceArrays(NamedTuple):
     # with_kernel_index; None on the gather path)
     patch_cols32: torch.Tensor | None = None
     patch_cols_bc32: torch.Tensor | None = None
+    patch_cols_d16: torch.Tensor | None = None
     mat_perm32: torch.Tensor | None = None
     mat_offs32: torch.Tensor | None = None
     vec_perm32: torch.Tensor | None = None

@@ -317,36 +317,40 @@ SPMV_WIDTHS = sorted(set(_port_patch_widths()) | {11}) + [8, 10, 12, 20, 38,
 SPMV_ROWS = (1, 31, 128, 1681, 19881, 410881)
 
 
+@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "int16"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("K", SPMV_WIDTHS)
-def test_spmv_tile_plan(K, itemsize):
+def test_spmv_tile_plan(K, itemsize, narrow):
     """Kernel A's plan (csrc/ell.cu ell_spmv_kernel) for every width the
-    port builds, f32 and f64: two stages within shared memory, the bulk
-    copies' sizes and every tile's source offsets on 16 bytes, a row
-    stride that starts the threads' rows in different banks, and the
-    rows after the whole tiles (read by the last CTA) fewer than a
-    tile."""
+    port builds, f32 and f64, int32 columns and int16 codes: two stages
+    within shared memory, the bulk copies' sizes and every tile's source
+    offsets on 16 bytes, a row stride that starts the threads' rows in
+    different banks, and the rows after the whole tiles (read by the last
+    CTA) fewer than a tile."""
     assert {7, 9, 19, 37} <= set(SPMV_WIDTHS)
     for n in SPMV_ROWS:
-        p = ek.spmv_plan(n, K, itemsize)
+        p = ek.spmv_plan(n, K, itemsize, narrow=narrow)
+        assert p.narrow == (narrow and K % 2 == 1)
+        colsize = 2 if p.narrow else 4
         assert p.smem <= ek.SPMV_SMEM_CAP
-        assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + 4)
+        assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + colsize)
         assert ek.SPMV_MIN_ROWS <= p.rows <= ek.SPMV_TILE_ROWS
-        assert p.rows % 4 == 0
+        assert p.rows % 8 == 0
         assert p.stride % 2 == 1 and p.stride - K in (0, 1)
         assert p.bulk == (K % 2 == 1)
         if p.bulk:
-            for size in (p.rows * K * itemsize, p.rows * K * 4):
-                assert size % ek.BULK_ALIGN == 0
-            assert all(t * p.rows * K * s % ek.BULK_ALIGN == 0
-                       for t in (1, p.tiles - 1, p.tiles) for s in
-                       (itemsize, 4))
+            for s in (itemsize, colsize):
+                assert p.rows * K * s % ek.BULK_ALIGN == 0
+                assert all(t * p.rows * K * s % ek.BULK_ALIGN == 0
+                           for t in (1, p.tiles - 1, p.tiles))
+            # the second stage and the columns start on 16 bytes
+            assert (16 + p.rows * K * itemsize) % ek.BULK_ALIGN == 0
         assert 0 <= n - p.tiles * p.rows < p.rows
         assert 1 <= p.ctas <= max(p.tiles, 1)
         per_sm = ek.SM_SMEM // (p.smem + ek.SM_SMEM_RESERVED)
         assert p.ctas <= 132 * min(per_sm, ek.SPMV_MAX_CTAS_PER_SM)
     with pytest.raises(ValueError):
-        ek.spmv_plan(1000, 4000, itemsize)
+        ek.spmv_plan(1000, 4000, itemsize, narrow=narrow)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -371,17 +375,31 @@ def test_locals_tile_plan(itemsize):
 
 @pytest.mark.parametrize("space", ["p1", "p2"])
 def test_bc_flagged_columns_decode(space):
-    """with_kernel_index's bc-flagged columns (kernel A's constrained mode)
-    decode to patch_cols32 and flag exactly the boundary columns."""
+    """with_kernel_index's column copies for kernel A decode to
+    patch_cols32 and flag exactly the boundary columns: the int32 copy
+    as ~j, the int16 codes as 2 (j - i) + bc[j]; a mesh whose patches
+    reach D16_REACH rows or more gets no int16 codes."""
     from conservation_fem_tpu_torch.ops import spaces
 
     host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=12, seed=3)
     arrays = (host.device_arrays(F64, "cpu") if space == "p1" else
               spaces.build_space(host, 2).device_arrays(F64, "cpu"))
     m = tmesh.with_kernel_index(arrays)
+    on_bc = m.boundary_mask[m.patch_cols]
     c = m.patch_cols_bc32
     assert c.dtype == torch.int32 and c.shape == m.patch_cols32.shape
-    flagged = c < 0
-    assert torch.equal(torch.where(flagged, ~c, c), m.patch_cols32)
-    assert torch.equal(flagged, m.boundary_mask[m.patch_cols])
-    assert bool(flagged.any()) and not bool(flagged.all())
+    assert torch.equal(torch.where(c < 0, ~c, c), m.patch_cols32)
+    assert torch.equal(c < 0, on_bc)
+    assert bool(on_bc.any()) and not bool(on_bc.all())
+    d = m.patch_cols_d16
+    assert d.dtype == torch.int16 and d.shape == c.shape
+    rows = torch.arange(d.shape[0])[:, None]
+    assert torch.equal(rows + (d.long() >> 1), m.patch_cols32.long())
+    assert torch.equal((d & 1).bool(), on_bc)
+    far = tmesh.with_kernel_index(arrays._replace(
+        patch_cols=torch.where(rows == 0, tmesh.D16_REACH, arrays.patch_cols),
+        boundary_mask=torch.cat([arrays.boundary_mask,
+                                 torch.zeros(tmesh.D16_REACH + 1 - len(
+                                     arrays.boundary_mask), dtype=torch.bool)
+                                 ])))
+    assert far.patch_cols_d16 is None

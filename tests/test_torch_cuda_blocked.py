@@ -102,13 +102,19 @@ def _spmv_case(case, dtype, device):
     return m, A
 
 
+@pytest.mark.parametrize("columns", ["int16", "int32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["odd", "even", "tiny", "p2", "p3"])
-def test_ell_spmv_tiles(cuda, case, dtype):
-    """Kernel A at its tile edges, both modes: in f32 bit-equal to its
-    plain version on the CPU (the same slot order and rounded products),
-    in f64 within F64_TOL; bc rows equal to x; repeated launches equal."""
+def test_ell_spmv_tiles(cuda, case, dtype, columns):
+    """Kernel A at its tile edges, both modes, on the int16 column codes
+    (read where K is odd) and on the int32 flagged columns: in f32
+    bit-equal to its plain version on the CPU (the same slot order and
+    rounded products), in f64 within F64_TOL; bc rows equal to x;
+    repeated launches equal."""
     m, A = _spmv_case(case, dtype, cuda)
+    assert m.patch_cols_d16 is not None
+    if columns == "int32":
+        m = m._replace(patch_cols_d16=None)
     n, K = m.patch_cols.shape
     assert (K % 2 == 0) == (case == "even")
     if case != "tiny":
