@@ -135,9 +135,7 @@ int persistent_grid(K kernel, int threads, int smem, int* ctas) {
 // mode, whose products skip the flagged columns (x zeroed there); the
 // unconstrained mode reads the same copy and ignores the flags. The
 // gathers of x are what a row waits on (x lies in L2): kSpmvChunk of them
-// are issued together, then their products summed in slot order; the
-// row's own slots (its diagonal and its padding, j = i: 0.46 of the slots
-// at irr640) take x[i], read once a row, and gather nothing.
+// are issued together, then their products summed in slot order.
 constexpr int kSpmvChunk = 16;
 
 template <bool kBc>
@@ -153,8 +151,7 @@ __device__ __forceinline__ int ell_col(short c, long long i, bool& skip) {
 
 template <typename T, bool kBc, typename Col>
 __device__ __forceinline__ T ell_row(const T* a, const Col* c, int K,
-                                     long long i, T xi,
-                                     const T* __restrict__ x) {
+                                     long long i, const T* __restrict__ x) {
   T acc = T(0);
   for (int k0 = 0; k0 < K; k0 += kSpmvChunk) {
     T xv[kSpmvChunk], av[kSpmvChunk];
@@ -164,7 +161,7 @@ __device__ __forceinline__ T ell_row(const T* a, const Col* c, int K,
       if (k < K) {
         bool skip;
         const int j = ell_col<kBc>(c[k], i, skip);
-        xv[u] = skip ? T(0) : (j == i ? xi : __ldg(x + j));
+        xv[u] = skip ? T(0) : __ldg(x + j);
         av[u] = a[k];
       }
     }
@@ -238,18 +235,16 @@ __global__ void __launch_bounds__(kSpmvMaxRows)
     mbar_wait(&bar[s], (j >> 1) & 1);
     const long long i = (long long)t * R + threadIdx.x;
     const int o = s * stage + threadIdx.x * Kp;
-    const T xi = __ldg(x + i);
-    const T acc = ell_row<T, kBc>(sv + o, sc + o, K, i, xi, x);
-    y[i] = (kBc && __ldg(bc + i)) ? xi : acc;
+    const T acc = ell_row<T, kBc>(sv + o, sc + o, K, i, x);
+    y[i] = (kBc && __ldg(bc + i)) ? x[i] : acc;
     __syncthreads();  // every row of stage s summed: it may be refilled
     const int next = t + 2 * (int)gridDim.x;
     if (next < tiles) fill(next, s);
   }
   if (blockIdx.x == gridDim.x - 1)
     for (long long i = (long long)tiles * R + threadIdx.x; i < n; i += R) {
-      const T xi = __ldg(x + i);
-      const T acc = ell_row<T, kBc>(A + i * K, cols + i * K, K, i, xi, x);
-      y[i] = (kBc && __ldg(bc + i)) ? xi : acc;
+      const T acc = ell_row<T, kBc>(A + i * K, cols + i * K, K, i, x);
+      y[i] = (kBc && __ldg(bc + i)) ? x[i] : acc;
     }
 }
 
