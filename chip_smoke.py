@@ -3761,8 +3761,10 @@ def time_ell_kernels(base, half, bounds, cfg, card):
     wrapper call back to back (the host's cost: checks, allocation, ctypes);
     the plain version per call; the library call (A: torch's CSR product,
     B: torch.segment_reduce over the sorted locals) timed as the kernel is;
-    the bound. Then the rule-2 ranking: kernels slower L2-cold than their
-    library call first, then by launches a step x (L2-cold - bound)."""
+    the bound; A on its int32 columns too (its fallback where a mesh has
+    no int16 codes). Then the rule-2 ranking: kernels slower L2-cold than
+    their library call first, then by launches a step x (L2-cold -
+    bound)."""
     import math
 
     import torch

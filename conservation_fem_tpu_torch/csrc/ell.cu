@@ -43,16 +43,16 @@
 // its scale, inside C's gates (1e-5 of each output's max in f32, 1e-11
 // in f64).
 //
-// What bounds each, and the design (PR 13 redesigned A and C; B and D
-// are one thread an output, as first written):
+// What bounds each, and the design (A and C walk tiles staged by bulk
+// copies; B and D run one thread an output):
 //   A. bytes (the (N,K) values and columns, padding included: the card
-//      reads the K slots of a row), and the latency of the x gathers a
-//      row waits on. A persistent grid walks tiles of R rows; a tile's
-//      values and columns, two contiguous ranges, land by bulk copies in
-//      one of two shared-memory stages while the other's rows are summed,
-//      kSpmvChunk gathers in flight a thread. The constrained mode reads
-//      bc off the columns (with_kernel_index's patch_cols_bc32, bc columns
-//      flagged ~j), not a byte gathered beside each x[j].
+//      reads the K slots of a row) and the x gathers (one a slot). A
+//      persistent grid walks tiles of R rows; a tile's values and
+//      columns, two contiguous ranges, land by bulk copies in one of two
+//      shared-memory stages while the other's rows are summed, kSpmvChunk
+//      gathers in flight a thread. The columns are int16 codes where the
+//      mesh's patches allow (half the bytes of int32), and carry the bc
+//      flag, so the constrained mode gathers no bc byte beside each x[j].
 //   C. bytes (the cells, areas, gradients in; 12 locals a cell out), and
 //      in f64 as much the operations of its 6 sincos a cell. Tiles of 128
 //      cells: inputs by bulk copies into two stages, the locals staged in
