@@ -177,8 +177,10 @@ exits non-zero:
      L2-cold (rotating over sets of at least 100 MB in all), and per
      wrapper call back to back, beside its plain version, its bound and a
      PyTorch call timed the same way (a torch CSR product,
-     torch.segment_reduce), with what ptxas gave each instance;
-     ell_spmv's bc test read both ways; the four ranked by rule 2 (slower
+     torch.segment_reduce; one that cannot be captured is timed over 100
+     calls back to back, and said so), with what ptxas gave each instance;
+     ell_spmv on its int16 column codes and on its int32 flagged columns,
+     bit-equal and each timed; the four ranked by rule 2 (slower
      than the library call first, then launches a step x (L2-cold -
      bound)); (c) irr140 f64, 5 fixed-config steps,
      rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
@@ -3669,18 +3671,19 @@ def run_blocked_paths(card, meshes):
     return out, states, main_counts
 
 
-def _ell_bounds(n, nnz, M, s):
+def _ell_bounds(n, nnz, M, s, a_cols):
     """{kernel: (bytes, operations)} of one call at these sizes (each input
     read once, each output written once; s the float size; nnz the stored
     entries of the patches, the ELL padding left out, as a CSR form of the
-    same operator needs none of it): A constrained (nnz values and int32
-    columns, x, the bc mask, y; a multiply-add per entry), B matrix mode
+    same operator needs none of it): A constrained (nnz values, nnz columns
+    of a_cols bytes, the copy that ell_kernels.spmv_columns gives it, x,
+    the bc mask, y; a multiply-add per entry), B matrix mode
     (9M locals and their int32 order, nnz + 1 offsets, the nnz outputs; an
     add per local), C Jacobian mode (cells, area, grads, u, eps in; 3 + 9
     locals out), D (nnz columns, u_n, Rh, h, the abs term; eps out; 3
     compares per entry, 10 per node)."""
     return {
-        "ell_spmv": (nnz * (s + 4) + n * (2 * s + 1), 2 * nnz),
+        "ell_spmv": (nnz * (s + a_cols) + n * (2 * s + 1), 2 * nnz),
         "ell_assemble": (9 * M * (s + 4) + (nnz + 1) * 4 + nnz * s, 9 * M),
         "p1_newton_locals": (3 * M * 4 + 7 * M * s + 2 * n * s
                              + 12 * M * s, OPS_LOCALS_JAC * M),
@@ -3733,18 +3736,25 @@ def _set_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _graph_or_calls(what, fn, sets, n_cold):
-    """(warm ms, L2-cold ms, how): fn(set) on a CUDA graph of
-    ELL_GRAPH_REPS calls on sets[0], and rotating over sets[:n_cold]; where
-    fn cannot be captured, said so and timed over as many calls back to
-    back (CUDA events)."""
+def _on_graph(fn, sets, n_cold):
+    """(warm ms, L2-cold ms): fn(set) on a CUDA graph of ELL_GRAPH_REPS
+    calls on sets[0], and rotating over sets[:n_cold]. A call that cannot
+    be captured raises."""
     import itertools
 
     turn = itertools.cycle(sets[:n_cold])
+    return (graph_ms(lambda: fn(sets[0]), ELL_GRAPH_REPS),
+            graph_ms(lambda: fn(next(turn)), ELL_GRAPH_REPS))
+
+
+def _library_times(what, fn, sets, n_cold):
+    """(warm ms, L2-cold ms, how) of a library call: on a CUDA graph as
+    _on_graph, or, where it cannot be captured, said so and timed over as
+    many calls back to back (CUDA events)."""
+    import itertools
+
     try:
-        return (graph_ms(lambda: fn(sets[0]), ELL_GRAPH_REPS),
-                graph_ms(lambda: fn(next(turn)), ELL_GRAPH_REPS),
-                "CUDA graph")
+        return _on_graph(fn, sets, n_cold) + ("CUDA graph",)
     except RuntimeError as e:
         log(f"{what} cannot be captured on a CUDA graph ({e}); timed over "
             f"{ELL_GRAPH_REPS} calls back to back instead")
@@ -3776,11 +3786,10 @@ def time_ell_kernels(base, half, bounds, cfg, card):
     flux = kpp.FLUX
     m = base["m"]
     kernels = {
-        "ell_spmv": (lambda s: ek.ell_spmv(s["m"], s["J"], s["u"],
-                                           s["m"].boundary_mask),
+        "ell_spmv": (lambda s: ek.ell_spmv(s["m"], s["J"], s["u"], True),
                      lambda s: ek.ell_spmv_plain(s["m"], s["J"], s["u"],
-                                                 s["m"].boundary_mask),
-                     lambda s: (s["J"], s["m"].patch_cols_d16, s["u"],
+                                                 True),
+                     lambda s: (s["J"], ek.spmv_columns(s["m"]), s["u"],
                                 s["m"].boundary_mask)),
         "ell_assemble": (lambda s: ek.assemble_matrix(s["m"], s["jac"]),
                          lambda s: assembly.scatter_matrix(s["m"], s["jac"]),
@@ -3830,7 +3839,7 @@ def time_ell_kernels(base, half, bounds, cfg, card):
     for name, (fn, plain, ops) in kernels.items():
         set_b = _set_bytes(*ops(first))
         n_cold = need(set_b)
-        warm, cold, _ = _graph_or_calls(name, fn, sets, n_cold)
+        warm, cold = _on_graph(fn, sets, n_cold)
         host = cuda_ms(lambda: fn(first), ELL_GRAPH_REPS)
         plain_ms = cuda_ms(lambda: plain(first), 20)
         b_ms, b_by = bound(*bounds[name], "f32")
@@ -3838,13 +3847,14 @@ def time_ell_kernels(base, half, bounds, cfg, card):
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    bytes=bounds[name][0], operations=bounds[name][1],
                    share_of_bound_cold=b_ms / cold, cold_sets=n_cold,
-                   set_bytes=set_b, library_ms=None,
+                   set_bytes=set_b, timed_on="CUDA graph",
+                   library_ms=None,
                    launches_per_step=per_step.get(name, 0))
         lib_txt = "none"
         if name in library:
             what, lfn, lops = library[name]
             lb = _set_bytes(*lops(first))
-            lw, lc, how = _graph_or_calls(what, lfn, sets, need(lb))
+            lw, lc, how = _library_times(what, lfn, sets, need(lb))
             row.update(library_ms=lc, library_warm_ms=lw, library=what,
                        library_timed_on=how, library_cold_sets=need(lb))
             lib_txt = (f"{what} warm {lw:.5f}, L2-cold {lc:.5f} ms ({how}, "
@@ -3863,10 +3873,8 @@ def time_ell_kernels(base, half, bounds, cfg, card):
 
     if not torch.equal(wide(first), kernels["ell_spmv"][0](first)):
         raise AssertionError("ell_spmv: int16 and int32 columns differ")
-    ww, wc, _ = _graph_or_calls("ell_spmv int32 columns", wide, sets,
-                                need(_set_bytes(base["J"],
-                                                m.patch_cols_bc32,
-                                                base["u"], m.boundary_mask)))
+    ww, wc = _on_graph(wide, sets, need(_set_bytes(
+        base["J"], m.patch_cols_bc32, base["u"], m.boundary_mask)))
     out["ell_spmv"].update(int32_columns_warm_ms=ww, int32_columns_ms=wc)
     log(f"ell_spmv irr640 f32, its columns: int16 codes warm "
         f"{out['ell_spmv']['warm_ms']:.5f}, L2-cold "
@@ -3944,16 +3952,17 @@ def check_ell_kernels(states, regs, card):
             # its other rows held relative to their own scale
             checks = {
                 "ell_spmv": [("constrained, interior rows",
-                              lambda: ek.ell_spmv(m, J, u, bc)[~bc],
-                              lambda: ek.ell_spmv_plain(m, J, u, bc)[~bc],
+                              lambda: ek.ell_spmv(m, J, u, True)[~bc],
+                              lambda: ek.ell_spmv_plain(m, J, u,
+                                                        True)[~bc],
                               "rel"),
                              ("constrained, bc rows",
-                              lambda: ek.ell_spmv(m, J, u, bc)[bc],
+                              lambda: ek.ell_spmv(m, J, u, True)[bc],
                               lambda: u[bc], "equal"),
                              ("constrained, plain on the CPU",
-                              lambda: ek.ell_spmv(m, J, u, bc).cpu(),
+                              lambda: ek.ell_spmv(m, J, u, True).cpu(),
                               lambda: ek.ell_spmv_plain(
-                                  mc, J.cpu(), u.cpu(), mc.boundary_mask),
+                                  mc, J.cpu(), u.cpu(), True),
                               "equal f32"),
                              ("unconstrained, plain on the CPU",
                               lambda: ek.ell_spmv(m, J, u).cpu(),
@@ -3987,7 +3996,8 @@ def check_ell_kernels(states, regs, card):
                         m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
                     "equal")],
             }
-            bounds = _ell_bounds(n, nnz, M, s)
+            bounds = _ell_bounds(n, nnz, M, s,
+                                 ek.spmv_columns(m).element_size())
             tol = F64_TOL if dn == "f64" else ELL_F32_RTOL
             for name, cases in checks.items():
                 errs, rels = [], []
@@ -4036,8 +4046,9 @@ def check_ell_kernels(states, regs, card):
                          max_rel_err=worst("rels", "f64"),
                          max_rel_err_f32=worst("rels", "f32"), **r["times"],
                          timed_case="irr640 f32, the blocked run's end "
-                                    "state; ms and library_ms L2-cold on "
-                                    "a CUDA graph", ptxas=ptxas)
+                                    "state; ms L2-cold on a CUDA graph, "
+                                    "library_ms L2-cold as "
+                                    "library_timed_on says", ptxas=ptxas)
         log(f"{name} ptxas: " + json.dumps(ptxas))
     return out
 

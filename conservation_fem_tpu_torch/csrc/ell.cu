@@ -95,33 +95,44 @@ inline int ell_blocks(long long n) {
   return (int)((n + kEllThreads - 1) / kEllThreads);
 }
 
-// A persistent kernel's launch: raises its dynamic shared memory limit to
-// smem where that is above the default, and holds its grid to the CTAs
-// the card keeps resident (the plan's ctas count shared memory alone, not
-// registers). Returns a CUDA error code, or 0 and the CTAs in *ctas. Tag:
-// a type of this kernel's own, so that each kernel keeps its own state.
+// A persistent kernel's grid: as many CTAs as the card keeps resident at
+// this block size and shared memory (the occupancy query, which counts
+// registers too), at most one a tile, at least one. Raises the kernel's
+// dynamic shared memory limit to smem where that is above the default.
+// Both are kept per device (the attribute is set on each device's own
+// context) and per kernel (Tag: a type of the kernel's own). Returns a
+// CUDA error code, or 0 and the CTAs in *ctas.
+constexpr int kMaxDevices = 64;
+
 template <typename Tag, typename K>
-int persistent_grid(K kernel, int threads, int smem, int* ctas) {
-  static int smem_set = 48 * 1024, per_sm = 0, sms = 0;
-  if (smem > smem_set) {
+int persistent_grid(K kernel, int threads, int smem, long long tiles,
+                    int* ctas) {
+  struct Residency {
+    int smem_set, smem, threads, ctas;
+  };
+  static Residency per_device[kMaxDevices];
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  Residency& r = per_device[dev];
+  if (smem > 48 * 1024 && smem > r.smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-    per_sm = 0;
+    r.smem_set = smem;
   }
-  static int per_sm_smem = -1, per_sm_threads = -1;
-  if (per_sm == 0 || per_sm_smem != smem || per_sm_threads != threads) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, threads, smem);
+  if (r.ctas == 0 || r.smem != smem || r.threads != threads) {
+    int sms = 0, per_sm = 0;
+    cudaError_t e = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem);
     if (e != cudaSuccess) return (int)e;
-    per_sm_smem = smem;
-    per_sm_threads = threads;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    r = {r.smem_set, smem, threads, per_sm * sms};
   }
-  *ctas = std::max(1, std::min(*ctas, per_sm * sms));
+  *ctas = (int)std::max(1LL, std::min(tiles, (long long)r.ctas));
   return 0;
 }
 
@@ -263,15 +274,16 @@ __global__ void __launch_bounds__(kEllThreads)
 }
 
 // The launch of A on the plan of ops/ell_kernels.spmv_plan: R rows a
-// tile (threads a CTA), stride Kp, ctas CTAs, smem bytes of dynamic shared
-// memory; narrow: the int16 column codes, else the flagged int32 columns.
+// tile (threads a CTA), stride Kp, smem bytes of dynamic shared memory;
+// narrow: the int16 column codes, else the flagged int32 columns.
 template <typename T, bool kBc, typename Col>
 int launch_ell_spmv(const void* A, const void* cols, const void* x,
                     const void* bc, void* y, int n, int K, int R, int Kp,
-                    int ctas, int smem, cudaStream_t stream) {
+                    int smem, cudaStream_t stream) {
   auto kernel = ell_spmv_kernel<T, kBc, Col>;
   using Tag = void(T, std::integral_constant<bool, kBc>, Col);
-  if (int e = persistent_grid<Tag>(kernel, R, smem, &ctas)) return e;
+  int ctas = 0;
+  if (int e = persistent_grid<Tag>(kernel, R, smem, n / R, &ctas)) return e;
   kernel<<<ctas, R, smem, stream>>>((const T*)A, (const Col*)cols,
                                     (const T*)x, (const unsigned char*)bc,
                                     (T*)y, n, K, Kp);
@@ -281,25 +293,23 @@ int launch_ell_spmv(const void* A, const void* cols, const void* x,
 template <typename T, typename Col>
 int ell_spmv_cols(const void* A, const void* cols, const void* x,
                   const void* bc, void* y, int n, int K, int R, int Kp,
-                  int ctas, int smem, cudaStream_t st) {
+                  int smem, cudaStream_t st) {
   if (bc == nullptr)
     return launch_ell_spmv<T, false, Col>(A, cols, x, bc, y, n, K, R, Kp,
-                                          ctas, smem, st);
-  return launch_ell_spmv<T, true, Col>(A, cols, x, bc, y, n, K, R, Kp, ctas,
-                                       smem, st);
+                                          smem, st);
+  return launch_ell_spmv<T, true, Col>(A, cols, x, bc, y, n, K, R, Kp, smem,
+                                       st);
 }
 
 template <typename T>
 int ell_spmv(const void* A, const void* cols, const void* x, const void* bc,
-             void* y, int n, int K, int R, int Kp, int ctas, int smem,
-             int narrow, void* stream) {
+             void* y, int n, int K, int R, int Kp, int smem, int narrow,
+             void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (narrow)
-    return ell_spmv_cols<T, short>(A, cols, x, bc, y, n, K, R, Kp, ctas,
-                                   smem, st);
-  return ell_spmv_cols<T, int>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                               st);
+    return ell_spmv_cols<T, short>(A, cols, x, bc, y, n, K, R, Kp, smem, st);
+  return ell_spmv_cols<T, int>(A, cols, x, bc, y, n, K, R, Kp, smem, st);
 }
 
 template <typename T>
@@ -517,17 +527,18 @@ __global__ void __launch_bounds__(kEllThreads)
                 mul_rn(mul_rn(crv, mul_rn(hi, hi)), fabs(R)));
 }
 
-// The launch of C on the plan of ops/ell_kernels.locals_plan (ctas CTAs
-// of kLocalsCells threads, smem bytes of dynamic shared memory).
+// The launch of C: CTAs of kLocalsCells threads, smem bytes of dynamic
+// shared memory (ops/ell_kernels.locals_smem).
 template <typename T>
 int p1_newton_locals(const void* cells, const void* area, const void* grads,
                      const void* u, const void* eps, double half_dt,
-                     void* rhs, void* jac, int M, int ctas, int smem,
-                     void* stream) {
+                     void* rhs, void* jac, int M, int smem, void* stream) {
   if (M <= 0) return 0;
   auto kernel = p1_newton_locals_kernel<T, CFT_FLUX>;
   using Tag = void(T, CFT_FLUX);
-  if (int e = persistent_grid<Tag>(kernel, kLocalsCells, smem, &ctas))
+  int ctas = 0;
+  if (int e = persistent_grid<Tag>(kernel, kLocalsCells, smem,
+                                   M / kLocalsCells, &ctas))
     return e;
   kernel<<<ctas, kLocalsCells, smem, (cudaStream_t)stream>>>(
       (const int*)cells, (const T*)area, (const T*)grads, (const T*)u,
@@ -554,9 +565,9 @@ int ell_rv_epsilon(const void* cols, const void* u_n, const void* rh,
 #define CFT_LOCALS_ARGS                                                    \
   const void *cells, const void *area, const void *grads, const void *u,   \
       const void *eps, double half_dt, void *rhs, void *jac, int M,        \
-      int ctas, int smem, void *stream
+      int smem, void *stream
 #define CFT_LOCALS_CALL                                                    \
-  cells, area, grads, u, eps, half_dt, rhs, jac, M, ctas, smem, stream
+  cells, area, grads, u, eps, half_dt, rhs, jac, M, smem, stream
 #define CFT_RV_ARGS                                                        \
   const void *cols, const void *u_n, const void *rh, const void *uh,       \
       const void *h, const void *abs_term, const void *valid, double cvel, \
@@ -569,15 +580,15 @@ extern "C" {
 #ifndef CFT_ELL_FLUX_ONLY
 int cft_ell_spmv_f32(const void* A, const void* cols, const void* x,
                      const void* bc, void* y, int n, int K, int R, int Kp,
-                     int ctas, int smem, int narrow, void* stream) {
-  return cft::ell_spmv<float>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                              narrow, stream);
+                     int smem, int narrow, void* stream) {
+  return cft::ell_spmv<float>(A, cols, x, bc, y, n, K, R, Kp, smem, narrow,
+                              stream);
 }
 int cft_ell_spmv_f64(const void* A, const void* cols, const void* x,
                      const void* bc, void* y, int n, int K, int R, int Kp,
-                     int ctas, int smem, int narrow, void* stream) {
-  return cft::ell_spmv<double>(A, cols, x, bc, y, n, K, R, Kp, ctas, smem,
-                               narrow, stream);
+                     int smem, int narrow, void* stream) {
+  return cft::ell_spmv<double>(A, cols, x, bc, y, n, K, R, Kp, smem, narrow,
+                               stream);
 }
 int cft_ell_assemble_f32(const void* vals, const void* perm,
                          const void* offs, void* out, int n_out,

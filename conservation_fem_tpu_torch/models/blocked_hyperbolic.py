@@ -77,7 +77,7 @@ class BlockedHyperbolicProblem(HyperbolicProblem):
 
     def _constrained_op(self, D):
         bc = self.mesh.boundary_mask
-        return ((lambda x: blocked.constrained_matvec(self.plan, D, x, bc)),
+        return ((lambda x: blocked.constrained_matvec(self.plan, D, x)),
                 torch.where(bc, 1.0, blocked.diag_of(self.plan, D)))
 
     # -- step pieces ----------------------------------------------------------

@@ -67,7 +67,7 @@ class BlockedPkHyperbolicProblem(PkHyperbolicProblem):
 
     def _constrained_op(self, D):
         bc = self.mesh.boundary_mask
-        return ((lambda x: blocked.constrained_matvec(self.plan, D, x, bc)),
+        return ((lambda x: blocked.constrained_matvec(self.plan, D, x)),
                 torch.where(bc, 1.0, blocked.diag_of(self.plan, D)))
 
     def _nonlinear_rhs(self, u):

@@ -78,14 +78,13 @@ _SIGNATURES = {
     "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
     # the ELL kernels (csrc/ell.cu): A, cols, x, bc (null: unconstrained),
-    # y, n, K, the tile plan (rows, stride, ctas, shared memory), int16
-    # columns; vals, perm, offs, out, n_out; cells, area, grads, u, eps
-    # (null: none), dt/2, rhs, jac (null: rhs only), M, the plan (ctas,
-    # shared memory); cols, u_n, Rh, u_h, h, abs_term, valid (null: all),
-    # Cvel, CRV, tiny, eps, n, K
-    "cft_ell_spmv": [_P] * 5 + [_I] * 7 + [_P],
+    # y, n, K, the tile plan (rows, stride, shared memory), int16 columns;
+    # vals, perm, offs, out, n_out; cells, area, grads, u, eps (null:
+    # none), dt/2, rhs, jac (null: rhs only), M, shared memory; cols, u_n,
+    # Rh, u_h, h, abs_term, valid (null: all), Cvel, CRV, tiny, eps, n, K
+    "cft_ell_spmv": [_P] * 5 + [_I] * 6 + [_P],
     "cft_ell_assemble": [_P] * 4 + [_I, _P],
-    "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P] + [_I] * 3 + [_P],
+    "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P, _I, _I, _P],
     "cft_ell_rv_epsilon": [_P] * 7 + [_D] * 3 + [_P, _I, _I, _P],
 }
 FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",

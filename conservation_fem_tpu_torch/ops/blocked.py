@@ -181,10 +181,10 @@ def spmv(plan: BlockedPlan, D, x):
     return ek.ell_spmv(plan.mesh, D, x)
 
 
-def constrained_matvec(plan: BlockedPlan, D, x, bc_mask):
-    """y = D_bc x with the bc rows and columns pinned (kernel A,
-    constrained mode)."""
-    return ek.ell_spmv(plan.mesh, D, x, bc=bc_mask)
+def constrained_matvec(plan: BlockedPlan, D, x):
+    """y = D_bc x with the rows and columns of the mesh's boundary_mask
+    pinned (kernel A, constrained mode)."""
+    return ek.ell_spmv(plan.mesh, D, x, constrained=True)
 
 
 def diag_of(plan: BlockedPlan, D):

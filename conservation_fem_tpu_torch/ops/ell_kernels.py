@@ -7,8 +7,8 @@ launch reads the int32 index copies of the mesh or space
 (ops/mesh.with_kernel_index) and counts one in ``_build.launches``:
 
   * ``ell_spmv`` (kernel A): y = A x for an (N,K) ELL matrix, optionally
-    constrained (bc rows and columns pinned to the identity: the mesh's
-    boundary_mask, read off its bc-flagged columns, int16 or int32);
+    constrained (the rows and columns of the mesh's boundary_mask pinned
+    to the identity, read off its bc-flagged columns, int16 or int32);
     tiles of rows staged in shared memory on the plan of ``spmv_plan``;
     plain version ``ops/spmv.ell_matvec``;
   * ``assemble_matrix`` / ``assemble_vector`` (kernel B, counted as
@@ -16,9 +16,9 @@ launch reads the int32 index copies of the mesh or space
     matrix / nodal vector in the sorted contribution order, owner-computes;
     plain versions ``assembly.scatter_matrix`` / ``scatter_vector``;
   * ``p1_newton_locals`` (kernel C, flux compiled in): the P1 cell locals
-    of N(u) + K_eps u and of M + dt/2 (K_eps + C'(u)), tiles of cells on
-    the plan of ``locals_plan``; plain version the ``assembly.local_*``
-    formulas;
+    of N(u) + K_eps u and of M + dt/2 (K_eps + C'(u)), tiles of
+    LOCALS_CELLS cells staged in shared memory (``locals_smem``); plain
+    version the ``assembly.local_*`` formulas;
   * ``ell_rv_epsilon`` (kernel D, flux compiled in): the RV patch kernel
     given the global term max|u - mean u|; plain version the masked patch
     reductions of ops/stabilization.py.
@@ -70,27 +70,25 @@ def _bool(mask):
 # ---------------------------------------------------------------------------
 
 
-def ell_spmv_plain(mesh, A, x, bc=None):
-    """y = A x (bc given: with the bc rows and columns of A replaced by
-    the identity), the gather backend's product."""
-    if bc is None:
+def ell_spmv_plain(mesh, A, x, constrained=False):
+    """y = A x (constrained: with the rows and columns of the mesh's
+    boundary_mask replaced by the identity), the gather backend's
+    product."""
+    if not constrained:
         return ell_matvec(mesh, A, x)
+    bc = mesh.boundary_mask
     return torch.where(bc, x, ell_matvec(mesh, A, torch.where(bc, 0.0, x)))
 
 
-# A's tile plan (csrc/ell.cu ell_spmv_kernel): a persistent grid of CTAs of
-# R threads, each summing tiles of R rows staged in two shared-memory
-# stages; R the most rows whose two stages fit SPMV_SMEM_CAP, halved from
-# SPMV_TILE_ROWS down to SPMV_MIN_ROWS (multiples of 8: a tile's ranges,
-# int16 columns too, start and end on the bulk copy's 16 bytes), and as
-# many CTAs an SM as the SM's shared memory holds, at most
-# SPMV_MAX_CTAS_PER_SM
+# A's tile plan (csrc/ell.cu ell_spmv_kernel): CTAs of R threads, each
+# summing tiles of R rows staged in two shared-memory stages; R the most
+# rows whose two stages fit SPMV_SMEM_CAP, halved from SPMV_TILE_ROWS down
+# to SPMV_MIN_ROWS (multiples of 8: a tile's ranges, int16 columns too,
+# start and end on the bulk copy's 16 bytes). The kernel sizes its
+# persistent grid itself, from the card's occupancy at this plan.
 SPMV_TILE_ROWS = 128      # csrc/ell.cu kSpmvMaxRows
 SPMV_MIN_ROWS = 32
-SPMV_MAX_CTAS_PER_SM = 16  # 2048 threads of an SM / SPMV_TILE_ROWS
 SPMV_SMEM_CAP = 232448    # shared memory a block may use (227 KB)
-SM_SMEM = 233472          # shared memory of an SM (228 KB)
-SM_SMEM_RESERVED = 1024   # reserved by the system for each resident block
 BULK_ALIGN = 16           # cp.async.bulk: addresses and sizes
 
 
@@ -98,19 +96,16 @@ class SpmvPlan(NamedTuple):
     rows: int     # R: rows a tile, threads a CTA
     stride: int   # Kp: a row's stride in shared memory (K odd: K, else K+1)
     smem: int     # dynamic shared memory of a CTA: 2 barriers, 2 stages
-    tiles: int    # whole tiles; the n - tiles R rows after them are read
-    ctas: int     # from device memory by the last CTA
-    bulk: bool    # K odd: a tile lands by two bulk copies
-    narrow: bool  # int16 column codes (K odd and the mesh has them)
 
 
-def spmv_plan(n, K, itemsize, sms=132, narrow=False):
-    """A's plan for an (n, K) matrix of ``itemsize``-byte values on a card
-    of ``sms`` SMs; ``narrow``: the mesh has int16 column codes, read
-    where K is odd (a tile's columns then land by one bulk copy)."""
+@functools.lru_cache(maxsize=64)
+def spmv_plan(K, itemsize, colsize=4):
+    """A's plan for K slots a row of ``itemsize``-byte values and
+    ``colsize``-byte columns (2: the int16 codes, which only odd K reads,
+    a tile's columns then landing by one bulk copy)."""
+    if colsize == 2 and K % 2 == 0:
+        raise ValueError("ell_spmv: int16 column codes need an odd K")
     stride = K if K % 2 else K + 1
-    narrow = narrow and stride == K
-    colsize = 2 if narrow else 4
     rows = SPMV_TILE_ROWS
 
     def smem(r):
@@ -121,21 +116,16 @@ def spmv_plan(n, K, itemsize, sms=132, narrow=False):
     if smem(rows) > SPMV_SMEM_CAP:
         raise ValueError(f"ell_spmv: K = {K} leaves no tile of "
                          f"{SPMV_MIN_ROWS} rows within shared memory")
-    per_sm = min(SPMV_MAX_CTAS_PER_SM,
-                 SM_SMEM // (smem(rows) + SM_SMEM_RESERVED))
-    tiles = n // rows
-    return SpmvPlan(rows, stride, smem(rows), tiles,
-                    max(1, min(tiles, sms * per_sm)), stride == K, narrow)
+    return SpmvPlan(rows, stride, smem(rows))
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=64)
-def _spmv_plan(n, K, itemsize, index, narrow):
-    return spmv_plan(n, K, itemsize, _sms(index), narrow)
+def spmv_columns(mesh):
+    """The column copy kernel A reads: the mesh's int16 codes where it has
+    them and K is odd, else its int32 bc-flagged columns."""
+    cols = _index(mesh, "patch_cols_bc32", "ell_spmv")
+    if mesh.patch_cols_d16 is not None and cols.shape[1] % 2:
+        return mesh.patch_cols_d16
+    return cols
 
 
 def _aligned(name, *tensors):
@@ -145,32 +135,25 @@ def _aligned(name, *tensors):
                              "aligned")
 
 
-def ell_spmv(mesh, A, x, bc=None):
+def ell_spmv(mesh, A, x, constrained=False):
     """y = A x for an (N,K) ELL matrix, each row summed in slot order;
-    bc (N,) bool: the constrained product (x zeroed on bc rows before it,
-    y = x there). The kernel reads the bc-flagged columns of ``mesh``
-    (int16 codes where it has them and K is odd, else int32), so in the
-    constrained mode bc must be ``mesh.boundary_mask``."""
-    tensors = (A, x) if bc is None else (A, x, bc)
-    if _build.on_cpu("ell_spmv", *tensors):
-        return ell_spmv_plain(mesh, A, x, bc)
-    cols = _index(mesh, "patch_cols_bc32", "ell_spmv")
+    constrained: the product with the mesh's boundary_mask pinned (x zeroed
+    on bc rows before it, y = x there). The kernel reads the bc flags off
+    the columns of ``spmv_columns(mesh)``."""
+    if _build.on_cpu("ell_spmv", A, x):
+        return ell_spmv_plain(mesh, A, x, constrained)
+    cols = spmv_columns(mesh)
     n, K = cols.shape
     dtype = _build.check_cuda_args("ell_spmv", A, x, shapes=[(n, K), (n,)])
-    if bc is not None and bc.data_ptr() != mesh.boundary_mask.data_ptr():
-        raise ValueError("ell_spmv: the constrained mode takes the mesh's "
-                         "boundary_mask (its columns are flagged by it)")
-    plan = _spmv_plan(n, K, A.element_size(), x.device.index,
-                      mesh.patch_cols_d16 is not None)
-    if plan.narrow:
-        cols = mesh.patch_cols_d16
+    plan = spmv_plan(K, A.element_size(), cols.element_size())
     _aligned("ell_spmv", A, cols)
+    bc = mesh.boundary_mask if constrained else None
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         code = _build.entry("cft_ell_spmv", dtype)(
             A.data_ptr(), cols.data_ptr(), x.data_ptr(), _ptr(bc),
-            y.data_ptr(), n, K, plan.rows, plan.stride, plan.ctas,
-            plan.smem, int(plan.narrow), _build.stream_ptr(x))
+            y.data_ptr(), n, K, plan.rows, plan.stride, plan.smem,
+            int(cols.element_size() == 2), _build.stream_ptr(x))
     _build.launches["ell_spmv"] += 1
     _build.check(code, "ell_spmv")
     return y
@@ -243,36 +226,21 @@ def p1_newton_locals_plain(mesh, u, eps, half_dt, flux, jacobian):
     return rhs, J
 
 
-# C's tile plan (csrc/ell.cu p1_newton_locals_kernel): a persistent grid
-# of CTAs of LOCALS_CELLS threads, each computing tiles of as many cells
-# (a multiple of 4: a tile's cells, areas and gradients start and end on
-# the bulk copy's 16 bytes, and so do its 3 and 9 locals a cell) from two
-# shared-memory stages of inputs, its locals staged in one output tile
+# C's tile plan (csrc/ell.cu p1_newton_locals_kernel): CTAs of
+# LOCALS_CELLS threads, each computing tiles of as many cells (a multiple
+# of 4: a tile's cells, areas and gradients start and end on the bulk
+# copy's 16 bytes, and so do its 3 and 9 locals a cell) from two
+# shared-memory stages of inputs, its locals staged in one output tile;
+# the kernel sizes its persistent grid from the card's occupancy
 LOCALS_CELLS = 128        # csrc/ell.cu kLocalsCells
 
 
-class LocalsPlan(NamedTuple):
-    cells: int    # cells a tile, threads a CTA
-    smem: int     # 2 barriers, 2 input stages, the output tile
-    tiles: int    # whole tiles; the M - tiles cells after them are
-    ctas: int     # computed from device memory by the last CTA
-
-
-def locals_plan(M, itemsize, sms=132):
-    """C's plan for M cells of ``itemsize``-byte values on a card of
-    ``sms`` SMs: per stage 3 int32 nodes, an area and 6 gradients a cell;
-    the output tile 12 locals a cell."""
+def locals_smem(itemsize):
+    """C's dynamic shared memory for ``itemsize``-byte values: 2 barriers,
+    per stage 3 int32 nodes, an area and 6 gradients a cell, the output
+    tile of 12 locals a cell."""
     c = LOCALS_CELLS
-    smem = 16 + 2 * c * (3 * 4 + 7 * itemsize) + 12 * c * itemsize
-    per_sm = min(SPMV_MAX_CTAS_PER_SM,
-                 SM_SMEM // (smem + SM_SMEM_RESERVED))
-    tiles = M // c
-    return LocalsPlan(c, smem, tiles, max(1, min(tiles, sms * per_sm)))
-
-
-@functools.lru_cache(maxsize=64)
-def _locals_plan(M, itemsize, index):
-    return locals_plan(M, itemsize, _sms(index))
+    return 16 + 2 * c * (3 * 4 + 7 * itemsize) + 12 * c * itemsize
 
 
 def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
@@ -287,7 +255,6 @@ def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
     dtype = _build.check_cuda_args("p1_newton_locals", u, mesh.area,
                                    mesh.grads, *tensors[1:])
     _aligned("p1_newton_locals", cells, mesh.area, mesh.grads)
-    plan = _locals_plan(M, u.element_size(), u.device.index)
     rhs = torch.empty((M, 3), dtype=u.dtype, device=u.device)
     jac = (torch.empty((M, 3, 3), dtype=u.dtype, device=u.device)
            if jacobian else None)
@@ -295,7 +262,8 @@ def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
         code = _build.entry("cft_p1_newton_locals", dtype, fname)(
             cells.data_ptr(), mesh.area.data_ptr(), mesh.grads.data_ptr(),
             u.data_ptr(), _ptr(eps), float(half_dt), rhs.data_ptr(),
-            _ptr(jac), M, plan.ctas, plan.smem, _build.stream_ptr(u))
+            _ptr(jac), M, locals_smem(u.element_size()),
+            _build.stream_ptr(u))
     _build.launches[_build.launch_key("p1_newton_locals", fname)] += 1
     _build.check(code, "p1_newton_locals")
     return rhs, jac

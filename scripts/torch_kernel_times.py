@@ -28,13 +28,14 @@ in f32 at rtol 1e-5), each with its iterations (the plain solve's)
 printed. The ELL cases (alone with --ell): the blocked KPP RV f32 bench
 config's end state at irr640 (irregular_mesh nx 640, seed 1, RCM order;
 N 410,881, K 11, 819,200 cells; made in the first process, the mesh's
-tensors saved and each tree's own int32 index copies built from them), A
+tensors saved and each tree's own index copies built from them), A
 constrained on the assembled Newton Jacobian and C in Jacobian mode, each
 on a CUDA graph of GRAPH_REPS calls warm (one operand set) and L2-cold
 (rotating over COLD_SETS sets, beyond the 50 MB L2; the median of ROUNDS
 replays), and per wrapper call back to back. Needs a CUDA device.
 """
 
+import inspect
 import os
 import sys
 
@@ -65,6 +66,10 @@ ELL_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
                  newton_linear_iters=8)
 GRAPH_REPS = 100
 COLD_SETS = {"ell_spmv": 3, "p1_newton_locals": 2}
+# the mesh fields that a tree derives from the others (the kernels' int32
+# and int16 index copies, ops/mesh.with_kernel_index): each tree builds
+# its own, and an L2-cold set clones them
+INDEX_COPIES = ("32", "16")
 CG_LABELS = {"burgers50": "burgers 51 x 51", "burgers100": "burgers 101 x 101",
              "kpp64": "kpp 257 x 257",
              "kpp256": "kpp 1025 x 1025 (off the driven paths)"}
@@ -254,7 +259,7 @@ def ell_inputs(kpp, torch):
     _, jac = ek.p1_newton_locals(m, u, eps, 0.5 * p.dt, flux, True)
     out = {f"ell/mesh/{f}": getattr(m, f).cpu()
            for f in tmesh.MeshArrays._fields
-           if not f.endswith("32") and getattr(m, f) is not None}
+           if not f.endswith(INDEX_COPIES) and getattr(m, f) is not None}
     out.update({"ell/u": u.cpu(), "ell/eps": eps.cpu(), "ell/jac": jac.cpu(),
                 "ell/J": ek.assemble_matrix(m, jac).cpu(),
                 "ell/half_dt": torch.tensor(0.5 * p.dt)})
@@ -268,7 +273,8 @@ def ell_cases(kpp, torch, inputs):
     from conservation_fem_tpu_torch.ops import mesh as tmesh
 
     fields = {k.split("/")[-1]: v.to("cuda") for k, v in inputs.items()
-              if k.startswith("ell/mesh/")}
+              if k.startswith("ell/mesh/")
+              and k.split("/")[-1] in tmesh.MeshArrays._fields}
     m = tmesh.with_kernel_index(tmesh.MeshArrays(**fields))
     u, eps, J = (inputs[f"ell/{k}"].to("cuda") for k in ("u", "eps", "J"))
     half = float(inputs["ell/half_dt"])
@@ -276,8 +282,8 @@ def ell_cases(kpp, torch, inputs):
 
     def copy(m, *ts):
         idx = {f: getattr(m, f).clone() for f in m._fields
-               if f.endswith("32") or f in ("area", "grads",
-                                             "boundary_mask")
+               if f.endswith(INDEX_COPIES) or f in ("area", "grads",
+                                                     "boundary_mask")
                if getattr(m, f) is not None}
         return (m._replace(**idx),) + tuple(t.clone() for t in ts)
 
@@ -287,10 +293,12 @@ def ell_cases(kpp, torch, inputs):
                               range(COLD_SETS["p1_newton_locals"] - 1)]
     label = (f"irr{ELL_NX} f32 (N {J.shape[0]}, K {J.shape[1]}, "
              f"{m.cells.shape[0]} cells, the blocked bench run's end state)")
+    if "constrained" in inspect.signature(ek.ell_spmv).parameters:
+        spmv = lambda s: ek.ell_spmv(s[0], s[1], s[2], constrained=True)
+    else:  # a tree whose ell_spmv takes the mask itself
+        spmv = lambda s: ek.ell_spmv(s[0], s[1], s[2], s[0].boundary_mask)
     return {
-        f"ell_spmv {label}, constrained": (
-            lambda s: ek.ell_spmv(s[0], s[1], s[2], s[0].boundary_mask),
-            a_sets),
+        f"ell_spmv {label}, constrained": (spmv, a_sets),
         f"p1_newton_locals {label}, Jacobian mode": (
             lambda s: ek.p1_newton_locals(s[0], s[1], s[2], half, flux,
                                           True),

@@ -124,7 +124,7 @@ def test_banded_matches_jax(rect):
                   - np.asarray(y_j)).max() <= TOL
     yc_j = jband.constrained_banded_matvec(band_j, jnp.asarray(x),
                                            jnp.asarray(bc))
-    yc_t = ek.ell_spmv(tp.mesh, _t(A), _t(x), torch.as_tensor(bc))
+    yc_t = ek.ell_spmv(tp.mesh, _t(A), _t(x), constrained=True)
     assert np.abs(yc_t.numpy() - np.asarray(yc_j)).max() <= TOL
     assert np.abs(ell_diag(tp.mesh, _t(A)).numpy()
                   - np.asarray(band_j[jb.bandwidth])).max() <= TOL
@@ -198,8 +198,7 @@ def _port_case(name, tm, tp, f):
         return tblk.diag_of(tp, mass)
     if name == "stiffness_bc":
         K = tblk.assemble_matrix(tp, tasm.local_stiffness(m.area, m.grads))
-        return tblk.constrained_matvec(tp, tblk.apply_bc_matrix(tp, K), x,
-                                       m.boundary_mask)
+        return tblk.constrained_matvec(tp, tblk.apply_bc_matrix(tp, K), x)
     if name == "scatter":
         return tblk.scatter_components(tp, tblk.gather_components(tp, x))
     if name == "conv_rhs":
@@ -317,60 +316,58 @@ SPMV_WIDTHS = sorted(set(_port_patch_widths()) | {11}) + [8, 10, 12, 20, 38,
 SPMV_ROWS = (1, 31, 128, 1681, 19881, 410881)
 
 
-@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "int16"])
+@pytest.mark.parametrize("colsize", [4, 2], ids=["int32", "int16"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("K", SPMV_WIDTHS)
-def test_spmv_tile_plan(K, itemsize, narrow):
+def test_spmv_tile_plan(K, itemsize, colsize):
     """Kernel A's plan (csrc/ell.cu ell_spmv_kernel) for every width the
-    port builds, f32 and f64, int32 columns and int16 codes: two stages
-    within shared memory, the bulk copies' sizes and every tile's source
-    offsets on 16 bytes, a row stride that starts the threads' rows in
-    different banks, and the rows after the whole tiles (read by the last
-    CTA) fewer than a tile."""
+    port builds, f32 and f64, int32 columns and int16 codes (odd K alone):
+    two stages within shared memory, the bulk copies' sizes and every
+    tile's source offsets on 16 bytes, a row stride that starts the
+    threads' rows in different banks, and the rows after the whole tiles
+    (read by the last CTA) fewer than a tile."""
     assert {7, 9, 19, 37} <= set(SPMV_WIDTHS)
+    if colsize == 2 and K % 2 == 0:
+        with pytest.raises(ValueError):
+            ek.spmv_plan(K, itemsize, colsize)
+        return
+    p = ek.spmv_plan(K, itemsize, colsize)
+    assert p.smem <= ek.SPMV_SMEM_CAP
+    assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + colsize)
+    assert ek.SPMV_MIN_ROWS <= p.rows <= ek.SPMV_TILE_ROWS
+    assert p.rows % 8 == 0
+    assert p.stride % 2 == 1 and p.stride - K in (0, 1)
     for n in SPMV_ROWS:
-        p = ek.spmv_plan(n, K, itemsize, narrow=narrow)
-        assert p.narrow == (narrow and K % 2 == 1)
-        colsize = 2 if p.narrow else 4
-        assert p.smem <= ek.SPMV_SMEM_CAP
-        assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + colsize)
-        assert ek.SPMV_MIN_ROWS <= p.rows <= ek.SPMV_TILE_ROWS
-        assert p.rows % 8 == 0
-        assert p.stride % 2 == 1 and p.stride - K in (0, 1)
-        assert p.bulk == (K % 2 == 1)
-        if p.bulk:
+        tiles = n // p.rows
+        if p.stride == K:  # a tile lands by two bulk copies
             for s in (itemsize, colsize):
                 assert p.rows * K * s % ek.BULK_ALIGN == 0
                 assert all(t * p.rows * K * s % ek.BULK_ALIGN == 0
-                           for t in (1, p.tiles - 1, p.tiles))
+                           for t in (1, tiles - 1, tiles))
             # the second stage and the columns start on 16 bytes
             assert (16 + p.rows * K * itemsize) % ek.BULK_ALIGN == 0
-        assert 0 <= n - p.tiles * p.rows < p.rows
-        assert 1 <= p.ctas <= max(p.tiles, 1)
-        per_sm = ek.SM_SMEM // (p.smem + ek.SM_SMEM_RESERVED)
-        assert p.ctas <= 132 * min(per_sm, ek.SPMV_MAX_CTAS_PER_SM)
+        assert 0 <= n - tiles * p.rows < p.rows
     with pytest.raises(ValueError):
-        ek.spmv_plan(1000, 4000, itemsize, narrow=narrow)
+        ek.spmv_plan(4001, itemsize, colsize)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_locals_tile_plan(itemsize):
-    """Kernel C's plan: shared memory within the limit, each tile's
+    """Kernel C's tiles: shared memory within the limit, each tile's
     input ranges (3 int32 nodes, an area, 6 gradients a cell) and output
     ranges (3 and 9 locals) on 16 bytes, the cells after the whole tiles
     fewer than a tile."""
+    c = ek.LOCALS_CELLS
+    smem = ek.locals_smem(itemsize)
+    assert smem == 16 + 2 * c * (12 + 7 * itemsize) + 12 * c * itemsize
+    assert smem <= ek.SPMV_SMEM_CAP
+    for size in (12 * c, c * itemsize, 6 * c * itemsize,
+                 3 * c * itemsize, 9 * c * itemsize):
+        assert size % ek.BULK_ALIGN == 0
+    # the output tile follows the stages on 16 bytes
+    assert (16 + 2 * c * (12 + 7 * itemsize)) % ek.BULK_ALIGN == 0
     for M in (1, 72, 128, 3362, 819200):
-        p = ek.locals_plan(M, itemsize)
-        c = p.cells
-        assert p.smem == 16 + 2 * c * (12 + 7 * itemsize) + 12 * c * itemsize
-        assert p.smem <= ek.SPMV_SMEM_CAP
-        for size in (12 * c, c * itemsize, 6 * c * itemsize,
-                     3 * c * itemsize, 9 * c * itemsize):
-            assert size % ek.BULK_ALIGN == 0
-        # the output tile follows the stages on 16 bytes
-        assert (16 + 2 * c * (12 + 7 * itemsize)) % ek.BULK_ALIGN == 0
-        assert 0 <= M - p.tiles * c < c
-        assert 1 <= p.ctas <= max(p.tiles, 1)
+        assert 0 <= M - M // c * c < c
 
 
 @pytest.mark.parametrize("space", ["p1", "p2"])

@@ -65,12 +65,11 @@ def test_ell_spmv(cuda, irr, dtype, constrained):
     m = _arrays(irr, dtype, cuda)
     x, _, _, _ = _fields(irr.n_nodes, dtype, cuda)
     A = assembly.assemble_stiffness(m)
-    bc = m.boundary_mask if constrained else None
     before = _build.launches["ell_spmv"]
-    y = ek.ell_spmv(m, A, x, bc)
+    y = ek.ell_spmv(m, A, x, constrained)
     assert _build.launches["ell_spmv"] == before + 1
-    _close(y, ek.ell_spmv_plain(m, A, x, bc), dtype)
-    assert torch.equal(y, ek.ell_spmv(m, A, x, bc))
+    _close(y, ek.ell_spmv_plain(m, A, x, constrained), dtype)
+    assert torch.equal(y, ek.ell_spmv(m, A, x, constrained))
 
 
 def _spmv_case(case, dtype, device):
@@ -117,30 +116,26 @@ def test_ell_spmv_tiles(cuda, case, dtype, columns):
         m = m._replace(patch_cols_d16=None)
     n, K = m.patch_cols.shape
     assert (K % 2 == 0) == (case == "even")
+    cols = ek.spmv_columns(m)
+    assert cols.element_size() == (2 if columns == "int16" and K % 2
+                                   else 4)
     if case != "tiny":
-        assert n % ek.spmv_plan(n, K, A.element_size()).rows
+        assert n % ek.spmv_plan(K, A.element_size(),
+                                cols.element_size()).rows
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
     mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
-    for bc in (None, m.boundary_mask):
-        y = ek.ell_spmv(m, A, x, bc)
-        ref = ek.ell_spmv_plain(mc, A.cpu(), x.cpu(),
-                                None if bc is None else mc.boundary_mask)
+    bc = m.boundary_mask
+    for constrained in (False, True):
+        y = ek.ell_spmv(m, A, x, constrained)
+        ref = ek.ell_spmv_plain(mc, A.cpu(), x.cpu(), constrained)
         if dtype == torch.float32:
             assert torch.equal(y.cpu(), ref)
         else:
             _close(y, ref, dtype)
-        if bc is not None:
+        if constrained:
             assert torch.equal(y[bc], x[bc])
-        assert torch.equal(ek.ell_spmv(m, A, x, bc), y)
-
-
-def test_ell_spmv_refuses_another_mask(cuda, irr):
-    m = _arrays(irr, torch.float32, cuda)
-    x = torch.ones(irr.n_nodes, device=cuda)
-    A = assembly.assemble_stiffness(m)
-    with pytest.raises(ValueError):
-        ek.ell_spmv(m, A, x, m.boundary_mask.clone())
+        assert torch.equal(ek.ell_spmv(m, A, x, constrained), y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -154,7 +149,7 @@ def test_p1_newton_locals_tiles(cuda, nx, dtype):
     u, eps, _, _ = _fields(host.n_nodes, dtype, cuda, seed=7)
     eps = eps * 1e-2
     M = host.n_cells
-    assert nx == 8 or M % ek.locals_plan(M, u.element_size()).cells
+    assert nx == 8 or M % ek.LOCALS_CELLS
     rhs, jac = ek.p1_newton_locals(m, u, eps, 0.005, kpp.FLUX, True)
     rr, jr = ek.p1_newton_locals_plain(m, u, eps, 0.005, kpp.FLUX, True)
     _close(rhs, rr, dtype)
