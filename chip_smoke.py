@@ -4,7 +4,7 @@
     python3 chip_smoke.py --ablate   # the step ablation and idle share
     python3 chip_smoke.py --against DIR [--ell]   # the single and block
                                   # kernels, cg_solve and the ELL kernels
-                                  # A and C (--ell: those alone) against
+                                  # A-D (--ell: those alone) against
                                   # another tree's, in turns
 
 Phases of the smoke run, in order; any failure raises and the process
@@ -169,20 +169,24 @@ exits non-zero:
      (the first 3 steps); (a) each kernel against its plain version on the
      card at the end states of the blocked irr140 and irr640 runs, f32 and
      f64, each output on its own: ell_assemble (against its plain version
-     on the CPU, which sums in its order), ell_rv_epsilon and ell_spmv's
-     bc rows bit-equal, the other outputs within 1e-5 (f32) or F64_TOL
-     (f64) of max|plain|, ell_spmv in f32 bit-equal to its plain version
-     on the CPU in both modes, repeated launches bit-equal; timed at
-     irr640 f32 on a CUDA graph of 100 calls, warm (one operand set) and
-     L2-cold (rotating over sets of at least 100 MB in all), and per
-     wrapper call back to back, beside its plain version, its bound and a
-     PyTorch call timed the same way (a torch CSR product,
-     torch.segment_reduce; one that cannot be captured is timed over 100
-     calls back to back, and said so), with what ptxas gave each instance;
-     ell_spmv on its int16 column codes and on its int32 flagged columns,
-     bit-equal and each timed; the four ranked by rule 2 (slower
-     than the library call first, then launches a step x (L2-cold -
-     bound)); (c) irr140 f64, 5 fixed-config steps,
+     on the CPU, which sums in its order; both modes, and matrix mode
+     without its L2 eviction hints), ell_rv_epsilon (on its int16 column
+     codes and on patch_cols32) and ell_spmv's bc rows bit-equal, the
+     other outputs within 1e-5 (f32) or F64_TOL (f64) of max|plain|,
+     ell_spmv in f32 bit-equal to its plain version on the CPU in both
+     modes, repeated launches bit-equal; timed at irr640 f32 on a CUDA
+     graph of 100 calls, warm (one operand set) and L2-cold (rotating over
+     sets of at least 100 MB in all), and per wrapper call back to back,
+     beside its plain version, its bound and a PyTorch call timed the same
+     way (a torch CSR product, torch.segment_reduce; one that cannot be
+     captured is timed over 100 calls back to back, and said so), with
+     what ptxas gave each instance; ell_spmv and ell_rv_epsilon on their
+     int16 column codes and on their int32 columns, bit-equal and each
+     timed; ell_assemble in vector mode, without the L2 hints and in f64
+     (with and without them), each bit-equal to the port's launch and
+     timed; the four ranked by rule 2 (slower than the library call first,
+     then launches a step x (L2-cold - bound), ell_assemble's by mode);
+     (c) irr140 f64, 5 fixed-config steps,
      rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
      against gather on the card (1e-9); (d) P2 SI Burgers mesh 32 f64
      blocked against phase 8's gather run through dof_perm (a chaotic run:
@@ -227,9 +231,9 @@ off the main paths, fused_rv_step at KPP mesh 256 and fused_rv_block_step
 on the interior block of KPP 512 x 4; cg_solve on the f64 mass solves of
 the Burgers reference config at mesh 50 and 100 and of the KPP adaptive
 config at mesh 64 and 256, and that of mesh 256 in f32; the ELL kernels
-A and C at the blocked irr640 f32 end state, warm and L2-cold on a CUDA
-graph and per wrapper call: with --ell these alone), and prints each
-case's times and the ratio this / DIR.
+A, B (matrix and vector mode), C and D at the blocked irr640 f32 end
+state, warm and L2-cold on a CUDA graph and per wrapper call: with --ell
+these alone), and prints each case's times and the ratio this / DIR.
 """
 
 import copy
@@ -658,6 +662,14 @@ def phase_build():
                 name += (" constrained" if a.group(1) == "1" else
                          " unconstrained") + (" int16" if a.group(2) == "s"
                                               else " int32")
+            # ell_assemble's: its mode; ell_rv_epsilon's: its columns
+            b = re.search(r"ell_assemble_kernelI[fd]Lb([01])E", line)
+            if b:
+                name += " matrix" if b.group(1) == "1" else " vector"
+            d = re.search(r"ell_rv_epsilon_kernelI[fd]NS_\d+\w+?E([is])E",
+                          line)
+            if d:
+                name += " int16" if d.group(1) == "s" else " int32"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))
@@ -3488,7 +3500,7 @@ def ablate(card):
 
 def against(other, card, ell_only=False):
     """{case: times} of the single and block kernels, cg_solve and the ELL
-    kernels A and C (``ell_only``: those alone) of the tree in `other` and
+    kernels A-D (``ell_only``: those alone) of the tree in `other` and
     of this one, in turns (other, this, this, other, twice), one process
     each (scripts/torch_kernel_times.py; the first makes the inputs)."""
     import torch
@@ -3671,24 +3683,45 @@ def run_blocked_paths(card, meshes):
     return out, states, main_counts
 
 
-def _ell_bounds(n, nnz, M, s, a_cols):
+def _ell_bounds(n, nnz, M, s, a_cols, d_cols):
     """{kernel: (bytes, operations)} of one call at these sizes (each input
     read once, each output written once; s the float size; nnz the stored
     entries of the patches, the ELL padding left out, as a CSR form of the
     same operator needs none of it): A constrained (nnz values, nnz columns
     of a_cols bytes, the copy that ell_kernels.spmv_columns gives it, x,
-    the bc mask, y; a multiply-add per entry), B matrix mode
-    (9M locals and their int32 order, nnz + 1 offsets, the nnz outputs; an
-    add per local), C Jacobian mode (cells, area, grads, u, eps in; 3 + 9
-    locals out), D (nnz columns, u_n, Rh, h, the abs term; eps out; 3
+    the bc mask, y; a multiply-add per entry), B matrix mode (9M locals and
+    their int32 order, a uint8 offset per entry, an int32 base per row and
+    one more, the nnz outputs; an add per local; its tile index, 8 bytes a
+    tile of ~1,500 locals, left out), C Jacobian mode (cells,
+    area, grads, u, eps in; 3 + 9 locals out), D (nnz columns of d_cols
+    bytes, ell_kernels.rv_columns, u_n, Rh, h, the abs term; eps out; 3
     compares per entry, 10 per node)."""
     return {
         "ell_spmv": (nnz * (s + a_cols) + n * (2 * s + 1), 2 * nnz),
-        "ell_assemble": (9 * M * (s + 4) + (nnz + 1) * 4 + nnz * s, 9 * M),
+        "ell_assemble": (9 * M * (s + 4) + nnz + (n + 1) * 4 + nnz * s,
+                         9 * M),
         "p1_newton_locals": (3 * M * 4 + 7 * M * s + 2 * n * s
                              + 12 * M * s, OPS_LOCALS_JAC * M),
-        "ell_rv_epsilon": (nnz * 4 + 4 * n * s + s, 3 * nnz + 10 * n),
+        "ell_rv_epsilon": (nnz * d_cols + 4 * n * s + s, 3 * nnz + 10 * n),
     }
+
+
+def _assemble_vector_bound(n, M, s):
+    """(bytes, operations) of B's vector mode: 3M locals and their int32
+    order, a uint8 offset per node, an int32 base per VEC_GROUP nodes and
+    one more, n outputs; an add per local."""
+    from conservation_fem_tpu_torch.ops.mesh import VEC_GROUP
+
+    return (3 * M * (s + 4) + n + (n // VEC_GROUP + 1) * 4 + n * s, 3 * M)
+
+
+def assemble_launches(cfg):
+    """(matrix mode, vector mode) launches of B a step of the blocked P1
+    step (blocked_launches): the linearisations assemble matrices, N(u_n),
+    NK(u_n) and the residuals vectors."""
+    total = blocked_launches(cfg, 1)["ell_assemble"]
+    matrix = 1 if cfg.modified_newton else cfg.newton_iters
+    return matrix, total - matrix
 
 
 def _rel_err(a, b):
@@ -3704,16 +3737,18 @@ ELL_GRAPH_REPS = 100
 ELL_COLD_BYTES = 100e6
 # the index and geometry fields of a mesh a set clones
 ELL_SET_FIELDS = ("patch_cols32", "patch_cols_bc32", "patch_cols_d16",
-                  "cells32", "mat_perm32", "mat_offs32",
+                  "cells32", "mat_perm32", "mat_off8", "mat_base32",
+                  "mat_tile32", "vec_perm32", "vec_off8", "vec_base32",
+                  "vec_tile32",
                   "area", "grads", "boundary_mask", "mat_lens")
 
 
 def _ell_set(base, clone):
     """One operand set of the timed ELL calls: the tensors of ``base`` (m,
-    u, J, jac, eps, rh, h, abs_term) and, derived from them, A's torch CSR
-    yardstick and B's locals in the sorted order (torch.segment_reduce's
-    input); ``clone``: every tensor copied, the mesh's ELL_SET_FIELDS
-    too."""
+    u, J, jac, rhs, eps, rh, h, abs_term) and, derived from them, A's torch
+    CSR yardstick, B's locals in the sorted order (torch.segment_reduce's
+    input) and B's f64 locals (jac64); ``clone``: every tensor copied, the
+    mesh's ELL_SET_FIELDS too."""
     import torch
 
     m = base["m"]
@@ -3729,6 +3764,7 @@ def _ell_set(base, clone):
     s["csr"] = torch.sparse_csr_tensor(crow, m.patch_cols[mask],
                                        s["J"][mask], (n, n))
     s["flat"] = s["jac"].reshape(-1)[m.mat_perm]
+    s["jac64"] = s["jac"].double()
     return s
 
 
@@ -3771,10 +3807,12 @@ def time_ell_kernels(base, half, bounds, cfg, card):
     wrapper call back to back (the host's cost: checks, allocation, ctypes);
     the plain version per call; the library call (A: torch's CSR product,
     B: torch.segment_reduce over the sorted locals) timed as the kernel is;
-    the bound; A on its int32 columns too (its fallback where a mesh has
-    no int16 codes). Then the rule-2 ranking: kernels slower L2-cold than
-    their library call first, then by launches a step x (L2-cold -
-    bound)."""
+    the bound; A and D on their int32 columns too (their fallback where a
+    mesh has no int16 codes); B in vector mode, without its L2 eviction
+    hints, and in f64 (whose locals exceed the L2) with and without them.
+    Then the rule-2 ranking: kernels slower L2-cold than their library
+    call first, then by the time lost a step, launches x (L2-cold -
+    bound), B's by mode."""
     import math
 
     import torch
@@ -3794,7 +3832,8 @@ def time_ell_kernels(base, half, bounds, cfg, card):
         "ell_assemble": (lambda s: ek.assemble_matrix(s["m"], s["jac"]),
                          lambda s: assembly.scatter_matrix(s["m"], s["jac"]),
                          lambda s: (s["jac"], s["m"].mat_perm32,
-                                    s["m"].mat_offs32)),
+                                    s["m"].mat_off8, s["m"].mat_base32,
+                                    s["m"].mat_tile32)),
         "p1_newton_locals": (
             lambda s: ek.p1_newton_locals(s["m"], s["u"], s["eps"], half,
                                           flux, True),
@@ -3808,7 +3847,7 @@ def time_ell_kernels(base, half, bounds, cfg, card):
             lambda s: ek.ell_rv_epsilon_plain(s["m"], 0.5, 4.0, s["u"],
                                               s["rh"], s["u"], s["h"],
                                               s["abs_term"], flux),
-            lambda s: (s["m"].patch_cols32, s["u"], s["rh"], s["h"])),
+            lambda s: (ek.rv_columns(s["m"]), s["u"], s["rh"], s["h"])),
     }
     library = {
         "ell_spmv": ("torch CSR product", lambda s: s["csr"] @ s["u"],
@@ -3880,12 +3919,70 @@ def time_ell_kernels(base, half, bounds, cfg, card):
         f"{out['ell_spmv']['warm_ms']:.5f}, L2-cold "
         f"{out['ell_spmv']['ms']:.5f} ms; int32 flagged columns warm "
         f"{ww:.5f}, L2-cold {wc:.5f} ms ({card})")
+    def rv_wide(s):
+        return kernels["ell_rv_epsilon"][0](dict(s, m=s["m"]._replace(
+            patch_cols_d16=None)))
+
+    if not torch.equal(rv_wide(first), kernels["ell_rv_epsilon"][0](first)):
+        raise AssertionError("ell_rv_epsilon: int16 and int32 columns "
+                             "differ")
+    ww, wc = _on_graph(rv_wide, sets, need(_set_bytes(
+        m.patch_cols32, base["u"], base["rh"], base["h"])))
+    out["ell_rv_epsilon"].update(int32_columns_warm_ms=ww,
+                                 int32_columns_ms=wc)
+    log(f"ell_rv_epsilon irr640 f32, its columns: int16 codes warm "
+        f"{out['ell_rv_epsilon']['warm_ms']:.5f}, L2-cold "
+        f"{out['ell_rv_epsilon']['ms']:.5f} ms; patch_cols32 warm "
+        f"{ww:.5f}, L2-cold {wc:.5f} ms ({card})")
+    # B: vector mode (most of its launches a step), each mode without the
+    # L2 eviction hints, matrix mode in f64; each bit-equal to the launch
+    # the port makes
+    n = m.patch_cols.shape[0]
+    M = m.cells.shape[0]
+    shapes = {ek._MATRIX: tuple(m.patch_cols.shape), ek._VECTOR: (n,)}
+
+    def asm(fields, key, hints):
+        return lambda s: ek._assemble(s["m"], s[key], fields,
+                                      shapes[fields], hints)
+
+    variants = {
+        "vector": (ek._VECTOR, "rhs", True),
+        "vector_no_hints": (ek._VECTOR, "rhs", False),
+        "no_hints": (ek._MATRIX, "jac", False),
+        "f64": (ek._MATRIX, "jac64", True),
+        "f64_no_hints": (ek._MATRIX, "jac64", False),
+    }
+    b = out["ell_assemble"]
+    for tag, (fields, key, hints) in variants.items():
+        fn = asm(fields, key, hints)
+        ref = (ek.assemble_vector(m, first[key]) if fields is ek._VECTOR
+               else ek.assemble_matrix(m, first[key]))
+        if not torch.equal(fn(first), ref):
+            raise AssertionError(f"ell_assemble {tag}: not the port's bits")
+        idx = [getattr(m, f) for f in fields[:4]]
+        vw, vc = _on_graph(fn, sets, need(_set_bytes(first[key], *idx)))
+        b.update({f"{tag}_warm_ms": vw, f"{tag}_ms": vc})
+    vb = _assemble_vector_bound(n, M, 4)
+    b["vector_bound_ms"] = bound(*vb, "f32")[0]
+    b["vector_bytes"] = vb[0]
+    nnz = int(m.patch_mask.sum())
+    b["f64_bound_ms"] = bound(*_ell_bounds(n, nnz, M, 8, 2, 2)[
+        "ell_assemble"], "f64")[0]
+    log("ell_assemble irr640: " + "; ".join(
+        f"{tag} warm {b[tag + '_warm_ms']:.5f}, L2-cold {b[tag + '_ms']:.5f} "
+        "ms" for tag in variants) + f"; vector bound "
+        f"{b['vector_bound_ms']:.5f} ms ({card})")
     # rule 2: slower than the library call first, then the time lost a step
+    # (B's launches by mode: most assemble vectors)
+    mat_n, vec_n = assemble_launches(cfg)
+    b.update(matrix_launches_per_step=mat_n, vector_launches_per_step=vec_n)
     for name, row in out.items():
         row["slower_than_library"] = (row["library_ms"] is not None
                                       and row["ms"] > row["library_ms"])
         row["lost_ms_per_step"] = row["launches_per_step"] * (
             row["ms"] - row["bound_ms"])
+    b["lost_ms_per_step"] = mat_n * (b["ms"] - b["bound_ms"]) + vec_n * (
+        b["vector_ms"] - b["vector_bound_ms"])
     rank = sorted(out, key=lambda k: (not out[k]["slower_than_library"],
                                       -out[k]["lost_ms_per_step"]))
     for i, name in enumerate(rank):
@@ -3904,9 +4001,11 @@ def check_ell_kernels(states, regs, card):
     operands of the blocked runs' end states at irr140 and irr640 (f32, and
     the same state in f64 on the f64 problem): A constrained on the
     assembled Newton Jacobian, B on its locals (matrix mode) and the rhs
-    locals (vector mode), C in both modes, D with the residual N(u) as Rh.
-    Gates, each output held on its own: B (its plain version run on the
-    CPU, which sums in the kernel's order) and D bit-equal, A's bc rows
+    locals (vector mode; matrix mode without its L2 eviction hints too),
+    C in both modes, D with the residual N(u) as Rh (on its int16 codes
+    and on patch_cols32). Gates, each output held on its own: B (its plain
+    version run on the CPU, which sums in the kernel's order) and D
+    bit-equal, A's bc rows
     (y = x), and A in f32 against its plain version on the CPU in both
     modes; A's other rows and C's outputs within max|kernel - plain| /
     max|plain| <= F64_TOL (f64) or ELL_F32_RTOL (f32). Times at irr640 f32
@@ -3976,6 +4075,12 @@ def check_ell_kernels(states, regs, card):
                                  ("vector", lambda: ek.assemble_vector(
                                       m, rhs).cpu(),
                                   lambda: assembly.scatter_vector(mc, rhs_c),
+                                  "equal"),
+                                 ("matrix, no L2 hints",
+                                  lambda: ek._assemble(
+                                      m, jac, ek._MATRIX, (n, K),
+                                      hints=False).cpu(),
+                                  lambda: assembly.scatter_matrix(mc, jac_c),
                                   "equal")],
                 "p1_newton_locals": [
                     ("rhs", lambda: ek.p1_newton_locals(
@@ -3994,10 +4099,17 @@ def check_ell_kernels(states, regs, card):
                     m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
                     lambda: ek.ell_rv_epsilon_plain(
                         m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
-                    "equal")],
+                    "equal"),
+                    ("eps, patch_cols32", lambda: ek.ell_rv_epsilon(
+                        m._replace(patch_cols_d16=None), 0.5, 4.0, u, rh, u,
+                        h, abs_term, flux),
+                     lambda: ek.ell_rv_epsilon_plain(
+                         m, 0.5, 4.0, u, rh, u, h, abs_term, flux),
+                     "equal")],
             }
             bounds = _ell_bounds(n, nnz, M, s,
-                                 ek.spmv_columns(m).element_size())
+                                 ek.spmv_columns(m).element_size(),
+                                 ek.rv_columns(m).element_size())
             tol = F64_TOL if dn == "f64" else ELL_F32_RTOL
             for name, cases in checks.items():
                 errs, rels = [], []
@@ -4023,8 +4135,8 @@ def check_ell_kernels(states, regs, card):
                 rows[name]["rels"][f"irr{nx} {dn}"] = max(rels)
                 rows[name]["errs"][f"irr{nx} {dn}"] = max(errs)
             if nx == max(ELL_KERNEL_MESHES) and dn == "f32":
-                timed = dict(m=m, u=u, J=J, jac=jac, eps=eps, rh=rh, h=h,
-                             abs_term=abs_term)
+                timed = dict(m=m, u=u, J=J, jac=jac, rhs=rhs, eps=eps,
+                             rh=rh, h=h, abs_term=abs_term)
                 timed_args = (half, bounds, p.cfg)
     times = time_ell_kernels(timed, *timed_args, card)
     for name, t in times.items():

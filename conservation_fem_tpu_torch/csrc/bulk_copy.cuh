@@ -2,8 +2,9 @@
 // (ell.cu): the 1-D bulk copy of the Tensor Memory Accelerator
 // (cp.async.bulk, completion counted in bytes on an mbarrier) and the
 // per-thread cp.async of one value, whose completion arrives on the same
-// kind of barrier (cp.async.mbarrier.arrive.noinc). A bulk copy needs
-// 16-byte aligned addresses and a size that is a multiple of 16.
+// kind of barrier (cp.async.mbarrier.arrive.noinc); L2 eviction policies
+// for copies, loads and stores. A bulk copy needs 16-byte aligned
+// addresses and a size that is a multiple of 16.
 
 #pragma once
 
@@ -73,6 +74,69 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// L2 eviction policies (createpolicy, sm_80 on): for every line a load
+// or copy that carries one touches, the priority with which L2 evicts it.
+// evict_first for data streamed once, evict_last for data to keep while
+// the streams pass, evict_normal for no preference (a load without one).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_normal() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// bulk_copy with an L2 eviction policy for the lines it reads.
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
+                                               unsigned bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// A read-only load of one value with an L2 eviction policy (not volatile:
+// the data do not change during the kernel, so loads may be reordered).
+__device__ __forceinline__ float load_hint(const float* p, uint64_t policy) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n"
+      : "=f"(v)
+      : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ double load_hint(const double* p,
+                                            uint64_t policy) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;\n"
+      : "=d"(v)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// A store of one value with an L2 eviction policy.
+__device__ __forceinline__ void store_hint(float* p, float v,
+                                           uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;\n" ::"l"(p),
+               "f"(v), "l"(policy)
+               : "memory");
+}
+__device__ __forceinline__ void store_hint(double* p, double v,
+                                           uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.f64 [%0], %1, %2;\n" ::"l"(p),
+               "d"(v), "l"(policy)
+               : "memory");
 }
 
 // One value of 4 or 8 bytes from device memory to shared memory.

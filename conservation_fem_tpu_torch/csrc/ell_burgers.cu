@@ -7,4 +7,7 @@
 #define CFT_FLUX Burgers
 #define CFT_ENTRY(name, dt) cft_##name##_burgers_##dt
 #define CFT_ELL_FLUX_ONLY
+// D's Burgers instances: at least 4 resident CTAs an SM (ell.cu, D's
+// launch bound)
+#define CFT_RV_MIN_BLOCKS 4
 #include "ell.cu"

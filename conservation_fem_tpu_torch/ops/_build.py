@@ -33,6 +33,7 @@ Burgers instance's launches under ``<name>/burgers`` (``launch_key``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -77,15 +78,18 @@ _SIGNATURES = {
     "cft_split_setup_occupancy": [_I, _P],
     "cft_split_newton_occupancy": [_I, _P],
     "cft_fused_rv_block_step": [_P] * 9 + [_I] * 15 + [_P],
-    # the ELL kernels (csrc/ell.cu): A, cols, x, bc (null: unconstrained),
-    # y, n, K, the tile plan (rows, stride, shared memory), int16 columns;
-    # vals, perm, offs, out, n_out; cells, area, grads, u, eps (null:
-    # none), dt/2, rhs, jac (null: rhs only), M, shared memory; cols, u_n,
-    # Rh, u_h, h, abs_term, valid (null: all), Cvel, CRV, tiny, eps, n, K
-    "cft_ell_spmv": [_P] * 5 + [_I] * 6 + [_P],
-    "cft_ell_assemble": [_P] * 4 + [_I, _P],
-    "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P, _I, _I, _P],
-    "cft_ell_rv_epsilon": [_P] * 7 + [_D] * 3 + [_P, _I, _I, _P],
+    # the ELL kernels (csrc/ell.cu), each ending in the device's index and
+    # the stream: A, cols, x, bc (null: unconstrained), y, n, K, the tile
+    # plan (rows, stride, shared memory), int16 columns; vals, perm, off,
+    # base, tiles, out, n_out, group width, tile count, the plan (groups a
+    # tile, perm a stage, shared memory), matrix mode, L2 hints; cells,
+    # area, grads, u, eps (null: none), dt/2, rhs, jac (null: rhs only), M,
+    # shared memory; cols, u_n, Rh, u_h, h, abs_term, valid (null: all),
+    # Cvel, CRV, tiny, eps, n, K, the tile plan, int16 columns
+    "cft_ell_spmv": [_P] * 5 + [_I] * 7 + [_P],
+    "cft_ell_assemble": [_P] * 6 + [_I] * 9 + [_P],
+    "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P, _I, _I, _I, _P],
+    "cft_ell_rv_epsilon": [_P] * 7 + [_D] * 3 + [_P] + [_I] * 7 + [_P],
 }
 FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
                                          "cft_cg_solve",
@@ -260,8 +264,28 @@ def launch_key(name: str, flux: str = "kpp") -> str:
     return name if flux == "kpp" else f"{name}/{flux}"
 
 
+# the raw cudaStream_t of a device's current stream, without the Stream
+# object torch.cuda.current_stream builds (several µs a call)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_NO_SWITCH = contextlib.nullcontext()
+
+
 def stream_ptr(t: torch.Tensor) -> int:
+    """The current stream of t's CUDA device, as the address a C entry
+    point takes."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor):
+    """A context in which t's CUDA device is the current one: a null
+    context where it already is (torch.cuda.device costs several µs a
+    call)."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return _NO_SWITCH
+    return torch.cuda.device(index)
 
 
 def check(code: int, name: str):

@@ -3,25 +3,27 @@
 
 Each wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors (there is no fallback from one to the other); a
-launch reads the int32 index copies of the mesh or space
+launch reads the index copies of the mesh or space
 (ops/mesh.with_kernel_index) and counts one in ``_build.launches``:
 
   * ``ell_spmv`` (kernel A): y = A x for an (N,K) ELL matrix, optionally
     constrained (the rows and columns of the mesh's boundary_mask pinned
     to the identity, read off its bc-flagged columns, int16 or int32);
-    tiles of rows staged in shared memory on the plan of ``spmv_plan``;
+    tiles of rows staged in shared memory on the plan of ``tile_plan``;
     plain version ``ops/spmv.ell_matvec``;
   * ``assemble_matrix`` / ``assemble_vector`` (kernel B, counted as
     ``ell_assemble``): cell locals (M,nd,nd) / (M,nd) summed into the ELL
-    matrix / nodal vector in the sorted contribution order, owner-computes;
-    plain versions ``assembly.scatter_matrix`` / ``scatter_vector``;
+    matrix / nodal vector in the sorted contribution order, owner-computes,
+    in tiles of output groups on the plan of ``assemble_plan``; plain
+    versions ``assembly.scatter_matrix`` / ``scatter_vector``;
   * ``p1_newton_locals`` (kernel C, flux compiled in): the P1 cell locals
     of N(u) + K_eps u and of M + dt/2 (K_eps + C'(u)), tiles of
     LOCALS_CELLS cells staged in shared memory (``locals_smem``); plain
     version the ``assembly.local_*`` formulas;
   * ``ell_rv_epsilon`` (kernel D, flux compiled in): the RV patch kernel
-    given the global term max|u - mean u|; plain version the masked patch
-    reductions of ops/stabilization.py.
+    given the global term max|u - mean u|, A's tile walk over its columns
+    (``tile_plan``); plain version the masked patch reductions of
+    ops/stabilization.py.
 
 The flux of C and D is an ops.structured.Flux; its ``name`` picks the
 instance ("kpp" or "burgers", ``_build.FLUXES``), and another flux raises
@@ -38,6 +40,8 @@ import torch
 
 from conservation_fem_tpu_torch.ops import _build
 from conservation_fem_tpu_torch.ops import assembly
+from conservation_fem_tpu_torch.ops.mesh import (ASSEMBLE_MAX_GROUPS,
+                                                 ASSEMBLE_TILE, PERM_ALIGN)
 from conservation_fem_tpu_torch.ops.spmv import ell_matvec
 from conservation_fem_tpu_torch.ops.structured import tiny_of
 
@@ -80,57 +84,70 @@ def ell_spmv_plain(mesh, A, x, constrained=False):
     return torch.where(bc, x, ell_matvec(mesh, A, torch.where(bc, 0.0, x)))
 
 
-# A's tile plan (csrc/ell.cu ell_spmv_kernel): CTAs of R threads, each
-# summing tiles of R rows staged in two shared-memory stages; R the most
-# rows whose two stages fit SPMV_SMEM_CAP, halved from SPMV_TILE_ROWS down
-# to SPMV_MIN_ROWS (multiples of 8: a tile's ranges, int16 columns too,
-# start and end on the bulk copy's 16 bytes). The kernel sizes its
-# persistent grid itself, from the card's occupancy at this plan.
-SPMV_TILE_ROWS = 128      # csrc/ell.cu kSpmvMaxRows
-SPMV_MIN_ROWS = 32
-SPMV_SMEM_CAP = 232448    # shared memory a block may use (227 KB)
+# The tile plan of A and D (csrc/ell.cu ell_tile_walk): CTAs of R threads,
+# each working tiles of R rows staged in two shared-memory stages; R the
+# most rows whose two stages fit SMEM_CAP, halved from TILE_ROWS down to
+# TILE_MIN_ROWS (multiples of 8: a tile's ranges, int16 columns too, start
+# and end on the bulk copy's 16 bytes). The kernels size their persistent
+# grids themselves, from the card's occupancy at this plan.
+TILE_ROWS = 128           # csrc/ell.cu kTileMaxRows
+TILE_MIN_ROWS = 32
+SMEM_CAP = 232448         # shared memory a block may use (227 KB)
 BULK_ALIGN = 16           # cp.async.bulk: addresses and sizes
 
 
-class SpmvPlan(NamedTuple):
+class TilePlan(NamedTuple):
     rows: int     # R: rows a tile, threads a CTA
     stride: int   # Kp: a row's stride in shared memory (K odd: K, else K+1)
     smem: int     # dynamic shared memory of a CTA: 2 barriers, 2 stages
 
 
 @functools.lru_cache(maxsize=64)
-def spmv_plan(K, itemsize, colsize=4):
-    """A's plan for K slots a row of ``itemsize``-byte values and
-    ``colsize``-byte columns (2: the int16 codes, which only odd K reads,
-    a tile's columns then landing by one bulk copy)."""
+def tile_plan(K, itemsize, colsize=4):
+    """The plan for K slots a row, each staging an ``itemsize``-byte value
+    (A; D stages none: 0) and a ``colsize``-byte column (2: the int16
+    codes, which only odd K reads, a tile's columns then landing by one
+    bulk copy)."""
     if colsize == 2 and K % 2 == 0:
-        raise ValueError("ell_spmv: int16 column codes need an odd K")
+        raise ValueError("ELL tiles: int16 column codes need an odd K")
     stride = K if K % 2 else K + 1
-    rows = SPMV_TILE_ROWS
+    rows = TILE_ROWS
 
     def smem(r):
         return 16 + 2 * r * stride * (itemsize + colsize)
 
-    while smem(rows) > SPMV_SMEM_CAP and rows > SPMV_MIN_ROWS:
+    while smem(rows) > SMEM_CAP and rows > TILE_MIN_ROWS:
         rows //= 2
-    if smem(rows) > SPMV_SMEM_CAP:
-        raise ValueError(f"ell_spmv: K = {K} leaves no tile of "
-                         f"{SPMV_MIN_ROWS} rows within shared memory")
-    return SpmvPlan(rows, stride, smem(rows))
+    if smem(rows) > SMEM_CAP:
+        raise ValueError(f"ELL tiles: K = {K} leaves no tile of "
+                         f"{TILE_MIN_ROWS} rows within shared memory")
+    return TilePlan(rows, stride, smem(rows))
 
 
-def spmv_columns(mesh):
-    """The column copy kernel A reads: the mesh's int16 codes where it has
-    them and K is odd, else its int32 bc-flagged columns."""
-    cols = _index(mesh, "patch_cols_bc32", "ell_spmv")
+def _columns(mesh, wide, name):
+    cols = _index(mesh, wide, name)
     if mesh.patch_cols_d16 is not None and cols.shape[1] % 2:
         return mesh.patch_cols_d16
     return cols
 
 
-def _aligned(name, *tensors):
-    for t in tensors:
-        if t.data_ptr() % BULK_ALIGN:
+def spmv_columns(mesh):
+    """The column copy kernel A reads: the mesh's int16 codes where it has
+    them and K is odd, else its int32 bc-flagged columns."""
+    return _columns(mesh, "patch_cols_bc32", "ell_spmv")
+
+
+def rv_columns(mesh):
+    """The column copy kernel D reads: the int16 codes as A does (their bc
+    bit ignored), else patch_cols32."""
+    return _columns(mesh, "patch_cols32", "ell_rv_epsilon")
+
+
+def _aligned(name, *ptrs):
+    """Raises unless every address of ``ptrs`` (operands a bulk copy
+    reads) is BULK_ALIGN-byte aligned."""
+    for p in ptrs:
+        if p % BULK_ALIGN:
             raise ValueError(f"{name}: an operand is not {BULK_ALIGN}-byte "
                              "aligned")
 
@@ -145,15 +162,17 @@ def ell_spmv(mesh, A, x, constrained=False):
     cols = spmv_columns(mesh)
     n, K = cols.shape
     dtype = _build.check_cuda_args("ell_spmv", A, x, shapes=[(n, K), (n,)])
-    plan = spmv_plan(K, A.element_size(), cols.element_size())
-    _aligned("ell_spmv", A, cols)
+    colsize = cols.element_size()
+    plan = tile_plan(K, A.element_size(), colsize)
+    a, c = A.data_ptr(), cols.data_ptr()
+    _aligned("ell_spmv", a, c)
     bc = mesh.boundary_mask if constrained else None
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         code = _build.entry("cft_ell_spmv", dtype)(
-            A.data_ptr(), cols.data_ptr(), x.data_ptr(), _ptr(bc),
-            y.data_ptr(), n, K, plan.rows, plan.stride, plan.smem,
-            int(cols.element_size() == 2), _build.stream_ptr(x))
+            a, c, x.data_ptr(), _ptr(bc), y.data_ptr(), n, K, plan.rows,
+            plan.stride, plan.smem, int(colsize == 2), x.get_device(),
+            _build.stream_ptr(x))
     _build.launches["ell_spmv"] += 1
     _build.check(code, "ell_spmv")
     return y
@@ -164,39 +183,78 @@ def ell_spmv(mesh, A, x, constrained=False):
 # ---------------------------------------------------------------------------
 
 
-def _assemble(mesh, vals, perm_f, offs_f, shape):
+# B's plan (csrc/ell.cu ell_assemble_kernel): a persistent grid walking
+# the tiles of the segment index (ops/mesh.segment_tiles: at most
+# mesh.ASSEMBLE_TILE contributions and mesh.ASSEMBLE_MAX_GROUPS groups a
+# tile), two stages of a tile's perm range (its 16-byte rounding at both
+# ends included), offsets and bases
+
+
+class AssemblePlan(NamedTuple):
+    groups: int   # gmax: groups a tile at most
+    cap: int      # perm entries a stage holds (a multiple of 4)
+    smem: int     # dynamic shared memory of a CTA
+
+
+@functools.lru_cache(maxsize=64)
+def assemble_plan(width, itemsize):
+    """B's plan for groups of ``width`` outputs and ``itemsize``-byte
+    locals: 2 barriers, 2 stage headers, per stage the perm range, the
+    offsets and the bases of a tile, then the tile's gathered locals."""
+    gmax = ASSEMBLE_MAX_GROUPS
+    cap = ASSEMBLE_TILE + 2 * PERM_ALIGN
+    smem = 80 + cap * (2 * 4 + itemsize) + 2 * gmax * width + 2 * gmax * 4
+    if smem > SMEM_CAP:
+        raise ValueError(f"ell_assemble: groups of {width} outputs leave "
+                         "no tile within shared memory")
+    return AssemblePlan(gmax, cap, smem)
+
+
+# the index fields of each mode: perm, offsets, bases, tiles, the unpadded
+# order
+_MATRIX = ("mat_perm32", "mat_off8", "mat_base32", "mat_tile32", "mat_perm")
+_VECTOR = ("vec_perm32", "vec_off8", "vec_base32", "vec_tile32", "vec_perm")
+
+
+def _assemble(mesh, vals, fields, shape, hints=True):
+    """Kernel B over the index ``fields`` (_MATRIX or _VECTOR); hints:
+    the L2 eviction policies (False: none, for timing their effect)."""
     vals = vals.contiguous()
-    perm = _index(mesh, perm_f, "ell_assemble")
-    offs = _index(mesh, offs_f, "ell_assemble")
-    n_out = offs.numel() - 1
-    if vals.numel() != perm.numel():
+    perm, off, base, tiles = (_index(mesh, f, "ell_assemble")
+                              for f in fields[:4])
+    contributions = getattr(mesh, fields[4]).numel()
+    if vals.numel() != contributions:
         raise ValueError(f"ell_assemble: {vals.numel()} locals for "
-                         f"{perm.numel()} contributions")
+                         f"{contributions} contributions")
     dtype = _build.check_cuda_args("ell_assemble", vals)
-    out = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
+    width = off.numel() // max(base.numel() - 1, 1)
+    plan = assemble_plan(width, vals.element_size())
+    p, o, b = perm.data_ptr(), off.data_ptr(), base.data_ptr()
+    _aligned("ell_assemble", p, o, b)
+    out = torch.empty(shape, dtype=vals.dtype, device=vals.device)
+    with _build.on_device(vals):
         code = _build.entry("cft_ell_assemble", dtype)(
-            vals.data_ptr(), perm.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), n_out, _build.stream_ptr(vals))
+            vals.data_ptr(), p, o, b, tiles.data_ptr(), out.data_ptr(),
+            out.numel(), width, tiles.shape[0] - 1, plan.groups, plan.cap,
+            plan.smem, int(fields is _MATRIX), int(hints),
+            vals.get_device(), _build.stream_ptr(vals))
     _build.launches["ell_assemble"] += 1
     _build.check(code, "ell_assemble")
-    return out.reshape(shape)
+    return out
 
 
 def assemble_matrix(mesh, vals):
     """(M,nd,nd) cell locals -> (N,K) ELL matrix (kernel B, matrix mode)."""
     if _build.on_cpu("ell_assemble", vals):
         return assembly.scatter_matrix(mesh, vals)
-    return _assemble(mesh, vals, "mat_perm32", "mat_offs32",
-                     tuple(mesh.patch_cols.shape))
+    return _assemble(mesh, vals, _MATRIX, tuple(mesh.patch_cols.shape))
 
 
 def assemble_vector(mesh, vals):
     """(M,nd) cell locals -> (N,) nodal vector (kernel B, vector mode)."""
     if _build.on_cpu("ell_assemble", vals):
         return assembly.scatter_vector(mesh, vals)
-    return _assemble(mesh, vals, "vec_perm32", "vec_offs32",
-                     (mesh.patch_cols.shape[0],))
+    return _assemble(mesh, vals, _VECTOR, (mesh.patch_cols.shape[0],))
 
 
 # ---------------------------------------------------------------------------
@@ -254,16 +312,17 @@ def p1_newton_locals(mesh, u, eps, half_dt, flux, jacobian=False):
     M = cells.shape[0]
     dtype = _build.check_cuda_args("p1_newton_locals", u, mesh.area,
                                    mesh.grads, *tensors[1:])
-    _aligned("p1_newton_locals", cells, mesh.area, mesh.grads)
+    c, ar, g = (cells.data_ptr(), mesh.area.data_ptr(),
+                mesh.grads.data_ptr())
+    _aligned("p1_newton_locals", c, ar, g)
     rhs = torch.empty((M, 3), dtype=u.dtype, device=u.device)
     jac = (torch.empty((M, 3, 3), dtype=u.dtype, device=u.device)
            if jacobian else None)
-    with torch.cuda.device(u.device):
+    with _build.on_device(u):
         code = _build.entry("cft_p1_newton_locals", dtype, fname)(
-            cells.data_ptr(), mesh.area.data_ptr(), mesh.grads.data_ptr(),
-            u.data_ptr(), _ptr(eps), float(half_dt), rhs.data_ptr(),
-            _ptr(jac), M, locals_smem(u.element_size()),
-            _build.stream_ptr(u))
+            c, ar, g, u.data_ptr(), _ptr(eps), float(half_dt),
+            rhs.data_ptr(), _ptr(jac), M, locals_smem(u.element_size()),
+            u.get_device(), _build.stream_ptr(u))
     _build.launches[_build.launch_key("p1_newton_locals", fname)] += 1
     _build.check(code, "p1_newton_locals")
     return rhs, jac
@@ -300,23 +359,28 @@ def ell_rv_epsilon_plain(mesh, Cvel, Crv, u_n, Rh, uh, h, abs_term, flux,
 def ell_rv_epsilon(mesh, Cvel, Crv, u_n, Rh, uh, h, abs_term, flux,
                    valid=None):
     """Kernel D: see ell_rv_epsilon_plain; abs_term a 0-dim tensor (no
-    host read), one thread a node."""
+    host read), one thread a node, tiles of rows over ``rv_columns``."""
     tensors = (u_n, Rh, uh, h, abs_term)
     if _build.on_cpu("ell_rv_epsilon", *tensors):
         return ell_rv_epsilon_plain(mesh, Cvel, Crv, u_n, Rh, uh, h,
                                     abs_term, flux, valid)
     fname = _flux_name(flux, "ell_rv_epsilon")
-    cols = _index(mesh, "patch_cols32", "ell_rv_epsilon")
+    cols = rv_columns(mesh)
     n, K = cols.shape
     dtype = _build.check_cuda_args("ell_rv_epsilon", *tensors,
                                    shapes=[(n,)] * 4 + [()])
+    colsize = cols.element_size()
+    plan = tile_plan(K, 0, colsize)
+    c = cols.data_ptr()
+    _aligned("ell_rv_epsilon", c)
     valid = _bool(valid)
     eps = torch.empty_like(u_n)
-    with torch.cuda.device(u_n.device):
+    with _build.on_device(u_n):
         code = _build.entry("cft_ell_rv_epsilon", dtype, fname)(
-            cols.data_ptr(), u_n.data_ptr(), Rh.data_ptr(), uh.data_ptr(),
-            h.data_ptr(), abs_term.data_ptr(), _ptr(valid), float(Cvel),
-            float(Crv), float(tiny_of(u_n.dtype)), eps.data_ptr(), n, K,
+            c, u_n.data_ptr(), Rh.data_ptr(), uh.data_ptr(), h.data_ptr(),
+            abs_term.data_ptr(), _ptr(valid), float(Cvel), float(Crv),
+            float(tiny_of(u_n.dtype)), eps.data_ptr(), n, K, plan.rows,
+            plan.stride, plan.smem, int(colsize == 2), u_n.get_device(),
             _build.stream_ptr(u_n))
     _build.launches[_build.launch_key("ell_rv_epsilon", fname)] += 1
     _build.check(code, "ell_rv_epsilon")

@@ -60,8 +60,12 @@ class MeshArrays(NamedTuple):
     # int32 copies read by the hand-written ELL kernels (ops/ell_kernels),
     # set by ``with_kernel_index`` for the backends that launch them
     # (banded, blocked, blocked2d) and None elsewhere: the gather path's
-    # memory is unchanged. *_offs32 are the segments' start offsets (the
-    # exclusive cumsum of *_lens, one more entry than segments)
+    # memory is unchanged. *_perm32 are padded to a multiple of PERM_ALIGN
+    # entries; *_off8 / *_base32 index their segments (``segment_index``:
+    # the int32 start of each group of consecutive segments, an ELL row in
+    # matrix mode, VEC_GROUP nodes in vector mode, and the uint8 start of
+    # each segment in its group); *_tile32 cut the groups into kernel B's
+    # tiles (``segment_tiles``)
     patch_cols32: torch.Tensor | None = None   # (N,K) int32
     # the ELL SpMV's columns: patch_cols32 with the columns of boundary
     # nodes flagged as ~j (< 0), and, where every patch lies within
@@ -70,10 +74,14 @@ class MeshArrays(NamedTuple):
     patch_cols_bc32: torch.Tensor | None = None  # (N,K) int32
     patch_cols_d16: torch.Tensor | None = None   # (N,K) int16
     cells32: torch.Tensor | None = None        # (M,3) int32
-    mat_perm32: torch.Tensor | None = None     # (9M,) int32
-    mat_offs32: torch.Tensor | None = None     # (N*K+1,) int32
-    vec_perm32: torch.Tensor | None = None     # (3M,) int32
-    vec_offs32: torch.Tensor | None = None     # (N+1,) int32
+    mat_perm32: torch.Tensor | None = None     # (9M,) int32, padded
+    mat_off8: torch.Tensor | None = None       # (G*K,) uint8
+    mat_base32: torch.Tensor | None = None     # (G+1,) int32, G >= N
+    mat_tile32: torch.Tensor | None = None     # (tiles+1, 2) int32
+    vec_perm32: torch.Tensor | None = None     # (3M,) int32, padded
+    vec_off8: torch.Tensor | None = None       # (G*VEC_GROUP,) uint8
+    vec_base32: torch.Tensor | None = None     # (G+1,) int32
+    vec_tile32: torch.Tensor | None = None     # (tiles+1, 2) int32
 
 
 class EllStructure(NamedTuple):
@@ -187,28 +195,96 @@ class Mesh:
 
 # the reach of the int16 column codes 2 (j - i) + bc: |j - i| < 2^14
 D16_REACH = 2**14
+# kernel B's segment index (csrc/ell.cu ell_assemble_kernel): the
+# contribution orders padded to a multiple of PERM_ALIGN entries (a tile's
+# range of perm lands by a bulk copy, 16 bytes at a time), the groups to a
+# multiple of SEGMENT_GROUPS (a tile's offsets and bases likewise), the
+# nodes of vector mode grouped by VEC_GROUP (a base each); its tiles runs
+# of whole SEGMENT_GROUPS-group units holding at most ASSEMBLE_TILE
+# contributions and ASSEMBLE_MAX_GROUPS groups (a unit alone above
+# ASSEMBLE_TILE is a tile of its own, which the kernel sums from device
+# memory)
+PERM_ALIGN = 4
+SEGMENT_GROUPS = 16
+VEC_GROUP = 8
+MAX_GROUP = 255
+ASSEMBLE_TILE = 1792
+ASSEMBLE_MAX_GROUPS = 128
+
+
+def segment_index(lens, width):
+    """(uint8 offsets, int32 group bases) of kernel B's segments: the
+    segments (``lens``, one per output, in output order) taken in groups
+    of ``width`` consecutive ones, padded with empty segments to a
+    multiple of SEGMENT_GROUPS groups; base[g] is the start of group g's
+    contributions in the sorted order (one more entry than groups), and
+    off[e] the start of segment e in its group, so that segment e of group
+    g spans base[g] + off[e] to base[g] + off[e + 1] (to base[g + 1] for
+    the group's last). Raises where a group holds more than MAX_GROUP
+    contributions (a segment, more so) or the order more than int32
+    indexes."""
+    n = lens.numel()
+    groups = -(-n // width)
+    groups += -groups % SEGMENT_GROUPS
+    padded = torch.zeros(groups * width, dtype=torch.int64,
+                         device=lens.device)
+    padded[:n] = lens
+    per_group = padded.view(groups, width)
+    sizes = per_group.sum(1)
+    if groups and int(sizes.max()) > MAX_GROUP:
+        raise ValueError(f"ELL kernels: a group of segments holds "
+                         f"{int(sizes.max())} contributions (uint8 offsets "
+                         f"hold {MAX_GROUP})")
+    off8 = (torch.cumsum(per_group, 1) - per_group).to(torch.uint8)
+    base = torch.zeros(groups + 1, dtype=torch.int64, device=lens.device)
+    torch.cumsum(sizes, 0, out=base[1:])
+    if int(base[-1]) >= 2**31:
+        raise ValueError("ELL kernels index with int32: too many "
+                         "contributions")
+    return off8.reshape(-1), base.to(torch.int32)
+
+
+def segment_tiles(base):
+    """(tiles + 1, 2) int32, on base's device: the first group and the
+    first contribution of each of kernel B's tiles over the group bases
+    ``base`` (a segment_index), then (groups, contributions): runs of whole
+    SEGMENT_GROUPS-group units, each as long as ASSEMBLE_TILE contributions
+    and ASSEMBLE_MAX_GROUPS groups allow, and at least one unit."""
+    b = base.long().cpu().numpy()
+    units = (len(b) - 1) // SEGMENT_GROUPS
+    at = b[::SEGMENT_GROUPS]            # the units' first contributions
+    most = ASSEMBLE_MAX_GROUPS // SEGMENT_GROUPS
+    starts = [0]
+    while starts[-1] < units:
+        u = starts[-1]
+        fit = int(np.searchsorted(at, at[u] + ASSEMBLE_TILE, "right")) - 1
+        starts.append(max(u + 1, min(fit, u + most, units)))
+    g = np.array(starts, dtype=np.int64) * SEGMENT_GROUPS
+    return torch.as_tensor(np.stack([g, b[g]], 1).astype(np.int32),
+                           device=base.device)
 
 
 def with_kernel_index(arrays):
     """``arrays`` (a MeshArrays, or a SpaceArrays: any NamedTuple with the
-    ELL fields) with the int32 index copies the hand-written ELL kernels
-    read: patch_cols (and the SpMV's bc-flagged copies, int32 and, where
-    the patches reach fewer than D16_REACH rows, int16 offsets), the cells
-    (MeshArrays) and the contribution orders mat_perm / vec_perm with their
-    segment offsets. Built once per
+    ELL fields) with the index copies the hand-written ELL kernels read:
+    patch_cols in int32 (and the SpMV's bc-flagged copies, int32 and,
+    where the patches reach fewer than D16_REACH rows, int16 offsets), the
+    cells (MeshArrays), and the contribution orders mat_perm / vec_perm in
+    int32 with their segments' int32 group bases and uint8 offsets in the
+    group (segment_index; groups: an ELL row, VEC_GROUP nodes) and kernel
+    B's tiles (segment_tiles). Built once per
     problem, for the backends that launch the kernels."""
     if arrays.patch_cols32 is not None:
         return arrays
-    i32 = lambda t: t.to(torch.int32).contiguous()
 
-    def offsets(lens):
-        out = torch.zeros(lens.numel() + 1, dtype=torch.int64,
-                          device=lens.device)
-        torch.cumsum(lens, 0, out=out[1:])
-        if int(out[-1]) >= 2**31:
-            raise ValueError("ELL kernels index with int32: too many "
-                             "contributions")
-        return i32(out)
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    def perm32(perm):
+        out = torch.zeros(perm.numel() + -perm.numel() % PERM_ALIGN,
+                          dtype=torch.int32, device=perm.device)
+        out[:perm.numel()] = perm
+        return out
 
     cols = i32(arrays.patch_cols)
     on_bc = arrays.boundary_mask[cols]
@@ -217,13 +293,16 @@ def with_kernel_index(arrays):
     d16 = None
     if cols.numel() and int(delta.abs().max()) < D16_REACH:
         d16 = (2 * delta + on_bc).to(torch.int16).contiguous()
+    mat_off8, mat_base32 = segment_index(arrays.mat_lens, cols.shape[1])
+    vec_off8, vec_base32 = segment_index(arrays.vec_lens, VEC_GROUP)
     extra = dict(patch_cols32=cols,
                  patch_cols_bc32=torch.where(on_bc, ~cols, cols),
                  patch_cols_d16=d16,
-                 mat_perm32=i32(arrays.mat_perm),
-                 mat_offs32=offsets(arrays.mat_lens),
-                 vec_perm32=i32(arrays.vec_perm),
-                 vec_offs32=offsets(arrays.vec_lens))
+                 mat_perm32=perm32(arrays.mat_perm), mat_off8=mat_off8,
+                 mat_base32=mat_base32, vec_perm32=perm32(arrays.vec_perm),
+                 vec_off8=vec_off8, vec_base32=vec_base32,
+                 mat_tile32=segment_tiles(mat_base32),
+                 vec_tile32=segment_tiles(vec_base32))
     if "cells32" in arrays._fields:
         extra["cells32"] = i32(arrays.cells)
     return arrays._replace(**extra)

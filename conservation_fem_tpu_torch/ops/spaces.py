@@ -166,9 +166,13 @@ class SpaceArrays(NamedTuple):
     patch_cols_bc32: torch.Tensor | None = None
     patch_cols_d16: torch.Tensor | None = None
     mat_perm32: torch.Tensor | None = None
-    mat_offs32: torch.Tensor | None = None
+    mat_off8: torch.Tensor | None = None
+    mat_base32: torch.Tensor | None = None
+    mat_tile32: torch.Tensor | None = None
     vec_perm32: torch.Tensor | None = None
-    vec_offs32: torch.Tensor | None = None
+    vec_off8: torch.Tensor | None = None
+    vec_base32: torch.Tensor | None = None
+    vec_tile32: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

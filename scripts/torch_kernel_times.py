@@ -1,6 +1,6 @@
 """Times of the single and block step kernels, of cg_solve and of the ELL
-kernels A (ell_spmv) and C (p1_newton_locals) at the shapes that launch
-them, to compare two trees in turns on one card.
+kernels A-D (ell_spmv, ell_assemble, p1_newton_locals, ell_rv_epsilon) at
+the shapes that launch them, to compare two trees in turns on one card.
 
     python3 scripts/torch_kernel_times.py run DIR INPUTS OUT [REPS] [--ell]
 
@@ -29,10 +29,12 @@ printed. The ELL cases (alone with --ell): the blocked KPP RV f32 bench
 config's end state at irr640 (irregular_mesh nx 640, seed 1, RCM order;
 N 410,881, K 11, 819,200 cells; made in the first process, the mesh's
 tensors saved and each tree's own index copies built from them), A
-constrained on the assembled Newton Jacobian and C in Jacobian mode, each
-on a CUDA graph of GRAPH_REPS calls warm (one operand set) and L2-cold
-(rotating over COLD_SETS sets, beyond the 50 MB L2; the median of ROUNDS
-replays), and per wrapper call back to back. Needs a CUDA device.
+constrained on the assembled Newton Jacobian, B on its locals (matrix
+mode) and on the rhs locals (vector mode), C in Jacobian mode and D with
+the residual N(u) as Rh, each on a CUDA graph of GRAPH_REPS calls warm
+(one operand set) and L2-cold (rotating over COLD_SETS sets, beyond the
+50 MB L2; the median of ROUNDS replays), and per wrapper call back to
+back. Needs a CUDA device.
 """
 
 import inspect
@@ -60,16 +62,18 @@ CG_RTOLS = {"burgers50": (1e-12,), "burgers100": (1e-12,),
 CG_F32 = {"kpp256": 1e-5}
 # the ELL cases: the irr640 bench run (chip_smoke.py IRR, IRR_FIXED), calls
 # on one CUDA graph, and the operand sets an L2-cold graph rotates over
-# (A: ~40 MB a set, C: ~75 MB)
+# (A: ~40 MB a set, B ~65 MB in matrix mode and ~22 MB in vector mode, C
+# ~75 MB, D ~14 MB)
 ELL_NX, ELL_DT, ELL_T = 640, 0.0009, 0.09
 ELL_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
                  newton_linear_iters=8)
 GRAPH_REPS = 100
-COLD_SETS = {"ell_spmv": 3, "p1_newton_locals": 2}
-# the mesh fields that a tree derives from the others (the kernels' int32
-# and int16 index copies, ops/mesh.with_kernel_index): each tree builds
-# its own, and an L2-cold set clones them
-INDEX_COPIES = ("32", "16")
+COLD_SETS = {"ell_spmv": 3, "ell_assemble": 2, "ell_assemble vector": 5,
+             "p1_newton_locals": 2, "ell_rv_epsilon": 8}
+# the mesh fields that a tree derives from the others (the kernels' int32,
+# int16 and uint8 index copies, ops/mesh.with_kernel_index): each tree
+# builds its own, and an L2-cold set clones them
+INDEX_COPIES = ("32", "16", "8")
 CG_LABELS = {"burgers50": "burgers 51 x 51", "burgers100": "burgers 101 x 101",
              "kpp64": "kpp 257 x 257",
              "kpp256": "kpp 1025 x 1025 (off the driven paths)"}
@@ -239,9 +243,9 @@ def cases(kpp, burgers, fs, torch, inputs):
 
 def ell_inputs(kpp, torch):
     """{name: CPU tensor}: the blocked irr640 f32 bench run's end state u,
-    the RV eps, the Newton Jacobian's locals and the assembled Jacobian at
-    it (this tree's kernels), and the fields of its mesh arrays but the
-    int32 index copies (each tree builds its own)."""
+    the residual N(u), h, the RV eps, the Newton locals (rhs and Jacobian)
+    and the assembled Jacobian at it (this tree's kernels), and the fields
+    of its mesh arrays but the index copies (each tree builds its own)."""
     from conservation_fem_tpu_torch.ops import blocked
     from conservation_fem_tpu_torch.ops import ell_kernels as ek
     from conservation_fem_tpu_torch.ops import mesh as tmesh
@@ -256,19 +260,22 @@ def ell_inputs(kpp, torch):
     rh = blocked.conv_rhs_components(p.plan, u, flux)
     eps = ek.ell_rv_epsilon(m, 0.5, 4.0, u, rh, u, p.h_cg,
                             (u - u.mean()).abs().max(), flux)
-    _, jac = ek.p1_newton_locals(m, u, eps, 0.5 * p.dt, flux, True)
+    rhs, jac = ek.p1_newton_locals(m, u, eps, 0.5 * p.dt, flux, True)
     out = {f"ell/mesh/{f}": getattr(m, f).cpu()
            for f in tmesh.MeshArrays._fields
            if not f.endswith(INDEX_COPIES) and getattr(m, f) is not None}
     out.update({"ell/u": u.cpu(), "ell/eps": eps.cpu(), "ell/jac": jac.cpu(),
+                "ell/rhs": rhs.cpu(), "ell/rh": rh.cpu(),
+                "ell/h": p.h_cg.cpu(),
                 "ell/J": ek.assemble_matrix(m, jac).cpu(),
                 "ell/half_dt": torch.tensor(0.5 * p.dt)})
     return out
 
 
 def ell_cases(kpp, torch, inputs):
-    """{case: (fn of an operand set, operand sets)} of A and C: set 0 the
-    inputs, the others copies of every tensor a call reads."""
+    """{case: (fn of an operand set, operand sets)} of A-D: set 0 the
+    inputs, the others copies of every tensor a call reads (each case
+    rotates over the first COLD_SETS of them)."""
     from conservation_fem_tpu_torch.ops import ell_kernels as ek
     from conservation_fem_tpu_torch.ops import mesh as tmesh
 
@@ -276,34 +283,48 @@ def ell_cases(kpp, torch, inputs):
               if k.startswith("ell/mesh/")
               and k.split("/")[-1] in tmesh.MeshArrays._fields}
     m = tmesh.with_kernel_index(tmesh.MeshArrays(**fields))
-    u, eps, J = (inputs[f"ell/{k}"].to("cuda") for k in ("u", "eps", "J"))
+    names = ("u", "eps", "J", "jac", "rhs", "rh", "h")
+    t = {k: inputs[f"ell/{k}"].to("cuda") for k in names}
+    t["abs_term"] = (t["u"] - t["u"].mean()).abs().max()
     half = float(inputs["ell/half_dt"])
     flux = kpp.FLUX
 
-    def copy(m, *ts):
+    def copy():
         idx = {f: getattr(m, f).clone() for f in m._fields
                if f.endswith(INDEX_COPIES) or f in ("area", "grads",
                                                      "boundary_mask")
                if getattr(m, f) is not None}
-        return (m._replace(**idx),) + tuple(t.clone() for t in ts)
+        return dict(m=m._replace(**idx),
+                    **{k: v.clone() for k, v in t.items()})
 
-    a_sets = [(m, J, u)] + [copy(m, J, u)
-                            for _ in range(COLD_SETS["ell_spmv"] - 1)]
-    c_sets = [(m, u, eps)] + [copy(m, u, eps) for _ in
-                              range(COLD_SETS["p1_newton_locals"] - 1)]
-    label = (f"irr{ELL_NX} f32 (N {J.shape[0]}, K {J.shape[1]}, "
+    sets = [dict(m=m, **t)] + [copy() for _ in
+                               range(max(COLD_SETS.values()) - 1)]
+    label = (f"irr{ELL_NX} f32 (N {t['J'].shape[0]}, K {t['J'].shape[1]}, "
              f"{m.cells.shape[0]} cells, the blocked bench run's end state)")
     if "constrained" in inspect.signature(ek.ell_spmv).parameters:
-        spmv = lambda s: ek.ell_spmv(s[0], s[1], s[2], constrained=True)
+        spmv = lambda s: ek.ell_spmv(s["m"], s["J"], s["u"], constrained=True)
     else:  # a tree whose ell_spmv takes the mask itself
-        spmv = lambda s: ek.ell_spmv(s[0], s[1], s[2], s[0].boundary_mask)
-    return {
-        f"ell_spmv {label}, constrained": (spmv, a_sets),
-        f"p1_newton_locals {label}, Jacobian mode": (
-            lambda s: ek.p1_newton_locals(s[0], s[1], s[2], half, flux,
-                                          True),
-            c_sets),
+        spmv = lambda s: ek.ell_spmv(s["m"], s["J"], s["u"],
+                                     s["m"].boundary_mask)
+    cases = {
+        "ell_spmv": (f"ell_spmv {label}, constrained", spmv),
+        "ell_assemble": (f"ell_assemble {label}, matrix mode",
+                         lambda s: ek.assemble_matrix(s["m"], s["jac"])),
+        "ell_assemble vector": (
+            f"ell_assemble {label}, vector mode",
+            lambda s: ek.assemble_vector(s["m"], s["rhs"])),
+        "p1_newton_locals": (
+            f"p1_newton_locals {label}, Jacobian mode",
+            lambda s: ek.p1_newton_locals(s["m"], s["u"], s["eps"], half,
+                                          flux, True)),
+        "ell_rv_epsilon": (
+            f"ell_rv_epsilon {label}",
+            lambda s: ek.ell_rv_epsilon(s["m"], 0.5, 4.0, s["u"], s["rh"],
+                                        s["u"], s["h"], s["abs_term"],
+                                        flux)),
     }
+    return {name: (fn, sets[:COLD_SETS[key]])
+            for key, (name, fn) in cases.items()}
 
 
 def graph_replays_ms(fn, torch, reps=GRAPH_REPS):

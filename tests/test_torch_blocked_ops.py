@@ -310,36 +310,37 @@ def _port_patch_widths():
 
 # the port's widths (and 11, that of the anchored meshes irr140 ... irr640),
 # with even ones and wide ones beside them (a tile narrowed below
-# SPMV_TILE_ROWS)
+# TILE_ROWS)
 SPMV_WIDTHS = sorted(set(_port_patch_widths()) | {11}) + [8, 10, 12, 20, 38,
                                                          64, 100]
 SPMV_ROWS = (1, 31, 128, 1681, 19881, 410881)
 
 
 @pytest.mark.parametrize("colsize", [4, 2], ids=["int32", "int16"])
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [0, 4, 8])
 @pytest.mark.parametrize("K", SPMV_WIDTHS)
 def test_spmv_tile_plan(K, itemsize, colsize):
-    """Kernel A's plan (csrc/ell.cu ell_spmv_kernel) for every width the
-    port builds, f32 and f64, int32 columns and int16 codes (odd K alone):
-    two stages within shared memory, the bulk copies' sizes and every
-    tile's source offsets on 16 bytes, a row stride that starts the
-    threads' rows in different banks, and the rows after the whole tiles
-    (read by the last CTA) fewer than a tile."""
+    """The tile plan of kernels A and D (csrc/ell.cu ell_tile_walk) for
+    every width the port builds, A's f32 and f64 values and D's none
+    (itemsize 0), int32 columns and int16 codes (odd K alone): two stages
+    within shared memory, the bulk copies' sizes and every tile's source
+    offsets on 16 bytes, a row stride that starts the threads' rows in
+    different banks, and the rows after the whole tiles (read by the last
+    CTA) fewer than a tile."""
     assert {7, 9, 19, 37} <= set(SPMV_WIDTHS)
     if colsize == 2 and K % 2 == 0:
         with pytest.raises(ValueError):
-            ek.spmv_plan(K, itemsize, colsize)
+            ek.tile_plan(K, itemsize, colsize)
         return
-    p = ek.spmv_plan(K, itemsize, colsize)
-    assert p.smem <= ek.SPMV_SMEM_CAP
+    p = ek.tile_plan(K, itemsize, colsize)
+    assert p.smem <= ek.SMEM_CAP
     assert p.smem == 16 + 2 * p.rows * p.stride * (itemsize + colsize)
-    assert ek.SPMV_MIN_ROWS <= p.rows <= ek.SPMV_TILE_ROWS
+    assert ek.TILE_MIN_ROWS <= p.rows <= ek.TILE_ROWS
     assert p.rows % 8 == 0
     assert p.stride % 2 == 1 and p.stride - K in (0, 1)
     for n in SPMV_ROWS:
         tiles = n // p.rows
-        if p.stride == K:  # a tile lands by two bulk copies
+        if p.stride == K:  # a tile lands by one bulk copy an array
             for s in (itemsize, colsize):
                 assert p.rows * K * s % ek.BULK_ALIGN == 0
                 assert all(t * p.rows * K * s % ek.BULK_ALIGN == 0
@@ -348,7 +349,7 @@ def test_spmv_tile_plan(K, itemsize, colsize):
             assert (16 + p.rows * K * itemsize) % ek.BULK_ALIGN == 0
         assert 0 <= n - tiles * p.rows < p.rows
     with pytest.raises(ValueError):
-        ek.spmv_plan(4001, itemsize, colsize)
+        ek.tile_plan(4001, itemsize, colsize)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -360,7 +361,7 @@ def test_locals_tile_plan(itemsize):
     c = ek.LOCALS_CELLS
     smem = ek.locals_smem(itemsize)
     assert smem == 16 + 2 * c * (12 + 7 * itemsize) + 12 * c * itemsize
-    assert smem <= ek.SPMV_SMEM_CAP
+    assert smem <= ek.SMEM_CAP
     for size in (12 * c, c * itemsize, 6 * c * itemsize,
                  3 * c * itemsize, 9 * c * itemsize):
         assert size % ek.BULK_ALIGN == 0

@@ -120,7 +120,7 @@ def test_ell_spmv_tiles(cuda, case, dtype, columns):
     assert cols.element_size() == (2 if columns == "int16" and K % 2
                                    else 4)
     if case != "tiny":
-        assert n % ek.spmv_plan(K, A.element_size(),
+        assert n % ek.tile_plan(K, A.element_size(),
                                 cols.element_size()).rows
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
@@ -159,30 +159,60 @@ def test_p1_newton_locals_tiles(cuda, nx, dtype):
                                            False)[0], dtype)
 
 
+def _assemble_case(case, irr, dtype, device):
+    """(mesh arrays, nd) of kernel B's tile edges: "odd" irr nx 40 RCM
+    (many tiles, the last one short), "tiny" irr nx 8 (one tile), "tiled"
+    the tile-slot mesh of irr nx 40 (phantom slots: empty segments),
+    "ragged" as "odd" with tiles beyond a stage (summed from device
+    memory), "p2" / "p3" the P2 / P3 spaces of irr nx 12 (K 19, 37)."""
+    if case in ("p2", "p3"):
+        sp = spaces.build_space(tmesh.irregular_mesh(nx=12, seed=2),
+                                int(case[1]))
+        return tmesh.with_kernel_index(sp.device_arrays(dtype, device)), \
+            sp.nloc
+    host = irr
+    if case == "tiny":
+        host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=8, seed=1)
+    elif case == "tiled":
+        host, _ = tile_mesh(tmesh.irregular_mesh((-2, -2), (2, 2), nx=40,
+                                                 seed=1))
+    return _arrays(host, dtype, device), 3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("degree", [1, 2, 3])
-def test_ell_assemble(cuda, irr, dtype, degree):
-    if degree == 1:
-        m = _arrays(irr, dtype, cuda)
-        nd = 3
-    else:
-        sp = spaces.build_space(tmesh.irregular_mesh(nx=12, seed=2), degree)
-        m = tmesh.with_kernel_index(sp.device_arrays(dtype, cuda))
-        nd = sp.nloc
+@pytest.mark.parametrize("case", ["odd", "tiny", "tiled", "ragged", "p2",
+                                  "p3"])
+def test_ell_assemble(cuda, irr, dtype, case, monkeypatch):
+    """Kernel B at its tile edges, matrix and vector mode: bit-equal to its
+    plain version on the CPU (which sums each segment in the kernel's
+    order) and to the card's within the dtype's gate; repeated launches
+    and the launch without L2 eviction hints give the same bits."""
+    if case == "ragged":   # tiles of 128 groups, beyond a stage's perm
+        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", 10**6)
+    m, nd = _assemble_case(case, irr, dtype, cuda)
     M = m.mat_perm.numel() // (nd * nd)
-    g = torch.Generator(device="cpu").manual_seed(degree)
+    cap = ek.assemble_plan(m.patch_cols.shape[1], 4).cap
+    sizes = m.mat_tile32[1:, 1] - m.mat_tile32[:-1, 1]
+    assert (m.mat_tile32.shape[0] == 2) == (case == "tiny")
+    assert bool((sizes > cap - 8).any()) == (case == "ragged")
+    g = torch.Generator(device="cpu").manual_seed(nd)
     mats = torch.rand((M, nd, nd), generator=g, dtype=dtype).to(cuda)
     vecs = torch.rand((M, nd), generator=g, dtype=dtype).to(cuda)
+    before = _build.launches["ell_assemble"]
     A = ek.assemble_matrix(m, mats)
     v = ek.assemble_vector(m, vecs)
+    assert _build.launches["ell_assemble"] == before + 2
     _close(A, assembly.scatter_matrix(m, mats), dtype)
     _close(v, assembly.scatter_vector(m, vecs), dtype)
-    # the plain version on the CPU sums each segment in the kernel's order
     mc = type(m)(*(t.cpu() if torch.is_tensor(t) else t for t in m))
     assert torch.equal(A.cpu(), assembly.scatter_matrix(mc, mats.cpu()))
     assert torch.equal(v.cpu(), assembly.scatter_vector(mc, vecs.cpu()))
     assert torch.equal(A, ek.assemble_matrix(m, mats))
     assert torch.equal(v, ek.assemble_vector(m, vecs))
+    assert torch.equal(A, ek._assemble(m, mats, ek._MATRIX, A.shape,
+                                       hints=False))
+    assert torch.equal(v, ek._assemble(m, vecs, ek._VECTOR, v.shape,
+                                       hints=False))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -204,27 +234,50 @@ def test_p1_newton_locals(cuda, irr, dtype, flux, eps_on):
     assert none is None and torch.equal(rhs2, rhs)
 
 
+@pytest.mark.parametrize("columns", ["int16", "int32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("flux", [kpp.FLUX, burgers.FLUX],
                          ids=["kpp", "burgers"])
-@pytest.mark.parametrize("tiled", [False, True])
-def test_ell_rv_epsilon(cuda, dtype, flux, tiled):
-    host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=40, seed=1)
+@pytest.mark.parametrize("case", ["odd", "tiny", "even", "tiled"])
+def test_ell_rv_epsilon(cuda, case, flux, dtype, columns):
+    """Kernel D at its tile edges, on the int16 column codes (read where K
+    is odd) and on patch_cols32: "odd" irr nx 40 (N 1681, not a multiple
+    of the tile), "tiny" irr nx 8 (N 81, under one tile), "even" irr nx 40
+    padded to an even K (int32 columns copied into padded rows), "tiled"
+    its tile-slot mesh (phantom slots write 0); bit-equal to its plain
+    version in f32 and f64."""
+    host = tmesh.irregular_mesh((-2, -2), (2, 2),
+                                nx=8 if case == "tiny" else 40, seed=1)
     valid = None
-    if tiled:
+    if case == "tiled":
         host, _ = tile_mesh(host)
         valid = torch.as_tensor(host.slot_valid, device=cuda)
-    m = _arrays(host, dtype, cuda)
-    u_n, rh, uh, h = _fields(host.n_nodes, dtype, cuda, seed=4)
+    if case == "even":
+        m, _ = _spmv_case("even", dtype, cuda)
+    else:
+        m = _arrays(host, dtype, cuda)
+    if columns == "int32":
+        m = m._replace(patch_cols_d16=None)
+    n, K = m.patch_cols.shape
+    assert (ek.rv_columns(m).element_size() == 2) == (
+        columns == "int16" and K % 2 == 1)
+    assert (n < ek.TILE_ROWS) == (case == "tiny")
+    u_n, rh, uh, h = _fields(n, dtype, cuda, seed=4)
     rh = rh - 1.75
     abs_term = (uh - uh.mean()).abs().max()
+    key = _build.launch_key("ell_rv_epsilon", flux.name)
+    before = _build.launches[key]
     eps = ek.ell_rv_epsilon(m, 0.5, 4.0, u_n, rh, uh, h * 0.05, abs_term,
                             flux, valid)
+    assert _build.launches[key] == before + 1
     ref = ek.ell_rv_epsilon_plain(m, 0.5, 4.0, u_n, rh, uh, h * 0.05,
                                   abs_term, flux, valid)
     assert torch.isfinite(eps).all()
-    assert torch.equal(eps, ref) or dtype == torch.float64
-    _close(eps, ref, dtype)
+    assert torch.equal(eps, ref)
+    if valid is not None:
+        assert not eps[~valid].any()
+    assert torch.equal(ek.ell_rv_epsilon(m, 0.5, 4.0, u_n, rh, uh, h * 0.05,
+                                         abs_term, flux, valid), eps)
 
 
 @pytest.mark.parametrize("backend", ["banded", "blocked", "blocked2d"])
