@@ -169,10 +169,10 @@ exits non-zero:
      (the first 3 steps); (a) each kernel against its plain version on the
      card at the end states of the blocked irr140 and irr640 runs, f32 and
      f64, each output on its own: ell_assemble (against its plain version
-     on the CPU, which sums in its order; both modes, and matrix mode
-     without its L2 eviction hints), ell_rv_epsilon (on its int16 column
-     codes and on patch_cols32) and ell_spmv's bc rows bit-equal, the
-     other outputs within 1e-5 (f32) or F64_TOL (f64) of max|plain|,
+     on the CPU, which sums in its order; both modes), ell_rv_epsilon
+     (on its int16 column codes and on patch_cols32) and ell_spmv's bc
+     rows bit-equal, the other outputs within 1e-5 (f32) or F64_TOL (f64)
+     of max|plain|,
      ell_spmv in f32 bit-equal to its plain version on the CPU in both
      modes, repeated launches bit-equal; timed at irr640 f32 on a CUDA
      graph of 100 calls, warm (one operand set) and L2-cold (rotating over
@@ -182,10 +182,10 @@ exits non-zero:
      captured is timed over 100 calls back to back, and said so), with
      what ptxas gave each instance; ell_spmv and ell_rv_epsilon on their
      int16 column codes and on their int32 columns, bit-equal and each
-     timed; ell_assemble in vector mode, without the L2 hints and in f64
-     (with and without them), each bit-equal to the port's launch and
-     timed; the four ranked by rule 2 (slower than the library call first,
-     then launches a step x (L2-cold - bound), ell_assemble's by mode);
+     timed; ell_assemble in vector mode and in f64, each bit-equal to the
+     port's launch and timed; the four ranked by rule 2 (slower than the
+     library call first, then launches a step x (L2-cold - bound),
+     ell_assemble's by mode);
      (c) irr140 f64, 5 fixed-config steps,
      rv and si: the card against the CPU (F64_CARD_VS_CPU) and blocked
      against gather on the card (1e-9); (d) P2 SI Burgers mesh 32 f64
@@ -3502,7 +3502,10 @@ def against(other, card, ell_only=False):
     """{case: times} of the single and block kernels, cg_solve and the ELL
     kernels A-D (``ell_only``: those alone) of the tree in `other` and
     of this one, in turns (other, this, this, other, twice), one process
-    each (scripts/torch_kernel_times.py; the first makes the inputs)."""
+    each (scripts/torch_kernel_times.py; the first makes the inputs). A
+    wrapper's host time is also given over the mean ratio of the controls
+    (torch's code alone, the same in both trees): what the two processes
+    differ by apart from the wrappers."""
     import torch
 
     other = os.path.abspath(other)
@@ -3530,6 +3533,15 @@ def against(other, card, ell_only=False):
                           this_runs=t["this"], other_runs=t["other"])
         log(f"against {other}: {name}: this tree {this:.5f} ms, the other "
             f"{prev:.5f} ms, ratio {this / prev:.4f} ({card})")
+    controls = [r["ratio"] for k, r in rows.items() if k.startswith(
+        "control, the same code in both trees")]
+    if controls:
+        c = sum(controls) / len(controls)
+        for name, r in rows.items():
+            if name.endswith("host time a wrapper call"):
+                r["ratio_over_controls"] = r["ratio"] / c
+                log(f"against {other}: {name}: ratio {r['ratio']:.4f} over "
+                    f"the controls' {c:.4f}: {r['ratio'] / c:.4f} ({card})")
     return rows
 
 
@@ -3808,8 +3820,8 @@ def time_ell_kernels(base, half, bounds, cfg, card):
     the plain version per call; the library call (A: torch's CSR product,
     B: torch.segment_reduce over the sorted locals) timed as the kernel is;
     the bound; A and D on their int32 columns too (their fallback where a
-    mesh has no int16 codes); B in vector mode, without its L2 eviction
-    hints, and in f64 (whose locals exceed the L2) with and without them.
+    mesh has no int16 codes); B in vector mode and in f64 (whose locals
+    exceed the L2).
     Then the rule-2 ranking: kernels slower L2-cold than their library
     call first, then by the time lost a step, launches x (L2-cold -
     bound), B's by mode."""
@@ -3934,30 +3946,18 @@ def time_ell_kernels(base, half, bounds, cfg, card):
         f"{out['ell_rv_epsilon']['warm_ms']:.5f}, L2-cold "
         f"{out['ell_rv_epsilon']['ms']:.5f} ms; patch_cols32 warm "
         f"{ww:.5f}, L2-cold {wc:.5f} ms ({card})")
-    # B: vector mode (most of its launches a step), each mode without the
-    # L2 eviction hints, matrix mode in f64; each bit-equal to the launch
-    # the port makes
+    # B: vector mode (most of its launches a step) and matrix mode in f64,
+    # each bit-equal to the launch the port makes
     n = m.patch_cols.shape[0]
     M = m.cells.shape[0]
-    shapes = {ek._MATRIX: tuple(m.patch_cols.shape), ek._VECTOR: (n,)}
-
-    def asm(fields, key, hints):
-        return lambda s: ek._assemble(s["m"], s[key], fields,
-                                      shapes[fields], hints)
-
     variants = {
-        "vector": (ek._VECTOR, "rhs", True),
-        "vector_no_hints": (ek._VECTOR, "rhs", False),
-        "no_hints": (ek._MATRIX, "jac", False),
-        "f64": (ek._MATRIX, "jac64", True),
-        "f64_no_hints": (ek._MATRIX, "jac64", False),
+        "vector": (ek._VECTOR, "rhs", ek.assemble_vector),
+        "f64": (ek._MATRIX, "jac64", ek.assemble_matrix),
     }
     b = out["ell_assemble"]
-    for tag, (fields, key, hints) in variants.items():
-        fn = asm(fields, key, hints)
-        ref = (ek.assemble_vector(m, first[key]) if fields is ek._VECTOR
-               else ek.assemble_matrix(m, first[key]))
-        if not torch.equal(fn(first), ref):
+    for tag, (fields, key, wrapper) in variants.items():
+        fn = lambda s, w=wrapper, k=key: w(s["m"], s[k])
+        if not torch.equal(fn(first), wrapper(m, first[key])):
             raise AssertionError(f"ell_assemble {tag}: not the port's bits")
         idx = [getattr(m, f) for f in fields[:4]]
         vw, vc = _on_graph(fn, sets, need(_set_bytes(first[key], *idx)))
@@ -4001,9 +4001,9 @@ def check_ell_kernels(states, regs, card):
     operands of the blocked runs' end states at irr140 and irr640 (f32, and
     the same state in f64 on the f64 problem): A constrained on the
     assembled Newton Jacobian, B on its locals (matrix mode) and the rhs
-    locals (vector mode; matrix mode without its L2 eviction hints too),
-    C in both modes, D with the residual N(u) as Rh (on its int16 codes
-    and on patch_cols32). Gates, each output held on its own: B (its plain
+    locals (vector mode), C in both modes, D with the residual N(u) as Rh
+    (on its int16 codes and on patch_cols32). Gates, each output held on
+    its own: B (its plain
     version run on the CPU, which sums in the kernel's order) and D
     bit-equal, A's bc rows
     (y = x), and A in f32 against its plain version on the CPU in both
@@ -4024,7 +4024,7 @@ def check_ell_kernels(states, regs, card):
                         host_mesh=p32.host_mesh)
         for dn, p, u in (("f32", p32, u32), ("f64", p64, u32.double())):
             m, plan, flux = p.mesh, p.plan, kpp.FLUX
-            n, K = m.patch_cols.shape
+            n = m.patch_cols.shape[0]
             M = m.cells.shape[0]
             nnz = int(m.patch_mask.sum())
             s = u.element_size()
@@ -4075,12 +4075,6 @@ def check_ell_kernels(states, regs, card):
                                  ("vector", lambda: ek.assemble_vector(
                                       m, rhs).cpu(),
                                   lambda: assembly.scatter_vector(mc, rhs_c),
-                                  "equal"),
-                                 ("matrix, no L2 hints",
-                                  lambda: ek._assemble(
-                                      m, jac, ek._MATRIX, (n, K),
-                                      hints=False).cpu(),
-                                  lambda: assembly.scatter_matrix(mc, jac_c),
                                   "equal")],
                 "p1_newton_locals": [
                     ("rhs", lambda: ek.p1_newton_locals(

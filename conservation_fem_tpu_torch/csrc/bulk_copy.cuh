@@ -79,7 +79,7 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // L2 eviction policies (createpolicy, sm_80 on): for every line a load
 // or copy that carries one touches, the priority with which L2 evicts it.
 // evict_first for data streamed once, evict_last for data to keep while
-// the streams pass, evict_normal for no preference (a load without one).
+// the streams pass.
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t p;
   asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
@@ -88,11 +88,6 @@ __device__ __forceinline__ uint64_t l2_evict_first() {
 __device__ __forceinline__ uint64_t l2_evict_last() {
   uint64_t p;
   asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint64_t l2_evict_normal() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(p));
   return p;
 }
 

@@ -364,20 +364,18 @@ int ell_spmv(const void* A, const void* cols, const void* x, const void* bc,
 // multiple of 4 entries, and the groups cut into tiles of whole 16-group
 // units, each with its first group and contribution in tiles (one more
 // entry than tiles), holding at most cap - 8 contributions and gmax groups
-// unless a unit alone holds more (ops/mesh.with_kernel_index). So every
+// (ops/mesh.with_kernel_index refuses a unit that holds more). So every
 // range below starts and ends on 16 bytes, and a tile's contributions are
 // one contiguous range [j0, j1) of the order. A persistent grid of CTAs
 // of kAsmThreads threads walks the tiles. Thread 0 stages each tile a
 // tile ahead by bulk copies into one of two stages: its offsets, its bases
 // and its range of perm from j0 rounded down to 16 bytes (the skew
-// carried), at most cap entries (a tile beyond them, one unit above the
-// tiles' bound, stages no perm and sums from device memory). Then, per
-// tile, every thread gathers locals vals[perm[j]] for j = j0 + t, j0 + t
-// + T, ... into shared memory, kAsmChunk of them in flight; after a
-// barrier, one thread an output sums its segment from shared memory, from
-// 0, in segment order (an empty output, ELL padding, is 0). The streams
-// (perm, offsets, bases, outputs) carry an L2 evict-first policy, the
-// gathered locals evict-last (hints = 0: evict-normal everywhere), so that
+// carried), at most cap entries. Then, per tile, every thread gathers
+// locals vals[perm[j]] for j = j0 + t, j0 + t + T, ... into shared memory,
+// kAsmChunk of them in flight; after a barrier, one thread an output sums
+// its segment from shared memory, from 0, in segment order (an empty
+// output, ELL padding, is 0). The streams (perm, offsets, bases, outputs)
+// carry an L2 evict-first policy, the gathered locals evict-last, so that
 // the locals, whose 32-byte sectors several tiles touch at different
 // times, stay in L2 while the streams pass. kMatrix: the mode, each a
 // kernel of its own (persistent_grid keeps one shared-memory limit and
@@ -393,17 +391,17 @@ __global__ void __launch_bounds__(kAsmThreads)
                         const int* __restrict__ base,
                         const int2* __restrict__ tiles_at,
                         T* __restrict__ out, int n_out, int W, int tiles,
-                        int gmax, int cap, int hints) {
+                        int gmax, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // one per stage
-  // [2][8]: j0, j1, a0 (j0 rounded down to 16 bytes), direct, g0, groups
+  // [2][8]: j0, j1, a0 (j0 rounded down to 16 bytes), g0, groups
   int* hdr = reinterpret_cast<int*>(smem + 16);
   int* sp = hdr + 16;  // [2][cap] perm
   unsigned char* so = reinterpret_cast<unsigned char*>(sp + 2 * cap);
   int* sb = reinterpret_cast<int*>(so + 2 * gmax * W);  // [2][gmax] bases
   T* sv = reinterpret_cast<T*>(sb + 2 * gmax);  // [cap] gathered locals
-  const uint64_t stream = hints ? l2_evict_first() : l2_evict_normal();
-  const uint64_t keep = hints ? l2_evict_last() : l2_evict_normal();
+  const uint64_t stream = l2_evict_first();
+  const uint64_t keep = l2_evict_last();
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) mbar_init(&bar[s], 1);
     mbar_init_fence();
@@ -419,15 +417,13 @@ __global__ void __launch_bounds__(kAsmThreads)
     const int g0 = first.x, gn = end.x - first.x;
     const int j0 = first.y, j1 = end.y;
     const int a0 = j0 & ~3, a1 = (j1 + 3) & ~3;
-    const int direct = a1 - a0 > cap;
     int* h = hdr + 8 * s;
     h[0] = j0;
     h[1] = j1;
     h[2] = a0;
-    h[3] = direct;
-    h[4] = g0;
-    h[5] = gn;
-    const unsigned pb = direct ? 0u : (unsigned)(a1 - a0) * 4u;
+    h[3] = g0;
+    h[4] = gn;
+    const unsigned pb = (unsigned)(a1 - a0) * 4u;
     async_proxy_fence();
     mbar_expect_tx(&bar[s], (unsigned)(gn * W + gn * 4) + pb);
     bulk_copy_hint(so + s * gmax * W, off + (long long)g0 * W,
@@ -452,28 +448,25 @@ __global__ void __launch_bounds__(kAsmThreads)
     mbar_wait(&bar[s], (k >> 1) & 1);
     const int* h = hdr + 8 * s;
     const int j0 = h[0], j1 = h[1], cnt = j1 - j0, skew = j0 - h[2];
-    const bool direct = h[3];
-    const int gn = h[5];
+    const int gn = h[4];
     const unsigned char* to = so + s * gmax * W;
     const int* tb = sb + s * gmax;
-    if (!direct) {
-      const int* tp = sp + s * cap + skew;
-      for (int q0 = threadIdx.x; q0 < cnt; q0 += kAsmThreads * kAsmChunk) {
-        T v[kAsmChunk];
+    const int* tp = sp + s * cap + skew;
+    for (int q0 = threadIdx.x; q0 < cnt; q0 += kAsmThreads * kAsmChunk) {
+      T v[kAsmChunk];
 #pragma unroll
-        for (int u = 0; u < kAsmChunk; ++u) {
-          const int q = q0 + u * kAsmThreads;
-          if (q < cnt) v[u] = load_hint(vals + tp[q], keep);
-        }
+      for (int u = 0; u < kAsmChunk; ++u) {
+        const int q = q0 + u * kAsmThreads;
+        if (q < cnt) v[u] = load_hint(vals + tp[q], keep);
+      }
 #pragma unroll
-        for (int u = 0; u < kAsmChunk; ++u) {
-          const int q = q0 + u * kAsmThreads;
-          if (q < cnt) sv[q] = v[u];
-        }
+      for (int u = 0; u < kAsmChunk; ++u) {
+        const int q = q0 + u * kAsmThreads;
+        if (q < cnt) sv[q] = v[u];
       }
     }
     __syncthreads();  // the gathered locals in place
-    const long long e0 = (long long)h[4] * W;
+    const long long e0 = (long long)h[3] * W;
     for (int e = threadIdx.x; e < gn * W && e0 + e < n_out;
          e += kAsmThreads) {
       const int g = e / W;
@@ -481,11 +474,7 @@ __global__ void __launch_bounds__(kAsmThreads)
       const int en = e + 1 < (g + 1) * W ? tb[g] - j0 + to[e + 1]
                      : (g + 1 < gn ? tb[g + 1] : j1) - j0;
       T acc = T(0);
-      if (direct)
-        for (int q = st; q < en; ++q)
-          acc = add_rn(acc, __ldg(vals + __ldg(perm + j0 + q)));
-      else
-        for (int q = st; q < en; ++q) acc = add_rn(acc, sv[q]);
+      for (int q = st; q < en; ++q) acc = add_rn(acc, sv[q]);
       store_hint(out + e0 + e, acc, stream);
     }
     __syncthreads();  // stage s and the locals read: they may be rewritten
@@ -500,7 +489,7 @@ template <typename T, bool kMatrix>
 int launch_ell_assemble(const void* vals, const void* perm, const void* off,
                         const void* base, const void* tiles_at, void* out,
                         int n_out, int W, int tiles, int gmax, int cap,
-                        int smem, int hints, Launch at) {
+                        int smem, Launch at) {
   auto kernel = ell_assemble_kernel<T, kMatrix>;
   using Tag = void(T, std::integral_constant<bool, kMatrix>);
   int ctas = 0;
@@ -510,7 +499,7 @@ int launch_ell_assemble(const void* vals, const void* perm, const void* off,
   kernel<<<ctas, kAsmThreads, smem, at.stream>>>(
       (const T*)vals, (const int*)perm, (const unsigned char*)off,
       (const int*)base, (const int2*)tiles_at, (T*)out, n_out, W, tiles,
-      gmax, cap, hints);
+      gmax, cap);
   return (int)cudaGetLastError();
 }
 
@@ -518,16 +507,16 @@ template <typename T>
 int ell_assemble(const void* vals, const void* perm, const void* off,
                  const void* base, const void* tiles_at, void* out,
                  int n_out, int W, int tiles, int gmax, int cap, int smem,
-                 int matrix, int hints, int dev, void* stream) {
+                 int matrix, int dev, void* stream) {
   if (n_out <= 0) return 0;
   const Launch at{dev, (cudaStream_t)stream};
   if (matrix)
     return launch_ell_assemble<T, true>(vals, perm, off, base, tiles_at, out,
                                         n_out, W, tiles, gmax, cap, smem,
-                                        hints, at);
+                                        at);
   return launch_ell_assemble<T, false>(vals, perm, off, base, tiles_at, out,
                                        n_out, W, tiles, gmax, cap, smem,
-                                       hints, at);
+                                       at);
 }
 
 #endif  // CFT_ELL_FLUX_ONLY
@@ -874,11 +863,10 @@ int ell_rv_epsilon(const void* cols, const void* u_n, const void* rh,
 #define CFT_ASSEMBLE_ARGS                                                  \
   const void *vals, const void *perm, const void *off, const void *base,   \
       const void *tiles_at, void *out, int n_out, int W, int tiles,        \
-      int gmax, int cap, int smem, int matrix, int hints, int dev,         \
-      void *stream
+      int gmax, int cap, int smem, int matrix, int dev, void *stream
 #define CFT_ASSEMBLE_CALL                                                  \
   vals, perm, off, base, tiles_at, out, n_out, W, tiles, gmax, cap, smem,  \
-      matrix, hints, dev, stream
+      matrix, dev, stream
 
 extern "C" {
 

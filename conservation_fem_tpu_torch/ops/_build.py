@@ -82,12 +82,12 @@ _SIGNATURES = {
     # the stream: A, cols, x, bc (null: unconstrained), y, n, K, the tile
     # plan (rows, stride, shared memory), int16 columns; vals, perm, off,
     # base, tiles, out, n_out, group width, tile count, the plan (groups a
-    # tile, perm a stage, shared memory), matrix mode, L2 hints; cells,
+    # tile, perm a stage, shared memory), matrix mode; cells,
     # area, grads, u, eps (null: none), dt/2, rhs, jac (null: rhs only), M,
     # shared memory; cols, u_n, Rh, u_h, h, abs_term, valid (null: all),
     # Cvel, CRV, tiny, eps, n, K, the tile plan, int16 columns
     "cft_ell_spmv": [_P] * 5 + [_I] * 7 + [_P],
-    "cft_ell_assemble": [_P] * 6 + [_I] * 9 + [_P],
+    "cft_ell_assemble": [_P] * 6 + [_I] * 8 + [_P],
     "cft_p1_newton_locals": [_P] * 5 + [_D, _P, _P, _I, _I, _I, _P],
     "cft_ell_rv_epsilon": [_P] * 7 + [_D] * 3 + [_P] + [_I] * 7 + [_P],
 }

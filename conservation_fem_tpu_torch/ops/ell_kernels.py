@@ -216,9 +216,8 @@ _MATRIX = ("mat_perm32", "mat_off8", "mat_base32", "mat_tile32", "mat_perm")
 _VECTOR = ("vec_perm32", "vec_off8", "vec_base32", "vec_tile32", "vec_perm")
 
 
-def _assemble(mesh, vals, fields, shape, hints=True):
-    """Kernel B over the index ``fields`` (_MATRIX or _VECTOR); hints:
-    the L2 eviction policies (False: none, for timing their effect)."""
+def _assemble(mesh, vals, fields, shape):
+    """Kernel B over the index ``fields`` (_MATRIX or _VECTOR)."""
     vals = vals.contiguous()
     perm, off, base, tiles = (_index(mesh, f, "ell_assemble")
                               for f in fields[:4])
@@ -236,8 +235,8 @@ def _assemble(mesh, vals, fields, shape, hints=True):
         code = _build.entry("cft_ell_assemble", dtype)(
             vals.data_ptr(), p, o, b, tiles.data_ptr(), out.data_ptr(),
             out.numel(), width, tiles.shape[0] - 1, plan.groups, plan.cap,
-            plan.smem, int(fields is _MATRIX), int(hints),
-            vals.get_device(), _build.stream_ptr(vals))
+            plan.smem, int(fields is _MATRIX), vals.get_device(),
+            _build.stream_ptr(vals))
     _build.launches["ell_assemble"] += 1
     _build.check(code, "ell_assemble")
     return out

@@ -201,9 +201,7 @@ D16_REACH = 2**14
 # multiple of SEGMENT_GROUPS (a tile's offsets and bases likewise), the
 # nodes of vector mode grouped by VEC_GROUP (a base each); its tiles runs
 # of whole SEGMENT_GROUPS-group units holding at most ASSEMBLE_TILE
-# contributions and ASSEMBLE_MAX_GROUPS groups (a unit alone above
-# ASSEMBLE_TILE is a tile of its own, which the kernel sums from device
-# memory)
+# contributions (a stage's range of perm) and ASSEMBLE_MAX_GROUPS groups
 PERM_ALIGN = 4
 SEGMENT_GROUPS = 16
 VEC_GROUP = 8
@@ -249,16 +247,22 @@ def segment_tiles(base):
     first contribution of each of kernel B's tiles over the group bases
     ``base`` (a segment_index), then (groups, contributions): runs of whole
     SEGMENT_GROUPS-group units, each as long as ASSEMBLE_TILE contributions
-    and ASSEMBLE_MAX_GROUPS groups allow, and at least one unit."""
+    and ASSEMBLE_MAX_GROUPS groups allow. Raises where one unit alone holds
+    more than ASSEMBLE_TILE contributions (more than a stage of the kernel
+    holds)."""
     b = base.long().cpu().numpy()
     units = (len(b) - 1) // SEGMENT_GROUPS
     at = b[::SEGMENT_GROUPS]            # the units' first contributions
+    if units and int(np.diff(at).max()) > ASSEMBLE_TILE:
+        raise ValueError(f"ELL kernels: {SEGMENT_GROUPS} groups of segments "
+                         f"hold {int(np.diff(at).max())} contributions (a "
+                         f"tile holds {ASSEMBLE_TILE})")
     most = ASSEMBLE_MAX_GROUPS // SEGMENT_GROUPS
     starts = [0]
     while starts[-1] < units:
         u = starts[-1]
         fit = int(np.searchsorted(at, at[u] + ASSEMBLE_TILE, "right")) - 1
-        starts.append(max(u + 1, min(fit, u + most, units)))
+        starts.append(min(fit, u + most, units))
     g = np.array(starts, dtype=np.int64) * SEGMENT_GROUPS
     return torch.as_tensor(np.stack([g, b[g]], 1).astype(np.int32),
                            device=base.device)

@@ -33,13 +33,22 @@ constrained on the assembled Newton Jacobian, B on its locals (matrix
 mode) and on the rhs locals (vector mode), C in Jacobian mode and D with
 the residual N(u) as Rh, each on a CUDA graph of GRAPH_REPS calls warm
 (one operand set) and L2-cold (rotating over COLD_SETS sets, beyond the
-50 MB L2; the median of ROUNDS replays), and per wrapper call back to
-back. Needs a CUDA device.
+50 MB L2; the median of ROUNDS replays), per wrapper call back to back
+(CUDA events), and the host's time a wrapper call (time.perf_counter over
+HOST_ROUNDS rounds of HOST_CALLS calls with no synchronisation between
+them, the device drained between rounds; the median round) beside two
+controls whose code is torch's alone, the same in both trees
+(torch.empty_like, entering the device), which show what the process
+itself adds; and the same run's first PROFILE_STEPS steps under
+torch.profiler after as many unprofiled: the device time a step of each
+ELL kernel, of the other kernels, and of their union. Needs a CUDA device.
 """
 
+import copy
 import inspect
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -70,6 +79,15 @@ ELL_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
 GRAPH_REPS = 100
 COLD_SETS = {"ell_spmv": 3, "ell_assemble": 2, "ell_assemble vector": 5,
              "p1_newton_locals": 2, "ell_rv_epsilon": 8}
+# the host's time a wrapper call: rounds of calls with no synchronisation,
+# and the prefix of the controls' names (torch's code alone)
+HOST_CALLS = 100
+HOST_ROUNDS = 10
+CONTROL = "control, the same code in both trees, host time a call:"
+# the steps of the profiled run, and the ELL kernels' names in a profile
+PROFILE_STEPS = 3
+ELL_KERNELS = ("ell_spmv", "ell_assemble", "p1_newton_locals",
+               "ell_rv_epsilon")
 # the mesh fields that a tree derives from the others (the kernels' int32,
 # int16 and uint8 index copies, ops/mesh.with_kernel_index): each tree
 # builds its own, and an L2-cold set clones them
@@ -241,20 +259,26 @@ def cases(kpp, burgers, fs, torch, inputs):
     return out
 
 
+def _ell_problem(kpp, host):
+    return kpp.build(kpp.KPPConfig(dtype="float32", dt=ELL_DT, T=ELL_T,
+                                   backend="ell",
+                                   ell_matvec_backend="blocked",
+                                   **ELL_FIXED), host_mesh=host)
+
+
 def ell_inputs(kpp, torch):
     """{name: CPU tensor}: the blocked irr640 f32 bench run's end state u,
     the residual N(u), h, the RV eps, the Newton locals (rhs and Jacobian)
-    and the assembled Jacobian at it (this tree's kernels), and the fields
-    of its mesh arrays but the index copies (each tree builds its own)."""
+    and the assembled Jacobian at it (this tree's kernels), the fields of
+    its mesh arrays but the index copies (each tree builds its own), and
+    the host mesh's points and cells."""
     from conservation_fem_tpu_torch.ops import blocked
     from conservation_fem_tpu_torch.ops import ell_kernels as ek
     from conservation_fem_tpu_torch.ops import mesh as tmesh
 
     host = tmesh.irregular_mesh((-2, -2), (2, 2), nx=ELL_NX, seed=1)
     host = tmesh.reorder_mesh(host, tmesh.rcm_permutation(host))
-    p = kpp.build(kpp.KPPConfig(dtype="float32", dt=ELL_DT, T=ELL_T,
-                                backend="ell", ell_matvec_backend="blocked",
-                                **ELL_FIXED), host_mesh=host)
+    p = _ell_problem(kpp, host)
     u = p.solve().u
     m, flux = p.mesh, kpp.FLUX
     rh = blocked.conv_rhs_components(p.plan, u, flux)
@@ -268,8 +292,63 @@ def ell_inputs(kpp, torch):
                 "ell/rhs": rhs.cpu(), "ell/rh": rh.cpu(),
                 "ell/h": p.h_cg.cpu(),
                 "ell/J": ek.assemble_matrix(m, jac).cpu(),
-                "ell/half_dt": torch.tensor(0.5 * p.dt)})
+                "ell/half_dt": torch.tensor(0.5 * p.dt),
+                "ell/host/points": torch.as_tensor(host.points),
+                "ell/host/cells": torch.as_tensor(host.cells)})
     return out
+
+
+def ell_step_profile(kpp, torch, inputs):
+    """{name: device ms a step}: the blocked irr640 f32 bench run's first
+    PROFILE_STEPS steps under torch.profiler, after as many unprofiled:
+    each ELL kernel's summed spans, the other kernels', and the union of
+    all (the device's busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    host = tmesh.mesh_from_arrays(inputs["ell/host/points"].numpy(),
+                                  inputs["ell/host/cells"].numpy())
+    p = copy.copy(_ell_problem(kpp, host))
+    p.num_steps = PROFILE_STEPS
+    p.solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p.solve()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    us = dict.fromkeys(ELL_KERNELS + ("other kernels",), 0.0)
+    busy, end = 0.0, float("-inf")
+    for s, e, name in spans:
+        key = next((k for k in ELL_KERNELS if f"{k}_kernel" in name),
+                   "other kernels")
+        us[key] += e - s
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    us["all kernels (busy)"] = busy
+    return {f"blocked irr{ELL_NX} f32 step, device ms a step ({k}; "
+            f"torch.profiler, first {PROFILE_STEPS} steps)":
+            v / PROFILE_STEPS / 1e3 for k, v in us.items()}
+
+
+def host_ms(fn, torch):
+    """Host ms a call of fn: the median of HOST_ROUNDS rounds of
+    HOST_CALLS calls with no synchronisation between them, after a
+    warm-up; the device drained between rounds."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(HOST_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        out.append((time.perf_counter() - t0) / HOST_CALLS * 1e3)
+        torch.cuda.synchronize()
+    return sorted(out)[HOST_ROUNDS // 2]
 
 
 def ell_cases(kpp, torch, inputs):
@@ -379,7 +458,7 @@ def run(repo, inputs_path, out_path, reps=20, ell_only=False):
             timed[name] = fn
             print(f"{name}: {plain_iterations(sk, plain)} iterations",
                   flush=True)
-    graphed = {}
+    graphed, hosted = {}, {}
     for name, (fn, sets) in ell_cases(kpp, torch, inputs).items():
         turn = itertools.cycle(sets)
         graphed[f"{name}, warm on a CUDA graph"] = lambda f=fn, s=sets: f(
@@ -387,7 +466,26 @@ def run(repo, inputs_path, out_path, reps=20, ell_only=False):
         graphed[f"{name}, L2-cold on a CUDA graph ({len(sets)} sets)"] = (
             lambda f=fn, t=turn: f(next(t)))
         timed[f"{name}, per wrapper call"] = lambda f=fn, s=sets: f(s[0])
+        hosted[f"{name}, host time a wrapper call"] = (
+            lambda f=fn, s=sets: f(s[0]))
+    if ell_only:
+        u = inputs["ell/u"].to("cuda")
+        dev = u.device
+
+        def enter():
+            with torch.cuda.device(dev):
+                pass
+
+        hosted[f"{CONTROL} torch.empty_like"] = lambda: torch.empty_like(u)
+        hosted[f"{CONTROL} entering the device"] = enter
     out = {}
+    for name, fn in hosted.items():
+        out[name] = host_ms(fn, torch)
+        print(f"{name}: {out[name] * 1e3:.3f} us ({repo})", flush=True)
+    if ell_only:
+        for name, ms in ell_step_profile(kpp, torch, inputs).items():
+            out[name] = ms
+            print(f"{name}: {ms:.5f} ms ({repo})", flush=True)
     for name, fn in graphed.items():
         times = graph_replays_ms(fn, torch)
         out[name] = sorted(times)[ROUNDS // 2]

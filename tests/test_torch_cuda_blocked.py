@@ -162,9 +162,8 @@ def test_p1_newton_locals_tiles(cuda, nx, dtype):
 def _assemble_case(case, irr, dtype, device):
     """(mesh arrays, nd) of kernel B's tile edges: "odd" irr nx 40 RCM
     (many tiles, the last one short), "tiny" irr nx 8 (one tile), "tiled"
-    the tile-slot mesh of irr nx 40 (phantom slots: empty segments),
-    "ragged" as "odd" with tiles beyond a stage (summed from device
-    memory), "p2" / "p3" the P2 / P3 spaces of irr nx 12 (K 19, 37)."""
+    the tile-slot mesh of irr nx 40 (phantom slots: empty segments), "p2"
+    / "p3" the P2 / P3 spaces of irr nx 12 (K 19, 37)."""
     if case in ("p2", "p3"):
         sp = spaces.build_space(tmesh.irregular_mesh(nx=12, seed=2),
                                 int(case[1]))
@@ -180,21 +179,18 @@ def _assemble_case(case, irr, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["odd", "tiny", "tiled", "ragged", "p2",
-                                  "p3"])
-def test_ell_assemble(cuda, irr, dtype, case, monkeypatch):
+@pytest.mark.parametrize("case", ["odd", "tiny", "tiled", "p2", "p3"])
+def test_ell_assemble(cuda, irr, dtype, case):
     """Kernel B at its tile edges, matrix and vector mode: bit-equal to its
     plain version on the CPU (which sums each segment in the kernel's
     order) and to the card's within the dtype's gate; repeated launches
-    and the launch without L2 eviction hints give the same bits."""
-    if case == "ragged":   # tiles of 128 groups, beyond a stage's perm
-        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", 10**6)
+    give the same bits."""
     m, nd = _assemble_case(case, irr, dtype, cuda)
     M = m.mat_perm.numel() // (nd * nd)
     cap = ek.assemble_plan(m.patch_cols.shape[1], 4).cap
     sizes = m.mat_tile32[1:, 1] - m.mat_tile32[:-1, 1]
     assert (m.mat_tile32.shape[0] == 2) == (case == "tiny")
-    assert bool((sizes > cap - 8).any()) == (case == "ragged")
+    assert bool((sizes <= cap - 8).all())
     g = torch.Generator(device="cpu").manual_seed(nd)
     mats = torch.rand((M, nd, nd), generator=g, dtype=dtype).to(cuda)
     vecs = torch.rand((M, nd), generator=g, dtype=dtype).to(cuda)
@@ -209,10 +205,6 @@ def test_ell_assemble(cuda, irr, dtype, case, monkeypatch):
     assert torch.equal(v.cpu(), assembly.scatter_vector(mc, vecs.cpu()))
     assert torch.equal(A, ek.assemble_matrix(m, mats))
     assert torch.equal(v, ek.assemble_vector(m, vecs))
-    assert torch.equal(A, ek._assemble(m, mats, ek._MATRIX, A.shape,
-                                       hints=False))
-    assert torch.equal(v, ek._assemble(m, vecs, ek._VECTOR, v.shape,
-                                       hints=False))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -6,13 +6,14 @@ ops/ell_kernels), checked on the CPU on small meshes, without the card:
     exclusive cumsum of mat_lens / vec_lens) exactly, and refuses a group
     of more than 255 contributions (a segment longer than 255, too);
   * B's tiles (ops/mesh.segment_tiles) cover the groups in runs of whole
-    16-group units within the plan's bounds;
+    16-group units within the plan's bounds, and a unit beyond a stage is
+    refused;
   * a plain emulation of B's two phases on those fields (a tile's range
     of perm staged from 16 bytes below its start, its locals gathered,
     then each output's segment summed from 0 in order), on the plan of
-    ell_kernels.assemble_plan, on tiles of one unit and with every tile
-    too large for a stage, equals assembly.scatter_matrix /
-    scatter_vector bit for bit in f32 and f64;
+    ell_kernels.assemble_plan and on tiles as short as the mesh's units
+    allow, equals assembly.scatter_matrix / scatter_vector bit for bit in
+    f32 and f64;
   * B's plans fit shared memory and keep its bulk copies on 16 bytes;
   * D's columns (ell_kernels.rv_columns: the int16 codes, or patch_cols32)
     decode to patch_cols32, padding included.
@@ -117,25 +118,19 @@ def test_segment_index_refuses_long_segments():
 
 def _emulate(vals, perm32, off8, base, tile32, n_out, cap):
     """Kernel B's two phases tile by tile (csrc/ell.cu ell_assemble_kernel),
-    in the dtype of ``vals`` (flat locals in cell order): (outputs, tiles
-    that staged their perm range, tiles summed from device memory)."""
+    in the dtype of ``vals`` (flat locals in cell order): the outputs."""
     groups = base.numel() - 1
     W = off8.numel() // groups
     start, end = _segments(off8, base)
     out = torch.full((groups * W,), float("nan"), dtype=vals.dtype)
-    staged = direct = 0
     for (g0, j0), (g1, j1) in zip(tile32[:-1].tolist(), tile32[1:].tolist()):
         gn = g1 - g0
         assert (j0, j1) == (int(base[g0]), int(base[g1]))
         a0, a1 = j0 & ~3, (j1 + 3) & ~3
         assert a1 <= perm32.numel()          # the copy stays in perm32
-        if a1 - a0 > cap:                    # ragged: perm read in place
-            direct += 1
-            locals_ = vals[perm32[j0:j1].long()]
-        else:                                # perm staged from a0
-            staged += 1
-            stage = perm32[a0:a1]
-            locals_ = vals[stage[j0 - a0:j1 - a0].long()]
+        assert a1 - a0 <= cap                # perm staged from a0
+        stage = perm32[a0:a1]
+        locals_ = vals[stage[j0 - a0:j1 - a0].long()]
         tile = slice(g0 * W, (g0 + gn) * W)
         starts, lens = start[tile] - j0, end[tile] - start[tile]
         acc = torch.zeros(gn * W, dtype=vals.dtype)
@@ -144,21 +139,32 @@ def _emulate(vals, perm32, off8, base, tile32, n_out, cap):
             v = locals_[torch.where(take, starts + q, 0)]
             acc = torch.where(take, acc + v, acc)
         out[g0 * W:(g0 + gn) * W] = acc
-    return out[:n_out], staged, direct
+    return out[:n_out]
+
+
+def _largest_unit(base):
+    """The most contributions a SEGMENT_GROUPS-group unit of ``base``
+    holds."""
+    return int(torch.diff(base[::tmesh.SEGMENT_GROUPS].long()).max())
 
 
 @pytest.mark.parametrize("case", MESHES)
 def test_segment_tiles(case, monkeypatch):
     """B's tiles: runs of whole SEGMENT_GROUPS-group units from the first
     group to the last, each within ASSEMBLE_TILE contributions and
-    ASSEMBLE_MAX_GROUPS groups or one unit alone, and no run one unit
-    longer would fit (greedy); the same with a bound of one contribution
-    (a unit a tile, empty units run together)."""
-    m = _arrays(case)
-    for bound in (tmesh.ASSEMBLE_TILE, 1):
-        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", bound)
-        for mode in ("mat", "vec"):
-            base = getattr(m, f"{mode}_base32").long()
+    ASSEMBLE_MAX_GROUPS groups, and no run one unit longer would fit
+    (greedy); the same with a bound of the mesh's largest unit (short
+    tiles, empty units run together); a bound below it is refused."""
+    m, tile = _arrays(case), tmesh.ASSEMBLE_TILE
+    for mode in ("mat", "vec"):
+        base = getattr(m, f"{mode}_base32").long()
+        largest = _largest_unit(base)
+        assert largest <= tile
+        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", largest - 1)
+        with pytest.raises(ValueError, match="tile holds"):
+            tmesh.segment_tiles(getattr(m, f"{mode}_base32"))
+        for bound in (tile, largest):
+            monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", bound)
             t = tmesh.segment_tiles(getattr(m, f"{mode}_base32")).long()
             groups = base.numel() - 1
             g, j = t[:, 0], t[:, 1]
@@ -168,21 +174,39 @@ def test_segment_tiles(case, monkeypatch):
             assert (lengths > 0).all()
             assert (lengths % tmesh.SEGMENT_GROUPS == 0).all()
             assert (lengths <= tmesh.ASSEMBLE_MAX_GROUPS).all()
-            one = lengths == tmesh.SEGMENT_GROUPS
-            assert ((sizes <= bound) | one).all()
+            assert (sizes <= bound).all()
             longer = torch.clamp(g[1:] + tmesh.SEGMENT_GROUPS, max=groups)
             grown = (base[longer] - j[:-1] <= bound) & (
                 lengths < tmesh.ASSEMBLE_MAX_GROUPS) & (g[1:] < groups)
             assert not grown.any()
 
 
+def test_segment_tiles_refuse_units_beyond_a_stage():
+    """A unit of SEGMENT_GROUPS groups holding ASSEMBLE_TILE contributions
+    is a tile; one more contribution in it is refused."""
+    G, tile = tmesh.SEGMENT_GROUPS, tmesh.ASSEMBLE_TILE
+    for extra, ok in ((0, True), (1, False)):
+        sizes = torch.zeros(3 * G, dtype=torch.int64)
+        sizes[G] = tile - 1 + extra     # the second unit
+        sizes[2 * G - 1] = 1
+        sizes[2 * G] = 5
+        base = torch.zeros(3 * G + 1, dtype=torch.int32)
+        base[1:] = torch.cumsum(sizes, 0)
+        if not ok:
+            with pytest.raises(ValueError, match="tile holds"):
+                tmesh.segment_tiles(base)
+            continue
+        t = tmesh.segment_tiles(base)
+        assert t[:, 0].tolist() == [0, 2 * G, 3 * G]
+        assert t[:, 1].tolist() == [0, tile, tile + 5]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", MESHES)
 def test_assemble_emulation_bit_equal(case, dtype, monkeypatch):
-    """B's two phases on the segment index, on its tiles and plan (tiles
-    that stage their range of perm), on tiles of one unit each (many
-    tiles) and with a stage of 8 entries (every tile too large, summed
-    from device memory), bit-equal to the plain scatter."""
+    """B's two phases on the segment index, on its tiles and plan (each
+    tile staging its range of perm) and on tiles no longer than the
+    mesh's largest unit (many tiles), bit-equal to the plain scatter."""
     m = _arrays(case, dtype)
     n, K = m.patch_cols.shape
     nd = m.mat_perm.numel() // m.vec_perm.numel()
@@ -198,19 +222,14 @@ def test_assemble_emulation_bit_equal(case, dtype, monkeypatch):
         groups = base.numel() - 1
         W = off8.numel() // groups
         plan = ek.assemble_plan(W, mats.element_size())
-        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", 1)
+        monkeypatch.setattr(tmesh, "ASSEMBLE_TILE", _largest_unit(base))
         units = tmesh.segment_tiles(base)
         monkeypatch.undo()
         assert units.shape[0] >= tiles.shape[0]
-        for t, cap, must in ((tiles, plan.cap, "staged"),
-                             (units, plan.cap, "staged"),
-                             (tiles, 8, "direct")):
-            got, staged, direct = _emulate(got_vals[mode], perm32, off8,
-                                           base, t, int(np.prod(shape)), cap)
-            assert torch.equal(got, want[mode]), (mode, cap)
-            assert (staged if must == "staged" else direct) > 0
-            if must == "staged":    # no unit is above the tiles' bound
-                assert direct == 0
+        for t in (tiles, units):
+            got = _emulate(got_vals[mode], perm32, off8, base, t,
+                           int(np.prod(shape)), plan.cap)
+            assert torch.equal(got, want[mode]), (mode, t.shape[0])
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
