@@ -101,7 +101,8 @@ exits non-zero:
      unstructured bench config (IRR_FIXED), gated at L2rel <= 2e-2 against
      golden/kpp_rv_anchor_irr*.npy with no hand-written launch, timed
      (µs/step, DOF-steps/s), profiled (kernels per step, idle share), and
-     again with precise_reductions; irr140 in f64: the adaptive config
+     at irr140 and irr640 (IRR_PRECISE) again with precise_reductions;
+     irr140 in f64: the adaptive config
      against its anchor, and RV, SI and GFEM for 5 fixed-config steps
      against the CPU (1e-10); KPP SI at mesh 64 on the stencil backend (5
      f64 steps against the CPU, the f32 bench trajectory timed, its L2rel
@@ -150,8 +151,9 @@ exits non-zero:
      32 and 64 (ell adaptive, lattice adaptive, lattice fixed, lattice +
      multigrid adaptive and fixed), 10 steps timed after a warm-up, each
      against the ell run (fixed 1e-2, adaptive 1e-4). Every run: µs/step
-     (CUDA events around a second solve), DOF-steps/s, kernels per step
-     and idle share (torch.profiler, the first 3 steps). The JAX package's
+     (CUDA events around the gated run, after its first steps twice,
+     bit-equal), DOF-steps/s, kernels per step and idle share
+     (torch.profiler, the first 3 steps). The JAX package's
      readings are EULER_STOKES_REFERENCE (scripts/euler_stokes_reference.py,
      CPU). A JSON line {"euler_stokes": ...} holds these readings.
  10. the unstructured fast path (ROADMAP queue 1 item 13) on the four
@@ -195,6 +197,39 @@ exits non-zero:
      phase 8's gate, advection_ho P2 gfem at mesh 8 blocked against gather
      (F64_TOL). A JSON line {"unstructured_fast_path": ...} holds these
      readings.
+ 11. the utilities and solve()'s checkpoint, resume and streaming (ROADMAP
+     queue 1 item 14), which add no kernel: their runs launch the
+     whole-step kernels and the ELL kernels A-D (utilities_phase): (a) KPP
+     f32 bench config at mesh 256 (tiled) and mesh 64 (single), each to
+     its T: a solve checkpointed every 100 (25) steps and one stopped at
+     half its steps and resumed from the .npz, both bit-equal to the plain
+     solve and launching the kernels as often, µs/step of each; (b) mesh
+     256 streamed through a StreamingSink at every 1 and 10 steps: the
+     frames' count, their times (step_times()), the last frame equal to
+     the final u and the thinned frames to the unthinned ones, bit for
+     bit, µs/step beside the unstreamed solve, and the idle share of each
+     (profiled in a fresh interpreter: in the smoke run's own process,
+     after the earlier phases, torch.profiler recorded none of the tiled
+     kernel's launches); mesh 64
+     streamed into a VTXWriter (bytes and ms a write); (c) phase 10's
+     blocked irr640 run, reduced to UTIL_IRR_STEPS steps, as (a), with its
+     78 ELL launches a step; (d) the native preprocessor built with g++
+     on this machine against the numpy path on irr640 (host seconds of
+     each); (e) irr640 f64: ops/dg.nodal_h_dg1 within 1e-12 of
+     helpers.get_nodal_h_ell, guards.blown_up False on the final states,
+     StepTimer's DOF-steps/s within 5 % of CUDA events on a mesh-256
+     solve; (f) metrics.profile_trace around 3 steps of mesh 256 (the
+     same fresh interpreter) names the tiled step kernel. A JSON line
+     {"utilities": ...} holds these readings.
+From phase 6 (d) on, a run is timed on CUDA events around the one solve
+that is gated or counted, after two solves of its trajectory's first
+REPEAT_STEPS steps that must agree bit for bit (the repeat check, at that
+depth, and the warm-up); phase 10's turns start with the counted solve.
+Phase 7's Burgers SI runs, phase 8's (a) and (c) and the whole of phase 9
+run in two processes of their own (SIDE_RUNS), on the card at once with
+the rest of phases 7 and 8 in this one, so that their µs/step and idle
+shares are read beside each other's; their log lines follow this
+process's, and phase 10 starts when all three are done.
 The second-to-last line is the per-kernel JSON summary (the eight ported
 TPU kernels and the four ELL kernels, each with its bound; a step
 kernel's row also holds its Burgers
@@ -259,6 +294,17 @@ ACCURACY_GATE = 1e-2     # L2rel vs the committed f64 anchor (bench.py)
 SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
+# phase 7's Burgers SI runs, phase 8's (a) and (c), and phase 9 (each
+# tuple a process of its own, its functions in order) run beside the rest
+# of phases 7 and 8, all three processes on the card at once; a process
+# gets SIDE_TIMEOUT seconds after the rest is done
+SIDE_RUNS = (("euler_stokes_phase",),
+             ("run_advection_f64", "run_pk_advection", "run_burgers_si"))
+SIDE_TIMEOUT = 600
+# a path timed on one solve first solves its trajectory's first
+# REPEAT_STEPS steps twice, bit-equal (_repeats): the repeat check at that
+# depth, and the warm-up
+REPEAT_STEPS = 5
 # cg_solve's shapes: (label, model, mesh, f64 rtol): the mass solves of the
 # Burgers f64 reference config (rtol 1e-12) at mesh 50 and 100 and of the
 # KPP adaptive f64 config at mesh 64 (timed at 1e-10, as before), and at
@@ -319,6 +365,7 @@ BURGERS_SHARDED = dict(inner_solver="cheby", newton_linear_iters=16)
 # 64 steps to T = 0.5)
 BURGERS_SHARDED_STEPS = 10
 BURGERS_STATE_STEPS = 30   # steps before the kernels' mid-trajectory state
+BURGERS_STATES = {}   # burgers_state's f64 states by (mesh, over)
 BURGERS_GOLDEN_TOL = 1e-9  # tests/test_golden_parity.py:184-191, mesh 50
 # The JAX package's errors of the f64 reference config at mesh 100 (101
 # steps) against the exact solution at t = 0.5, f64 on the CPU:
@@ -356,6 +403,10 @@ IRR = {140: (0.005, 0.5), 224: (0.0025, 0.25), 316: (0.0018, 0.18),
 IRR_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
                  newton_linear_iters=8)
 IRR_GATE = 2e-2
+# the meshes whose gather run is repeated with precise_reductions: the
+# smallest and the largest (the other three cost ~25 s of the smoke run's
+# 1200 s limit, which phase 11 needs)
+IRR_PRECISE = (140, 640)
 # make_anchor.py:139-142's window, set for the f64 runs: printed, not gated
 IRR_WINDOW = (0.2, 12.5)
 # sha256 of points (f64) and cells (int64) of each anchored mesh in RCM
@@ -501,6 +552,7 @@ EULER_ELL = ("riemann2d", 128)
 # adaptive ones at STOKES_ADAPTIVE_GATE
 STOKES_ORACLE_RTOL = 1e-8
 STOKES_TIMED_ORACLE_STEPS = 20
+STOKES_REPEAT_STEPS = 2   # a Stokes step: three adaptive solves
 STOKES_IDENTITY = dict(nx=16, num_steps=20, T=0.4)
 STOKES_IDENTITY_GATE = 1e-9
 STOKES_BENCH = dict(num_steps=10, T=0.2, dtype="float32", krylov_rtol=1e-6)
@@ -1650,6 +1702,38 @@ def _counted_solve(p):
     return u, dict(_build.launches)
 
 
+def _counted_timed(fn, steps):
+    """(fn(), launch counts, µs/step): counts zeroed just before fn and
+    read just after it, CUDA events around it."""
+    from conservation_fem_tpu_torch.ops import _build
+
+    _build.launches.clear()
+    out, us = _timed(fn, steps)
+    return out, dict(_build.launches), us
+
+
+def _prefix(p, steps=REPEAT_STEPS):
+    """A copy of problem p that solves only its trajectory's first
+    ``steps`` steps; p's static operators are built first, so that the
+    copy shares them."""
+    force = getattr(p, "_force_lazy_operators", None)
+    if force is not None:
+        force()
+    q = copy.copy(p)
+    q.num_steps = min(steps, p.num_steps)
+    return q
+
+
+def _repeats(label, fn):
+    """Two calls of fn(), a short solve, must agree bit for bit. They are
+    also the warm-up of the path before its one timed solve."""
+    import torch
+
+    a = fn()
+    if not torch.equal(fn(), a):
+        raise AssertionError(f"{label}: repeated solves differ")
+
+
 def _kernel_solve(p, kernel="single"):
     """(solution, microseconds per step) of p's trajectory with one launch
     per step of the single kernel (fused_rv_step) or the tiled kernel
@@ -1734,7 +1818,8 @@ def run_main_path(mesh_size, T, mode, anchor, card):
             f"max|split - tiled| {max_err(u, u_tiled):.3e}")
     q = kpp.build(_bench_cfg(kpp, mesh_size, "float32", **extra),
                   device="cuda")
-    uq, us_plain = _timed_solve(q)
+    _prefix(q).solve()       # the warm-up: the first REPEAT_STEPS steps
+    uq, us_plain = _timed(lambda: q.solve().u, q.num_steps)
     rel_plain = _gate(uq, mesh_size, anchor)
     d_plain = max_err(u, uq)
     for name, us in (("kernel", us_kernel), ("plain-torch", us_plain)):
@@ -2114,23 +2199,27 @@ def burgers_state(mesh, dtype="float64", **over):
     """(problem, u, u_old, u_old_old, g) on the card after
     BURGERS_STATE_STEPS steps of the plain f64 path of the fixed-iteration
     config (the shocks have formed), g the Dirichlet data of the next step;
-    dtype: the problem's (the fields are f64 either way)."""
+    dtype: the problem's (the fields are f64 either way). The steps run
+    once for each (mesh, over) (BURGERS_STATES); each call gets copies."""
     from conservation_fem_tpu_torch.models import burgers
 
     cfg = burgers.BurgersConfig(mesh_size=mesh, **{**BURGERS_FIXED, **over})
-    p = burgers.build(dataclasses.replace(cfg, dtype="float64"),
-                      device="cuda")
-    carry = (p.u0,) * 3
-    times = p.step_times()
-    for t in times[:BURGERS_STATE_STEPS]:
-        carry, _ = p.step(carry, t)
-    sh = p._shape2
-    u2, uo2, uoo2 = (v.reshape(sh) for v in carry)
-    g2 = p.bc_value(p.points, times[BURGERS_STATE_STEPS]).reshape(sh)
+    key = (mesh, tuple(sorted(over.items())))
+    if key not in BURGERS_STATES:
+        p = burgers.build(dataclasses.replace(cfg, dtype="float64"),
+                          device="cuda")
+        carry = (p.u0,) * 3
+        times = p.step_times()
+        for t in times[:BURGERS_STATE_STEPS]:
+            carry, _ = p.step(carry, t)
+        sh = p._shape2
+        g2 = p.bc_value(p.points, times[BURGERS_STATE_STEPS]).reshape(sh)
+        BURGERS_STATES[key] = (p, [v.reshape(sh) for v in carry] + [g2])
+    p, fields = BURGERS_STATES[key]
     if dtype != "float64":
         p = burgers.build(dataclasses.replace(cfg, dtype=dtype),
                           device="cuda")
-    return p, u2, uo2, uoo2, g2
+    return (p, *(v.clone() for v in fields))
 
 
 def _as(state, dtype):
@@ -2369,6 +2458,7 @@ def check_burgers_kernels(regs):
             f"{r['plain_ms']:.4f} ms; bound {b[0]:.5f} ms ({b[1]}); max "
             f"|kernel-plain| f64 {errs[name]['f64']:.3e}, f32 "
             f"{errs[name]['f32']:.3e}")
+    BURGERS_STATES.clear()
     return out
 
 
@@ -2419,11 +2509,11 @@ def run_burgers_paths(card):
     """The fixed-iteration config through burgers.build(...).solve() with
     use_kernels, f32 and f64 at mesh 200, 400 and 800 (BURGERS_PATHS): the
     kernel _fused_mode picks, the launch counts of each run, errors against
-    the exact solution, µs/step after a warm-up solve, and the idle share
-    of mesh 200 f32. Gates: each f32 run within BURGERS_F32_VS_F64 (L2rel)
-    of the f64 run on its mesh; the f64 L1 error falls from 200 to 400 to
-    800. Returns ({launch key: count}, {launch key: run}) of the f32
-    runs."""
+    the exact solution, µs/step of the counted solve (after _repeats),
+    and the idle share of mesh 200 f32. Gates: each f32 run within
+    BURGERS_F32_VS_F64 (L2rel) of the f64 run on its mesh; the f64 L1
+    error falls from 200 to 400 to 800. Returns ({launch key: count},
+    {launch key: run}) of the f32 runs."""
     import torch
 
     from conservation_fem_tpu_torch.models import burgers
@@ -2437,7 +2527,10 @@ def run_burgers_paths(card):
             raise AssertionError(f"burgers mesh {mesh} {dtype}: mode "
                                  f"{p._fused_mode()}, {p.num_steps} steps; "
                                  f"expected {mode}, {mesh + 1}")
-        u, c = _counted_solve(p)
+        label = f"burgers mesh {mesh} {dtype}"
+        q = _prefix(p)
+        _repeats(label, lambda: q.solve().u)
+        u, c, us = _counted_timed(lambda: p.solve().u, p.num_steps)
         want = _expected_launches(mode, p.num_steps, cfg.newton_iters,
                                   "burgers")
         if c != want:
@@ -2447,10 +2540,6 @@ def run_burgers_paths(card):
             raise AssertionError(f"burgers mesh {mesh} {dtype}: not finite")
         l1 = float(burgers.l1_error_vs_exact(p, u, 0.5))
         l2 = float(burgers.l2_error_vs_exact(p, u, 0.5))
-        u_again, us = _timed_solve(p)
-        if not torch.equal(u_again, u):
-            raise AssertionError(f"burgers mesh {mesh} {dtype}: repeated "
-                                 "solves differ")
         n = int(p.u0.numel())
         extra = ""
         if (mesh, dtype) == (200, "float32"):
@@ -2511,8 +2600,7 @@ def profiled(fn, steps):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_spans(prof)
     busy = _busy_us(kernels)
     return dict(profiled_wall_us=wall_us, profiled_device_busy_us=busy,
                 profiled_idle=1.0 - busy / wall_us,
@@ -2593,17 +2681,15 @@ def irr_meshes():
 
 
 def _ell_run(p, label):
-    """(u, launch counts, us/step): one counted solve, then a solve timed
-    on CUDA events after it, which must repeat its bits."""
-    import torch
-
-    u, counts = _counted_solve(p)
+    """(u, launch counts, us/step): the trajectory's first REPEAT_STEPS
+    steps twice, bit-equal (_repeats), then one counted solve timed on
+    CUDA events."""
+    q = _prefix(p)
+    _repeats(label, lambda: q.solve().u)
+    u, counts, us = _counted_timed(lambda: p.solve().u, p.num_steps)
     if counts:
         raise AssertionError(f"{label}: launched hand-written kernels "
                              f"{counts}; this path has none")
-    u2, us = _timed(lambda: p.solve().u, p.num_steps)
-    if not torch.equal(u2, u):
-        raise AssertionError(f"{label}: repeated solves differ")
     return u, counts, us
 
 
@@ -2626,9 +2712,9 @@ def run_ell_paths(card, meshes):
     config (IRR_FIXED), through kpp.build(cfg, host_mesh=m).solve(): gated
     at L2rel <= IRR_GATE against each anchor, min and max beside the
     anchor's, no hand-written launch, µs/step and DOF-steps/s (CUDA events
-    around a solve after the first), kernels per step and idle share
-    (torch.profiler, the first 3 steps), and the same run with
-    precise_reductions, timed the same way.
+    around the gated solve, after _repeats), kernels per step and idle
+    share (torch.profiler, the first 3 steps), and at IRR_PRECISE the same
+    run with precise_reductions, timed the same way.
     Returns {nx: readings}."""
     from conservation_fem_tpu_torch.models import kpp
 
@@ -2642,10 +2728,12 @@ def run_ell_paths(card, meshes):
         u, counts, us = _ell_run(p, label)
         rel, lo, hi, rlo, rhi = _irr_gate(u, nx, label)
         prof = idle_profiled(p, steps=3)
-        q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
-                      host_mesh=m)
-        uq, _, usq = _ell_run(q, label + " precise_reductions")
-        relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
+        relq = usq = None
+        if nx in IRR_PRECISE:
+            q = kpp.build(dataclasses.replace(cfg, precise_reductions=True),
+                          host_mesh=m)
+            uq, _, usq = _ell_run(q, label + " precise_reductions")
+            relq = _irr_gate(uq, nx, label + " precise_reductions")[0]
         n = m.n_nodes
         out[nx] = dict(nodes=n, steps=p.num_steps, l2rel=rel, u_min=lo,
                        u_max=hi, anchor_min=rlo, anchor_max=rhi,
@@ -2658,9 +2746,9 @@ def run_ell_paths(card, meshes):
             f"{IRR_WINDOW}, not gated); hand-written launches 0; {us:.1f} "
             f"us/step, {n / us * 1e6:.4g} DOF-steps/s; "
             f"{prof['kernels_per_step']:.1f} kernels/step, idle share "
-            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps); "
-            f"precise_reductions: L2rel {relq:.4e}, {usq:.1f} us/step "
-            f"({card})")
+            f"{prof['profiled_idle']:.4f} (profiled, first 3 steps)"
+            + ("" if relq is None else f"; precise_reductions: L2rel "
+               f"{relq:.4e}, {usq:.1f} us/step") + f" ({card})")
     return out
 
 
@@ -2923,9 +3011,9 @@ def run_advection_f32(card):
     """(b) rv_node, one rotation on disk_mesh(1/64), f32 fixed-iteration
     Chebyshev config (ADV_FIXED): L2rel <= ADV_F32_GATE against the card's
     f64 adaptive end state on the same mesh; no hand-written launch;
-    µs/step and DOF-steps/s (CUDA events, a solve after the first),
-    kernels per step and idle share (torch.profiler, the first 3 steps);
-    the f64 run's µs/step beside it."""
+    µs/step and DOF-steps/s (CUDA events around the one solve, after
+    _repeats), kernels per step and idle share (torch.profiler, the first
+    3 steps); the f64 run's µs/step beside it."""
     import torch
 
     from conservation_fem_tpu_torch.models import linear_advection as la
@@ -2935,17 +3023,18 @@ def run_advection_f32(card):
     m = disk_mesh(1.0 / n)
     cfg = la.AdvectionConfig(mesh_size=n, stabilization="rv_node")
     p64 = la.build(cfg, host_mesh=m)
-    u64 = _no_launch("advection rv_node f64 mesh 64",
-                     lambda: la.solve(p64).u)
-    _, us64 = _timed(lambda: la.solve(p64).u, p64.num_steps)
+    la.solve(_prefix(p64))       # the warm-up: the first REPEAT_STEPS steps
+    u64, us64 = _no_launch("advection rv_node f64 mesh 64", lambda: _timed(
+        lambda: la.solve(p64).u, p64.num_steps))
     p = la.build(dataclasses.replace(cfg, dtype="float32", **ADV_FIXED),
                  host_mesh=m)
     label = f"advection rv_node f32 fixed Chebyshev mesh {n}"
-    u = _no_launch(label, lambda: la.solve(p).u)
-    u2, us = _timed(lambda: la.solve(p).u, p.num_steps)
-    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
-        raise AssertionError(f"{label}: repeated solves differ or not "
-                             "finite")
+    q = _prefix(p)
+    _repeats(label, lambda: la.solve(q).u)
+    u, us = _no_launch(label, lambda: _timed(lambda: la.solve(p).u,
+                                             p.num_steps))
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: not finite")
     rel = float((u.double() - u64).norm() / u64.norm())
     err = float(la.l2_error_vs_ic(p, u))
     prof = idle_profiled(p, steps=3, solve=la.solve)
@@ -3063,8 +3152,9 @@ def run_pk_burgers(card, device="cuda"):
 def time_pk_burgers(card):
     """(d) P2 SI Burgers at mesh PK_BURGERS_TIMED_MESH, f32 fixed
     Chebyshev config: finite, no hand-written launch, µs/step and
-    DOF-steps/s (CUDA events, a solve after the first), kernels per step
-    and idle share (torch.profiler, the first 3 steps)."""
+    DOF-steps/s (CUDA events around the one solve, after _repeats),
+    kernels per step and idle share (torch.profiler, the first 3
+    steps)."""
     import torch
 
     from conservation_fem_tpu_torch.models import burgers
@@ -3073,11 +3163,12 @@ def time_pk_burgers(card):
     p = burgers.build(burgers.BurgersConfig(
         mesh_size=n, dtype="float32", **PK_BURGERS, **PK_BURGERS_FIXED))
     label = f"burgers P2 SI mesh {n} f32 fixed Chebyshev config"
-    u = _no_launch(label, lambda: p.solve().u)
-    u2, us = _timed(lambda: p.solve().u, p.num_steps)
-    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
-        raise AssertionError(f"{label}: repeated solves differ or not "
-                             "finite")
+    q = _prefix(p)
+    _repeats(label, lambda: q.solve().u)
+    u, us = _no_launch(label, lambda: _timed(lambda: p.solve().u,
+                                             p.num_steps))
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: not finite")
     prof = idle_profiled(p, steps=3)
     dofs = int(u.numel())
     log(f"{label} ({dofs} dofs), {p.num_steps} steps: {us:.1f} us/step, "
@@ -3109,9 +3200,10 @@ def _l2rel(a, b):
 
 def _euler_run(card, prob, nx, dtype, backend="auto"):
     """One Euler run through euler.build(...) and euler.solve: the JAX
-    package's steps and dt, no hand-written launch, a second solve timed
-    (CUDA events) and equal to the first, the first 3 steps profiled.
-    (end state (N,4) f64 numpy, readings)."""
+    package's steps and dt, the first REPEAT_STEPS steps twice and
+    bit-equal, then one solve with no hand-written launch, timed (CUDA
+    events), the first 3 steps profiled. (end state (N,4) f64 numpy,
+    readings)."""
     import torch
 
     from conservation_fem_tpu_torch.models import euler
@@ -3123,15 +3215,16 @@ def _euler_run(card, prob, nx, dtype, backend="auto"):
     p = euler.build(euler.EulerConfig(problem=prob, nx=nx, dtype=dtype,
                                       backend=backend))
     build_s = time.perf_counter() - t0
-    U = _no_launch(label, lambda: euler.solve(p).U)
-    U2, us = _timed(lambda: euler.solve(p).U, p.num_steps)
+    k = min(REPEAT_STEPS, p.num_steps)
+    _repeats(label, lambda: euler.solve(p, num_steps=k).U)
+    U, us = _no_launch(label, lambda: _timed(lambda: euler.solve(p).U,
+                                             p.num_steps))
     nodes = int(U.shape[0])
     if (p.num_steps, p.dt, nodes) != (ref["steps"], ref["dt"], ref["nodes"]):
         raise AssertionError(f"{label}: {p.num_steps} steps, dt {p.dt}, "
                              f"{nodes} nodes; the JAX package's {ref}")
-    if not torch.equal(U2, U) or not bool(torch.isfinite(U).all()):
-        raise AssertionError(f"{label}: repeated solves differ or not "
-                             "finite")
+    if not bool(torch.isfinite(U).all()):
+        raise AssertionError(f"{label}: not finite")
     prof = profiled(lambda: euler.solve(p, num_steps=3), 3)
     row = dict(nodes=nodes, steps=p.num_steps, build_s=build_s,
                us_per_step=us, dof_steps_per_s=nodes / us * 1e6,
@@ -3208,18 +3301,19 @@ def _stokes_stepper(**kw):
 
 
 def _stokes_timed(card, label, n, **kw):
-    """One Stokes configuration: n steps with no hand-written launch, n
-    more timed (CUDA events) and equal to the first, the first 3 steps
-    profiled. (u (2,N2) f64 numpy, readings)."""
+    """One Stokes configuration: the first STOKES_REPEAT_STEPS steps
+    twice and bit-equal, then n steps with no hand-written launch, timed
+    (CUDA events), the first 3 steps profiled. (u (2,N2) f64 numpy,
+    readings)."""
     import torch
 
     t0 = time.perf_counter()
     p, run = _stokes_stepper(**kw)
     build_s = time.perf_counter() - t0
-    u, pr = _no_launch(label, lambda: run(n))
-    (u2, _), us = _timed(lambda: run(n), n)
-    if not torch.equal(u2, u) or not bool(torch.isfinite(u).all()):
-        raise AssertionError(f"{label}: repeated runs differ or not finite")
+    _repeats(label, lambda: run(min(STOKES_REPEAT_STEPS, n))[0])
+    (u, pr), us = _no_launch(label, lambda: _timed(lambda: run(n), n))
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: not finite")
     prof = profiled(lambda: run(3), 3)
     dofs = int(u.numel() + pr.numel())
     row = dict(dofs=dofs, steps=n, build_s=build_s, us_per_step=us,
@@ -3322,11 +3416,27 @@ def euler_stokes_phase(card):
                 stokes_bench=stokes_bench(card))
 
 
-def _busy_us(events):
-    """Microseconds covered by the union of the events' time ranges."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+def _device_spans(prof):
+    """(start, end) in µs of each device activity (kernels, copies, sets)
+    that the finished torch.profiler ``prof`` recorded, read from its
+    kineto events as prof.events() reads them (hidden and memory records
+    left out) without building its FunctionEvents, which costs seconds a
+    profile of a few thousand kernels."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = [(e.start_ns(), e.end_ns())
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda and not e.name().startswith("[")
+          and not getattr(e, "is_hidden_event", lambda: False)()]
+    t0 = min((s for s, _ in ns), default=0)    # exact in integers
+    return [((s - t0) / 1e3, (e - t0) / 1e3) for s, e in ns]
+
+
+def _busy_us(spans):
+    """Microseconds covered by the union of the (start, end) spans."""
     busy, end = 0.0, float("-inf")
-    for s, e in spans:
+    for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
@@ -3354,8 +3464,7 @@ def idle_share(mesh):
         p.solve()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_spans(prof)
     busy = _busy_us(kernels)
     _, us_step = _timed_solve(p)
     g2 = p.dirichlet_grid(p.dirichlet_frames([p.dt])[0])
@@ -3566,9 +3675,10 @@ ELL_KERNELS = {
 # the meshes of each backend's KPP RV f32 bench-config runs (IRR, IRR_FIXED)
 BLOCKED_PATHS = {"blocked": (140, 224, 316, 448, 640),
                  "blocked2d": (140, 640)}
-# the turns a run is timed in: blocked, gather, blocked at irr140 and
-# irr640; blocked, gather at the mid sizes; blocked2d at irr140 once,
-# untimed against gather (the smoke run's time limit)
+# the turns a run is timed in, the counted solve the first (after two
+# solves of REPEAT_STEPS steps, the warm-up): blocked, gather, blocked at
+# irr140 and irr640; blocked, gather at the mid sizes; blocked2d at irr140
+# once, untimed against gather (the smoke run's time limit)
 BLOCKED_TURNS = {("blocked", 140): 3, ("blocked", 640): 3,
                  ("blocked2d", 640): 3, ("blocked2d", 140): 1}
 BLOCKED_VS_GATHER_F64 = 1e-9
@@ -3643,8 +3753,10 @@ def run_blocked_paths(card, meshes):
             if p.num_steps != g.num_steps:
                 raise AssertionError(f"{label}: {p.num_steps} steps, gather "
                                      f"{g.num_steps}")
-            p._force_lazy_operators()     # M, h_cg: set-up, not steps
-            u, counts = _counted_solve(p)
+            pre = _prefix(p)              # M, h_cg: set-up, not steps
+            _repeats(label, lambda: pre.solve().u)
+            # the counted solve is the first of the turns (BLOCKED_TURNS)
+            u, counts, t = _counted_timed(lambda: p.solve().u, p.num_steps)
             want = blocked_launches(p.cfg, p.num_steps)
             if counts != want:
                 raise AssertionError(f"{label}: launched {counts}, the code "
@@ -3652,11 +3764,11 @@ def run_blocked_paths(card, meshes):
             un = u if slot is None else u[torch.as_tensor(slot,
                                                           device=u.device)]
             rel, lo, hi, _, _ = _irr_gate(un, nx, label)
-            # timed in turns (BLOCKED_TURNS); each blocked solve repeats
-            # the counted one's bits
-            us = {}
-            turns = ((backend, p), ("gather", g), (backend, p))
-            for name, q in turns[:BLOCKED_TURNS.get((backend, nx), 2)]:
+            # timed in turns (BLOCKED_TURNS); a blocked solve after the
+            # counted one repeats its bits
+            us = {backend: [t]}
+            turns = (("gather", g), (backend, p))
+            for name, q in turns[:BLOCKED_TURNS.get((backend, nx), 2) - 1]:
                 got, t = _timed(lambda: q.solve().u, q.num_steps)
                 us.setdefault(name, []).append(t)
                 if q is p and not torch.equal(got, u):
@@ -4263,11 +4375,12 @@ def run_blocked_pk_advection(card):
     q = la.build(cfg, host_mesh=m)
     label = f"advection rv_node f32 fixed Chebyshev mesh {ADV_F32_MESH} " \
             "blocked"
-    uq, c = _some_launches(label, lambda: la.solve(q).u,
-                           ("ell_spmv", "ell_assemble"))
-    uq2, us = _timed(lambda: la.solve(q).u, q.num_steps)
-    if not torch.equal(uq2, uq):
-        raise AssertionError(f"{label}: repeated solves differ")
+    pre = _prefix(q)
+    _repeats(label, lambda: la.solve(pre).u)
+    uq, c, us = _counted_timed(lambda: la.solve(q).u, q.num_steps)
+    if any(not c.get(k) for k in ("ell_spmv", "ell_assemble")):
+        raise AssertionError(f"{label}: launched {c}, expected ell_spmv "
+                             "and ell_assemble")
     perm = torch.as_tensor(rcm_permutation(m), device=uq.device)
     rel = float((uq.double()[perm] - u64).norm() / u64.norm())
     prof = idle_profiled(q, steps=3, solve=la.solve)
@@ -4302,16 +4415,392 @@ def run_blocked_pk_advection(card):
 
 def blocked_phase(card, meshes, regs):
     """Phase 10: (b), (a), (c), (d). Returns (readings, kernel rows,
-    irr640's launch counts)."""
+    irr640's launch counts, the blocked irr640 problem)."""
     t0 = time.perf_counter()
     paths, states, counts = run_blocked_paths(card, meshes)
     rows = check_ell_kernels(states, regs, card)
+    main = states[640][0]
     states.clear()
     out = dict(paths=paths, f64=run_blocked_f64(meshes),
                pk_advection=run_blocked_pk_advection(card))
     out["seconds"] = time.perf_counter() - t0
     log(f"unstructured fast path phase: {out['seconds']:.0f} s ({card})")
-    return out, rows, counts
+    return out, rows, counts, main
+
+
+# phase 11: the stencil main paths (mesh, checkpoint every) whose
+# checkpointed and resumed solves are held to the plain solve's bits; the
+# blocked irr640 run, cut to UTIL_IRR_STEPS steps, checkpointed every
+# UTIL_IRR_EVERY; the streams' thinning; the VTX stream's; the steps of the
+# idle-share windows and of the profile trace; the gates of StepTimer
+# against CUDA events and of nodal_h_dg1 against get_nodal_h_ell
+UTIL_PATHS = ((256, 100), (64, 25))
+UTIL_IRR_STEPS = 20
+UTIL_IRR_EVERY = 5
+UTIL_STREAM_EVERY = (1, 10)
+UTIL_VTX_EVERY = 10
+UTIL_IDLE_STEPS = 40
+UTIL_TRACE_STEPS = 3
+UTIL_TIMER_TOL = 0.05
+UTIL_NODAL_H_TOL = 1e-12
+
+
+def checkpoint_runs(p, every, label, want, tmp):
+    """(a), (c): p's plain solve, a solve checkpointed every ``every``
+    steps and one stopped at half its steps and resumed from the .npz,
+    the last two bit-equal to the first with its launch counts (``want``,
+    the code's prediction; the stopped and the resumed solve counted
+    together). Returns (u, readings)."""
+    import torch
+
+    from conservation_fem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    n = p.num_steps
+    p.solve()
+    u, counts, us_plain = _counted_timed(lambda: p.solve().u, n)
+    if counts != want:
+        raise AssertionError(f"{label}: launched {counts}, expected {want}")
+    path = os.path.join(tmp, f"{label.split()[0]}_chunked.npz")
+    uc, c_ck, us_ck = _counted_timed(
+        lambda: p.solve(checkpoint_path=path, checkpoint_every=every).u, n)
+    if load_checkpoint(path).step != n:
+        raise AssertionError(f"{label}: the last checkpoint is not step {n}")
+    half, path2 = n // 2, os.path.join(tmp, f"{label.split()[0]}_stopped")
+
+    def stop_and_resume():
+        p.num_steps = half
+        try:
+            p.solve(checkpoint_path=path2, checkpoint_every=every)
+        finally:
+            p.num_steps = n
+        if load_checkpoint(path2).step != half:
+            raise AssertionError(f"{label}: stopped at the wrong step")
+        return p.solve(checkpoint_path=path2, checkpoint_every=every,
+                       resume=True).u
+
+    ur, c_res, us_res = _counted_timed(stop_and_resume, n)
+    for name, v, c in (("checkpointed", uc, c_ck),
+                       ("stopped and resumed", ur, c_res)):
+        if not torch.equal(v, u):
+            raise AssertionError(f"{label}: the {name} solve differs from "
+                                 f"the plain solve")
+        if c != counts:
+            raise AssertionError(f"{label}: the {name} solve launched {c}, "
+                                 f"the plain solve {counts}")
+    nbytes = os.path.getsize(path)
+    log(f"{label}, {n} steps: the solve checkpointed every {every} steps "
+        f"and the one stopped at step {half} and resumed from "
+        f"{os.path.basename(path2)}.npz bit-equal to the plain solve, "
+        f"launches {counts} in each ({sum(counts.values()) / n:g} a "
+        f"step); {us_plain:.1f} us/step plain, "
+        f"{us_ck:.1f} checkpointed ({us_ck / us_plain:.4f} x), "
+        f"{us_res:.1f} stopped and resumed; a checkpoint {nbytes} bytes")
+    return u, dict(steps=n, every=every, launches=counts,
+                   us_per_step_plain=us_plain,
+                   us_per_step_checkpointed=us_ck,
+                   us_per_step_stopped_resumed=us_res,
+                   checkpoint_bytes=nbytes)
+
+
+def stream_runs(p, u, label):
+    """(b): p solved with a StreamingSink at each of UTIL_STREAM_EVERY:
+    the frames' count, their times (step_times()), the last frame equal to
+    u and every thinned frame to the unthinned one at its step, bit for
+    bit; µs/step of each."""
+    import torch
+
+    from conservation_fem_tpu_torch.utils.streaming import StreamingSink
+
+    n, times = p.num_steps, p.step_times()
+    out, frames = {}, {}
+    for every in UTIL_STREAM_EVERY:
+        got = frames[every] = []
+        sink = StreamingSink(lambda v, t: got.append((v, t)), every=every)
+        v, us = _timed(lambda: p.solve(stream=sink).u, n)
+        sink.close()
+        if not torch.equal(v, u):
+            raise AssertionError(f"{label}: the streamed solve differs")
+        if len(got) != -(-n // every):
+            raise AssertionError(f"{label}: {len(got)} frames at every = "
+                                 f"{every}, {n} steps")
+        if [t for _, t in got] != times[::every]:
+            raise AssertionError(f"{label}: frame times differ from "
+                                 f"step_times() at every = {every}")
+        out[f"every_{every}"] = dict(frames=len(got), us_per_step=us)
+    if not np.array_equal(frames[1][-1][0], u.cpu().numpy()):
+        raise AssertionError(f"{label}: the last frame is not the final u")
+    for j, (v, _) in enumerate(frames[UTIL_STREAM_EVERY[1]]):
+        if not np.array_equal(v, frames[1][j * UTIL_STREAM_EVERY[1]][0]):
+            raise AssertionError(f"{label}: thinned frame {j} differs")
+    frames.clear()
+    return out
+
+
+def utilities_profiled():
+    """(b), (f) in a fresh interpreter: the idle share (torch.profiler, the
+    first UTIL_IDLE_STEPS steps) of the mesh-256 f32 bench config
+    unstreamed and streamed at each of UTIL_STREAM_EVERY, and
+    metrics.profile_trace around its first UTIL_TRACE_STEPS steps, which
+    must name the tiled step kernel. Returns the readings."""
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.utils.metrics import (TRACE_FILE,
+                                                          profile_trace)
+    from conservation_fem_tpu_torch.utils.streaming import StreamingSink
+
+    mesh = UTIL_PATHS[0][0]
+    p = kpp.build(_bench_cfg(kpp, mesh, "float32", use_kernels=True),
+                  device="cuda")
+    q = copy.copy(p)
+    q.num_steps = UTIL_TRACE_STEPS
+    q.solve()
+    out = dict(unstreamed=idle_profiled(p, steps=UTIL_IDLE_STEPS))
+    for every in UTIL_STREAM_EVERY:
+        drop = StreamingSink(lambda v, t: None, every=every)
+        out[f"every_{every}"] = idle_profiled(
+            p, steps=UTIL_IDLE_STEPS, solve=lambda r: r.solve(stream=drop))
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as logdir:
+            q.solve()
+        trace = os.path.join(logdir, TRACE_FILE)
+        with open(trace) as fh:
+            names = fh.read().count("tiled_rv_step_kernel")
+        out["trace"] = dict(bytes=os.path.getsize(trace),
+                            tiled_rv_step_kernel=names)
+    if names < UTIL_TRACE_STEPS:
+        raise AssertionError(f"profile_trace around {UTIL_TRACE_STEPS} "
+                             f"steps names the tiled step kernel {names} "
+                             f"times")
+    return out
+
+
+def _side_start(names, *args):
+    """Start chip_smoke.<name>(*args) for each of ``names``, in order, in
+    a fresh interpreter of their own; its output goes to temporary files
+    (a pipe could fill and stop it). _side_join reads the results."""
+    code = ("import json, chip_smoke as cs; print(json.dumps("
+            f"{{n: getattr(cs, n)(*{args!r}) for n in {tuple(names)!r}}}))")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=out, stderr=err, text=True)
+    return dict(names=tuple(names), proc=proc, out=out, err=err,
+                t0=time.perf_counter())
+
+
+def _side_join(side, timeout=SIDE_TIMEOUT):
+    """{name: result} of a _side_start process: waits for it, relays its
+    log lines and its standard error to this process's, raises if it
+    failed."""
+    side["proc"].wait(timeout)
+    secs = time.perf_counter() - side["t0"]
+    out, err = side["out"], side["err"]
+    out.seek(0)
+    err.seek(0)
+    lines = out.read().strip().splitlines()
+    sys.stderr.write(err.read())
+    for line in lines[:-1]:
+        log(line)
+    if side["proc"].returncode != 0 or not lines:
+        raise RuntimeError(f"{', '.join(side['names'])} failed in their "
+                           f"process (exit {side['proc'].returncode})")
+    log(f"{', '.join(side['names'])}: {secs:.0f} s in a process of their "
+        "own")
+    return json.loads(lines[-1])
+
+
+def _side_stop(side):
+    """Stop a _side_start process if it still runs; close its files."""
+    if side["proc"].poll() is None:
+        side["proc"].kill()
+    side["proc"].wait()
+    side["out"].close()
+    side["err"].close()
+
+
+def _fresh(fn_name):
+    """chip_smoke.<fn_name>() in a fresh interpreter, its result (in this
+    process torch.profiler stopped recording the tiled kernel's launches
+    after phase 10; a fresh one records them)."""
+    side = _side_start((fn_name,))
+    try:
+        return _side_join(side)[fn_name]
+    finally:
+        _side_stop(side)
+
+
+def vtx_stream(p, label, tmp):
+    """(b): p solved with a VTXWriter stream of every UTIL_VTX_EVERY-th
+    step into tmp; the writes, bytes and ms a write."""
+    from conservation_fem_tpu_torch.utils.io import VTXWriter
+    from conservation_fem_tpu_torch.utils.streaming import StreamingSink
+
+    n = p.num_steps
+    with VTXWriter(os.path.join(tmp, "kpp"), p.host_mesh, p.u0) as vtx:
+        sink = StreamingSink(lambda v, t: vtx.write(t, field=v),
+                             every=UTIL_VTX_EVERY)
+        _, us = _timed(lambda: p.solve(stream=sink).u, n)
+    st = vtx.stats
+    files = sorted(os.listdir(vtx.dir))
+    if st["writes"] != -(-n // UTIL_VTX_EVERY) or len(files) != st[
+            "writes"] + 1:
+        raise AssertionError(f"{label}: VTX stream wrote {st['writes']} "
+                             f"steps, files {files[:3]}...")
+    log(f"{label} with a VTXWriter stream every {UTIL_VTX_EVERY} steps: "
+        f"{st['writes']} writes, {st['bytes_per_write']} bytes and "
+        f"{st['ms_per_write']:.3f} ms a write (host), {us:.1f} us/step")
+    return dict(us_per_step=us, **st)
+
+
+def native_check(m):
+    """(d): the native preprocessor built here (g++) on irr640 against the
+    numpy path: boundary mask, ELL adjacency and everything built from it,
+    and the RCM order; host seconds of each."""
+    from conservation_fem_tpu_torch import native_ext
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+
+    t0 = time.perf_counter()
+    native_ext.build()
+    t_build = time.perf_counter() - t0
+    cells = m.cells.astype(np.int64)
+    t0 = time.perf_counter()
+    bnd, _, _, rcm = native_ext.preprocess_mesh(m.n_nodes, cells)
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = tmesh.mesh_from_arrays(m.points, m.cells, use_native=True)
+    t_nat_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_patches = tmesh._build_patches(m.n_nodes, cells)
+    ref_bnd = tmesh._boundary_mask(m.n_nodes, cells)
+    ref_rcm = tmesh.rcm_permutation(m)
+    t_numpy = time.perf_counter() - t0
+    same = [np.array_equal(bnd, ref_bnd), np.array_equal(rcm, ref_rcm),
+            np.array_equal(ref_patches[0], nat.patch_cols)]
+    same += [np.array_equal(getattr(nat, k), getattr(m, k)) for k in (
+        "boundary_mask", "patch_cols", "patch_mask", "diag_slot",
+        "cell_slots", "mat_perm", "mat_segs", "vec_perm", "vec_segs")]
+    if not all(same):
+        raise AssertionError(f"native preprocessor differs from numpy on "
+                             f"irr640: {same}")
+    log(f"native preprocessor (g++ build {t_build:.1f} s) on irr640: "
+        f"boundary, adjacency and RCM equal to the numpy path's, and the "
+        f"mesh built from them equal in every ELL array; host seconds: "
+        f"library {t_lib:.3f} (the mesh with it {t_nat_mesh:.3f}), numpy "
+        f"{t_numpy:.3f} (patches, boundary, RCM)")
+    return dict(build_s=t_build, library_s=t_lib, native_mesh_s=t_nat_mesh,
+                numpy_s=t_numpy)
+
+
+def utilities_phase(card, mesh640, irr640):
+    """Phase 11: the utilities and solve()'s checkpoint, resume and
+    streaming on the card (ROADMAP queue 1 item 14; no kernel of its own:
+    the stencil main paths launch the whole-step kernels, the blocked
+    path the ELL kernels A-D). (a) KPP f32 bench config at mesh 256
+    (tiled) and 64 (single), each to its T: checkpointed and stopped and
+    resumed solves bit-equal to the plain solve with its launch counts;
+    (b) mesh 256 streamed at every 1 and 10, then mesh 64 into a
+    VTXWriter; (c) blocked irr640 (phase 10's problem) cut to
+    UTIL_IRR_STEPS steps, as (a); (d) the native preprocessor against
+    numpy on irr640; (e) f64 on irr640 nodal_h_dg1 against
+    get_nodal_h_ell, blown_up on the final states, StepTimer against CUDA
+    events on a mesh-256 solve; (f) profile_trace around mesh 256's first
+    UTIL_TRACE_STEPS steps names the tiled kernel. The profiles of (b) and
+    (f) run in a fresh interpreter (utilities_profiled). Every gate
+    raises."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops import dg
+    from conservation_fem_tpu_torch.ops.assembly import assemble_mass
+    from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
+    from conservation_fem_tpu_torch.utils.guards import blown_up
+    from conservation_fem_tpu_torch.utils.metrics import StepTimer
+
+    t_phase = time.perf_counter()
+    out, finals = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        problems = {}
+        for mesh, every in UTIL_PATHS:
+            p = kpp.build(_bench_cfg(kpp, mesh, "float32", use_kernels=True),
+                          device="cuda")
+            mode = p._fused_mode()
+            label = f"mesh-{mesh} f32 bench config ({mode})"
+            want = _expected_launches(mode, p.num_steps, p.cfg.newton_iters)
+            finals[f"mesh{mesh}"], out[f"mesh{mesh}"] = checkpoint_runs(
+                p, every, label, want, tmp)
+            problems[mesh] = p
+        # the first path streamed, the second into a VTXWriter
+        (big, _), (small, _) = UTIL_PATHS
+        p256, u256 = problems[big], finals[f"mesh{big}"]
+        label = f"mesh-{big} f32 bench config ({p256._fused_mode()})"
+        out[f"stream_mesh{big}"] = st = stream_runs(p256, u256, label)
+        prof = out["profiled"] = _fresh("utilities_profiled")
+        log(f"{label}, {p256.num_steps} steps, streamed: frames, times "
+            f"(step_times()) and bits as expected; us/step "
+            + ", ".join(f"every {e} {st[f'every_{e}']['us_per_step']:.1f}"
+                        for e in UTIL_STREAM_EVERY)
+            + f" against {out[f'mesh{big}']['us_per_step_plain']:.1f} "
+            f"unstreamed; idle share (first {UTIL_IDLE_STEPS} steps, "
+            f"profiled in a fresh interpreter) "
+            f"{prof['unstreamed']['profiled_idle']:.4f} unstreamed, "
+            + ", ".join(f"every {e} "
+                        f"{prof[f'every_{e}']['profiled_idle']:.4f}"
+                        for e in UTIL_STREAM_EVERY) + f" ({card})")
+        log(f"profile_trace around {UTIL_TRACE_STEPS} steps of mesh {big} "
+            f"(fresh interpreter): {prof['trace']['bytes']} bytes, names "
+            f"tiled_rv_step_kernel "
+            f"{prof['trace']['tiled_rv_step_kernel']} times")
+        out[f"vtx_mesh{small}"] = vtx_stream(
+            problems[small], f"mesh-{small} f32 bench config "
+            f"({problems[small]._fused_mode()})", tmp)
+        # (c) the unstructured main path, cut to UTIL_IRR_STEPS steps
+        full = irr640.num_steps
+        irr640.num_steps = UTIL_IRR_STEPS
+        label = (f"blocked irr640 f32 bench config (reduced: {UTIL_IRR_STEPS}"
+                 f" of its {full} steps)")
+        finals["irr640"], out["blocked_irr640"] = checkpoint_runs(
+            irr640, UTIL_IRR_EVERY, label,
+            blocked_launches(irr640.cfg, UTIL_IRR_STEPS), tmp)
+        out["blocked_irr640"]["reduced_from_steps"] = full
+        # (d)
+        out["native_irr640"] = native_check(mesh640)
+        # (e)
+        ma = mesh640.device_arrays(torch.float64, "cuda")
+        M = assemble_mass(ma)
+        h_ref = get_nodal_h_ell(ma, M)
+        h_dg = dg.nodal_h_dg1(ma, M)
+        rel = float((h_dg - h_ref).abs().max() / h_ref.abs().max())
+        if not rel <= UTIL_NODAL_H_TOL:
+            raise AssertionError(f"nodal_h_dg1 against get_nodal_h_ell on "
+                                 f"irr640 f64: {rel:.3e} > {UTIL_NODAL_H_TOL}")
+        for name, v in finals.items():
+            flag = blown_up(v)
+            if flag.device != v.device or bool(flag):
+                raise AssertionError(f"blown_up({name}) is {flag}")
+        n = int(u256.numel())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with StepTimer(n) as timer:
+            p256.solve()
+        end.record()
+        end.synchronize()
+        timer.count(p256.num_steps)
+        rate_events = n * p256.num_steps / (start.elapsed_time(end) * 1e-3)
+        ratio = timer.dof_steps_per_sec / rate_events
+        if abs(ratio - 1.0) > UTIL_TIMER_TOL:
+            raise AssertionError(f"StepTimer {timer.dof_steps_per_sec:.4g} "
+                                 f"DOF-steps/s against CUDA events "
+                                 f"{rate_events:.4g}")
+        log(f"irr640 f64: nodal_h_dg1 against get_nodal_h_ell, max "
+            f"relative difference {rel:.3e} (gate {UTIL_NODAL_H_TOL}); "
+            f"blown_up False on the final states of {', '.join(finals)}; "
+            f"StepTimer on a mesh-{big} solve {timer.dof_steps_per_sec:.6g} "
+            f"DOF-steps/s, CUDA events {rate_events:.6g} ({ratio:.5f} x)")
+        out["nodal_h_dg1_rel_err"] = rel
+        out["step_timer"] = dict(dof_steps_per_s=timer.dof_steps_per_sec,
+                                 cuda_events_dof_steps_per_s=rate_events)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"utilities phase: {out['seconds']:.0f} s ({card})")
+    return out
 
 
 def main(argv):
@@ -4371,27 +4860,41 @@ def smoke(card, regs):
     sharded_counts, sharded_runs = run_burgers_sharded()
     b_counts.update(sharded_counts)
     b_runs.update(sharded_runs)
-    # the ELL backend and the stabilisation library: no hand-written
-    # kernel on these paths (the JAX package runs them as XLA gathers)
-    t_ell = time.perf_counter()
-    meshes = irr_meshes()
-    ell = dict(irr=run_ell_paths(card, meshes),
-               irr140_f64=run_ell_f64(meshes), kpp_si_mesh64=run_kpp_si(card),
-               burgers=run_burgers_si(card))
-    log(f"ELL and stabilisation phase: {time.perf_counter() - t_ell:.0f} s")
-    # linear advection and the Pk layer: no hand-written kernel either
-    t_adv = time.perf_counter()
-    advection = advection_phase(card)
-    log(f"advection and Pk phase: {time.perf_counter() - t_adv:.0f} s "
-        f"({card})")
-    # compressible Euler and Stokes/IPCS: no hand-written kernel either
-    t_es = time.perf_counter()
-    euler_stokes = euler_stokes_phase(card)
-    log(f"Euler and Stokes phase: {time.perf_counter() - t_es:.0f} s "
+    # phases 7-9 launch no hand-written kernel: the ELL backend and the
+    # stabilisation library (the JAX package runs them as XLA gathers),
+    # linear advection and the Pk layer, compressible Euler and
+    # Stokes/IPCS; SIDE_RUNS run in processes of their own beside the rest
+    t_side = time.perf_counter()
+    sides = [_side_start(names, card) for names in SIDE_RUNS]
+    try:
+        meshes = irr_meshes()
+        ell = dict(irr=run_ell_paths(card, meshes),
+                   irr140_f64=run_ell_f64(meshes),
+                   kpp_si_mesh64=run_kpp_si(card))
+        advection = dict(advection_f32=run_advection_f32(card),
+                         pk_burgers=run_pk_burgers(card),
+                         pk_burgers_timed=time_pk_burgers(card))
+        log(f"phases 7 and 8 in this process: "
+            f"{time.perf_counter() - t_side:.0f} s ({card})")
+        side = {}
+        for s in sides:
+            side.update(_side_join(s))
+    finally:
+        for s in sides:
+            _side_stop(s)
+    ell["burgers"] = side["run_burgers_si"]
+    advection.update(advection_f64=side["run_advection_f64"],
+                     pk_advection=side["run_pk_advection"])
+    euler_stokes = side["euler_stokes_phase"]
+    log(f"phases 7, 8 and 9: {time.perf_counter() - t_side:.0f} s "
         f"({card})")
     # the unstructured fast path on the hand-written ELL kernels, on phase
     # 7's meshes
-    fast, ell_rows, ell_counts = blocked_phase(card, meshes, regs)
+    fast, ell_rows, ell_counts, irr640 = blocked_phase(card, meshes, regs)
+    # the utilities and solve()'s checkpoint, resume and streaming through
+    # the step kernels and the ELL kernels
+    utilities = utilities_phase(card, meshes[640], irr640)
+    del irr640
     meshes.clear()
     summary.update(ell_rows)
     for name in ELL_KERNELS:
@@ -4443,6 +4946,7 @@ def smoke(card, regs):
     log(json.dumps({"advection": advection}))
     log(json.dumps({"euler_stokes": euler_stokes}))
     log(json.dumps({"unstructured_fast_path": fast}))
+    log(json.dumps({"utilities": utilities}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -172,3 +172,33 @@ def build(cfg: KPPConfig | None = None, device=None,
 
 def run(cfg: KPPConfig | None = None, device=None, **kw):
     return build(cfg, device=device, **kw).solve()
+
+
+def generate_reference(path: str, mesh_size: int = 64, device=None, **kw):
+    """Generate a fine-mesh reference field, parity with
+    Code/KPP/KPP_exact.py (hmax=1/64, dt=0.01, T=1, :38,75-78): runs the
+    node-RV solver on ``device`` (None: the card) and writes the mesh and
+    the final field as XDMF/HDF5 (needs h5py)."""
+    from conservation_fem_tpu_torch.utils.io import XDMFWriter
+
+    p = build(KPPConfig(mesh_size=mesh_size, **kw), device=device)
+    res = p.solve()
+    with XDMFWriter(path, p.host_mesh) as w:
+        w.write_function(res.u, p.num_steps * p.dt, name="uh")
+    return res
+
+
+def compare_to_reference(path: str, u, host_mesh: Mesh, name="uh"):
+    """L2 distance to a stored reference field on the same mesh — the
+    comparison KPP_conv.py:30-33 stubs out — on the mass of host_mesh in
+    u's dtype, on u's device."""
+    from conservation_fem_tpu_torch.ops import assembly
+    from conservation_fem_tpu_torch.ops.spmv import ell_matvec
+    from conservation_fem_tpu_torch.utils.io import read_h5_series
+
+    _, vals = read_h5_series(path.replace(".xdmf", ".h5"), name)
+    u = torch.as_tensor(u)
+    m = host_mesh.device_arrays(u.dtype, u.device)
+    M = assembly.assemble_mass(m)
+    d = u - torch.as_tensor(vals[-1], dtype=u.dtype, device=u.device)
+    return float(torch.sqrt(d @ ell_matvec(m, M, d)))

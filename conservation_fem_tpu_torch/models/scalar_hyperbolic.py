@@ -41,6 +41,7 @@ the same). The structured stencil backend
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -60,6 +61,9 @@ from conservation_fem_tpu_torch.ops.mesh import Mesh, with_kernel_index
 from conservation_fem_tpu_torch.ops.newton import newton_fixed, newton_solve
 from conservation_fem_tpu_torch.ops.spmv import ell_diag, ell_matvec
 from conservation_fem_tpu_torch.ops.structured import Flux
+from conservation_fem_tpu_torch.utils.checkpoint import (checkpoint_file,
+                                                         load_checkpoint,
+                                                         save_checkpoint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -453,20 +457,50 @@ class HyperbolicProblem:
               checkpoint_every: int = 0, resume: bool = False,
               stream=None):
         """Run the time loop from the initial carry; returns SolveResult.
-        With record_metrics the per-step metrics are stacked into tensors
-        of length num_steps."""
-        if checkpoint_path or checkpoint_every or resume or stream:
-            raise NotImplementedError(
-                "checkpointing and streaming are not ported yet (ROADMAP "
-                "queue 1 item 14)")
+        With record_metrics the per-step metrics of the steps run are
+        stacked into tensors.
+
+        With checkpoint_path and checkpoint_every > 0 the carry (u_n,
+        u_old, u_old_old), the step index and t are saved to the .npz
+        file that utils/checkpoint.save_checkpoint writes for
+        checkpoint_path after every checkpoint_every steps and after the
+        last; resume=True restarts from that file when it exists (written
+        by either package). The steps keep the times, and so the Dirichlet
+        data, of the uninterrupted run.
+
+        stream: a utils/streaming.StreamingSink; each step's (u, t) goes
+        to its ``emit`` in step order (the JAX package's in-scan
+        io_callback)."""
+        checkpointed = bool(checkpoint_path) and checkpoint_every > 0
+        if checkpointed and stream is not None:
+            raise ValueError(
+                "stream= is not supported together with checkpointing "
+                "(the chunked scan would bypass the streaming sink); "
+                "run with one or the other")
         self._force_lazy_operators()
-        carry = self._initial_carry()
+        start, carry = self._start_step, self._initial_carry()
+        if checkpointed:
+            path = checkpoint_file(checkpoint_path)
+            if resume and os.path.exists(path):
+                ck = load_checkpoint(path)
+                start = ck.step
+                carry = tuple(
+                    torch.as_tensor(ck.arrays[k], dtype=self.dtype,
+                                    device=self.device)
+                    for k in ("u_n", "u_old", "u_old_old"))
         per_step = []
-        times = self.step_times(self._start_step)
-        for t, g in zip(times, self.step_dirichlet(times)):
+        times = self.step_times(start)
+        for k, (t, g) in enumerate(zip(times, self.step_dirichlet(times)),
+                                   start + 1):
             carry, m = self.step(carry, t, g)
             if m is not None:
                 per_step.append(m)
+            if stream is not None:
+                stream.emit(carry[0], t)
+            if checkpointed and ((k - start) % checkpoint_every == 0
+                                 or k == self.num_steps):
+                save_checkpoint(path, step=k, t=k * self.dt, u_n=carry[0],
+                                u_old=carry[1], u_old_old=carry[2])
         metrics = None
         if per_step:
             metrics = {key: torch.stack([torch.as_tensor(m[key])

@@ -414,15 +414,52 @@ def _scatter_orderings(cells: Array, cell_slots: Array, K: int):
             vec_target[vec_perm])
 
 
-def mesh_from_arrays(points: Array, cells: Array) -> Mesh:
-    """A full Mesh from raw geometry and topology (the JAX package's numpy
-    path; the ELL structure follows on first use)."""
+def _patches_from_csr(n_nodes, rowptr, cols):
+    """The ELL adjacency of a CSR adjacency with sorted columns per row (the
+    native preprocessor's): the layout of ``_build_patches``."""
+    deg = np.diff(rowptr)
+    K = int(deg.max())
+    patch_cols = np.tile(np.arange(n_nodes, dtype=np.int64)[:, None], (1, K))
+    patch_mask = np.zeros((n_nodes, K), dtype=bool)
+    rows = np.repeat(np.arange(n_nodes), deg)
+    slot = np.arange(len(cols)) - rowptr[:-1][rows]
+    patch_cols[rows, slot] = cols
+    patch_mask[rows, slot] = True
+    diag_slot = np.argmax(
+        (patch_cols == np.arange(n_nodes)[:, None]) & patch_mask, axis=1)
+    return patch_cols, patch_mask, diag_slot.astype(np.int64), K
+
+
+def mesh_from_arrays(points: Array, cells: Array,
+                     use_native: bool = False) -> Mesh:
+    """A full Mesh from raw geometry and topology. By default the JAX
+    package's numpy path, the ELL structure following on first use.
+    use_native: the boundary mask and the ELL adjacency from the native
+    C++ preprocessor (``native_ext.preprocess_mesh``, built with g++ at
+    first use; a failed build raises), the ELL structure built here; the
+    same arrays as the numpy path. (The JAX package turns it on unless
+    CFT_NATIVE=0; here it is off unless asked for.)"""
     points = np.ascontiguousarray(np.asarray(points, dtype=np.float64)[:, :2])
     cells = np.ascontiguousarray(np.asarray(cells, dtype=np.int64))
     area, grads, h_cell = _cell_geometry(points, cells)
-    return Mesh(points=points, cells=cells.astype(np.int32),
-                boundary_mask=_boundary_mask(points.shape[0], cells),
-                area=area, grads=grads, h_cell=h_cell)
+    n = points.shape[0]
+    if not use_native:
+        return Mesh(points=points, cells=cells.astype(np.int32),
+                    boundary_mask=_boundary_mask(n, cells),
+                    area=area, grads=grads, h_cell=h_cell)
+    from conservation_fem_tpu_torch import native_ext
+
+    bnd, rowptr, csr_cols, _ = native_ext.preprocess_mesh(n, cells)
+    patch_cols, patch_mask, diag_slot, K = _patches_from_csr(n, rowptr,
+                                                             csr_cols)
+    cell_slots = _build_cell_slots(cells, patch_cols, patch_mask)
+    mesh = Mesh(points=points, cells=cells.astype(np.int32),
+                boundary_mask=bnd, area=area, grads=grads, h_cell=h_cell)
+    # the cached ``ell`` property, filled from the library's adjacency
+    object.__setattr__(mesh, "ell", EllStructure(
+        patch_cols, patch_mask, diag_slot, cell_slots,
+        *_scatter_orderings(cells, cell_slots, K)))
+    return mesh
 
 
 def _grid(p0, p1, nx, ny):

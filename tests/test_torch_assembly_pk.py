@@ -33,6 +33,17 @@ T_FLUX = {"burgers": tburgers.FLUX, "kpp": tkpp.FLUX}
 CASES = [(2, "disk"), (3, "disk"), (2, "rect"), (3, "rect")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _spaces(k, mesh):
     if mesh == "disk":

@@ -31,6 +31,17 @@ FIXED = dict(modified_newton=True, cg_iters=6, newton_iters=2,
              newton_linear_iters=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def rcm():
     jm = jmesh.rectangle_mesh((-2, -2), (2, 2), nx=12)

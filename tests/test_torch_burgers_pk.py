@@ -12,6 +12,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conservation_fem_tpu.models import burgers as jb
 from conservation_fem_tpu.ops.helpers import get_nodal_h
@@ -28,6 +29,17 @@ CASES = {
     "p2_si_m8_fixed_cheby": dict(degree=2, mesh_size=8, stabilization="si",
                                  **FIXED),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,6 +33,17 @@ from conservation_fem_tpu_torch.ops.tiling import tile_mesh
 MESHES = ("irr", "rect", "p2", "tiled")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _host(case):
     if case == "irr":
         m = tmesh.irregular_mesh((-2, -2), (2, 2), nx=16, seed=1)

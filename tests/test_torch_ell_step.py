@@ -28,6 +28,17 @@ FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
 STEPS = dict(dt=0.02, T=0.06)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _meshes():
     return (jmesh.irregular_mesh((-2, -2), (2, 2), nx=8, seed=1),

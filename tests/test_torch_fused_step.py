@@ -25,6 +25,17 @@ BENCH = dict(cg_iters=6, newton_iters=2, newton_linear_iters=4,
              modified_newton=True, newton_final_residual=False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def state():
     """A mid-trajectory history (u_n, u_old, u_old_old) at mesh 4: 20

@@ -71,14 +71,16 @@ def test_solve_from_u0_matches_jax(name):
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
 
 
-def _jax_carry(cfg, steps):
-    """A JAX mid-trajectory carry after `steps` steps (shock formed)."""
-    p = jkpp.build(cfg)
+@functools.lru_cache(maxsize=None)
+def _jax_carries(name, steps):
+    """(problem, its jitted step, the JAX carries after 0 .. `steps` steps
+    of CONFIGS[name], T = 1: the shock forms)."""
+    p = jkpp.build(jkpp.KPPConfig(**CONFIGS[name]))
     step = jax.jit(p.step)
-    carry = (p.u0,) * 3
+    carries = [(p.u0,) * 3]
     for k in range(steps):
-        carry, _ = step(carry, jnp.asarray((k + 1.0) * p.dt))
-    return p, step, carry
+        carries.append(step(carries[-1], jnp.asarray((k + 1.0) * p.dt))[0])
+    return p, step, carries
 
 
 @pytest.mark.parametrize("name", ["adaptive_mesh4", "bench_fixed_mesh8",
@@ -86,7 +88,8 @@ def _jax_carry(cfg, steps):
 def test_solve_from_jax_carry_matches_jax(name):
     """Start the port from a JAX state 20 steps in (set_carry) and run 3
     more steps on both sides."""
-    p, step, carry = _jax_carry(jkpp.KPPConfig(**CONFIGS[name]), 20)
+    p, step, carries = _jax_carries(name, 20)
+    carry = carries[20]
     u = np.asarray(carry[0])
     assert u.max() - u.min() > 5.0
     q = _port(name, T=0.03)
@@ -96,6 +99,31 @@ def test_solve_from_jax_carry_matches_jax(name):
     got = q.solve().u.numpy()
     np.testing.assert_allclose(got, np.asarray(carry[0]), rtol=0, atol=TOL)
     assert np.abs(got - u).max() > 1e-2
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    """A JAX checkpointed run (every 3 steps) stopped after 6 steps writes
+    an .npz; the port resumes from it (4 steps, T = 0.1) and ends within
+    1e-12 of JAX's uninterrupted trajectory after 10 steps."""
+    from conservation_fem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    p, _, carries = _jax_carries("adaptive_mesh4", 20)
+    path = str(tmp_path / "kpp.npz")
+    n = p.num_steps
+    p.num_steps = 6
+    try:
+        p.solve(checkpoint_path=path, checkpoint_every=3)
+    finally:
+        p.num_steps = n
+    assert load_checkpoint(path).step == 6
+    q = _port("adaptive_mesh4", T=0.1)
+    steps = []
+    step = q.step
+    q.step = lambda *a: steps.append(1) or step(*a)
+    u = q.solve(checkpoint_path=path, checkpoint_every=3, resume=True).u
+    assert len(steps) == 4
+    np.testing.assert_allclose(u.numpy(), np.asarray(carries[10][0]), rtol=0,
+                               atol=1e-12)
 
 
 def test_structured_data_from_jax_drives_the_port():
@@ -245,22 +273,31 @@ def test_build_targets_the_card_by_default():
 
 def test_package_imports_without_jax():
     """In a fresh interpreter, importing every module of the port pulls in
-    neither jax nor the JAX package nor triton nor h5py, and builds
+    neither jax nor the JAX package nor triton nor h5py (nor matplotlib
+    nor PIL: the utilities import with the three blocked), and builds
     nothing."""
     code = (
         "import sys\n"
+        "for name in ('h5py', 'matplotlib', 'PIL'):\n"
+        "    sys.modules[name] = None\n"
         "import conservation_fem_tpu_torch\n"
         "import conservation_fem_tpu_torch.__main__\n"
+        "import conservation_fem_tpu_torch.utils\n"
         "from conservation_fem_tpu_torch.models import kpp\n"
         "from conservation_fem_tpu_torch.ops import _build, fused_step, "
         "stencil_kernels\n"
         "from conservation_fem_tpu_torch.models import burgers\n"
-        "from conservation_fem_tpu_torch.ops import assembly, bc, helpers, "
-        "mesh, precision, spmv, stabilization\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'conservation_fem_tpu', 'triton', 'h5py')]\n"
+        "from conservation_fem_tpu_torch.ops import assembly, bc, dg, "
+        "helpers, mesh, precision, spmv, stabilization\n"
+        "from conservation_fem_tpu_torch import native_ext\n"
+        "from conservation_fem_tpu_torch.utils import baseline_proxy, "
+        "checkpoint, guards, interpolate, io, metrics, plotting, "
+        "streaming, sweeps\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'conservation_fem_tpu', "
+        "'triton', 'h5py', 'matplotlib', 'PIL')]\n"
         "assert not bad, bad\n"
-        "assert _build._lib is None\n"
+        "assert _build._lib is None and native_ext._lib is None\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

@@ -42,6 +42,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_run(case):
     r = jla.run(jla.AdvectionConfig(**SHORT, **CASES[case]))

@@ -17,6 +17,17 @@ from conservation_fem_tpu_torch.ops import structured as tst
 FIELDS = ("points", "cells", "boundary_mask", "area", "grads", "h_cell")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("mesh_size", [2, 5, 8])
 def test_rectangle_mesh_matches_jax_exactly(mesh_size):
     """The KPP meshes (4 * mesh_size cells a side on [-2,2]^2). Exact: the

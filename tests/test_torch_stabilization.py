@@ -25,6 +25,17 @@ from conservation_fem_tpu_torch.ops import stabilization as tstab
 TOL = 1e-13
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sides():
     jm = jmesh.irregular_mesh((-2, -2), (2, 2), nx=8, seed=1)

@@ -19,6 +19,17 @@ from conservation_fem_tpu_torch.ops import stencil_kernels as sk
 N = 12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     host = jmesh.rectangle_mesh((-2, -2), (2, 2), nx=N, ny=N)

@@ -43,6 +43,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_tiled_step_matches_jax_fixed_step(name):
     """Two steps from u0 (the second from the JAX history), 8-row tiles."""
