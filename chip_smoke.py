@@ -74,7 +74,7 @@ exits non-zero:
      for 5 steps at mesh 64 and 256, through either kernel, against the
      single kernel (1e-11); and one
      ProcessGroupBlocks run on a one-rank NCCL group against LocalBlocks(1),
-     bit for bit;
+     bit for bit (the fused path, and phase 12's sharded twin);
   6. Burgers (models/burgers.py) through the step kernels' Burgers
      instances (csrc/*_burgers.cu): (a) each instance against its plain
      version with the Burgers flux from a state 30 steps in (single kernel
@@ -221,15 +221,42 @@ exits non-zero:
      solve; (f) metrics.profile_trace around 3 steps of mesh 256 (the
      same fresh interpreter) names the tiled step kernel. A JSON line
      {"utilities": ...} holds these readings.
+ 12. the sharded twins (ROADMAP queue 1 item 15a) over LocalBlocks on the
+     card, which launch no hand-written kernel (0 launches gated on every
+     run; twins_phase, in a process of its own beside phases 7-9): (a)
+     ShardedStructuredKPP, KPP f32 with the adaptive config of the JAX
+     package's multichip path 1 (krylov_rtol 1e-5, TWIN_KPP) at mesh 512
+     to T = 0.1 over 4 blocks, gated at L2rel <= 1e-2 against
+     golden/kpp_rv_anchor_mesh512_T0.1.npy, µs/step in turns with the
+     single-device stencil run of the same config (one turn each:
+     TWIN_TURNS_LONG), Krylov iterations a
+     step of each (the adaptive cg and bicgstab calls counted), kernels a
+     step and idle share (torch.profiler, the first 3 steps); (b) f64, 5
+     steps: KPP mesh 64 over 4 and 3 blocks against the single-device path
+     on the card (1e-10) and on the CPU (F64_CARD_VS_CPU), Burgers mesh 50
+     over 4 blocks against its single-device run (1e-10); (c)
+     ShardedStructuredEuler over 4 blocks: riemann2d nx 512 and sod nx 100
+     in f32 against phase 9's anchors and gate, in turns with the
+     single-device run (the same readings as (a)), sod in f64 against its
+     single-device run (1e-10); (d) the sharded carry checkpoint, KPP f32
+     at mesh 256 over 4 blocks (TWIN_CKPT, cut to 50 steps):
+     solve_checkpointed every TWIN_CKPT_EVERY steps bit-equal to solve(),
+     a run stopped at half and resumed on 2 blocks from its
+     snapshot bit-equal to the continuation from an in-memory transfer of
+     the same carry, bytes and ms a save; (e) is phase 5's one-rank NCCL
+     run, which also holds ShardedStructuredKPP over ProcessGroupBlocks to
+     LocalBlocks(1) bit for bit. A JSON line {"sharded_twins": ...} holds
+     these readings.
 From phase 6 (d) on, a run is timed on CUDA events around the one solve
 that is gated or counted, after two solves of its trajectory's first
 REPEAT_STEPS steps that must agree bit for bit (the repeat check, at that
 depth, and the warm-up); phase 10's turns start with the counted solve.
-Phase 7's Burgers SI runs, phase 8's (a) and (c) and the whole of phase 9
-run in two processes of their own (SIDE_RUNS), on the card at once with
-the rest of phases 7 and 8 in this one, so that their µs/step and idle
-shares are read beside each other's; their log lines follow this
-process's, and phase 10 starts when all three are done.
+Phase 7's Burgers SI runs, phase 8's (a) and (c), the whole of phase 9
+and the whole of phase 12 run in three processes of their own
+(SIDE_RUNS), on the card at once with the rest of phases 7 and 8 in this
+one, so that their µs/step and idle shares are read beside each other's;
+their log lines follow this process's, and phase 10 starts when all four
+are done.
 The second-to-last line is the per-kernel JSON summary (the eight ported
 TPU kernels and the four ELL kernels, each with its bound; a step
 kernel's row also holds its Burgers
@@ -294,12 +321,13 @@ ACCURACY_GATE = 1e-2     # L2rel vs the committed f64 anchor (bench.py)
 SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
-# phase 7's Burgers SI runs, phase 8's (a) and (c), and phase 9 (each
-# tuple a process of its own, its functions in order) run beside the rest
-# of phases 7 and 8, all three processes on the card at once; a process
-# gets SIDE_TIMEOUT seconds after the rest is done
+# phase 7's Burgers SI runs, phase 8's (a) and (c), phase 9 and phase 12
+# (each tuple a process of its own, its functions in order) run beside the
+# rest of phases 7 and 8, all four processes on the card at once; a
+# process gets SIDE_TIMEOUT seconds after the rest is done
 SIDE_RUNS = (("euler_stokes_phase",),
-             ("run_advection_f64", "run_pk_advection", "run_burgers_si"))
+             ("run_advection_f64", "run_pk_advection", "run_burgers_si"),
+             ("twins_phase",))
 SIDE_TIMEOUT = 600
 # a path timed on one solve first solves its trajectory's first
 # REPEAT_STEPS steps twice, bit-equal (_repeats): the repeat check at that
@@ -2134,9 +2162,12 @@ def run_sharded_f64(mesh, n_blocks, kernel):
 
 def run_process_group_path():
     """ProcessGroupBlocks on a one-rank NCCL group (file-store rendezvous in
-    a temporary directory) against LocalBlocks(1), mesh 64, 5 steps, bit for
-    bit. One card cannot host two NCCL ranks, so the exchange between ranks
-    is held to LocalBlocks on the CPU (gloo) by the test suite, not here."""
+    a temporary directory) against LocalBlocks(1), bit for bit: the fused
+    sharded path (mesh 64, 5 steps) and, phase 12 (e), the sharded twin
+    ShardedStructuredKPP (TWIN_KPP at mesh 64, 5 steps, no hand-written
+    launch). One card cannot host two NCCL ranks, so the exchange between
+    ranks is held to LocalBlocks on the CPU (gloo) by the test suite, not
+    here."""
     import datetime
 
     import torch
@@ -2146,11 +2177,17 @@ def run_process_group_path():
     from conservation_fem_tpu_torch.ops import _build
     from conservation_fem_tpu_torch.parallel import (LocalBlocks,
                                                      ProcessGroupBlocks,
-                                                     ShardedFusedStructured)
+                                                     ShardedFusedStructured,
+                                                     ShardedStructuredKPP)
 
     cfg = _sharded_cfg(kpp, 64, "float32", T=0.05)
     local = ShardedFusedStructured(kpp.build(cfg), LocalBlocks(1, "cuda"))
     u_local = local.solve()
+    twin_cfg = _twin_kpp_cfg(kpp, 64, "float32", T=0.05)
+    twin = lambda blocks: _no_launch(
+        f"sharded twin over {type(blocks).__name__}",
+        ShardedStructuredKPP(kpp.build(twin_cfg), blocks).solve)
+    twin_local = twin(LocalBlocks(1, "cuda"))
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -2163,14 +2200,21 @@ def run_process_group_path():
             u = sh.solve()
             torch.cuda.synchronize()
             counts = dict(_build.launches)
+            twin_pg = twin(ProcessGroupBlocks(dist.group.WORLD))
         finally:
             dist.destroy_process_group()
     same = torch.equal(u, u_local)
+    twin_same = torch.equal(twin_pg, twin_local)
     log(f"ProcessGroupBlocks, one NCCL rank, mesh 64 f32, {local.p.num_steps}"
         f" steps ({sh.kernel} kernel): launches {counts}; equal to "
-        f"LocalBlocks(1) bit for bit: {same}")
+        f"LocalBlocks(1) bit for bit: {same}; the sharded twin "
+        f"(ShardedStructuredKPP, adaptive f32): no hand-written launch, "
+        f"equal to LocalBlocks(1) bit for bit: {twin_same}")
     if not same:
         raise AssertionError("ProcessGroupBlocks differs from LocalBlocks(1)")
+    if not twin_same:
+        raise AssertionError("ShardedStructuredKPP over ProcessGroupBlocks "
+                             "differs from LocalBlocks(1)")
 
 
 def sharded_paths(card, counts, runs):
@@ -4803,6 +4847,320 @@ def utilities_phase(card, mesh640, irr640):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded twins (ROADMAP queue 1 item 15a) over LocalBlocks
+# ---------------------------------------------------------------------------
+
+# The adaptive KPP config of the JAX package's multichip path 1
+# (__graft_entry__.py:120-121: krylov_rtol 1e-5, exact Newton), here in
+# f32 at mesh 512 to T = 0.1 over 4 blocks (80 steps at the bench's dt),
+# gated against the mesh-512 anchor; (mesh, T, blocks, anchor)
+TWIN_KPP = dict(krylov_rtol=1e-5)
+TWIN_KPP_PATH = (512, 0.1, 4, "kpp_rv_anchor_mesh512_T0.1.npy")
+TWIN_F64_STEPS = 5
+TWIN_F64_KPP = (64, (4, 3))        # mesh, block counts
+TWIN_F64_BURGERS = (50, 4)
+# the order of the timed solves of a run in turns with the single-device
+# run; a long run (80 steps of mesh 512, 1382 of riemann2d 512: 7-9 s a
+# solve) takes one turn each, to keep the phase near a minute
+TWIN_TURNS = ("sharded", "single", "single", "sharded")
+TWIN_TURNS_LONG = ("sharded", "single")
+# Euler f32 cells (phase 9's anchors and gate) over TWIN_EULER_BLOCKS, with
+# their turns; sod in f64 against its single-device run
+TWIN_EULER = (("riemann2d", 512, TWIN_TURNS_LONG), ("sod", 100, TWIN_TURNS))
+TWIN_EULER_BLOCKS = 4
+TWIN_ID_TOL = 1e-10                # sharded against single device, f64
+# the sharded carry checkpoint: KPP mesh 256 f32 (TWIN_KPP) over 4 blocks
+# to T, a snapshot every TWIN_CKPT_EVERY steps; stopped at half, resumed
+# on TWIN_CKPT_RESUME_BLOCKS. Cut from 200 steps with a snapshot every 100
+# to 50 steps, every 25: a step of this config takes ~87 ms on the card,
+# and the case solves 3.5 trajectories (62 s at 200 steps)
+TWIN_CKPT = (256, 0.125, 4)        # mesh, T, blocks
+TWIN_CKPT_EVERY = 25
+TWIN_CKPT_RESUME_BLOCKS = 2
+TWIN_TRACE_STEPS = 3
+
+
+def _twin_kpp_cfg(kpp, mesh, dtype, **kw):
+    return kpp.KPPConfig(mesh_size=mesh, dtype=dtype,
+                         dt=0.01 * min(1.0, 64.0 / mesh), **TWIN_KPP, **kw)
+
+
+class _KrylovCount:
+    """Inside ``with``: the iterations of every adaptive cg and bicgstab
+    call of the stencil paths, single-device and sharded (the names the
+    modules call are wrapped, and put back on exit)."""
+
+    def __enter__(self):
+        from conservation_fem_tpu_torch.models import (
+            structured_hyperbolic as shp)
+        from conservation_fem_tpu_torch.ops import newton
+        from conservation_fem_tpu_torch.parallel import structured_sharded
+
+        self.iters = dict(cg=0, bicgstab=0)
+        self._saved = [(shp, "cg", shp.cg),
+                       (structured_sharded, "cg", structured_sharded.cg),
+                       (newton, "bicgstab", newton.bicgstab)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(*args, **kw):
+            res = fn(*args, **kw)
+            self.iters[name] += res.iters
+            return res
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _twin_run(label, sh, single, steps, turns):
+    """A sharded twin beside the single-device run of the same problem,
+    neither launching a hand-written kernel: the first REPEAT_STEPS steps
+    of each solved twice, bit-equal (the warm-up); the whole trajectory
+    timed on CUDA events in the order ``turns``, the Krylov iterations a
+    step counted in the first solve of each; kernels a step and idle share
+    over the first TWIN_TRACE_STEPS steps (torch.profiler).
+    single(k): the single-device end state after k steps. ({name: end
+    state}, readings, their summary for the log)."""
+    runs = dict(
+        sharded=lambda k: sh._to_global(sh.run_chunk(sh.init_carry(), 0,
+                                                     k)[0]),
+        single=single)
+    for name, fn in runs.items():
+        _no_launch(label, lambda: _repeats(f"{label} {name}",
+                                           lambda: fn(REPEAT_STEPS)))
+    fields, us, krylov = {}, {k: [] for k in runs}, {}
+    for name in turns:
+        with _KrylovCount() as kc:
+            u, t = _no_launch(label, lambda: _timed(
+                lambda: runs[name](steps), steps))
+        us[name].append(t)
+        if name not in fields:
+            fields[name] = u
+            krylov[name] = {k: v / steps for k, v in kc.iters.items()}
+    prof = {name: _no_launch(label, lambda: profiled(
+        lambda: fn(TWIN_TRACE_STEPS), TWIN_TRACE_STEPS))
+        for name, fn in runs.items()}
+    for name, r in prof.items():
+        if not r["device_kernels"]:
+            # the profiler recorded no device activity at all (seen in a
+            # side process beside three others): not measured, not 0
+            prof[name] = dict.fromkeys(r)
+    read = lambda name, key, fmt: ("not measured" if prof[name][key] is None
+                                   else format(prof[name][key], fmt))
+    med = {k: float(np.median(v)) for k, v in us.items()}
+    text = (f"{med['sharded']:.1f} us/step against {med['single']:.1f} "
+            f"single device in turns ({us['sharded']} / {us['single']}; "
+            f"ratio {med['sharded'] / med['single']:.3f}); ")
+    if any(krylov["sharded"].values()):
+        text += (f"Krylov iterations a step {krylov['sharded']} / "
+                 f"{krylov['single']}; ")
+    text += (f"kernels a step {read('sharded', 'kernels_per_step', '.1f')}"
+             f" / {read('single', 'kernels_per_step', '.1f')}, idle share "
+             f"{read('sharded', 'profiled_idle', '.4f')} / "
+             f"{read('single', 'profiled_idle', '.4f')} (first "
+             f"{TWIN_TRACE_STEPS} steps)")
+    return fields, dict(us_per_step=us, krylov_iters_per_step=krylov,
+                        profiled=prof, hand_written_launches=0), text
+
+
+def run_twin_kpp(card):
+    """(a) KPP f32 at mesh 512 over LocalBlocks(4), the adaptive config,
+    against its anchor, in turns with the single-device stencil run."""
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedStructuredKPP)
+
+    mesh, T, n, anchor = TWIN_KPP_PATH
+    p = kpp.build(_twin_kpp_cfg(kpp, mesh, "float32", T=T))
+    sh = ShardedStructuredKPP(p, LocalBlocks(n, "cuda"))
+    steps, nodes = p.num_steps, int(p.u0.numel())
+    label = f"sharded twin kpp mesh {mesh} x {n} f32 adaptive"
+    fields, row, text = _twin_run(
+        label, sh, lambda k: _prefix(p, k).solve().u, steps, TWIN_TURNS_LONG)
+    rel, lo, hi = _field_stats(fields["sharded"], mesh, anchor)
+    rel_single, _, _ = _field_stats(fields["single"], mesh, anchor)
+    log(f"{label} ({nodes} nodes, L {sh.L}), {steps} steps: {text}; L2rel "
+        f"against the anchor {rel:.4e} (gate {ACCURACY_GATE}), single "
+        f"device {rel_single:.4e}; max|sharded - single| "
+        f"{max_err(fields['sharded'], fields['single']):.3e}; u in "
+        f"[{lo:.4f}, {hi:.4f}] ({card})")
+    if not rel <= ACCURACY_GATE:
+        raise AssertionError(f"{label}: L2rel {rel:.3e} > {ACCURACY_GATE}")
+    return dict(nodes=nodes, steps=steps, blocks=n, L=sh.L,
+                l2rel_vs_anchor=rel, l2rel_single_vs_anchor=rel_single,
+                **row)
+
+
+def run_twin_f64(card):
+    """(b) f64 identity, TWIN_F64_STEPS steps: KPP mesh 64 over 4 and 3
+    blocks against the single-device path on the card (TWIN_ID_TOL) and on
+    the CPU (F64_CARD_VS_CPU); Burgers mesh 50 over 4 blocks against its
+    single-device run."""
+    from conservation_fem_tpu_torch.models import burgers, kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedStructuredKPP)
+
+    out = {}
+    mesh, counts = TWIN_F64_KPP
+    cfg = kpp.KPPConfig(mesh_size=mesh, T=TWIN_F64_STEPS * 0.01)
+    p = kpp.build(cfg)
+    assert p.num_steps == TWIN_F64_STEPS, p.num_steps
+    u_card = _no_launch("kpp f64 single device", lambda: p.solve().u)
+    u_cpu = kpp.build(cfg, device="cpu").solve().u
+    for n in counts:
+        u = _no_launch(f"sharded twin kpp f64 x {n}", ShardedStructuredKPP(
+            p, LocalBlocks(n, "cuda")).solve)
+        e_card, e_cpu = max_err(u, u_card), max_err(u.cpu(), u_cpu)
+        log(f"sharded twin kpp mesh {mesh} x {n} f64, {TWIN_F64_STEPS} "
+            f"steps: max|sharded - single device| {e_card:.3e} on the card "
+            f"(gate {TWIN_ID_TOL}), {e_cpu:.3e} against the CPU (gate "
+            f"{F64_CARD_VS_CPU}) ({card})")
+        if not (e_card <= TWIN_ID_TOL and e_cpu <= F64_CARD_VS_CPU):
+            raise AssertionError(f"sharded twin kpp f64 x {n}: {e_card}, "
+                                 f"{e_cpu}")
+        out[f"kpp_mesh{mesh}_x{n}"] = dict(vs_single_card=e_card,
+                                           vs_single_cpu=e_cpu)
+    mesh, n = TWIN_F64_BURGERS
+    q = _prefix(burgers.build(burgers.BurgersConfig(mesh_size=mesh)),
+                TWIN_F64_STEPS)
+    u_single = _no_launch("burgers f64 single device", lambda: q.solve().u)
+    u = _no_launch(f"sharded twin burgers f64 x {n}",
+                   ShardedStructuredKPP(q, LocalBlocks(n, "cuda")).solve)
+    e = max_err(u, u_single)
+    log(f"sharded twin burgers mesh {mesh} x {n} f64, {TWIN_F64_STEPS} "
+        f"steps: max|sharded - single device| {e:.3e} (gate {TWIN_ID_TOL}) "
+        f"({card})")
+    if not e <= TWIN_ID_TOL:
+        raise AssertionError(f"sharded twin burgers f64: {e}")
+    out[f"burgers_mesh{mesh}_x{n}"] = dict(vs_single_card=e)
+    return out
+
+
+def run_twin_euler(card):
+    """(c) Euler over LocalBlocks(TWIN_EULER_BLOCKS): the f32 cells of
+    TWIN_EULER against phase 9's anchors (EULER_GATE), in turns with the
+    single-device run; sod in f64 against its single-device run."""
+    from conservation_fem_tpu_torch.models import euler
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedStructuredEuler)
+
+    out, n = {}, TWIN_EULER_BLOCKS
+    for prob, nx, turns in TWIN_EULER:
+        ref = EULER_STOKES_REFERENCE["euler"][f"{prob}:{nx}"]
+        p = euler.build(euler.EulerConfig(problem=prob, nx=nx,
+                                          dtype="float32"))
+        if (p.num_steps, p.dt) != (ref["steps"], ref["dt"]):
+            raise AssertionError(f"euler {prob}:{nx}: {p.num_steps} steps, "
+                                 f"dt {p.dt}; the JAX package's {ref}")
+        sh = ShardedStructuredEuler(p, LocalBlocks(n, "cuda"))
+        label = f"sharded twin euler {prob}:{nx} x {n} f32"
+        fields, row, text = _twin_run(
+            label, sh, lambda k: euler.solve(p, num_steps=k).U, p.num_steps,
+            turns)
+        a = np.load(os.path.join(REPO, "golden",
+                                 f"euler_{prob}_anchor_nx{nx}.npy"))
+        U = fields["sharded"].double().cpu().numpy()
+        rel = _l2rel(U, a.astype(np.float64))
+        rel_single = _l2rel(fields["single"].double().cpu().numpy(),
+                            a.astype(np.float64))
+        log(f"{label} ({U.shape[0]} nodes, L {sh.L}), {p.num_steps} steps: "
+            f"{text}; L2rel against the anchor {rel:.4e} (gate "
+            f"{EULER_GATE}), single device {rel_single:.4e} ({card})")
+        if not (np.isfinite(U).all() and rel < EULER_GATE):
+            raise AssertionError(f"{label}: L2rel {rel}")
+        out[f"{prob}:{nx} f32"] = dict(
+            nodes=int(U.shape[0]), steps=p.num_steps, blocks=n, L=sh.L,
+            l2rel_vs_anchor=rel, l2rel_single_vs_anchor=rel_single, **row)
+    p = euler.build(euler.EulerConfig(problem="sod", nx=100))
+    U_single = _no_launch("euler sod f64 single device",
+                          lambda: euler.solve(p).U)
+    U = _no_launch(f"sharded twin euler sod f64 x {n}",
+                   ShardedStructuredEuler(p, LocalBlocks(n, "cuda")).solve)
+    e = max_err(U, U_single)
+    log(f"sharded twin euler sod:100 x {n} f64, {p.num_steps} steps: "
+        f"max|sharded - single device| {e:.3e} (gate {TWIN_ID_TOL}) "
+        f"({card})")
+    if not e <= TWIN_ID_TOL:
+        raise AssertionError(f"sharded twin euler sod f64: {e}")
+    out["sod:100 f64"] = dict(vs_single_card=e, steps=p.num_steps)
+    return out
+
+
+def run_twin_checkpoint(card):
+    """(d) the sharded carry checkpoint, KPP f32 (TWIN_KPP) at TWIN_CKPT:
+    solve_checkpointed every TWIN_CKPT_EVERY steps bit-equal to solve();
+    a run stopped at half and resumed on TWIN_CKPT_RESUME_BLOCKS blocks
+    from its snapshot bit-equal to the continuation from an in-memory
+    transfer of the same carry; bytes and ms a save."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedStructuredKPP)
+
+    mesh, T, n = TWIN_CKPT
+    every, m = TWIN_CKPT_EVERY, TWIN_CKPT_RESUME_BLOCKS
+    p = kpp.build(_twin_kpp_cfg(kpp, mesh, "float32", T=T))
+    steps, half = p.num_steps, p.num_steps // 2
+    sh = ShardedStructuredKPP(p, LocalBlocks(n, "cuda"))
+    label = f"sharded twin kpp mesh {mesh} x {n} f32 adaptive"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "twin.npz")
+        u_plain, us_plain = _no_launch(label, lambda: _timed(sh.solve,
+                                                             steps))
+        u_ck, us_ck = _no_launch(label, lambda: _timed(
+            lambda: sh.solve_checkpointed(path, every), steps))
+        if not torch.equal(u_ck, u_plain):
+            raise AssertionError(f"{label}: checkpointed solve differs")
+        # stopped at half: the carry and its snapshot
+        c_half = _no_launch(label, lambda: sh.run_chunk(sh.init_carry(), 0,
+                                                        half))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = sh.save_carry(path, half, c_half)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(written)
+        sm = ShardedStructuredKPP(p, LocalBlocks(m, "cuda"))
+        u_res = _no_launch(label, lambda: sm.solve_checkpointed(
+            path, every, resume=True))
+        direct = tuple(sm._from_global(sh._to_global(x)) for x in c_half)
+        u_direct = _no_launch(label, lambda: sm._to_global(
+            sm.run_chunk(direct, half, steps - half)[0]))
+    same = torch.equal(u_res, u_direct)
+    log(f"{label}, {steps} steps: solve_checkpointed every {every} "
+        f"bit-equal to solve() ({us_ck:.1f} against {us_plain:.1f} "
+        f"us/step); stopped at step {half}, resumed on {m} blocks from the "
+        f"snapshot: equal to the in-memory transfer bit for bit: {same}; a "
+        f"save {nbytes} B, {save_ms:.3f} ms ({card})")
+    if not same:
+        raise AssertionError(f"{label}: resumed run differs from the "
+                             "in-memory transfer")
+    return dict(steps=steps, every=every, blocks=n, resume_blocks=m,
+                us_per_step_plain=us_plain, us_per_step_checkpointed=us_ck,
+                save_bytes=nbytes, save_ms=save_ms,
+                max_resumed_vs_plain=max_err(u_res, u_plain))
+
+
+def twins_phase(card):
+    """Phase 12: the sharded twins (ROADMAP queue 1 item 15a) over
+    LocalBlocks on the card; no hand-written kernel lies under them, and
+    every run is held to zero launches. The smoke run starts it in a
+    process of its own beside phases 7-9 (SIDE_RUNS). The one-rank NCCL
+    run (e) is in run_process_group_path (phase 5)."""
+    t_phase = time.perf_counter()
+    out = dict(kpp=run_twin_kpp(card), f64=run_twin_f64(card),
+               euler=run_twin_euler(card),
+               checkpoint=run_twin_checkpoint(card))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded twins phase: {out['seconds']:.0f} s ({card})")
+    return out
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -4860,10 +5218,11 @@ def smoke(card, regs):
     sharded_counts, sharded_runs = run_burgers_sharded()
     b_counts.update(sharded_counts)
     b_runs.update(sharded_runs)
-    # phases 7-9 launch no hand-written kernel: the ELL backend and the
-    # stabilisation library (the JAX package runs them as XLA gathers),
-    # linear advection and the Pk layer, compressible Euler and
-    # Stokes/IPCS; SIDE_RUNS run in processes of their own beside the rest
+    # phases 7-9 and 12 launch no hand-written kernel: the ELL backend and
+    # the stabilisation library (the JAX package runs them as XLA
+    # gathers), linear advection and the Pk layer, compressible Euler and
+    # Stokes/IPCS, the sharded twins; SIDE_RUNS run in processes of their
+    # own beside the rest
     t_side = time.perf_counter()
     sides = [_side_start(names, card) for names in SIDE_RUNS]
     try:
@@ -4886,7 +5245,8 @@ def smoke(card, regs):
     advection.update(advection_f64=side["run_advection_f64"],
                      pk_advection=side["run_pk_advection"])
     euler_stokes = side["euler_stokes_phase"]
-    log(f"phases 7, 8 and 9: {time.perf_counter() - t_side:.0f} s "
+    twins = side["twins_phase"]
+    log(f"phases 7, 8, 9 and 12: {time.perf_counter() - t_side:.0f} s "
         f"({card})")
     # the unstructured fast path on the hand-written ELL kernels, on phase
     # 7's meshes
@@ -4947,6 +5307,7 @@ def smoke(card, regs):
     log(json.dumps({"euler_stokes": euler_stokes}))
     log(json.dumps({"unstructured_fast_path": fast}))
     log(json.dumps({"utilities": utilities}))
+    log(json.dumps({"sharded_twins": twins}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

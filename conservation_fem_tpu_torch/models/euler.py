@@ -22,8 +22,8 @@ count come from a host numpy f64 wavespeed on the f64 mesh points, so an
 f32 run and its f64 anchor take the same steps. No hand-written kernel
 lies on this path: the JAX package runs it as XLA, and here it is plain
 PyTorch. The JAX ``lax.scan`` is a Python loop that reads nothing on the
-host. The sharded twin (parallel/euler_sharded.py) is ROADMAP queue 1
-item 15.
+host. The sharded twin is parallel/euler_sharded.py (row blocks over
+parallel/comm.py).
 """
 
 from __future__ import annotations

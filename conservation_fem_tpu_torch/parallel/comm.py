@@ -1,7 +1,8 @@
-"""What a row decomposition asks of the blocks' owner: two reductions and
-the deep-halo extension. The JAX package has these built in (``psum``,
-``pmax``, ``ppermute`` / ``all_gather`` inside ``shard_map``); here they
-are one small interface with two implementations.
+"""What a row decomposition asks of the blocks' owner: two reductions, the
+deep-halo extension and the reverse shipment. The JAX package has these
+built in (``psum``, ``pmax``, ``ppermute`` / ``all_gather`` inside
+``shard_map``); here they are one small interface with two
+implementations.
 
 A decomposition splits the rows of a grid into ``n_dev`` blocks of ``L``
 rows, block d holding global rows [d L, (d + 1) L). An implementation
@@ -16,6 +17,12 @@ whose leading axis runs over them:
                              fields -> (len(ranks), F, L + 2 D, C): each
                              block with the D rows above and below it,
                              ``fill`` beyond the first and last block;
+    from_previous(x, fill)   x: (len(ranks), ...) -> the same shape: each
+                             block receives the previous block's x, the
+                             first block ``fill`` (the JAX package's
+                             ``ppermute`` to d + 1: the boundary rows a
+                             block's cells add into the next block, which
+                             adds them to its own first row);
     gather(x)                x: (len(ranks), L, C) -> (n_dev, L, C) on
                              every owner.
 
@@ -70,6 +77,9 @@ class LocalBlocks:
         return _padded_blocks(rows, D, fill, [d * L for d in range(n)],
                               L + 2 * D)
 
+    def from_previous(self, x, fill=0.0):
+        return torch.cat([torch.full_like(x[:1], fill), x[:-1]])
+
     def gather(self, x):
         return x
 
@@ -109,8 +119,6 @@ class ProcessGroupBlocks:
         return out
 
     def extend(self, x, D, fill=0.0):
-        import torch.distributed as dist
-
         _, nf, L, C = x.shape
         n, r = self.n_dev, self.rank
         if D > L:
@@ -118,20 +126,42 @@ class ProcessGroupBlocks:
             return _padded_blocks(rows, D, fill, [r * L], L + 2 * D)
         up = torch.full((1, nf, D, C), fill, dtype=x.dtype, device=x.device)
         down = up.clone()
-        peer = lambda k: dist.get_global_rank(self.group, k)
         ops = []
         if r > 0:
-            ops += [dist.P2POp(dist.isend, x[:, :, :D].contiguous(),
-                               peer(r - 1), self.group),
-                    dist.P2POp(dist.irecv, up, peer(r - 1), self.group)]
+            ops += [self._p2p("isend", x[:, :, :D], r - 1),
+                    self._p2p("irecv", up, r - 1)]
         if r < n - 1:
-            ops += [dist.P2POp(dist.isend, x[:, :, L - D:].contiguous(),
-                               peer(r + 1), self.group),
-                    dist.P2POp(dist.irecv, down, peer(r + 1), self.group)]
+            ops += [self._p2p("isend", x[:, :, L - D:], r + 1),
+                    self._p2p("irecv", down, r + 1)]
+        self._exchange(ops)
+        return torch.cat([up, x, down], dim=2)
+
+    def from_previous(self, x, fill=0.0):
+        n, r = self.n_dev, self.rank
+        out = torch.full_like(x, fill)
+        ops = []
+        if r < n - 1:
+            ops.append(self._p2p("isend", x, r + 1))
+        if r > 0:
+            ops.append(self._p2p("irecv", out, r - 1))
+        self._exchange(ops)
+        return out
+
+    def _p2p(self, op, t, k):
+        """A send (isend) or receive (irecv) of t with block k's rank."""
+        import torch.distributed as dist
+
+        t = t.contiguous() if op == "isend" else t
+        return dist.P2POp(getattr(dist, op), t,
+                          dist.get_global_rank(self.group, k), self.group)
+
+    @staticmethod
+    def _exchange(ops):
+        import torch.distributed as dist
+
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-        return torch.cat([up, x, down], dim=2)
 
     def gather(self, x):
         return torch.cat(self._all_gather(x))

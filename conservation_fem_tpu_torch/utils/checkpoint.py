@@ -9,8 +9,10 @@ them back on its device at its dtype.
 
 np.savez appends ".npz" to a path that lacks it; ``checkpoint_file`` names
 the file it writes, and every function here reads and writes that file.
-The orbax checkpoints of sharded arrays (``save_orbax``, ``load_orbax``,
-``orbax_metadata``) come with the sharded twins (ROADMAP queue 1 item 15).
+The JAX package's orbax checkpoints of sharded arrays are not ported
+(orbax imports JAX): the sharded twins gather their rows and write this
+.npz (parallel/structured_sharded.ShardedStructuredKPP.save_carry), which
+resumes at any block count and in the single-device solve.
 """
 
 from __future__ import annotations

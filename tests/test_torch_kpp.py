@@ -289,7 +289,7 @@ def test_package_imports_without_jax():
         "from conservation_fem_tpu_torch.models import burgers\n"
         "from conservation_fem_tpu_torch.ops import assembly, bc, dg, "
         "helpers, mesh, precision, spmv, stabilization\n"
-        "from conservation_fem_tpu_torch import native_ext\n"
+        "from conservation_fem_tpu_torch import native_ext, parallel\n"
         "from conservation_fem_tpu_torch.utils import baseline_proxy, "
         "checkpoint, guards, interpolate, io, metrics, plotting, "
         "streaming, sweeps\n"

@@ -16,10 +16,6 @@ Tolerances, all absolute on O(1-10) fields:
 """
 
 import functools
-import os
-import subprocess
-import sys
-import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -36,9 +32,9 @@ from conservation_fem_tpu_torch.ops import fused_step as fs
 from conservation_fem_tpu_torch.parallel import (LocalBlocks,
                                                  ShardedFusedStructured,
                                                  shard_structured_fused)
+from torch_ranks import run_ranks
 
 TOL = 1e-11
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHEBY = dict(modified_newton=True, inner_solver="cheby", cg_iters=10,
              newton_iters=2, newton_linear_iters=12)
 TRIM = {**CHEBY, "cg_iters": 4, "newton_linear_iters": 4}
@@ -265,59 +261,19 @@ def test_block_wrappers_refuse():
     torch.testing.assert_close(got, whole, rtol=0, atol=1e-13)
 
 
-_RANK_SCRIPT = textwrap.dedent("""
-    import sys
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, {repo!r})
-    from conservation_fem_tpu_torch.models import kpp
-    from conservation_fem_tpu_torch.parallel import (
-        ProcessGroupBlocks, ShardedFusedStructured)
-
-    rank, world, store, out, cfg = (int(sys.argv[1]), int(sys.argv[2]),
-                                    sys.argv[3], sys.argv[4],
-                                    eval(sys.argv[5]))
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + store,
-                            world_size=world, rank=rank)
-    sh = ShardedFusedStructured(
-        kpp.build(kpp.KPPConfig(**cfg), device="cpu"),
-        ProcessGroupBlocks(dist.group.WORLD))
-    np.save(out, sh.solve().numpy())
-    dist.destroy_process_group()
-""")
-
-
 @pytest.mark.parametrize("trim", [True, False])
 def test_process_group_blocks_equal_local_blocks(tmp_path, trim):
-    """Two gloo ranks (subprocesses, file-store rendezvous) against
-    LocalBlocks(2) at mesh 16, bit for bit: the neighbour exchange (trimmed
-    counts, D <= L) and the all_gather one (D > L). Each rank runs under a
-    hard time limit and is killed when it expires."""
+    """Two gloo ranks (subprocesses of tests/torch_ranks.py, file-store
+    rendezvous) against LocalBlocks(2) at mesh 16, bit for bit: the
+    neighbour exchange (trimmed counts, D <= L) and the all_gather one (D >
+    L). The ranks run under one hard time limit and are killed when it
+    expires."""
     cfg = dict(mesh_size=16, T=0.02, **(TRIM if trim else CHEBY))
-    script = tmp_path / "rank.py"
-    script.write_text(_RANK_SCRIPT.format(repo=REPO))
-    env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), "2", str(tmp_path / "store"),
-         str(tmp_path / f"u{r}.npy"), repr(cfg)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=120)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    assert [proc.returncode for proc in procs] == [0, 0], "\n".join(logs)
+    got = run_ranks(tmp_path, "fused", (cfg,))
     sh = ShardedFusedStructured(
         tkpp.build(tkpp.KPPConfig(**cfg), device="cpu"),
         LocalBlocks(2, "cpu"))
     assert (sh.D <= sh.L) == trim
     ref = sh.solve().numpy()
-    for r in range(2):
-        assert np.array_equal(np.load(tmp_path / f"u{r}.npy"), ref)
+    for u in got:
+        assert np.array_equal(u, ref)
