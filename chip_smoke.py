@@ -74,7 +74,8 @@ exits non-zero:
      for 5 steps at mesh 64 and 256, through either kernel, against the
      single kernel (1e-11); and one
      ProcessGroupBlocks run on a one-rank NCCL group against LocalBlocks(1),
-     bit for bit (the fused path, and phase 12's sharded twin);
+     bit for bit (the fused path, phase 12's sharded twin and phase 13's
+     unstructured twin);
   6. Burgers (models/burgers.py) through the step kernels' Burgers
      instances (csrc/*_burgers.cu): (a) each instance against its plain
      version with the Burgers flux from a state 30 steps in (single kernel
@@ -247,12 +248,30 @@ exits non-zero:
      run, which also holds ShardedStructuredKPP over ProcessGroupBlocks to
      LocalBlocks(1) bit for bit. A JSON line {"sharded_twins": ...} holds
      these readings.
+ 13. the unstructured twins (ROADMAP queue 1 item 15b) over LocalBlocks
+     on the card, which launch no hand-written kernel (0 launches gated on
+     every run; unstructured_phase, after phase 12 in its process): (a)
+     DistributedKPP, KPP f32 on the RCM-ordered irr640 over 4 blocks with
+     the irr640 config (IRR[640]) and krylov_rtol 1e-5, gated at IRR_GATE
+     against golden/kpp_rv_anchor_irr640.npy, in turns with the
+     single-device ELL gather run (the readings of phase 12 (a)), with the
+     host seconds of build_partition and build_cell_partition; (b) f64, 5
+     steps, each solved twice bit-equal and held to the single-device run
+     on the card (1e-10): DistributedKPP irr140 over 4 and 3 blocks (also
+     against the CPU, F64_CARD_VS_CPU), Burgers SI with the l = 4
+     smoothing on the unit square nx 50, advection rv_cell and rk4 at
+     mesh 32, over 4 blocks; (c) shard_problem (owner cells) on the ELL
+     backend, irr140 f64 over 4 blocks as (b), irr640 f32 over 4 blocks
+     (the fixed irr config, its first 20 steps) in turns with the
+     single-device run; (d) is phase 5's one-rank NCCL run, which also
+     holds DistributedKPP over ProcessGroupBlocks to LocalBlocks(1) bit for
+     bit. A JSON line {"unstructured_twins": ...} holds these readings.
 From phase 6 (d) on, a run is timed on CUDA events around the one solve
 that is gated or counted, after two solves of its trajectory's first
 REPEAT_STEPS steps that must agree bit for bit (the repeat check, at that
 depth, and the warm-up); phase 10's turns start with the counted solve.
 Phase 7's Burgers SI runs, phase 8's (a) and (c), the whole of phase 9
-and the whole of phase 12 run in three processes of their own
+and the whole of phases 12 and 13 run in three processes of their own
 (SIDE_RUNS), on the card at once with the rest of phases 7 and 8 in this
 one, so that their µs/step and idle shares are read beside each other's;
 their log lines follow this process's, and phase 10 starts when all four
@@ -321,13 +340,14 @@ ACCURACY_GATE = 1e-2     # L2rel vs the committed f64 anchor (bench.py)
 SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
-# phase 7's Burgers SI runs, phase 8's (a) and (c), phase 9 and phase 12
-# (each tuple a process of its own, its functions in order) run beside the
-# rest of phases 7 and 8, all four processes on the card at once; a
-# process gets SIDE_TIMEOUT seconds after the rest is done
+# phase 7's Burgers SI runs, phase 8's (a) and (c), phase 9, and phases
+# 12 and 13 (each tuple a process of its own, its functions in order) run
+# beside the rest of phases 7 and 8, all four processes on the card at
+# once (phase 13 after phase 12 in one process, not in a fifth beside
+# them); a process gets SIDE_TIMEOUT seconds after the rest is done
 SIDE_RUNS = (("euler_stokes_phase",),
              ("run_advection_f64", "run_pk_advection", "run_burgers_si"),
-             ("twins_phase",))
+             ("twins_phase", "unstructured_phase"))
 SIDE_TIMEOUT = 600
 # a path timed on one solve first solves its trajectory's first
 # REPEAT_STEPS steps twice, bit-equal (_repeats): the repeat check at that
@@ -2165,9 +2185,10 @@ def run_process_group_path():
     a temporary directory) against LocalBlocks(1), bit for bit: the fused
     sharded path (mesh 64, 5 steps) and, phase 12 (e), the sharded twin
     ShardedStructuredKPP (TWIN_KPP at mesh 64, 5 steps, no hand-written
-    launch). One card cannot host two NCCL ranks, so the exchange between
-    ranks is held to LocalBlocks on the CPU (gloo) by the test suite, not
-    here."""
+    launch) and, phase 13 (d), the unstructured twin DistributedKPP
+    (TWIN_KPP f32 on UNS_PG_MESH, 5 steps, no hand-written launch). One
+    card cannot host two NCCL ranks, so the exchange between ranks is held
+    to LocalBlocks on the CPU (gloo) by the test suite, not here."""
     import datetime
 
     import torch
@@ -2175,7 +2196,9 @@ def run_process_group_path():
 
     from conservation_fem_tpu_torch.models import kpp
     from conservation_fem_tpu_torch.ops import _build
-    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+    from conservation_fem_tpu_torch.ops import mesh as tmesh
+    from conservation_fem_tpu_torch.parallel import (DistributedKPP,
+                                                     LocalBlocks,
                                                      ProcessGroupBlocks,
                                                      ShardedFusedStructured,
                                                      ShardedStructuredKPP)
@@ -2188,6 +2211,14 @@ def run_process_group_path():
         f"sharded twin over {type(blocks).__name__}",
         ShardedStructuredKPP(kpp.build(twin_cfg), blocks).solve)
     twin_local = twin(LocalBlocks(1, "cuda"))
+    um = tmesh.irregular_mesh((-2, -2), (2, 2), nx=UNS_PG_MESH, seed=1)
+    up = kpp.build(kpp.KPPConfig(dtype="float32", dt=0.005, T=0.025,
+                                 backend="ell", **TWIN_KPP),
+                   host_mesh=tmesh.reorder_mesh(um, tmesh.rcm_permutation(um)))
+    uns = lambda blocks: _no_launch(
+        f"unstructured twin over {type(blocks).__name__}",
+        DistributedKPP(up, blocks).solve)
+    uns_local = uns(LocalBlocks(1, "cuda"))
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -2201,19 +2232,27 @@ def run_process_group_path():
             torch.cuda.synchronize()
             counts = dict(_build.launches)
             twin_pg = twin(ProcessGroupBlocks(dist.group.WORLD))
+            uns_pg = uns(ProcessGroupBlocks(dist.group.WORLD))
         finally:
             dist.destroy_process_group()
     same = torch.equal(u, u_local)
     twin_same = torch.equal(twin_pg, twin_local)
+    uns_same = torch.equal(uns_pg, uns_local)
     log(f"ProcessGroupBlocks, one NCCL rank, mesh 64 f32, {local.p.num_steps}"
         f" steps ({sh.kernel} kernel): launches {counts}; equal to "
         f"LocalBlocks(1) bit for bit: {same}; the sharded twin "
         f"(ShardedStructuredKPP, adaptive f32): no hand-written launch, "
-        f"equal to LocalBlocks(1) bit for bit: {twin_same}")
+        f"equal to LocalBlocks(1) bit for bit: {twin_same}; the "
+        f"unstructured twin (DistributedKPP, irregular nx {UNS_PG_MESH}, "
+        f"{up.num_steps} steps, adaptive f32): no hand-written launch, "
+        f"equal to LocalBlocks(1) bit for bit: {uns_same}")
     if not same:
         raise AssertionError("ProcessGroupBlocks differs from LocalBlocks(1)")
     if not twin_same:
         raise AssertionError("ShardedStructuredKPP over ProcessGroupBlocks "
+                             "differs from LocalBlocks(1)")
+    if not uns_same:
+        raise AssertionError("DistributedKPP over ProcessGroupBlocks "
                              "differs from LocalBlocks(1)")
 
 
@@ -2698,30 +2737,32 @@ def run_burgers_sharded():
     return counts, runs
 
 
-def irr_meshes():
-    """{nx: host mesh} of the five anchored irregular meshes in RCM order,
-    each checked against the JAX package's fingerprint first (the anchors
-    hold only for the same triangulation and numbering)."""
+def irr_mesh(nx):
+    """irregular_mesh((-2,-2), (2,2), nx, seed=1) in RCM order, its ELL
+    structure built, checked against the JAX package's fingerprint first
+    (the anchors hold only for the same triangulation and numbering)."""
     from conservation_fem_tpu_torch.ops import mesh as tmesh
 
-    meshes = {}
-    for nx in IRR:
-        t0 = time.perf_counter()
-        m = tmesh.irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1)
-        m = tmesh.reorder_mesh(m, tmesh.rcm_permutation(m))
-        fp = tmesh.mesh_fingerprint(m)
-        if fp != IRR_FINGERPRINTS[nx]:
-            raise AssertionError(
-                f"irregular_mesh nx {nx}: this machine's triangulation or "
-                f"RCM numbering differs from the JAX package's (fingerprint "
-                f"{fp}, expected {IRR_FINGERPRINTS[nx]}): the committed "
-                f"anchor golden/kpp_rv_anchor_irr{nx}.npy does not apply")
-        _ = m.ell
-        log(f"irr{nx}: {m.n_nodes} nodes, {m.n_cells} cells, K "
-            f"{m.max_patch}, fingerprint matches the JAX package's; built "
-            f"in {time.perf_counter() - t0:.1f} s on the host")
-        meshes[nx] = m
-    return meshes
+    t0 = time.perf_counter()
+    m = tmesh.irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1)
+    m = tmesh.reorder_mesh(m, tmesh.rcm_permutation(m))
+    fp = tmesh.mesh_fingerprint(m)
+    if fp != IRR_FINGERPRINTS[nx]:
+        raise AssertionError(
+            f"irregular_mesh nx {nx}: this machine's triangulation or "
+            f"RCM numbering differs from the JAX package's (fingerprint "
+            f"{fp}, expected {IRR_FINGERPRINTS[nx]}): the committed "
+            f"anchor golden/kpp_rv_anchor_irr{nx}.npy does not apply")
+    _ = m.ell
+    log(f"irr{nx}: {m.n_nodes} nodes, {m.n_cells} cells, K "
+        f"{m.max_patch}, fingerprint matches the JAX package's; built "
+        f"in {time.perf_counter() - t0:.1f} s on the host")
+    return m
+
+
+def irr_meshes():
+    """{nx: irr_mesh(nx)} of the five anchored irregular meshes."""
+    return {nx: irr_mesh(nx) for nx in IRR}
 
 
 def _ell_run(p, label):
@@ -4888,18 +4929,23 @@ def _twin_kpp_cfg(kpp, mesh, dtype, **kw):
 
 class _KrylovCount:
     """Inside ``with``: the iterations of every adaptive cg and bicgstab
-    call of the stencil paths, single-device and sharded (the names the
-    modules call are wrapped, and put back on exit)."""
+    call of the stencil and ELL paths, single-device and sharded (the
+    names the modules call are wrapped, and put back on exit)."""
 
     def __enter__(self):
+        from conservation_fem_tpu_torch.models import scalar_hyperbolic
         from conservation_fem_tpu_torch.models import (
             structured_hyperbolic as shp)
         from conservation_fem_tpu_torch.ops import newton
-        from conservation_fem_tpu_torch.parallel import structured_sharded
+        from conservation_fem_tpu_torch.parallel import (structured_sharded,
+                                                         unstructured_sharded)
 
+        us = unstructured_sharded
         self.iters = dict(cg=0, bicgstab=0)
         self._saved = [(shp, "cg", shp.cg),
                        (structured_sharded, "cg", structured_sharded.cg),
+                       (scalar_hyperbolic, "cg", scalar_hyperbolic.cg),
+                       (us, "cg", us.cg), (us, "bicgstab", us.bicgstab),
                        (newton, "bicgstab", newton.bicgstab)]
         for mod, name, fn in self._saved:
             setattr(mod, name, self._counted(name, fn))
@@ -4917,19 +4963,21 @@ class _KrylovCount:
             setattr(mod, name, fn)
 
 
-def _twin_run(label, sh, single, steps, turns):
+def _rows_run(sh):
+    """k -> the end state of a row-sharded twin after its first k steps."""
+    return lambda k: sh._to_global(sh.run_chunk(sh.init_carry(), 0, k)[0])
+
+
+def _twin_run(label, sharded, single, steps, turns):
     """A sharded twin beside the single-device run of the same problem,
     neither launching a hand-written kernel: the first REPEAT_STEPS steps
     of each solved twice, bit-equal (the warm-up); the whole trajectory
     timed on CUDA events in the order ``turns``, the Krylov iterations a
     step counted in the first solve of each; kernels a step and idle share
     over the first TWIN_TRACE_STEPS steps (torch.profiler).
-    single(k): the single-device end state after k steps. ({name: end
+    sharded(k), single(k): the end states after k steps. ({name: end
     state}, readings, their summary for the log)."""
-    runs = dict(
-        sharded=lambda k: sh._to_global(sh.run_chunk(sh.init_carry(), 0,
-                                                     k)[0]),
-        single=single)
+    runs = dict(sharded=sharded, single=single)
     for name, fn in runs.items():
         _no_launch(label, lambda: _repeats(f"{label} {name}",
                                            lambda: fn(REPEAT_STEPS)))
@@ -4981,7 +5029,8 @@ def run_twin_kpp(card):
     steps, nodes = p.num_steps, int(p.u0.numel())
     label = f"sharded twin kpp mesh {mesh} x {n} f32 adaptive"
     fields, row, text = _twin_run(
-        label, sh, lambda k: _prefix(p, k).solve().u, steps, TWIN_TURNS_LONG)
+        label, _rows_run(sh), lambda k: _prefix(p, k).solve().u, steps,
+        TWIN_TURNS_LONG)
     rel, lo, hi = _field_stats(fields["sharded"], mesh, anchor)
     rel_single, _, _ = _field_stats(fields["single"], mesh, anchor)
     log(f"{label} ({nodes} nodes, L {sh.L}), {steps} steps: {text}; L2rel "
@@ -5060,8 +5109,8 @@ def run_twin_euler(card):
         sh = ShardedStructuredEuler(p, LocalBlocks(n, "cuda"))
         label = f"sharded twin euler {prob}:{nx} x {n} f32"
         fields, row, text = _twin_run(
-            label, sh, lambda k: euler.solve(p, num_steps=k).U, p.num_steps,
-            turns)
+            label, _rows_run(sh), lambda k: euler.solve(p, num_steps=k).U,
+            p.num_steps, turns)
         a = np.load(os.path.join(REPO, "golden",
                                  f"euler_{prob}_anchor_nx{nx}.npy"))
         U = fields["sharded"].double().cpu().numpy()
@@ -5161,6 +5210,203 @@ def twins_phase(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the unstructured twins (ROADMAP queue 1 item 15b) over LocalBlocks
+# ---------------------------------------------------------------------------
+
+# (a) DistributedKPP on phase 10's RCM-ordered irr640 over UNS_KPP_BLOCKS
+# blocks: the irr640 f32 config (IRR[640]: dt 0.0009, T 0.09, 100 steps)
+# on the ELL backend with the fixed-count fields at their defaults (the
+# distributed class runs adaptive solvers whatever they hold) and
+# krylov_rtol 1e-5 (TWIN_KPP, the JAX package's multichip paths; f32
+# cannot reach the default 1e-12, so every solve would run to maxiter),
+# gated at IRR_GATE against its anchor, in turns with the single-device
+# ELL gather run of the same config
+UNS_KPP_NX = 640
+UNS_KPP_BLOCKS = 4
+# (b) f64 identity, UNS_F64_STEPS steps, against the single-device run on
+# the card (TWIN_ID_TOL), KPP also against the CPU (F64_CARD_VS_CPU);
+# a second solve of each bit-equal to the first
+UNS_F64_STEPS = 5
+UNS_F64_KPP = (140, (4, 3))             # irr nx, block counts
+UNS_F64_BURGERS = (50, 4)               # unit square nx, blocks: SI, l = 4
+UNS_F64_ADVECTION = (32, ("rv_cell", "rk4"), 4)   # mesh, runs, blocks
+# (c) owner cells, shard_problem on the ELL backend: f64 irr140 over 4
+# blocks (UNS_F64_STEPS steps, against the single-device run); f32 irr640
+# over 4 blocks, the fixed irr config (IRR_FIXED), its first 20 steps in
+# turns with the single-device run
+UNS_OWNER_F64 = (140, 4)
+# (d) the one-rank NCCL run's mesh: irregular_mesh nx 64 (RCM order)
+UNS_PG_MESH = 64
+UNS_OWNER_F32 = (640, 4, 20)
+
+
+def _uns_identity(label, fn, ref, tol=TWIN_ID_TOL):
+    """fn() twice without a hand-written launch, bit-equal, and within tol
+    of ref: (max error, the solution)."""
+    import torch
+
+    u = _no_launch(label, fn)
+    if not torch.equal(_no_launch(label, fn), u):
+        raise AssertionError(f"{label}: a second solve differs")
+    e = max_err(u, ref)
+    if not e <= tol:
+        raise AssertionError(f"{label}: {e} from the single-device run")
+    return e, u
+
+
+def run_uns_kpp(card, m):
+    """(a) DistributedKPP f32 at irr640 over UNS_KPP_BLOCKS blocks against
+    its anchor, in turns with the single-device ELL gather run; the host
+    seconds of the two partition builds."""
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import DistributedKPP, LocalBlocks
+
+    nx, n = UNS_KPP_NX, UNS_KPP_BLOCKS
+    dt, T = IRR[nx]
+    p = kpp.build(kpp.KPPConfig(dtype="float32", dt=dt, T=T, backend="ell",
+                                **TWIN_KPP), host_mesh=m)
+    p._force_lazy_operators()
+    t0 = time.perf_counter()
+    d = DistributedKPP(p, LocalBlocks(n, "cuda"))
+    init_s = time.perf_counter() - t0
+    label = f"unstructured twin kpp irr{nx} x {n} f32 adaptive"
+    fields, row, text = _twin_run(
+        label, lambda k: d.solve(num_steps=k),
+        lambda k: _prefix(p, k).solve().u, p.num_steps, TWIN_TURNS_LONG)
+    rel, lo, hi, _, _ = _irr_gate(fields["sharded"], nx, label)
+    rel_single = _irr_gate(fields["single"], nx, label + " single")[0]
+    ps = d.partition_seconds
+    log(f"{label} ({m.n_nodes} nodes, n_own {d.n_own}, halo {d.H}, shared "
+        f"{d.S}), {p.num_steps} steps: {text}; L2rel against the anchor "
+        f"{rel:.4e} (gate {IRR_GATE}), single device {rel_single:.4e}; "
+        f"max|sharded - single| "
+        f"{max_err(fields['sharded'], fields['single']):.3e}; u in "
+        f"[{lo:.4f}, {hi:.4f}]; build_partition "
+        f"{ps['build_partition']:.3f} s, build_cell_partition "
+        f"{ps['build_cell_partition']:.3f} s on the host, the class "
+        f"{init_s:.3f} s in all ({card})")
+    return dict(nodes=m.n_nodes, steps=p.num_steps, blocks=n,
+                n_own=d.n_own, halo=d.H, shared=d.S,
+                partition_seconds=ps, init_seconds=init_s,
+                l2rel_vs_anchor=rel, l2rel_single_vs_anchor=rel_single,
+                **row)
+
+
+def run_uns_f64(card, m140):
+    """(b) f64 identity, UNS_F64_STEPS steps: DistributedKPP at irr140 over
+    4 and 3 blocks (card and CPU), Burgers SI with smoothing on the unit
+    square nx 50 over 4 blocks, advection rv_cell and rk4 at mesh 32 over
+    4 blocks, each against its single-device run on the card."""
+    from conservation_fem_tpu_torch.models import burgers, kpp
+    from conservation_fem_tpu_torch.models import linear_advection as adv
+    from conservation_fem_tpu_torch.ops.mesh import rectangle_mesh
+    from conservation_fem_tpu_torch.parallel import (DistributedAdvection,
+                                                     DistributedHyperbolic,
+                                                     DistributedKPP,
+                                                     LocalBlocks)
+
+    out, steps = {}, UNS_F64_STEPS
+    nx, counts = UNS_F64_KPP
+    dt = IRR[nx][0]
+    cfg = kpp.KPPConfig(dt=dt, T=steps * dt, backend="ell")
+    p = kpp.build(cfg, host_mesh=m140)
+    assert p.num_steps == steps, p.num_steps
+    u_card = _no_launch("kpp f64 irr140 single device", lambda: p.solve().u)
+    u_cpu = kpp.build(cfg, host_mesh=m140, device="cpu").solve().u
+    for n in counts:
+        label = f"unstructured twin kpp irr{nx} x {n} f64"
+        e, u = _uns_identity(label, DistributedKPP(
+            p, LocalBlocks(n, "cuda")).solve, u_card)
+        e_cpu = max_err(u.cpu(), u_cpu)
+        log(f"{label}, {steps} steps: max|distributed - single device| "
+            f"{e:.3e} on the card (gate {TWIN_ID_TOL}), {e_cpu:.3e} against "
+            f"the CPU (gate {F64_CARD_VS_CPU}); a second solve bit-equal "
+            f"({card})")
+        if not e_cpu <= F64_CARD_VS_CPU:
+            raise AssertionError(f"{label}: {e_cpu} from the CPU")
+        out[f"kpp_irr{nx}_x{n}"] = dict(vs_single_card=e, vs_single_cpu=e_cpu)
+    nx, n = UNS_F64_BURGERS
+    q = _prefix(burgers.build(
+        burgers.BurgersConfig(mesh_size=nx, backend="ell", stabilization="si",
+                              smooth_l=4.0),
+        host_mesh=rectangle_mesh((0, 0), (1, 1), nx=nx)), steps)
+    label = f"unstructured twin burgers si l4 nx {nx} x {n} f64"
+    ref = _no_launch(label, lambda: q.solve().u)
+    e, _ = _uns_identity(label, DistributedHyperbolic(
+        q, LocalBlocks(n, "cuda")).solve, ref)
+    log(f"{label}, {steps} steps: max|distributed - single device| {e:.3e} "
+        f"(gate {TWIN_ID_TOL}); a second solve bit-equal ({card})")
+    out[f"burgers_si_nx{nx}_x{n}"] = dict(vs_single_card=e)
+    mesh, runs, n = UNS_F64_ADVECTION
+    for stab in runs:
+        a = adv.build(adv.AdvectionConfig(mesh_size=mesh, stabilization=stab,
+                                          rv_cell_scatter="max"))
+        a = dataclasses.replace(a, num_steps=steps)
+        label = f"unstructured twin advection {stab} mesh {mesh} x {n} f64"
+        ref = _no_launch(label, lambda: adv.solve(a).u)
+        e, _ = _uns_identity(label, DistributedAdvection(
+            a, LocalBlocks(n, "cuda")).solve, ref)
+        log(f"{label}, {steps} steps: max|distributed - single device| "
+            f"{e:.3e} (gate {TWIN_ID_TOL}); a second solve bit-equal "
+            f"({card})")
+        out[f"advection_{stab}_mesh{mesh}_x{n}"] = dict(vs_single_card=e)
+    return out
+
+
+def run_uns_owner(card, m140, m640):
+    """(c) shard_problem (owner cells, replicated nodes) on the ELL
+    backend: f64 irr140 against the single-device run; f32 irr640 with the
+    fixed irr config, its first UNS_OWNER_F32[2] steps in turns with the
+    single-device run."""
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import LocalBlocks, shard_problem
+
+    nx, n = UNS_OWNER_F64
+    dt = IRR[nx][0]
+    cfg = kpp.KPPConfig(dt=dt, T=UNS_F64_STEPS * dt, backend="ell")
+    label = f"owner cells kpp irr{nx} x {n} f64"
+    ref = _no_launch(label, lambda: kpp.build(cfg, host_mesh=m140).solve().u)
+    p = shard_problem(kpp.build(cfg, host_mesh=m140), LocalBlocks(n, "cuda"))
+    e, _ = _uns_identity(label, lambda: p.solve().u, ref)
+    log(f"{label}, {UNS_F64_STEPS} steps: max|owner cells - single device| "
+        f"{e:.3e} (gate {TWIN_ID_TOL}); a second solve bit-equal ({card})")
+    out = dict(f64=dict(vs_single_card=e))
+    nx, n, steps = UNS_OWNER_F32
+    dt, T = IRR[nx]
+    cfg = kpp.KPPConfig(dtype="float32", dt=dt, T=T, backend="ell",
+                        **IRR_FIXED)
+    single = kpp.build(cfg, host_mesh=m640)
+    sh = shard_problem(kpp.build(cfg, host_mesh=m640), LocalBlocks(n, "cuda"))
+    label = f"owner cells kpp irr{nx} x {n} f32 fixed"
+    fields, row, text = _twin_run(
+        label, lambda k: _prefix(sh, k).solve().u,
+        lambda k: _prefix(single, k).solve().u, steps, TWIN_TURNS)
+    if not bool(fields["sharded"].isfinite().all()):
+        raise AssertionError(f"{label}: not finite")
+    diff = max_err(fields["sharded"], fields["single"])
+    log(f"{label}, the first {steps} of {single.num_steps} steps: {text}; "
+        f"max|owner cells - single| {diff:.3e} ({card})")
+    out["f32"] = dict(nodes=m640.n_nodes, steps=steps, blocks=n,
+                      max_vs_single=diff, **row)
+    return out
+
+
+def unstructured_phase(card):
+    """Phase 13: the unstructured twins (ROADMAP queue 1 item 15b) over
+    LocalBlocks on the card; no hand-written kernel lies under them, and
+    every run is held to zero launches. The smoke run runs it after phase
+    12 in their process beside phases 7-9 (SIDE_RUNS). The one-rank
+    NCCL run (d) is in run_process_group_path (phase 5)."""
+    t_phase = time.perf_counter()
+    m140, m640 = irr_mesh(140), irr_mesh(UNS_KPP_NX)
+    out = dict(kpp=run_uns_kpp(card, m640), f64=run_uns_f64(card, m140),
+               owner_cells=run_uns_owner(card, m140, m640))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"unstructured twins phase: {out['seconds']:.0f} s ({card})")
+    return out
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -5218,11 +5464,11 @@ def smoke(card, regs):
     sharded_counts, sharded_runs = run_burgers_sharded()
     b_counts.update(sharded_counts)
     b_runs.update(sharded_runs)
-    # phases 7-9 and 12 launch no hand-written kernel: the ELL backend and
-    # the stabilisation library (the JAX package runs them as XLA
+    # phases 7-9, 12 and 13 launch no hand-written kernel: the ELL backend
+    # and the stabilisation library (the JAX package runs them as XLA
     # gathers), linear advection and the Pk layer, compressible Euler and
-    # Stokes/IPCS, the sharded twins; SIDE_RUNS run in processes of their
-    # own beside the rest
+    # Stokes/IPCS, the sharded and the unstructured twins; SIDE_RUNS run
+    # in processes of their own beside the rest
     t_side = time.perf_counter()
     sides = [_side_start(names, card) for names in SIDE_RUNS]
     try:
@@ -5246,7 +5492,8 @@ def smoke(card, regs):
                      pk_advection=side["run_pk_advection"])
     euler_stokes = side["euler_stokes_phase"]
     twins = side["twins_phase"]
-    log(f"phases 7, 8, 9 and 12: {time.perf_counter() - t_side:.0f} s "
+    unstructured = side["unstructured_phase"]
+    log(f"phases 7, 8, 9, 12 and 13: {time.perf_counter() - t_side:.0f} s "
         f"({card})")
     # the unstructured fast path on the hand-written ELL kernels, on phase
     # 7's meshes
@@ -5308,6 +5555,7 @@ def smoke(card, regs):
     log(json.dumps({"unstructured_fast_path": fast}))
     log(json.dumps({"utilities": utilities}))
     log(json.dumps({"sharded_twins": twins}))
+    log(json.dumps({"unstructured_twins": unstructured}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -7,7 +7,7 @@ f64 and the result is cast back. ``precise_reductions`` hands
 a change of summation order plants in an f32 shock trajectory from f32
 eps to f64 eps. ``einsum_exact`` is not needed: TF32 is off and asserted
 in the package root. The sharded twins (``pdot_acc64``, ``psum_acc64``)
-belong to the sharded unstructured path (ROADMAP queue 1 item 15).
+belong to the sharded blocked path (ROADMAP queue 1 item 15c).
 """
 
 from __future__ import annotations

@@ -6,11 +6,23 @@ from conservation_fem_tpu_torch.parallel.comm import (LocalBlocks,
                                                       ProcessGroupBlocks)
 from conservation_fem_tpu_torch.parallel.euler_sharded import (
     ShardedStructuredEuler, shard_euler)
+from conservation_fem_tpu_torch.parallel.partition import (
+    CellPartition, Partition, build_cell_partition, build_partition)
+from conservation_fem_tpu_torch.parallel.sharded import (
+    ShardedHyperbolicProblem, shard_problem)
 from conservation_fem_tpu_torch.parallel.structured_fused_sharded import (
     ShardedFusedStructured, shard_structured_fused)
 from conservation_fem_tpu_torch.parallel.structured_sharded import (
     ShardedStructuredKPP, shard_structured)
+from conservation_fem_tpu_torch.parallel.unstructured_sharded import (
+    DistributedAdvection, DistributedELL, DistributedHyperbolic,
+    DistributedKPP, DistributedUnstructured, distributed_poisson_demo)
 
-__all__ = ["LocalBlocks", "ProcessGroupBlocks", "ShardedFusedStructured",
-           "ShardedStructuredEuler", "ShardedStructuredKPP", "shard_euler",
+__all__ = ["CellPartition", "DistributedAdvection", "DistributedELL",
+           "DistributedHyperbolic", "DistributedKPP",
+           "DistributedUnstructured", "LocalBlocks", "Partition",
+           "ProcessGroupBlocks", "ShardedFusedStructured",
+           "ShardedHyperbolicProblem", "ShardedStructuredEuler",
+           "ShardedStructuredKPP", "build_cell_partition", "build_partition",
+           "distributed_poisson_demo", "shard_euler", "shard_problem",
            "shard_structured", "shard_structured_fused"]

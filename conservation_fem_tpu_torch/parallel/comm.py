@@ -1,18 +1,24 @@
-"""What a row decomposition asks of the blocks' owner: two reductions, the
-deep-halo extension and the reverse shipment. The JAX package has these
-built in (``psum``, ``pmax``, ``ppermute`` / ``all_gather`` inside
-``shard_map``); here they are one small interface with two
+"""What a decomposition asks of the blocks' owner: two reductions, a
+gather, the deep-halo extension and the reverse shipment. The JAX package
+has these built in (``psum``, ``pmax``, ``ppermute`` / ``all_gather``
+inside ``shard_map``); here they are one small interface with two
 implementations.
 
-A decomposition splits the rows of a grid into ``n_dev`` blocks of ``L``
-rows, block d holding global rows [d L, (d + 1) L). An implementation
+A decomposition splits its rows into ``n_dev`` blocks of ``L`` rows, block
+d holding global rows [d L, (d + 1) L) (a structured grid's rows, or an
+unstructured mesh's nodes, parallel/partition.py). An implementation
 holds the blocks ``ranks`` (global block indices, in order) as tensors
 whose leading axis runs over them:
 
-    sum(parts), max(parts)   parts: (len(ranks),) per-block partials ->
-                             (1,) tensor, the reduction over ALL blocks,
-                             left on the device (nothing here reads a
-                             value on the host);
+    sum(parts)               parts: (len(ranks), ...) per-block partials
+                             of any trailing shape -> (1, ...), their sum
+                             over ALL blocks, left on the device (nothing
+                             here reads a value on the host): a dot's
+                             per-block sums, or each block's partial
+                             nodal vector or (N, K) ELL matrix
+                             (parallel/sharded.py);
+    max(parts)               parts: (len(ranks),) per-block maxima -> (1,)
+                             tensor, the maximum over ALL blocks;
     extend(x, D, fill)       x: (len(ranks), F, L, C) owned rows of F
                              fields -> (len(ranks), F, L + 2 D, C): each
                              block with the D rows above and below it,
@@ -23,8 +29,11 @@ whose leading axis runs over them:
                              ``ppermute`` to d + 1: the boundary rows a
                              block's cells add into the next block, which
                              adds them to its own first row);
-    gather(x)                x: (len(ranks), L, C) -> (n_dev, L, C) on
-                             every owner.
+    gather(x)                x: (len(ranks), ...) of any trailing shape ->
+                             (n_dev, ...) on every owner: all blocks' x in
+                             block order (an all-gather; the unstructured
+                             halo and reverse exchanges gather each
+                             block's published rows with it).
 
 Sums add the blocks' partials in block order in both implementations, so
 they agree bit for bit; a maximum does not depend on the order.
@@ -39,7 +48,7 @@ from conservation_fem_tpu_torch import get_device
 
 
 def _ordered_sum(parts):
-    """parts[0] + parts[1] + ... in that order, as a (1,) tensor."""
+    """parts[0] + parts[1] + ... in that order, as a (1, ...) tensor."""
     acc = parts[0:1]
     for k in range(1, parts.shape[0]):
         acc = acc + parts[k:k + 1]

@@ -9,6 +9,7 @@ import dataclasses
 import functools
 
 import pytest
+import torch
 
 from conservation_fem_tpu.models import kpp as jkpp
 from conservation_fem_tpu_torch.models import kpp as tkpp
@@ -25,6 +26,17 @@ EXPECTED = {
     (128, "float64"): "tiled", (256, "float64"): "tiled",
     (512, "float64"): "tiled",
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -49,6 +49,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run shares the cores among several
+    pytest worker processes, where torch's thread pool only
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_trajectory(cfg, steps=None):
     """The JAX single-device fixed Chebyshev trajectory through the XLA
     step: the list of carries (u, u_old, u_old_old) after 0, 1, ... steps."""

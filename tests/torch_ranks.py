@@ -89,7 +89,22 @@ def _euler(blocks, cfg):
     return ShardedStructuredEuler(p, blocks).solve()
 
 
-JOBS = {"fused": _fused, "structured": _structured, "euler": _euler}
+def _unstructured(blocks, model, cfg, rect):
+    from conservation_fem_tpu_torch.models import burgers, kpp
+    from conservation_fem_tpu_torch.ops.mesh import rectangle_mesh
+    from conservation_fem_tpu_torch.parallel import DistributedHyperbolic
+
+    m = rectangle_mesh(**rect)
+    if model == "kpp":
+        p = kpp.build(kpp.KPPConfig(**cfg), device="cpu", host_mesh=m)
+    else:
+        p = burgers.build(burgers.BurgersConfig(**cfg), device="cpu",
+                          host_mesh=m)
+    return DistributedHyperbolic(p, blocks).solve()
+
+
+JOBS = {"fused": _fused, "structured": _structured, "euler": _euler,
+        "unstructured": _unstructured}
 
 
 def _run_job(job, args):
