@@ -341,13 +341,15 @@ SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
 # phase 7's Burgers SI runs, phase 8's (a) and (c), phase 9, and phases
-# 12 and 13 (each tuple a process of its own, its functions in order) run
-# beside the rest of phases 7 and 8, all four processes on the card at
-# once (phase 13 after phase 12 in one process, not in a fifth beside
-# them); a process gets SIDE_TIMEOUT seconds after the rest is done
+# 12, 13 and 14 (each tuple a process of its own, its functions in order)
+# run beside the rest of phases 7 and 8, all five processes on the card at
+# once (phase 13 after phase 12 in one process; phase 14, which launches
+# the ELL kernels, in one of its own); a process gets SIDE_TIMEOUT seconds
+# after the rest is done
 SIDE_RUNS = (("euler_stokes_phase",),
              ("run_advection_f64", "run_pk_advection", "run_burgers_si"),
-             ("twins_phase", "unstructured_phase"))
+             ("twins_phase", "unstructured_phase"),
+             ("blocked_twins_phase",))
 SIDE_TIMEOUT = 600
 # a path timed on one solve first solves its trajectory's first
 # REPEAT_STEPS steps twice, bit-equal (_repeats): the repeat check at that
@@ -2186,7 +2188,9 @@ def run_process_group_path():
     sharded path (mesh 64, 5 steps) and, phase 12 (e), the sharded twin
     ShardedStructuredKPP (TWIN_KPP at mesh 64, 5 steps, no hand-written
     launch) and, phase 13 (d), the unstructured twin DistributedKPP
-    (TWIN_KPP f32 on UNS_PG_MESH, 5 steps, no hand-written launch). One
+    (TWIN_KPP f32 on UNS_PG_MESH, 5 steps, no hand-written launch) and,
+    phase 14 (f), the blocked twin DistributedBlocked (the f32 blocked
+    bench config on UNS_PG_MESH, 5 steps, through the ELL kernels). One
     card cannot host two NCCL ranks, so the exchange between ranks is held
     to LocalBlocks on the CPU (gloo) by the test suite, not here."""
     import datetime
@@ -2197,7 +2201,8 @@ def run_process_group_path():
     from conservation_fem_tpu_torch.models import kpp
     from conservation_fem_tpu_torch.ops import _build
     from conservation_fem_tpu_torch.ops import mesh as tmesh
-    from conservation_fem_tpu_torch.parallel import (DistributedKPP,
+    from conservation_fem_tpu_torch.parallel import (DistributedBlocked,
+                                                     DistributedKPP,
                                                      LocalBlocks,
                                                      ProcessGroupBlocks,
                                                      ShardedFusedStructured,
@@ -2219,6 +2224,13 @@ def run_process_group_path():
         f"unstructured twin over {type(blocks).__name__}",
         DistributedKPP(up, blocks).solve)
     uns_local = uns(LocalBlocks(1, "cuda"))
+    bp = kpp.build(kpp.KPPConfig(dtype="float32", dt=0.005, T=0.025,
+                                 backend="ell", ell_matvec_backend="blocked",
+                                 **IRR_FIXED), host_mesh=up.host_mesh)
+    blk = lambda blocks: _some_launches(
+        f"blocked twin over {type(blocks).__name__}",
+        DistributedBlocked(bp, blocks).solve, tuple(ELL_KERNELS))
+    blk_local, blk_counts = blk(LocalBlocks(1, "cuda"))
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -2233,11 +2245,13 @@ def run_process_group_path():
             counts = dict(_build.launches)
             twin_pg = twin(ProcessGroupBlocks(dist.group.WORLD))
             uns_pg = uns(ProcessGroupBlocks(dist.group.WORLD))
+            blk_pg, blk_pg_counts = blk(ProcessGroupBlocks(dist.group.WORLD))
         finally:
             dist.destroy_process_group()
     same = torch.equal(u, u_local)
     twin_same = torch.equal(twin_pg, twin_local)
     uns_same = torch.equal(uns_pg, uns_local)
+    blk_same = torch.equal(blk_pg, blk_local) and blk_pg_counts == blk_counts
     log(f"ProcessGroupBlocks, one NCCL rank, mesh 64 f32, {local.p.num_steps}"
         f" steps ({sh.kernel} kernel): launches {counts}; equal to "
         f"LocalBlocks(1) bit for bit: {same}; the sharded twin "
@@ -2245,7 +2259,10 @@ def run_process_group_path():
         f"equal to LocalBlocks(1) bit for bit: {twin_same}; the "
         f"unstructured twin (DistributedKPP, irregular nx {UNS_PG_MESH}, "
         f"{up.num_steps} steps, adaptive f32): no hand-written launch, "
-        f"equal to LocalBlocks(1) bit for bit: {uns_same}")
+        f"equal to LocalBlocks(1) bit for bit: {uns_same}; the blocked twin "
+        f"(DistributedBlocked, the same mesh, {bp.num_steps} steps, fixed "
+        f"f32): launches {blk_pg_counts}, equal to LocalBlocks(1) bit for "
+        f"bit and in launches: {blk_same}")
     if not same:
         raise AssertionError("ProcessGroupBlocks differs from LocalBlocks(1)")
     if not twin_same:
@@ -2253,6 +2270,9 @@ def run_process_group_path():
                              "differs from LocalBlocks(1)")
     if not uns_same:
         raise AssertionError("DistributedKPP over ProcessGroupBlocks "
+                             "differs from LocalBlocks(1)")
+    if not blk_same:
+        raise AssertionError("DistributedBlocked over ProcessGroupBlocks "
                              "differs from LocalBlocks(1)")
 
 
@@ -5407,6 +5427,342 @@ def unstructured_phase(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the blocked twins on the ELL kernels, the sharded f64-
+# accumulated reductions and the sharded Stokes (ROADMAP queue 1 item 15c)
+# ---------------------------------------------------------------------------
+
+# (a), (b) DistributedBlocked on phase 10's RCM-ordered irr640 over
+# BT_BLOCKS blocks, the KPP RV f32 bench config (_blocked_cfg: IRR[640],
+# IRR_FIXED) on the blocked and blocked2d backends, gated at IRR_GATE
+# against the anchor, its ELL launches a step at blocked_launches, in turns
+# with the single-device blocked run (BT_TURNS)
+BT_NX = 640
+BT_BLOCKS = 4
+BT_TURNS = ("twin", "single", "single", "twin")
+# (c) the JAX dry run's path 12 (f32, fixed counts, BiCGStab dots,
+# precise_reductions) against the single device at BT_PRECISE_TOL
+BT_PATH12 = dict(mesh_size=8, dtype="float32", T=0.05, backend="ell",
+                 ell_matvec_backend="blocked", modified_newton=True,
+                 cg_iters=6, newton_iters=2, newton_linear_iters=4,
+                 inner_solver="bicgstab", precise_reductions=True)
+BT_PRECISE_TOL = 1e-5
+# (d) f64 identities, BT_F64_STEPS steps, against the card's single-device
+# runs (TWIN_ID_TOL), a second solve bit-equal
+BT_F64_STEPS = 5
+BT_F64_KPP = (140, (4, 3))
+BT_F64_KPP_RUNS = {"rv": {}, "si_smooth": dict(stabilization="si",
+                                                smooth_l=2.0),
+                   "matrix_free": dict(blocked_matrix_free=True)}
+BT_F64_PK = 32            # P2 SI Burgers (PK_BURGERS), mesh
+BT_F64_ADV = 32           # advection rv_node, mesh
+# (e) ShardedStokes over BT_BLOCKS blocks: STOKES_BENCH f32 at nx 64 in
+# turns with the lattice run under phase 9's gate (STOKES_ADAPTIVE_GATE
+# against the lattice run); STOKES_IDENTITY f64 against the lattice run;
+# multigrid f64 at nx 32 against the lattice multigrid run; backend="grid"
+# against the lattice backend (STOKES_IDENTITY_GATE)
+BT_STOKES_NX = 64
+BT_STOKES_MG = dict(nx=32, num_steps=10, T=0.2, backend="lattice",
+                    multigrid=True)
+
+
+def _bt_timed(label, twin, single, steps, want):
+    """The twin's end state and the single device's, timed in BT_TURNS
+    after two bit-equal solves of REPEAT_STEPS steps each; the twin's
+    first solve counted against ``want`` (its hand-written launches) and
+    the single device's against the same; kernels a step and idle share
+    over the first 3 steps. twin(k), single(k): the end states after k
+    steps."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+
+    runs = dict(twin=twin, single=single)
+    for name, fn in runs.items():
+        _repeats(f"{label} {name}", lambda: fn(REPEAT_STEPS))
+    fields, us, counts = {}, {k: [] for k in runs}, {}
+    for name in BT_TURNS:
+        _build.launches.clear()
+        u, t = _timed(lambda: runs[name](steps), steps)
+        us[name].append(t)
+        if name not in fields:
+            fields[name], counts[name] = u, dict(_build.launches)
+        elif not torch.equal(u, fields[name]):
+            raise AssertionError(f"{label} {name}: repeated solves differ")
+    for name, c in counts.items():
+        if c != want:
+            raise AssertionError(f"{label} {name}: launched {c}, the code "
+                                 f"predicts {want}")
+    prof = {name: profiled(lambda: fn(3), 3) for name, fn in runs.items()}
+    med = {k: float(np.median(v)) for k, v in us.items()}
+    per_step = {k: v / steps for k, v in counts["twin"].items()}
+    text = (f"{med['twin']:.1f} us/step against {med['single']:.1f} single "
+            f"device in turns ({us['twin']} / {us['single']}; ratio "
+            f"{med['twin'] / med['single']:.3f}); ELL launches a step "
+            f"{per_step} on both (as predicted); kernels a step "
+            f"{prof['twin']['kernels_per_step']:.1f} / "
+            f"{prof['single']['kernels_per_step']:.1f} (ratio "
+            f"{prof['twin']['kernels_per_step'] / prof['single']['kernels_per_step']:.3f}), "
+            f"idle share {prof['twin']['profiled_idle']:.4f} / "
+            f"{prof['single']['profiled_idle']:.4f} (first 3 steps)")
+    row = dict(us_per_step=us, us_ratio=med["twin"] / med["single"],
+               launches_per_step=per_step, profiled=prof,
+               kernels_ratio=(prof["twin"]["kernels_per_step"]
+                              / prof["single"]["kernels_per_step"]))
+    return fields, row, text
+
+
+def run_bt_kpp(card, m640, backend):
+    """(a) / (b) DistributedBlocked on irr640 over BT_BLOCKS blocks, the
+    blocked (or blocked2d: the mesh tiled) f32 bench config."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.ops.tiling import tile_mesh
+    from conservation_fem_tpu_torch.parallel import (DistributedBlocked,
+                                                     LocalBlocks)
+
+    nx, n = BT_NX, BT_BLOCKS
+    m, slot = m640, None
+    if backend == "blocked2d":
+        m, slot = tile_mesh(m640)
+    p = kpp.build(_blocked_cfg(kpp, nx, backend), host_mesh=m)
+    p._force_lazy_operators()
+    t0 = time.perf_counter()
+    d = DistributedBlocked(p, LocalBlocks(n, "cuda"))
+    init_s = time.perf_counter() - t0
+    label = f"blocked twin {backend} irr{nx} x {n} f32 bench config"
+    fields, row, text = _bt_timed(
+        label, lambda k: d.solve(num_steps=k),
+        lambda k: _prefix(p, k).solve().u, p.num_steps,
+        blocked_launches(p.cfg, p.num_steps))
+    native = lambda u: (u if slot is None
+                        else u[torch.as_tensor(slot, device=u.device)])
+    rel, lo, hi, _, _ = _irr_gate(native(fields["twin"]), nx, label)
+    rel_single = _irr_gate(native(fields["single"]), nx,
+                           label + " single")[0]
+    diff = max_err(fields["twin"], fields["single"])
+    log(f"{label} ({m.n_nodes} rows, {d.L} a block, halo {d.H}, "
+        f"{d.bp.mesh.cells.shape[0]} block cells for {m.n_cells}), "
+        f"{p.num_steps} steps: {text}; L2rel against the anchor {rel:.4e} "
+        f"(gate {IRR_GATE}), single device {rel_single:.4e}; max|twin - "
+        f"single| {diff:.3e}; u in [{lo:.4f}, {hi:.4f}]; the class "
+        f"{init_s:.2f} s on the host ({card})")
+    return dict(rows=m.n_nodes, steps=p.num_steps, blocks=n, L=d.L,
+                halo=d.H, block_cells=int(d.bp.mesh.cells.shape[0]),
+                cells=m.n_cells, init_seconds=init_s, l2rel_vs_anchor=rel,
+                l2rel_single_vs_anchor=rel_single, max_vs_single=diff,
+                **row)
+
+
+def run_bt_precise(card, m640):
+    """(c) path 12's precise_reductions config over BT_BLOCKS blocks
+    against the single device (BT_PRECISE_TOL); irr640 over BT_BLOCKS
+    blocks with and without the flag, the twin against the single device
+    printed."""
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (DistributedBlocked,
+                                                     LocalBlocks)
+
+    n = BT_BLOCKS
+    cfg = kpp.KPPConfig(**BT_PATH12)
+    single = kpp.build(cfg).solve().u
+    twin = DistributedBlocked(kpp.build(cfg), LocalBlocks(n, "cuda")).solve()
+    e = max_err(twin, single)
+    log(f"blocked twin path-12 config (KPP mesh 8 f32, BiCGStab, "
+        f"precise_reductions) x {n}: max|twin - single| {e:.3e} (gate "
+        f"{BT_PRECISE_TOL}) ({card})")
+    if not e <= BT_PRECISE_TOL:
+        raise AssertionError(f"blocked twin path 12: {e}")
+    out = dict(path12=dict(max_vs_single=e))
+    for flag in (False, True):
+        p = kpp.build(_blocked_cfg(kpp, BT_NX, "blocked",
+                                   precise_reductions=flag), host_mesh=m640)
+        u1 = p.solve().u
+        u4 = DistributedBlocked(p, LocalBlocks(n, "cuda")).solve()
+        rel = _l2rel(u4.double().cpu().numpy(), u1.double().cpu().numpy())
+        log(f"blocked twin irr{BT_NX} x {n} f32, precise_reductions={flag}: "
+            f"L2rel twin against single {rel:.4e} (printed, not gated) "
+            f"({card})")
+        out[f"irr{BT_NX}_precise_{flag}"] = dict(l2rel_vs_single=rel)
+    return out
+
+
+def _bt_identity(label, fn, ref, kernels):
+    """fn() twice, bit-equal, each launching every one of ``kernels``,
+    within TWIN_ID_TOL of ref: (max error, launch counts)."""
+    import torch
+
+    u, c = _some_launches(label, fn, kernels)
+    if not torch.equal(_some_launches(label, fn, kernels)[0], u):
+        raise AssertionError(f"{label}: a second solve differs")
+    e = max_err(u, ref)
+    if not e <= TWIN_ID_TOL:
+        raise AssertionError(f"{label}: {e} from the single-device run")
+    return e, c
+
+
+def run_bt_f64(card, m140):
+    """(d) f64, BT_F64_STEPS steps, against the card's single-device
+    runs: KPP irr140 (rv; si with l = 2 smoothing; the matrix-free Newton)
+    over 4 and 3 blocks, P2 SI Burgers and advection rv_node over
+    BT_BLOCKS blocks; each twin solve launches what the single-device one
+    launched."""
+    from conservation_fem_tpu_torch.models import burgers, kpp
+    from conservation_fem_tpu_torch.models import linear_advection as la
+    from conservation_fem_tpu_torch.parallel import (
+        DistributedBlocked, DistributedBlockedAdvection, DistributedBlockedPk,
+        LocalBlocks)
+
+    out, steps = {}, BT_F64_STEPS
+
+    def one(label, single, twin):
+        ref, c1 = _some_launches(label + " single", single, ())
+        e, c = _bt_identity(label, twin, ref, tuple(c1))
+        log(f"{label}, {steps} steps: max|twin - single device| {e:.3e} "
+            f"(gate {TWIN_ID_TOL}); a second solve bit-equal; launches "
+            f"{c}, single device {c1} ({card})")
+        return dict(vs_single_card=e, launches=c, single_launches=c1)
+
+    nx, counts = BT_F64_KPP
+    dt = IRR[nx][0]
+    for name, over in BT_F64_KPP_RUNS.items():
+        p = kpp.build(kpp.KPPConfig(dt=dt, T=steps * dt, backend="ell",
+                                    ell_matvec_backend="blocked", **over),
+                      host_mesh=m140)
+        assert p.num_steps == steps, p.num_steps
+        for n in counts:
+            out[f"kpp_{name}_irr{nx}_x{n}"] = one(
+                f"blocked twin kpp {name} irr{nx} x {n} f64",
+                lambda: p.solve().u,
+                DistributedBlocked(p, LocalBlocks(n, "cuda")).solve)
+    q = _prefix(burgers.build(burgers.BurgersConfig(
+        mesh_size=BT_F64_PK, ell_matvec_backend="blocked", **PK_BURGERS)),
+        steps)
+    out[f"burgers_p2si_mesh{BT_F64_PK}_x{BT_BLOCKS}"] = one(
+        f"blocked Pk twin burgers P2 SI mesh {BT_F64_PK} x {BT_BLOCKS} f64",
+        lambda: q.solve().u,
+        DistributedBlockedPk(q, LocalBlocks(BT_BLOCKS, "cuda")).solve)
+    a = la.build(la.AdvectionConfig(mesh_size=BT_F64_ADV,
+                                    stabilization="rv_node",
+                                    ell_matvec_backend="blocked"))
+    a = dataclasses.replace(a, num_steps=steps)
+    out[f"advection_rv_node_mesh{BT_F64_ADV}_x{BT_BLOCKS}"] = one(
+        f"blocked advection twin rv_node mesh {BT_F64_ADV} x {BT_BLOCKS} "
+        "f64", lambda: la.solve(a).u,
+        DistributedBlockedAdvection(a, LocalBlocks(BT_BLOCKS, "cuda")).solve)
+    return out
+
+
+def run_bt_stokes(card):
+    """(e) ShardedStokes over BT_BLOCKS blocks, no hand-written launch:
+    f32 nx BT_STOKES_NX in turns with the lattice run (gate
+    STOKES_ADAPTIVE_GATE against it); f64 STOKES_IDENTITY and the
+    multigrid BT_STOKES_MG against the lattice runs, backend="grid"
+    against the lattice backend (STOKES_IDENTITY_GATE)."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import stokes
+    from conservation_fem_tpu_torch.parallel import LocalBlocks, ShardedStokes
+
+    out, n = {}, BT_BLOCKS
+    kw = dict(nx=BT_STOKES_NX, backend="lattice", **STOKES_BENCH)
+    steps = kw["num_steps"]
+    sh = ShardedStokes(*stokes.build(stokes.StokesConfig(**kw)),
+                       LocalBlocks(n, "cuda"))
+    _, run = _stokes_stepper(**kw)
+    label = f"stokes twin nx {BT_STOKES_NX} f32 x {n}"
+    fields, row, text = _twin_run(
+        label, lambda k: sh.solve(num_steps=k)[0], lambda k: run(k)[0],
+        steps, TWIN_TURNS_LONG)
+    d = max_err(fields["sharded"], fields["single"])
+    log(f"{label}, {steps} steps: {text}; Linf against the lattice run "
+        f"{d:.3e} (gate {STOKES_ADAPTIVE_GATE}) ({card})")
+    if not d <= STOKES_ADAPTIVE_GATE:
+        raise AssertionError(f"{label}: Linf {d}")
+    out[f"f32_nx{BT_STOKES_NX}"] = dict(linf_vs_lattice=d, **row)
+    for name, cfg in (("f64_identity", dict(STOKES_IDENTITY,
+                                            backend="lattice")),
+                      ("f64_multigrid", BT_STOKES_MG)):
+        tag = f"stokes twin {name} nx {cfg['nx']} x {n}"
+        ref = _no_launch(tag, lambda: stokes.solve(
+            cfg=stokes.StokesConfig(**cfg)))
+        u, pr = _no_launch(tag, ShardedStokes(
+            *stokes.build(stokes.StokesConfig(**cfg)),
+            LocalBlocks(n, "cuda")).solve)
+        e = max(max_err(u, ref.u), max_err(pr, ref.p))
+        log(f"{tag}, {cfg['num_steps']} steps: max|twin - lattice| {e:.3e} "
+            f"(gate {STOKES_IDENTITY_GATE}) ({card})")
+        if not e <= STOKES_IDENTITY_GATE:
+            raise AssertionError(f"{tag}: {e}")
+        out[name] = dict(max_vs_lattice=e)
+    cfg = dict(STOKES_IDENTITY)
+    g = _no_launch("stokes grid", lambda: stokes.solve(
+        cfg=stokes.StokesConfig(backend="grid", **cfg)))
+    lt = stokes.solve(cfg=stokes.StokesConfig(backend="lattice", **cfg))
+    e = max(max_err(g.u, lt.u), max_err(g.p, lt.p))
+    log(f"stokes backend grid nx {cfg['nx']} f64, {cfg['num_steps']} steps: "
+        f"max|grid - lattice| {e:.3e} (gate {STOKES_IDENTITY_GATE}); "
+        f"Poiseuille L2 error {g.error_l2!r}, lattice {lt.error_l2!r} "
+        f"({card})")
+    if not (e <= STOKES_IDENTITY_GATE and torch.isfinite(g.u).all()):
+        raise AssertionError(f"stokes grid: {e}")
+    out["grid_vs_lattice"] = dict(max_vs_lattice=e, error_l2=g.error_l2)
+    out["hand_written_launches"] = 0
+    return out
+
+
+def run_bt_fused_precise(card):
+    """(g) ShardedFusedStructured with precise_reductions (read nowhere, as
+    in the JAX class) at mesh 64 over BT_BLOCKS blocks, each block-mode
+    kernel: the same launches and bits as without the flag."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    out = {}
+    for kernel in ("block", "tiled"):
+        res = {}
+        for flag in (False, True):
+            cfg = _sharded_cfg(kpp, 64, "float32", T=0.05,
+                               precise_reductions=flag)
+            sh = ShardedFusedStructured(kpp.build(cfg),
+                                        LocalBlocks(BT_BLOCKS, "cuda"),
+                                        kernel=kernel)
+            res[flag] = _some_launches(f"sharded fused {kernel}", sh.solve,
+                                       ())
+        same = torch.equal(res[False][0], res[True][0])
+        log(f"sharded fused mesh 64 f32 x {BT_BLOCKS} ({kernel} kernel) "
+            f"with precise_reductions: launches {res[True][1]}, without "
+            f"{res[False][1]}; bit-equal: {same} ({card})")
+        if not same or res[True][1] != res[False][1] or not res[True][1]:
+            raise AssertionError(f"sharded fused {kernel}: the flag changed "
+                                 "the run")
+        out[kernel] = dict(launches=res[True][1], bit_equal=same)
+    return out
+
+
+def blocked_twins_phase(card):
+    """Phase 14: the blocked twins on the ELL kernels over LocalBlocks,
+    the sharded reductions, ShardedStokes and backend="grid", and the
+    sharded fused path with precise_reductions (ROADMAP queue 1 item 15c).
+    The smoke run starts it in a process of its own beside phases 7-9
+    (SIDE_RUNS). The one-rank NCCL run (f) is in run_process_group_path
+    (phase 5)."""
+    t_phase = time.perf_counter()
+    m140, m640 = irr_mesh(140), irr_mesh(BT_NX)
+    out = dict(kpp_blocked=run_bt_kpp(card, m640, "blocked"),
+               kpp_blocked2d=run_bt_kpp(card, m640, "blocked2d"),
+               precise=run_bt_precise(card, m640),
+               f64=run_bt_f64(card, m140), stokes=run_bt_stokes(card),
+               fused_precise=run_bt_fused_precise(card))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"blocked twins phase: {out['seconds']:.0f} s ({card})")
+    return out
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -5467,8 +5823,10 @@ def smoke(card, regs):
     # phases 7-9, 12 and 13 launch no hand-written kernel: the ELL backend
     # and the stabilisation library (the JAX package runs them as XLA
     # gathers), linear advection and the Pk layer, compressible Euler and
-    # Stokes/IPCS, the sharded and the unstructured twins; SIDE_RUNS run
-    # in processes of their own beside the rest
+    # Stokes/IPCS, the sharded and the unstructured twins; phase 14, the
+    # blocked twins, launches the ELL kernels in a process of its own (its
+    # counts are its own, not the kernels line's); SIDE_RUNS run in
+    # processes of their own beside the rest
     t_side = time.perf_counter()
     sides = [_side_start(names, card) for names in SIDE_RUNS]
     try:
@@ -5493,8 +5851,9 @@ def smoke(card, regs):
     euler_stokes = side["euler_stokes_phase"]
     twins = side["twins_phase"]
     unstructured = side["unstructured_phase"]
-    log(f"phases 7, 8, 9, 12 and 13: {time.perf_counter() - t_side:.0f} s "
-        f"({card})")
+    blocked_twins = side["blocked_twins_phase"]
+    log(f"phases 7, 8, 9, 12, 13 and 14: "
+        f"{time.perf_counter() - t_side:.0f} s ({card})")
     # the unstructured fast path on the hand-written ELL kernels, on phase
     # 7's meshes
     fast, ell_rows, ell_counts, irr640 = blocked_phase(card, meshes, regs)
@@ -5556,6 +5915,7 @@ def smoke(card, regs):
     log(json.dumps({"utilities": utilities}))
     log(json.dumps({"sharded_twins": twins}))
     log(json.dumps({"unstructured_twins": unstructured}))
+    log(json.dumps({"blocked_twins": blocked_twins}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

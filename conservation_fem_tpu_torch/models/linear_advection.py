@@ -57,7 +57,7 @@ from conservation_fem_tpu_torch.ops.ell_kernels import ell_spmv
 from conservation_fem_tpu_torch.ops.helpers import get_nodal_h_ell
 from conservation_fem_tpu_torch.ops.krylov import (bicgstab, bicgstab_fixed,
                                                    cg, cg_fixed,
-                                                   chebyshev_fixed,
+                                                   chebyshev_fixed, dot,
                                                    jacobi_preconditioner)
 from conservation_fem_tpu_torch.ops.mesh import (Mesh, MeshArrays, disk_mesh,
                                                  rcm_permutation,
@@ -279,17 +279,18 @@ def cn_solve(p, A, B, u_n, cn_bounds=None):
     return bicgstab(op, b, x0=u_n, precond=pre, rtol=cfg.krylov_rtol).x
 
 
-def mass_solve(cfg, op, rhs, pre, bounds=None):
+def mass_solve(cfg, op, rhs, pre, bounds=None, dot=dot):
     """M x = rhs by the configured solver: adaptive CG to krylov_rtol, or
-    cg_iters of CG or Chebyshev (bounds default to the config's)."""
+    cg_iters of CG or Chebyshev (bounds default to the config's); dot: the
+    CG's inner product (the sharded twins pass their block-ordered one)."""
     ci = cfg.cg_iters
     if ci is not None and cfg.inner_solver == "cheby":
         lo, hi = bounds or cfg.cheby_mass_bounds
         return chebyshev_fixed(op, rhs, precond=pre, iters=ci, lmin=lo,
                                lmax=hi).x
     if ci is not None:
-        return cg_fixed(op, rhs, precond=pre, iters=ci).x
-    return cg(op, rhs, precond=pre, rtol=cfg.krylov_rtol).x
+        return cg_fixed(op, rhs, precond=pre, iters=ci, dot=dot).x
+    return cg(op, rhs, precond=pre, rtol=cfg.krylov_rtol, dot=dot).x
 
 
 def _bdf1_rhs(p, u_n, u_old):

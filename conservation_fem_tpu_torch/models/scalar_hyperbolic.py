@@ -403,9 +403,12 @@ class HyperbolicProblem:
         return self._newton_dispatch(residual, jacobian,
                                      torch.where(bc, g, u_n))
 
-    def _newton_dispatch(self, residual, jacobian, u_init):
-        """Fixed-iteration or adaptive Newton, per the config."""
+    def _newton_dispatch(self, residual, jacobian, u_init, dot=None):
+        """Fixed-iteration or adaptive Newton, per the config; dot: the
+        solvers' inner product (None: the problem's, ``_dot``; the sharded
+        twins pass their block-ordered one)."""
         cfg = self.cfg
+        dot = self._dot if dot is None else dot
         if cfg.newton_iters is not None:
             return newton_fixed(
                 residual, u_init, iters=cfg.newton_iters,
@@ -413,13 +416,13 @@ class HyperbolicProblem:
                 freeze_jacobian=cfg.modified_newton, rtol=cfg.newton_rtol,
                 atol=cfg.newton_atol, linear_solver=cfg.inner_solver,
                 cheby_bounds=cfg.cheby_lin_bounds,
-                final_residual=cfg.newton_final_residual, dot=self._dot)
+                final_residual=cfg.newton_final_residual, dot=dot)
         return newton_solve(
             residual, u_init, rtol=cfg.newton_rtol, atol=cfg.newton_atol,
             max_it=cfg.newton_max_it,
             linear_rtol=cfg.newton_linear_rtol or cfg.krylov_rtol,
             jacobian_fn=jacobian, freeze_jacobian=cfg.modified_newton,
-            dot=self._dot)
+            dot=dot)
 
     def _smooth(self, u):
         """Post-solve patch smoothing."""

@@ -19,8 +19,9 @@ Backends: ``"ell"`` solves on dof vectors with the gather SpMV;
 ``"lattice"`` solves on the P2 and P1 lattices with the lattice-stencil
 operators of ops/lattice.py (gather-free products; the right-hand sides
 stay gathers), optionally preconditioned by the V(2,2) Galerkin multigrid
-of ops/multigrid.py (``multigrid=True``). ``"grid"`` needs the sharded
-step (parallel/stokes_sharded.py, ROADMAP queue 1 item 15) and raises.
+of ops/multigrid.py (``multigrid=True``). ``"grid"`` runs the row-sharded
+step of parallel/stokes_sharded.py on one block: the right-hand sides too
+are lattice planes and strided slices.
 
 The solves are adaptive to ``krylov_rtol`` (one scalar read on the host
 per Krylov iteration) or, with ``krylov_iters``, fixed: momentum
@@ -65,7 +66,7 @@ class StokesConfig:
     p_out: float = 0.0
     krylov_rtol: float = 1e-11
     dtype: str = "float64"
-    backend: str = "ell"          # ell | lattice | grid (item 15)
+    backend: str = "ell"          # ell | lattice | grid
     # fixed iteration counts: momentum BiCGStab (and the mass CG, min(8,
     # krylov_iters)); None = adaptive to krylov_rtol
     krylov_iters: int | None = None
@@ -562,6 +563,13 @@ def _result(p, u, pr):
 
 
 def _solve_grid(p, fd) -> StokesResult:
-    raise NotImplementedError(
-        "not ported yet: backend='grid' (the fully gather-free step of "
-        "parallel/stokes_sharded.py, ROADMAP queue 1 item 15)")
+    """backend="grid": the fully gather-free step, the row-sharded step of
+    parallel/stokes_sharded.py on one block: every right-hand-side term
+    rides lattice planes and strided slices instead of ELL gathers and
+    scatters."""
+    from conservation_fem_tpu_torch.parallel.comm import LocalBlocks
+    from conservation_fem_tpu_torch.parallel.stokes_sharded import \
+        ShardedStokes
+
+    u, pr = ShardedStokes(p, fd, LocalBlocks(1, p.u0.device)).solve()
+    return _result(p, u, pr)

@@ -69,13 +69,23 @@ class BlockedPlan:
     the JAX package's callers read it; mesh: the mesh's (or space's)
     tensors with the kernels' int32 index (ops/mesh.with_kernel_index),
     which also hold the per-cell geometry; row_valid: (n,) bool of the real
-    rows of a tile-slot mesh, None elsewhere; nd: dofs per cell."""
+    rows of a tile-slot mesh, None elsewhere; nd: dofs per cell; nb: the
+    JAX plan's rows a block (128 on the 1D plan, the tile's on a tiled
+    one) and halo: the rows its windows read beyond a block range (None:
+    B, the 1D plan's; (T + k) nb on a tiled one), by which the sharded
+    twins (parallel/blocked_sharded.py) cut their row ranges and halos."""
 
     n: int
     B: int
     mesh: object
     row_valid: torch.Tensor | None = None
     nd: int = 3
+    nb: int = 128
+    halo: int | None = None
+
+    @property
+    def window_halo(self) -> int:
+        return self.B if self.halo is None else self.halo
 
     @property
     def patch_float(self):
@@ -122,7 +132,8 @@ def _tiled_coverage(n_slots, cols, pmask, nb, T, k):
     window of block b is 3 runs of rw = 2k + 1 blocks at block offsets
     (-T-k, -k, T-k); every patch column of a row (and so every dof of each
     of its cells) must lie in its block's window. Returns the window's
-    diagonal offset (rw + k) nb or raises WindowCoverageError."""
+    diagonal offset (rw + k) nb and its reach past a block range (T + k)
+    nb, or raises WindowCoverageError."""
     if n_slots % nb:
         raise ValueError("tiled layout must be slot-padded to nb")
     rw = 2 * k + 1
@@ -139,7 +150,7 @@ def _tiled_coverage(n_slots, cols, pmask, nb, T, k):
     if not covered.all():
         raise WindowCoverageError(
             f"patch column outside the 3-run window at k={k}")
-    return (rw + k) * nb
+    return (rw + k) * nb, (T + k) * nb
 
 
 def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
@@ -156,7 +167,7 @@ def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
     ks = (k,) if k is not None else (1, 2, 3)
     for kk in ks:
         try:
-            B = _tiled_coverage(
+            B, halo = _tiled_coverage(
                 mesh.n_nodes, mesh.patch_cols, mesh.patch_mask, nb,
                 int(mesh.tile_T), kk)
             break
@@ -168,7 +179,8 @@ def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
     dev = arrays.boundary_mask.device
     return BlockedPlan(
         n=mesh.n_nodes, B=B, mesh=with_kernel_index(arrays),
-        row_valid=torch.as_tensor(np.asarray(mesh.slot_valid), device=dev))
+        row_valid=torch.as_tensor(np.asarray(mesh.slot_valid), device=dev),
+        nb=nb, halo=halo)
 
 
 # ---------------------------------------------------------------------------

@@ -66,11 +66,8 @@ class ShardedFusedStructured(RowBlocks):
                 "'cheby' (no dot products: the property that lets a block "
                 "run the whole step alone), stabilization rv or gfem, no "
                 "smoothing")
-        if cfg.precise_reductions:
-            raise NotImplementedError(
-                "not ported yet: precise_reductions on the sharded path "
-                "(f64-accumulated dots across blocks, ROADMAP queue 1 item "
-                "15)")
+        # precise_reductions is read nowhere, as in the JAX class: the
+        # step takes no dot product, and its mean is blocks.sum's
         self.p, self.blocks, self.tile_rows = p, blocks, tile_rows
         self._geometry(kernel)
         n1x, n1y, L, D = self.n1x, self.n1y, self.L, self.D

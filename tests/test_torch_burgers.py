@@ -321,8 +321,9 @@ def test_ported_options_build_and_step(over):
 
 def test_precise_reductions_names_its_roadmap_items():
     """precise_reductions is ported (the ELL step's f64 dots; a no-op on
-    the stencil backend, as in the JAX package); the sharded path still
-    raises, naming ROADMAP queue 1 item 15."""
+    the stencil backend, as in the JAX package); since item 15c the
+    sharded fused path takes it too and reads it nowhere, as the JAX class
+    does: its solve is bit for bit the one without the flag."""
     from conservation_fem_tpu_torch.parallel import (LocalBlocks,
                                                      ShardedFusedStructured)
 
@@ -334,10 +335,10 @@ def test_precise_reductions_names_its_roadmap_items():
     q = tb.build(dataclasses.replace(cfg), device="cpu")
     q.cfg = dataclasses.replace(q.cfg, precise_reductions=True)
     torch.testing.assert_close(q.solve().u, p.solve().u, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError,
-                       match=r"precise_reductions on the sharded path .*"
-                             r"ROADMAP queue 1 item 15"):
-        ShardedFusedStructured(q, LocalBlocks(2, "cpu"))
+    torch.testing.assert_close(
+        ShardedFusedStructured(q, LocalBlocks(2, "cpu")).solve(),
+        ShardedFusedStructured(p, LocalBlocks(2, "cpu")).solve(), rtol=0,
+        atol=0)
 
 
 def test_golden_final_frame_matches_the_h5():

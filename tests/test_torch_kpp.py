@@ -290,6 +290,9 @@ def test_package_imports_without_jax():
         "from conservation_fem_tpu_torch.ops import assembly, bc, dg, "
         "helpers, mesh, precision, spmv, stabilization\n"
         "from conservation_fem_tpu_torch import native_ext, parallel\n"
+        "from conservation_fem_tpu_torch.parallel import "
+        "blocked_advection_sharded, blocked_pk_sharded, blocked_sharded, "
+        "stokes_sharded\n"
         "from conservation_fem_tpu_torch.utils import baseline_proxy, "
         "checkpoint, guards, interpolate, io, metrics, plotting, "
         "streaming, sweeps\n"

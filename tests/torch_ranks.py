@@ -103,8 +103,27 @@ def _unstructured(blocks, model, cfg, rect):
     return DistributedHyperbolic(p, blocks).solve()
 
 
+def _blocked(blocks, cfg):
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import DistributedBlocked
+
+    p = kpp.build(kpp.KPPConfig(**cfg), device="cpu")
+    return DistributedBlocked(p, blocks).solve()
+
+
+def _stokes(blocks, cfg):
+    import torch
+
+    from conservation_fem_tpu_torch.models import stokes
+    from conservation_fem_tpu_torch.parallel import ShardedStokes
+
+    u, p = ShardedStokes(*stokes.build(device="cpu", **cfg), blocks).solve()
+    return torch.cat([u.reshape(-1), p])
+
+
 JOBS = {"fused": _fused, "structured": _structured, "euler": _euler,
-        "unstructured": _unstructured}
+        "unstructured": _unstructured, "blocked": _blocked,
+        "stokes": _stokes}
 
 
 def _run_job(job, args):
