@@ -76,6 +76,25 @@ exits non-zero:
      ProcessGroupBlocks run on a one-rank NCCL group against LocalBlocks(1),
      bit for bit (the fused path, phase 12's sharded twin and phase 13's
      unstructured twin);
+ 5b. bf16 operator planes (ROADMAP queue 2 item 5c): the tiled kernel's
+     bf16-plane instance (csrc/tiled_step_bf16.cu, KPP f32; no spills)
+     against its plain version on the card, within 1e-4 of max|plain|:
+     mesh 16 with 8-row tiles over bicgstab/cheby, frozen/fresh Jacobian
+     and gfem, the bench config at mesh 256 and 512, and block mode on the
+     first, an interior and the last block of mesh 64 x 4; at f64 the flag
+     launches the f64 instance, bit for bit; timed in turns with the
+     f32-plane instance (mesh 256 and 512, the interior block of 256 x 4),
+     beside its plain version, its bound and its sweep floor at 2-byte
+     planes (run after phase 3's checks, on their states). Then, counts
+     zeroed just before each run and read just after: the f32 bench config
+     in tiled mode with tiled_bf16_planes at mesh 256 and at mesh 512 to T
+     = 0.1, gated at the anchors and u in [0.5, 12], µs/step in turns with
+     the flag off; the composed step with xla_bf16_planes (use_kernels
+     off) at mesh 64, gated at its anchor, no hand-written launch; the
+     sharded path at 256 x 4 on the bf16 block mode (SHARDED), held to the
+     f32-plane sharded run as phase 5 holds its runs to the single device,
+     in turns with it (after phase 5). A JSON line {"bf16_planes": ...}
+     holds these readings;
   6. Burgers (models/burgers.py) through the step kernels' Burgers
      instances (csrc/*_burgers.cu): (a) each instance against its plain
      version with the Burgers flux from a state 30 steps in (single kernel
@@ -277,8 +296,8 @@ one, so that their µs/step and idle shares are read beside each other's;
 their log lines follow this process's, and phase 10 starts when all four
 are done.
 The second-to-last line is the per-kernel JSON summary (the eight ported
-TPU kernels and the four ELL kernels, each with its bound; a step
-kernel's row also holds its Burgers
+TPU kernels, the tiled kernel's two bf16-plane instances and the four ELL
+kernels, each with its bound; a step kernel's row also holds its Burgers
 instance's numbers under "burgers"; cg_solve's row the plan, iterations
 and times of each shape it was checked at, both instances' registers and
 spills, and the launches of the Burgers reference runs); the last line is
@@ -756,7 +775,9 @@ def phase_build():
             flux = " burgers" if m.group(3) == "Burgers" else ""
             design = ("" if m.group(4) in (None, "7")
                       else f" design {m.group(4)}")
-            name = (f"{m.group(1)}{flux} "
+            # the tiled kernel's bf16-plane instance
+            half = "_bf16" if "13__nv_bfloat16" in line else ""
+            name = (f"{m.group(1)}{half}{flux} "
                     f"{'f32' if m.group(2) == 'f' else 'f64'}{design}")
             # ell_spmv's instances: its mode and its columns
             a = re.search(r"ell_spmv_kernelI[fd]Lb([01])E([is])E", line)
@@ -882,7 +903,8 @@ def tiled_sweeps(s):
 
 
 # the ptxas name of each kernel that runs the tile pipeline
-PTXAS_NAMES = {"tiled": "tiled_rv_step", "split_setup": "split_setup",
+PTXAS_NAMES = {"tiled": "tiled_rv_step", "tiled_bf16": "tiled_rv_step_bf16",
+               "split_setup": "split_setup",
                "split_newton": "split_newton"}
 
 
@@ -2083,6 +2105,369 @@ def check_block_kernels(summary, states, regs):
                 **{k: t["facts"][k] for k in ("sweep_bytes",
                                               "sweep_floor_ms")
                    + TILED_FACT_KEYS})
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: bf16 operator planes, the tiled kernel's bf16-plane instance
+# (tiled_bf16_planes, whole grid and block mode) and the composed step's
+# bf16 sweeps (xla_bf16_planes)
+# ---------------------------------------------------------------------------
+
+# (mesh, T, anchor): the f32 bench config in tiled mode with
+# tiled_bf16_planes, each run timed in turns with the flag off
+BF16_PATHS = ((256, None, "kpp_rv_anchor_mesh256.npy"),
+              (512, 0.1, "kpp_rv_anchor_mesh512_T0.1.npy"))
+BF16_TURNS = ("bf16", "f32", "f32", "bf16")
+# the composed step with xla_bf16_planes (use_kernels off), and the sharded
+# path on the tiled kernel's bf16 block mode: (mesh, blocks, anchor)
+BF16_COMPOSED = (64, "kpp_rv_anchor_mesh64.npy")
+BF16_SHARDED = (256, 4, "kpp_rv_anchor_mesh256.npy")
+BF16_REL_GATE = F32_TOL   # kernel against plain, relative to max|plain|
+
+
+def bf16_floor(kw, n):
+    """The sweeps of a step of the bf16 instance (tiled_sweeps) and the
+    bytes they must move over n nodes: the planes its solver sweeps read
+    (the mass solve's and the inner solves') and the Jacobian its
+    linearisations write at 2 bytes a value, all else at 4."""
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+
+    s = fs.step_args("", kw)
+    count, values = tiled_sweeps(s)
+    per_it = 1 if s["inner_solver"] == "cheby" else 2
+    solver = s["cg_iters"] + s["newton_iters"] * s["lin_iters"] * per_it
+    lins = 1 if s["freeze_jacobian"] else s["newton_iters"]
+    b = (values * 4 - 7 * 2 * (solver + lins)) * n
+    return dict(sweeps=count, sweep_bytes=b,
+                sweep_floor_ms=b / HBM_BYTES_PER_S * 1e3)
+
+
+def check_tiled_bf16(summary, states, regs, card):
+    """The bf16 instance against its plain version (f32; gated at
+    BF16_REL_GATE of max|plain|): mesh 16 with 8-row tiles over the inner
+    solvers, Jacobian modes and gfem, the bench config at mesh 256 and 512,
+    block mode on the first, an interior and the last block of mesh 64 x
+    4; at f64 the flag launches the f64 instance, bit for bit; then timed
+    in turns with the f32-plane instance (whole grid at mesh 256 and 512,
+    block mode on the interior block of 256 x 4), beside its plain version,
+    bound and sweep floor."""
+    import torch
+
+    from conservation_fem_tpu_torch.ops import _build
+    from conservation_fem_tpu_torch.ops import fused_step as fs
+    from conservation_fem_tpu_torch.ops import tiled_step as ts
+
+    _no_spill("tiled_rv_step_bf16 f32", regs.get("tiled_rv_step_bf16 f32"))
+    errs = {"tiled_rv_step_bf16": [], "tiled_rv_step_block_bf16": []}
+
+    def compare(name, fields, kw, label, tile_rows=None, **block):
+        out = ts.tiled_rv_step(*fields, tile_rows=tile_rows,
+                               bf16_planes=True, **block, **kw)
+        ref = ts.tiled_rv_step_plain(*fields, bf16_planes=True, **block,
+                                     **kw)
+        off = ts.tiled_rv_step(*fields, tile_rows=tile_rows, **block, **kw)
+        torch.cuda.synchronize()
+        e, scale, moved = max_err(out, ref), float(ref.abs().max()), \
+            max_err(out, off)
+        log(f"{name} {label} f32: max|kernel-plain| = {e:.3e} "
+            f"({e / scale:.3e} of max|plain|); max|bf16 - f32 planes| "
+            f"{moved:.3e}")
+        if not e <= BF16_REL_GATE * scale:
+            raise AssertionError(f"{name} {label}: {e} > {BF16_REL_GATE} x "
+                                 f"{scale}")
+        if not moved > 0:
+            raise AssertionError(f"{name} {label}: bf16 planes changed "
+                                 "nothing")
+        errs[name].append((e, e / scale))
+
+    p, *f64 = states[16]
+    f32 = [v.float() for v in f64] + [p.sd.M_coef.float()]
+    for solver, frozen, newton, stab in (
+            ("bicgstab", True, 2, "rv"), ("bicgstab", False, 3, "rv"),
+            ("cheby", True, 3, "rv"), ("cheby", False, 2, "rv"),
+            ("bicgstab", True, 3, "gfem")):
+        kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+                  freeze_jacobian=frozen, newton_iters=newton,
+                  stabilization=stab,
+                  cg_iters=6 if solver == "bicgstab" else 10,
+                  lin_iters=4 if solver == "bicgstab" else 16)
+        compare("tiled_rv_step_bf16", f32, kw,
+                f"mesh 16, 8-row tiles, {solver} frozen={frozen} "
+                f"newton={newton} {stab}", tile_rows=8)
+    # f64: the flag is a no-op, the f64 instance's launch, the same bits
+    fields64 = list(f64) + [p.sd.M_coef]
+    kw = p.fused_step_kwargs()
+    _build.launches.clear()
+    on = ts.tiled_rv_step(*fields64, tile_rows=8, bf16_planes=True, **kw)
+    torch.cuda.synchronize()
+    launched = dict(_build.launches)
+    same = torch.equal(on, ts.tiled_rv_step(*fields64, tile_rows=8, **kw))
+    log(f"tiled_rv_step mesh 16 f64 with bf16_planes: launches {launched}, "
+        f"bit-equal to the call without it: {same}")
+    if launched != {"tiled_rv_step": 1} or not same:
+        raise AssertionError("bf16_planes changed an f64 tiled step")
+    for mesh in (256, 512):
+        p, f32, kw = _bench_f32(states[mesh])
+        compare("tiled_rv_step_bf16", f32, kw, f"mesh {mesh} bench config")
+    # block mode: first, interior and last block of mesh 64 x 4, Chebyshev
+    p, f32, _ = _bench_f32(states[64])
+    cheby = dict(p.fused_step_kwargs(), inner_solver="cheby", cg_iters=10,
+                 lin_iters=16, newton_iters=2)
+    bkw = {k: v for k, v in cheby.items() if k not in ("nx", "ny")}
+    u2, n1x = f32[0], f32[0].shape[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, _ = _deep_halo_blocks(f32[:4], f32[4], 4, 62)
+    for d in (0, 1, 3):
+        row0, ext = blocks[d]
+        compare("tiled_rv_step_block_bf16", ext, bkw,
+                f"mesh 64 x 4 block {d}", row0_base=row0, n_rows=n1x,
+                abs_term=abs_term)
+
+    # timed, in turns with the f32-plane instance, as the main paths call
+    # it: the bf16 mass planes made once (cast_ms: what making them costs)
+    times = {}
+    for mesh in (256, 512):
+        p, f32, kw = _bench_f32(states[mesh])
+        n = f32[0].numel()
+        mc16 = ts.bf16_planes_of(f32[4])
+        t = _alternated({
+            "ms": lambda: ts.tiled_rv_step(*f32, bf16_planes=True,
+                                           mc16=mc16, **kw),
+            "f32_ms": lambda: ts.tiled_rv_step(*f32, **kw)}, 10)
+        t.update(
+            cast_ms=cuda_ms(lambda: ts.bf16_planes_of(f32[4]), 20),
+            plain_ms=cuda_ms(lambda: ts.tiled_rv_step_plain(
+                *f32, bf16_planes=True, **kw), 2),
+            # u, uo, uoo, g, the f32 and bf16 mass planes in; u_{n+1} out
+            bound=bound((12 * 4 + 7 * 2) * n,
+                        n * step_ops(fs.step_args("", kw)), "f32"),
+            plan={k: v for k, v in plan_facts(
+                *f32[0].shape, torch.float32, regs,
+                kernel="tiled_bf16").items() if k in TILED_FACT_KEYS},
+            floor=bf16_floor(kw, n),
+            f32_floor=floor_facts(tiled_sweeps(fs.step_args("", kw)), n, 4))
+        t["ratio_to_f32_planes"] = t["ms"] / t["f32_ms"]
+        times[mesh] = t
+        log(f"tiled_rv_step_bf16 mesh {mesh} f32 bench config: "
+            f"{t['ms']:.5f} ms; f32 planes in turns {t['f32_ms']:.5f} ms "
+            f"(ratio {t['ratio_to_f32_planes']:.4f}); the bf16 cast of Mc "
+            f"{t['cast_ms']:.5f} ms; plain "
+            f"{t['plain_ms']:.4f} ms; bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]}); {t['floor']['sweeps']} sweeps moving "
+            f"{t['floor']['sweep_bytes']} B, floor "
+            f"{t['floor']['sweep_floor_ms']:.5f} ms (f32 planes "
+            f"{t['f32_floor']['sweep_bytes']} B, "
+            f"{t['f32_floor']['sweep_floor_ms']:.5f} ms); plan "
+            + json.dumps(t["plan"]) + f" ({card})")
+    p, f32, _ = _bench_f32(states[256])
+    cheby = dict(p.fused_step_kwargs(), inner_solver="cheby", cg_iters=10,
+                 lin_iters=16, newton_iters=2)
+    bkw = {k: v for k, v in cheby.items() if k not in ("nx", "ny")}
+    u2, (n1x, n1y) = f32[0], f32[0].shape
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L = _deep_halo_blocks(f32[:4], f32[4], 4, 62)
+    row0, ext = blocks[1]
+    B = ext[0].shape[0]
+    blk = dict(row0_base=row0, n_rows=n1x, abs_term=abs_term)
+    mc16 = ts.bf16_planes_of(ext[4])
+    tb = _alternated({
+        "ms": lambda: ts.tiled_rv_step(*ext, bf16_planes=True, mc16=mc16,
+                                       **blk, **bkw),
+        "f32_ms": lambda: ts.tiled_rv_step(*ext, **blk, **bkw)}, 20)
+    tb.update(
+        cast_ms=cuda_ms(lambda: ts.bf16_planes_of(ext[4]), 20),
+        plain_ms=cuda_ms(lambda: ts.tiled_rv_step_plain(
+            *ext, bf16_planes=True, **blk, **bkw), 2),
+        bound=bound((12 * 4 + 7 * 2) * B * n1y,
+                    B * n1y * step_ops(fs.step_args("", cheby)), "f32"),
+        floor=bf16_floor(cheby, B * n1y),
+        f32_floor=floor_facts(tiled_sweeps(fs.step_args("", cheby)),
+                              B * n1y, 4),
+        plan={k: v for k, v in plan_facts(
+            B, n1y, torch.float32, regs, kernel="tiled_bf16").items()
+              if k in TILED_FACT_KEYS})
+    tb["ratio_to_f32_planes"] = tb["ms"] / tb["f32_ms"]
+    log(f"tiled_rv_step_block_bf16 mesh 256 f32, interior block of 4 (L "
+        f"{L}, B {B}), Chebyshev 10/2x16: {tb['ms']:.5f} ms; f32 planes in "
+        f"turns {tb['f32_ms']:.5f} ms (ratio "
+        f"{tb['ratio_to_f32_planes']:.4f}); the bf16 cast of Mc "
+        f"{tb['cast_ms']:.5f} ms; plain {tb['plain_ms']:.4f} ms;"
+        f" bound {tb['bound'][0]:.5f} ms ({tb['bound'][1]}); floor "
+        f"{tb['floor']['sweep_floor_ms']:.5f} ms (f32 planes "
+        f"{tb['f32_floor']['sweep_floor_ms']:.5f}); plan "
+        + json.dumps(tb["plan"]) + f" ({card})")
+    ptxas = regs.get("tiled_rv_step_bf16 f32")
+    for name, t, case, err_case in (
+            ("tiled_rv_step_bf16", times[256],
+             "mesh-256 f32 bench config, one step",
+             "f32 one step: mesh 16 with 8-row tiles (bicgstab/cheby, "
+             "frozen/fresh, 2 and 3 Newton iterations, gfem), mesh 256 "
+             "and 512 bench config"),
+            ("tiled_rv_step_block_bf16", tb,
+             f"mesh-256 f32 Chebyshev 10/2x16, interior block of 4, {B} x "
+             f"{n1y}",
+             "f32 one step, mesh 64 x 4 Chebyshev 10/2x16, first, interior "
+             "and last block, every row")):
+        e = max(errs[name])
+        summary[name] = dict(
+            max_abs_err=e[0], max_err_of_max_plain=max(
+                r for _, r in errs[name]),
+            err_case=err_case, gate=f"{BF16_REL_GATE} of max|plain|",
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], library_ms=None, timed_case=case,
+            f32_planes_ms=t["f32_ms"],
+            ratio_to_f32_planes=t["ratio_to_f32_planes"],
+            mc16_cast_ms=t["cast_ms"],
+            sweeps_per_step=t["floor"]["sweeps"],
+            sweep_bytes=t["floor"]["sweep_bytes"],
+            sweep_floor_ms=t["floor"]["sweep_floor_ms"],
+            f32_planes_sweep_floor_ms=t["f32_floor"]["sweep_floor_ms"],
+            plan=t["plan"], ptxas=ptxas, card=card)
+    summary["tiled_rv_step_bf16"].update(
+        ms_mesh512=times[512]["ms"], f32_planes_ms_mesh512=times[512][
+            "f32_ms"], ratio_to_f32_planes_mesh512=times[512][
+            "ratio_to_f32_planes"], plain_ms_mesh512=times[512]["plain_ms"],
+        bound_ms_mesh512=times[512]["bound"][0],
+        sweep_floor_ms_mesh512=times[512]["floor"]["sweep_floor_ms"],
+        plan_mesh512=times[512]["plan"])
+
+
+def run_bf16_paths(card, counts, runs):
+    """The main paths with bf16 planes, each gated and its launch counts
+    zeroed just before it and read just after, each timed in turns with the
+    flag off (BF16_TURNS, every repeat bit-equal to the first solve): (d)
+    the f32 bench config in tiled mode with tiled_bf16_planes at mesh 256
+    and mesh 512 to T = 0.1 (the anchors, u in [0.5, 12]); (e) the composed
+    step with xla_bf16_planes at mesh 64 (no hand-written launch; the
+    anchor); (f) the sharded path at 256 x 4 on the bf16 block mode,
+    SHARDED's Chebyshev config, held to the f32-plane sharded run as phase
+    5 holds its runs to the single device."""
+    import torch
+
+    from conservation_fem_tpu_torch.models import kpp
+    from conservation_fem_tpu_torch.parallel import (LocalBlocks,
+                                                     ShardedFusedStructured)
+
+    out = {}
+
+    def turns(label, solvers, steps, first):
+        """µs/step of each of solvers ({name: fn}) in BF16_TURNS order,
+        each result equal bit for bit to first[name]."""
+        got = {}
+        for name in BF16_TURNS:
+            u, us = _timed(solvers[name], steps)
+            if not torch.equal(u, first[name]):
+                raise AssertionError(f"{label} {name}: repeated solves "
+                                     "differ")
+            got.setdefault(name, []).append(us)
+        return {k: sum(v) / len(v) for k, v in got.items()}
+
+    for mesh, T, anchor in BF16_PATHS:
+        extra = {} if T is None else dict(T=T)
+        p = kpp.build(_bench_cfg(kpp, mesh, "float32", use_kernels=True,
+                                 tiled_bf16_planes=True, **extra))
+        q = kpp.build(_bench_cfg(kpp, mesh, "float32", use_kernels=True,
+                                 **extra))
+        if p._fused_mode() != "tiled":
+            raise AssertionError(f"mesh {mesh}: mode {p._fused_mode()}")
+        steps, n = p.num_steps, int(p.u0.numel())
+        u, c = _counted_solve(p)
+        want = {"tiled_rv_step_bf16": steps}
+        log(f"bf16 main path mesh {mesh} (tiled, tiled_bf16_planes), f32 "
+            f"bench config, {steps} steps: launches {c}")
+        if c != want:
+            raise AssertionError(f"mesh {mesh}: launched {c}, expected "
+                                 f"{want}")
+        rel, lo, hi = _field_stats(u, mesh, anchor)
+        _gate(u, mesh, anchor)
+        uq = q.solve().u
+        rel_q = _gate(uq, mesh, anchor)
+        us = turns(f"bf16 mesh {mesh}", {"bf16": lambda: p.solve().u,
+                                         "f32": lambda: q.solve().u},
+                   steps, {"bf16": u, "f32": uq})
+        for name, k in c.items():
+            counts.setdefault(name, k)
+            runs.setdefault(name, f"mesh-{mesh} f32 bench config"
+                            + ("" if T is None else f", T = {T}")
+                            + " (tiled, tiled_bf16_planes)")
+        out[f"mesh{mesh}"] = dict(
+            steps=steps, us_per_step=us["bf16"], f32_us_per_step=us["f32"],
+            ratio=us["bf16"] / us["f32"], l2rel=rel, f32_l2rel=rel_q,
+            u_min=lo, u_max=hi, max_bf16_minus_f32=max_err(u, uq))
+        log(f"bf16 main path mesh {mesh}: {us['bf16']:.1f} us/step, "
+            f"{n / us['bf16'] * 1e6:.4g} DOF-steps/s; f32 planes in turns "
+            f"{us['f32']:.1f} us/step (ratio {us['bf16'] / us['f32']:.4f}); "
+            f"L2rel vs anchor bf16 {rel:.4e}, f32 planes {rel_q:.4e}; u in "
+            f"[{lo:.4f}, {hi:.4f}]; max|bf16 - f32| {max_err(u, uq):.3e} "
+            f"({card})")
+
+    mesh, anchor = BF16_COMPOSED
+    p = kpp.build(_bench_cfg(kpp, mesh, "float32", xla_bf16_planes=True))
+    q = kpp.build(_bench_cfg(kpp, mesh, "float32"))
+    u, c = _counted_solve(p)
+    if c:
+        raise AssertionError(f"composed xla_bf16_planes mesh {mesh}: "
+                             f"launched {c}")
+    uq = q.solve().u
+    rel, rel_q = _gate(u, mesh, anchor), _gate(uq, mesh, anchor)
+    us = turns(f"composed bf16 mesh {mesh}", {"bf16": lambda: p.solve().u,
+                                              "f32": lambda: q.solve().u},
+               p.num_steps, {"bf16": u, "f32": uq})
+    us_p, us_q = us["bf16"], us["f32"]
+    out["composed_mesh64"] = dict(
+        us_per_step=us_p, f32_us_per_step=us_q, ratio=us_p / us_q,
+        l2rel=rel, f32_l2rel=rel_q, max_bf16_minus_f32=max_err(u, uq))
+    log(f"composed xla_bf16_planes mesh {mesh} f32 bench config (plain "
+        f"PyTorch, no hand-written launch): {us_p:.1f} us/step, f32 planes "
+        f"in turns {us_q:.1f} us/step (ratio {us_p / us_q:.4f}); L2rel vs "
+        f"anchor "
+        f"{rel:.4e}, f32 planes {rel_q:.4e}; max|bf16 - f32| "
+        f"{max_err(u, uq):.3e} ({card})")
+
+    mesh, n_blocks, anchor = BF16_SHARDED
+    sh = ShardedFusedStructured(
+        kpp.build(_sharded_cfg(kpp, mesh, "float32",
+                               tiled_bf16_planes=True)),
+        LocalBlocks(n_blocks, "cuda"))
+    sq = ShardedFusedStructured(kpp.build(_sharded_cfg(kpp, mesh, "float32")),
+                                LocalBlocks(n_blocks, "cuda"))
+    if sh.kernel != "tiled":
+        raise AssertionError(f"sharded bf16 mesh {mesh}: {sh.kernel} kernel")
+    steps = sh.p.num_steps
+    u, c = _counted_timed(sh.solve, steps)[:2]
+    want = {"tiled_rv_step_block_bf16": steps * n_blocks}
+    log(f"bf16 sharded path mesh {mesh} x {n_blocks} (tiled block mode, "
+        f"tiled_bf16_planes), f32 Chebyshev 10/2x16, {steps} steps: "
+        f"launches {c}")
+    if c != want:
+        raise AssertionError(f"sharded bf16: launched {c}, expected {want}")
+    uq = sq.solve()
+    rel, lo, hi = _field_stats(u, mesh, anchor)
+    rel_q, lo_q, hi_q = _field_stats(uq, mesh, anchor)
+    us = turns(f"sharded bf16 mesh {mesh}", {"bf16": sh.solve,
+                                             "f32": sq.solve},
+               steps, {"bf16": u, "f32": uq})
+    for name, k in c.items():
+        counts.setdefault(name, k)
+        runs.setdefault(name, f"sharded path mesh {mesh} x {n_blocks} "
+                              "blocks, f32 Chebyshev, tiled_bf16_planes")
+    log(f"bf16 sharded path mesh {mesh} x {n_blocks}: {us['bf16']:.1f} "
+        f"us/step; f32 planes in turns {us['f32']:.1f} us/step (ratio "
+        f"{us['bf16'] / us['f32']:.4f}); L2rel vs anchor bf16 {rel:.4e}, "
+        f"f32 planes {rel_q:.4e} (gate: within {SHARDED_VS_SINGLE}); u in "
+        f"[{lo:.4f}, {hi:.4f}], f32 planes [{lo_q:.4f}, {hi_q:.4f}] "
+        f"({card})")
+    if not abs(rel - rel_q) <= SHARDED_VS_SINGLE:
+        raise AssertionError(f"sharded bf16 L2rel {rel} against {rel_q}")
+    if not _in_range(lo, hi) and not (
+            not _in_range(lo_q, hi_q)
+            and max(abs(lo - lo_q), abs(hi - hi_q)) <= SHARDED_RANGE_SLACK):
+        raise AssertionError(f"sharded bf16: range [{lo}, {hi}]")
+    out[f"sharded_mesh{mesh}x{n_blocks}"] = dict(
+        steps=steps, us_per_step=us["bf16"], f32_us_per_step=us["f32"],
+        ratio=us["bf16"] / us["f32"], l2rel=rel, f32_l2rel=rel_q, u_min=lo,
+        u_max=hi)
+    return out
 
 
 def run_sharded_path(mesh, T, n_blocks, kernel, expect, geometry, anchor,
@@ -5797,6 +6182,7 @@ def smoke(card, regs):
     check_tiled(summary, states, regs)
     check_split(summary, states, regs)
     check_block_kernels(summary, states, regs)
+    check_tiled_bf16(summary, states, regs, card)
     states.clear()
     counts, runs = {}, {}
     for mesh, T, mode, anchor in MAIN_PATHS:
@@ -5811,6 +6197,7 @@ def smoke(card, regs):
     runs["cg_solve"] = f"mesh-64 adaptive f64 config, {ADAPTIVE_STEPS} steps"
     runs["stencil_matvec"] = "none: no main path launches it"
     sharded_paths(card, counts, runs)
+    bf16 = run_bf16_paths(card, counts, runs)
     # Burgers: each kernel's instance against its plain version and timed,
     # the f64 reference config, the fixed config's main paths, one sharded
     # run per block-mode kernel
@@ -5876,6 +6263,10 @@ def smoke(card, regs):
         "split_newton": ("split_step.cu", "ops/pallas_fused.py:634"),
         "tiled_rv_step": ("tiled_step.cu", "ops/pallas_tiled.py:120"),
         "tiled_rv_step_block": ("tiled_step.cu", "ops/pallas_tiled.py:135"),
+        "tiled_rv_step_bf16": ("tiled_step_bf16.cu",
+                               "ops/pallas_tiled.py:178"),
+        "tiled_rv_step_block_bf16": ("tiled_step_bf16.cu",
+                                     "ops/pallas_tiled.py:178"),
         "fused_rv_block_step": ("block_step.cu", "ops/pallas_fused.py:491"),
         **ELL_KERNELS,
     }
@@ -5916,6 +6307,7 @@ def smoke(card, regs):
     log(json.dumps({"sharded_twins": twins}))
     log(json.dumps({"unstructured_twins": unstructured}))
     log(json.dumps({"blocked_twins": blocked_twins}))
+    log(json.dumps({"bf16_planes": bf16}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

@@ -15,6 +15,9 @@ EulerConfig, StokesConfig), e.g.::
         --modified_newton true --use_kernels true
     python -m conservation_fem_tpu_torch kpp --stabilization si --Cm 0.5 \\
         --mesh_size 8 --device cpu
+    python -m conservation_fem_tpu_torch kpp --mesh_size 8 --dtype float32 \\
+        --cg_iters 6 --newton_iters 2 --newton_linear_iters 4 \\
+        --xla_bf16_planes true --device cpu
     python -m conservation_fem_tpu_torch kpp --backend ell --mesh_size 8 \\
         --device cpu
     python -m conservation_fem_tpu_torch kpp --mesh_source golden/kpp_rv8.h5 \\

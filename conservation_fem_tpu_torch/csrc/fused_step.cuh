@@ -66,6 +66,27 @@ enum Field {
   KC, JC = KC + 7, N_FIELDS = JC + 7
 };
 
+// Plane storage of the solver sweeps (StepPhases' PT): the kernel's own
+// type, or a 2-byte one, __nv_bfloat16, in the tiled kernel's bf16-plane
+// instance (pallas_tiled.tiled_rv_step bf16_planes; tiled_step.cu includes
+// cuda_bf16.h for that unit alone). A bf16 plane is read as T
+// (plane_value: the type's conversion to float) and written rounded to
+// nearest even (to_plane: its constructor from float, __float2bfloat16);
+// every operation on it is in T. Its rows take plane_pitch values, n1y
+// rounded up to even, so that a pair of columns from an even one is an
+// aligned 4-byte copy (tile_sweep.cuh; ops/tiled_step.plane_pitch).
+template <typename PT> constexpr bool kHalfPlanes = sizeof(PT) == 2;
+template <typename PT> __host__ __device__ inline int plane_pitch(int n1y) {
+  return kHalfPlanes<PT> ? n1y + (n1y & 1) : n1y;
+}
+template <typename T, typename PT>
+__device__ __forceinline__ T plane_value(PT v) {
+  return static_cast<T>(v);
+}
+template <typename PT, typename T> __device__ __forceinline__ PT to_plane(T v) {
+  return static_cast<PT>(v);
+}
+
 template <typename T> struct StepConsts {
   T G[2][3][2], PHI[6][3], W[6][3], GGA[2][3][3];
   T dt, two_dt, half_dt, two_area, cvel_h, crv_hh, tiny;
@@ -323,10 +344,14 @@ __device__ __forceinline__ auto pinned_apply(A a, GridShape g, int i, int j,
 
 // Jacobian planes M + dt/2 (K + C(w)) at node n = (i, j) into jc, from the
 // mass and eps-stiffness planes mc(k), kc(k) at the node; returns the
-// Jacobi preconditioner 1 / J_00 (1 on the frame).
-template <typename Fl, typename T, typename A, typename K, typename W>
+// Jacobi preconditioner 1 / J_00 (1 on the frame). Bf16 planes (PT) are
+// formed in T, stored rounded in rows of plane_pitch, and J_00 is rounded
+// the same way, so that the preconditioner sees the operator the sweeps
+// read (pallas_tiled.tiled_rv_step's rnd).
+template <typename Fl, typename T, typename PT, typename A, typename K,
+          typename W>
 __device__ __forceinline__ T jacobian_node(const StepConsts<T>& C,
-                                           GridShape g, A mc, K kc, T* jc,
+                                           GridShape g, A mc, K kc, PT* jc,
                                            int i, int j, int n, W w) {
   const int N = g.size();
   T cc[7];
@@ -334,12 +359,17 @@ __device__ __forceinline__ T jacobian_node(const StepConsts<T>& C,
   T j0 = T(0);
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
-    const size_t o = (size_t)k * N + n;
     const T v = mc(k) + C.half_dt * (kc(k) + cc[k]);
-    jc[o] = v;
+    if constexpr (kHalfPlanes<PT>) {
+      const int pitch = plane_pitch<PT>(g.n1y);
+      jc[(size_t)k * g.n1x * pitch + (size_t)i * pitch + j] = to_plane<PT>(v);
+    } else {
+      const size_t o = (size_t)k * N + n;
+      jc[o] = v;
+    }
     if (k == 0) j0 = v;
   }
-  return T(1) / (g.frame(i, j) ? T(1) : j0);
+  return T(1) / (g.frame(i, j) ? T(1) : plane_value<T>(to_plane<PT>(j0)));
 }
 
 template <typename T>
@@ -377,18 +407,20 @@ template <int S> using QuadConv = Quad<S, kQuadConv>;
 // read). `reads` declares the raw values the sweep reads (Reads): fields
 // f[0, H) at the node and its six neighbours, fields f[H, H + M) at the
 // node only, and the 7 planes of operators op[0, P) at the node; a null
-// field or operator is not read. In the body, f(k) is raw field k at the
-// node, ops[p](k) plane k of operator p there, and st[s] an (i, j) accessor
-// of the s-th of the NS values that stage(i, j, h, v) forms from the raw
-// values h(k), k < H, of node (i, j) — formed where they are read, from
-// device memory (BandSweep, band_sweep.cuh) or from a shared-memory tile
-// (TileSweep, tile_sweep.cuh). Nothing a sweep reads at neighbours is written by it,
-// because other threads read those values meanwhile; a field read at the
-// node only may be updated there.
-template <typename T, int H, int M, int P> struct Reads {
+// field or operator is not read; the operators' planes are of type OT (T,
+// or bf16 in TileSweep alone). In the body, f(k) is raw field k at the
+// node, ops[p](k) plane k of operator p there (as T), and st[s] an (i, j)
+// accessor of the s-th of the NS values that stage(i, j, h, v) forms from
+// the raw values h(k), k < H, of node (i, j) — formed where they are read,
+// from device memory (BandSweep, band_sweep.cuh) or from a shared-memory
+// tile (TileSweep, tile_sweep.cuh). Nothing a sweep reads at neighbours is
+// written by it, because other threads read those values meanwhile; a
+// field read at the node only may be updated there.
+template <typename T, int H, int M, int P, typename OT = T> struct Reads {
   static constexpr int kHalo = H, kNode = M, kOps = P;
+  using OpT = OT;
   const T* f[H + M];
-  const T* op[P > 0 ? P : 1];
+  const OT* op[P > 0 ? P : 1];
 };
 
 // Raw fields at node n in device memory.
@@ -438,7 +470,17 @@ __device__ __forceinline__ void node_range(const Sweep&, GridShape g,
 // phase reduces over the grid: where the whole-grid step combines a sum and
 // a barrier, block mode takes the barrier alone. Pointwise passes, like the
 // sweeps, visit only the rows in the grid.
-template <typename T, typename Sweep, typename Fl> struct StepPhases {
+//
+// PT, the plane storage of the solver sweeps (the mass solve and the
+// Newton inner solves): T, or bf16 (the tiled kernel's bf16-plane
+// instance, TileSweep only). With bf16 the mass solve reads mc16, a bf16
+// copy of Mc the caller made, the linearisation writes the Jacobian into
+// the bf16 region jc16 alone (no f32 Jacobian planes: the work fields end
+// at JC), and both Jacobi diagonals are taken from the rounded planes
+// (solver_diag); the rhs, the eps-stiffness planes and the residuals read
+// the f32 planes Mc and kc.
+template <typename T, typename Sweep, typename Fl, typename PT = T>
+struct StepPhases {
   cg::grid_group& grid;
   RedScratch<T>& scratch;
   GridReducer<T> red;
@@ -451,22 +493,42 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   bool cheby, external;
   T *nun, *kun, *eps, *cx, *cr, *cd0, *cd1, *p2, *v2, *dj, *F, *bs, *bt,
       *rhat, *uk2, *kc, *jc;
+  const PT* mc16;  // bf16 planes: the mass planes' copy, the Jacobian's
+  PT* jc16;        // region (null for PT = T)
 
   __device__ StepPhases(cg::grid_group& grid_, RedScratch<T>& scratch_,
                         T* part, const StepConsts<T>& C_, GridShape g_,
                         Sweep sweep_, const T* Mc_, const T* gv_,
-                        bool cheby_, T* work, bool external_ = false)
+                        bool cheby_, T* work, bool external_ = false,
+                        const PT* mc16_ = nullptr, PT* jc16_ = nullptr)
       : grid(grid_), scratch(scratch_), red{part, 0}, C(C_), g(g_),
         N(g_.size()), sweep(sweep_), Mc(Mc_), gv(gv_), cheby(cheby_),
-        external(external_) {
+        external(external_), mc16(mc16_), jc16(jc16_) {
     node_range(sweep, g, first, last, stride);
     auto field = [&](int f) { return work + (size_t)f * N; };
     nun = field(NUN); kun = field(KUN); eps = field(EPS); cx = field(CX);
     cr = field(CR); cd0 = field(CD0); cd1 = field(CD1); p2 = field(P2);
     v2 = field(V2); dj = field(DJ); F = field(FR); bs = field(BS);
     bt = field(BT); rhat = field(RHAT); uk2 = field(UK2); kc = field(KC);
-    jc = field(JC);
+    jc = kHalfPlanes<PT> ? nullptr : field(JC);
     if constexpr (Sweep::kStages) sweep.stage(0, Mc);
+  }
+
+  // The planes the solver sweeps read: the mass planes of the mass solve,
+  // the Jacobian planes the linearisation writes and the inner solve reads.
+  __device__ const PT* mass_planes() const {
+    if constexpr (kHalfPlanes<PT>) {
+      return mc16;
+    } else {
+      return Mc;
+    }
+  }
+  __device__ PT* jacobian_planes() const {
+    if constexpr (kHalfPlanes<PT>) {
+      return jc16;
+    } else {
+      return jc;
+    }
   }
 
   // The end of a phase: every block waits for every other.
@@ -490,6 +552,11 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // Jacobi preconditioner 1 / d of a pinned operator's diagonal d
   __device__ T inv_diag(int i, int j, T d) const {
     return T(1) / (g.frame(i, j) ? T(1) : d);
+  }
+
+  // A diagonal value as the solver sweeps' planes hold it (rounded to PT)
+  __device__ T solver_diag(T d) const {
+    return plane_value<T>(to_plane<PT>(d));
   }
 
   // A pass that reads only at the node: body(i, j, n, f) at every node of
@@ -543,7 +610,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
           const T rhs = g.frame(i, j) ? T(0) : mv + nl;
           cx[n] = T(0);
           cr[n] = rhs;
-          const T z = inv_diag(i, j, ops[0](0)) * rhs;
+          const T z = inv_diag(i, j, solver_diag(ops[0](0))) * rhs;
           if (cheby) {
             cd0[n] = z / C.m_theta;
           } else {
@@ -554,8 +621,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
         });
     sum_all(acc);
     if (cheby) {
-      cheby_solve(Mc, nullptr, C.m_rho0, C.m_two_sigma, C.m_delta,
-                  cg_iters);
+      cheby_solve(mass_planes(), nullptr, C.m_rho0, C.m_two_sigma,
+                  C.m_delta, cg_iters);
     } else {
       mass_cg(acc[0], cg_iters);
     }
@@ -565,14 +632,14 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // Fixed Chebyshev on the pinned operator A from the state cx, cr, d = cd0:
   // per iteration x += d, r -= A d, d' = c1 d + c2 pre r, in one sweep;
   // pre is the preconditioner field, or null for 1 / A_00.
-  __device__ void cheby_solve(const T* A, const T* pre, T rho, T two_sigma,
+  __device__ void cheby_solve(const PT* A, const T* pre, T rho, T two_sigma,
                               T delta, int iters) {
     T *d_in = cd0, *d_out = cd1;
     for (int it = 0; it < iters; ++it) {
       T c1, c2;
       const T rho_new = cheby_next(rho, two_sigma, delta, c1, c2);
       sweep.template run<1>(
-          Reads<T, 1, 3, 1>{{d_in, cx, cr, pre}, {A}},
+          Reads<T, 1, 3, 1, PT>{{d_in, cx, cr, pre}, {A}},
           [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
           [&](int i, int j, int n, const auto& s, const auto& f,
               const auto& ops) {
@@ -601,11 +668,13 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
       T pap[1] = {T(0)};
       // the direction from p, r and the mass diagonal M_00 (plane 0)
       sweep.template run<1>(
-          Reads<T, 3, 0, 1>{{p_cur, first_it ? nullptr : cr,
-                             first_it ? nullptr : Mc}, {Mc}},
+          Reads<T, 3, 0, 1, PT>{{p_cur, first_it ? nullptr : cr,
+                                 first_it ? nullptr : Mc},
+                                {mass_planes()}},
           [&](int i, int j, const auto& h, T (&v)[1]) {
             v[0] = first_it ? h(0)
-                            : inv_diag(i, j, h(2)) * h(1) + beta * h(0);
+                            : inv_diag(i, j, solver_diag(h(2))) * h(1) +
+                                  beta * h(0);
           },
           [&](int i, int j, int n, const auto& s, const auto& f,
               const auto& ops) {
@@ -628,7 +697,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
                   cx[n] = f(0) + alpha * f(1);
                   const T r = f(2) - alpha * f(3);
                   cr[n] = r;
-                  rzn[0] += r * (inv_diag(i, j, f(4)) * r);
+                  rzn[0] += r * (inv_diag(i, j, solver_diag(f(4))) * r);
                 });
       reduce<SumOp>(rzn);
       beta = rzn[0] / (rz > T(0) ? rz : C.tiny);
@@ -720,8 +789,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
         [&](int i, int j, const auto& h, T (&v)[1]) { v[0] = h(0); },
         [&](int i, int j, int n, const auto& s, const auto& f,
             const auto& ops) {
-          const T d = jacobian_node<Fl>(C, g, ops[0], ops[1], jc, i, j, n,
-                                          s[0]);
+          const T d = jacobian_node<Fl>(C, g, ops[0], ops[1],
+                                          jacobian_planes(), i, j, n, s[0]);
           dj[n] = d;
           solver_init(n, -f(1), d, rho[0]);
         });
@@ -745,7 +814,8 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
   // (dx in cx), from the state of solver_init.
   __device__ void inner_solve(T rho, int lin_iters) {
     if (cheby) {
-      cheby_solve(jc, dj, C.l_rho0, C.l_two_sigma, C.l_delta, lin_iters);
+      cheby_solve(jacobian_planes(), dj, C.l_rho0, C.l_two_sigma,
+                  C.l_delta, lin_iters);
     } else {
       bicgstab(rho, lin_iters);
     }
@@ -768,8 +838,9 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
       };
       T rv[1] = {T(0)};
       sweep.template run<1>(
-          Reads<T, 4, 1, 1>{{dj, p_cur, first_it ? nullptr : cr,
-                             first_it ? nullptr : v_cur, rhat}, {jc}},
+          Reads<T, 4, 1, 1, PT>{{dj, p_cur, first_it ? nullptr : cr,
+                                 first_it ? nullptr : v_cur, rhat},
+                                {jacobian_planes()}},
           [&](int i, int j, const auto& h, T (&v)[1]) {
             v[0] = h(0) * p_at(h);
           },
@@ -790,7 +861,7 @@ template <typename T, typename Sweep, typename Fl> struct StepPhases {
       alpha = safe_div(rho, rv[0], C.tiny);
       T ts[2] = {T(0), T(0)};
       sweep.template run<1>(
-          Reads<T, 3, 0, 1>{{dj, cr, v_cur}, {jc}},
+          Reads<T, 3, 0, 1, PT>{{dj, cr, v_cur}, {jacobian_planes()}},
           [&](int i, int j, const auto& h, T (&v)[1]) {
             v[0] = h(0) * (h(1) - alpha * h(2));
           },

@@ -23,7 +23,12 @@
 //
 // Copy route: cp.async (4-byte copies in f32, 8-byte in f64; a source size
 // of 0 fills the halo outside the grid with zeros) in commit groups, one
-// group per tile, waited on with wait_group 1 and a __syncthreads(). TMA is
+// group per tile, waited on with wait_group 1 and a __syncthreads(). The
+// bf16 planes of the tiled kernel's bf16-plane instance (Reads' OpT) stay
+// bf16 in the stage and go in 4-byte pairs of columns: cp.async moves 4, 8
+// or 16 bytes, so their rows take an even pitch (plane_pitch) and the
+// tiles an even number of columns (ops/tiled_step.tile_geometry), which
+// puts every pair on a 4-byte boundary on both sides. TMA is
 // not used: cuTensorMapEncodeTiled needs global row strides in multiples
 // of 16 bytes, and a row here is mesh + 1 nodes (1028 B at mesh 256 in
 // f32), so TMA would need padded copies of u, uo, uoo, g and the mass
@@ -87,17 +92,22 @@ template <typename T, int H> struct TileAt {
   }
 };
 
-// Plane k of a staged operator at one node.
-template <typename T> struct TilePlanes {
-  const T* p;
+// Plane k of a staged operator at one node, stored as OT, read as T.
+template <typename T, typename OT> struct TilePlanes {
+  const OT* p;
   int rc;
-  __device__ __forceinline__ T operator()(int k) const { return p[k * rc]; }
+  __device__ __forceinline__ T operator()(int k) const {
+    return plane_value<T>(p[k * rc]);
+  }
 };
-template <typename T, int M> struct TileOps {
+// The staged operators at one node: after the M node fields, 7 planes of
+// OT per operator.
+template <typename T, int M, typename OT> struct TileOps {
   const T* node;
   int rc, q;
-  __device__ __forceinline__ TilePlanes<T> operator[](int p) const {
-    return TilePlanes<T>{node + (M + 7 * p) * rc + q, rc};
+  __device__ __forceinline__ TilePlanes<T, OT> operator[](int p) const {
+    return TilePlanes<T, OT>{
+        reinterpret_cast<const OT*>(node + M * rc) + 7 * p * rc + q, rc};
   }
 };
 
@@ -141,6 +151,8 @@ template <typename T> struct TileSweep {
   template <typename R>
   __device__ void fetch(const R& in, int t, T* dst) const {
     constexpr int H = R::kHalo, M = R::kNode, P = R::kOps;
+    using OT = typename R::OpT;
+    constexpr bool half = kHalfPlanes<OT>;
     const GridShape g = tg.g;
     const int r0 = tg.row0(t), c0 = tg.col0(t), N = g.size();
     if (H > 0) {
@@ -164,12 +176,37 @@ template <typename T> struct TileSweep {
 #pragma unroll
         for (int m = 0; m < M; ++m)
           if (in.f[H + m]) cp_async(node + m * rc + q, in.f[H + m] + n, ok);
+        if constexpr (!half) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            if (!in.op[p]) continue;
+#pragma unroll
+            for (int k = 0; k < 7; ++k)
+              cp_async(node + (M + 7 * p + k) * rc + q,
+                       in.op[p] + k * N + n, ok);
+          }
+        }
+      }
+    }
+    if constexpr (half && P > 0) {
+      // bf16 planes in pairs of columns (j even; the pad column of an odd
+      // n1y is copied beside the last one and never read)
+      const int pitch = plane_pitch<OT>(g.n1y), NP = g.n1x * pitch;
+      OT* planes = reinterpret_cast<OT*>(node + M * rc);
+      for (int q = 2 * threadIdx.x; q < rc; q += 2 * kBlock) {
+        const int a = q / tg.cols;
+        const int i = r0 + a, j = c0 + (q - a * tg.cols);
+        const bool ok = i < g.i_hi && j < g.n1y;
+        const int n = ok ? i * pitch + j : 0;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           if (!in.op[p]) continue;
 #pragma unroll
           for (int k = 0; k < 7; ++k)
-            cp_async(node + (M + 7 * p + k) * rc + q, in.op[p] + k * N + n,
+            cp_async(reinterpret_cast<unsigned*>(planes + (7 * p + k) * rc +
+                                                 q),
+                     reinterpret_cast<const unsigned*>(in.op[p] + k * NP +
+                                                       n),
                      ok);
         }
       }
@@ -206,7 +243,7 @@ template <typename T> struct TileSweep {
         if (i < g.i_hi && j < g.n1y)
           body(i, j, i * g.n1y + j, st,
                TileAt<T, H>{cur, node, hs, rc, (a + 1) * hc + b + 1, q},
-               TileOps<T, M>{node, rc, q});
+               TileOps<T, M, typename R::OpT>{node, rc, q});
       }
       __syncthreads();  // every thread is done with this stage
       if (t + 2 * step < tg.count) fetch(in, t + 2 * step, cur);

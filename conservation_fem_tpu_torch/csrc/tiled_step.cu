@@ -49,12 +49,28 @@
 // global reduction, is read from a one-element device tensor; the inner
 // solver is Chebyshev, so the launch reduces nothing over the grid. The
 // output holds the whole block, zero on the rows outside the grid.
+//
+// The bf16-plane instance (PT = __nv_bfloat16; pallas_tiled.tiled_rv_step
+// with bf16_planes, KPP f32, built by tiled_step_bf16.cu, whole grid and
+// block mode): the mass solve streams mc16, a bf16 copy of Mc the caller
+// makes (ops/tiled_step.bf16_planes_of: the model and
+// ShardedFusedStructured once per solve), the linearisation writes the
+// Jacobian only into the bf16 region jc16, the inner solve streams it
+// back, and both Jacobi diagonals come from the rounded planes
+// (StepPhases' PT). The solver sweeps then copy 14 bytes of planes a node
+// in place of 28; each product is f32. The bf16 planes' rows are
+// plane_pitch values long and the tiles start at even columns
+// (tile_sweep.cuh), which the launch checks.
+
+#ifdef CFT_TILED_BF16
+#include <cuda_bf16.h>
+#endif
 
 #include "tile_sweep.cuh"
 
 namespace cft {
 
-template <typename T> struct TiledParams {
+template <typename T, typename PT> struct TiledParams {
   const T *u, *uo, *uoo, *g, *Mc;
   T *out, *work, *part;
   const T* abs_term;  // block mode with rv: one element; else unused
@@ -62,11 +78,13 @@ template <typename T> struct TiledParams {
   GridShape gs;
   int tile_rows, tile_cols;
   int cg_iters, newton_iters, lin_iters, bdf2, rv, freeze, cheby, external;
+  const PT* mc16;  // the bf16 instance's mass planes and Jacobian region
+  PT* jc16;        // (null for PT = T)
 };
 
-template <typename T, typename Fl>
+template <typename T, typename Fl, typename PT>
 __global__ void __launch_bounds__(kBlock, 1)
-tiled_rv_step_kernel(TiledParams<T> P) {
+tiled_rv_step_kernel(TiledParams<T, PT> P) {
   extern __shared__ __align__(16) unsigned char stage_raw[];
   __shared__ RedScratch<T> scratch;
   __shared__ StepConsts<T> C;
@@ -75,8 +93,9 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   cg::grid_group grid = cg::this_grid();
   const TileSweep<T> sweep(TileGrid(P.gs, P.tile_rows, P.tile_cols),
                            reinterpret_cast<T*>(stage_raw));
-  StepPhases<T, TileSweep<T>, Fl> S(grid, scratch, P.part, C, P.gs, sweep,
-                                    P.Mc, P.g, P.cheby, P.work, P.external);
+  StepPhases<T, TileSweep<T>, Fl, PT> S(grid, scratch, P.part, C, P.gs,
+                                        sweep, P.Mc, P.g, P.cheby, P.work,
+                                        P.external, P.mc16, P.jc16);
   if (P.external) S.zero_outside(P.out);
   const T mean_u = S.project(P.u, P.uo, P.uoo, P.bdf2, P.cg_iters);
   const T abs_term = !P.rv ? T(0)
@@ -87,27 +106,33 @@ tiled_rv_step_kernel(TiledParams<T> P) {
   S.newton(P.u, P.out, P.newton_iters, P.lin_iters, P.freeze);
 }
 
-template <typename T, typename Fl>
+// mc16, jc16: the bf16 instance's planes (PT = __nv_bfloat16), else null.
+template <typename T, typename Fl, typename PT = T>
 int tiled_rv_step(const void* u, const void* uo, const void* uoo,
                   const void* gvals, const void* Mc, void* out, void* work,
                   void* part, const void* abs_term, const void* consts,
                   int n1x, int n1y, int row0, int n_rows, int external,
                   int tile_rows, int tile_cols, int cg_iters,
                   int newton_iters, int lin_iters, int bdf2, int rv,
-                  int freeze, int cheby, void* stream) {
+                  int freeze, int cheby, void* stream,
+                  const void* mc16 = nullptr, void* jc16 = nullptr) {
+  // bf16 planes go in pairs of columns from even tile origins
+  if (kHalfPlanes<PT> && tile_cols % 2) return (int)cudaErrorInvalidValue;
   const GridShape gs = external ? GridShape::block(n1x, n1y, row0, n_rows)
                                 : GridShape::whole(n1x, n1y);
-  TiledParams<T> P{(const T*)u, (const T*)uo, (const T*)uoo,
-                   (const T*)gvals, (const T*)Mc, (T*)out, (T*)work,
-                   (T*)part, (const T*)abs_term, (const double*)consts, gs,
-                   tile_rows, tile_cols, cg_iters, newton_iters, lin_iters,
-                   bdf2, rv, freeze, cheby, external};
-  return launch_tiles<T>(tiled_rv_step_kernel<T, Fl>, P, gs, tile_rows,
+  TiledParams<T, PT> P{(const T*)u, (const T*)uo, (const T*)uoo,
+                       (const T*)gvals, (const T*)Mc, (T*)out, (T*)work,
+                       (T*)part, (const T*)abs_term, (const double*)consts,
+                       gs, tile_rows, tile_cols, cg_iters, newton_iters,
+                       lin_iters, bdf2, rv, freeze, cheby, external,
+                       (const PT*)mc16, (PT*)jc16};
+  return launch_tiles<T>(tiled_rv_step_kernel<T, Fl, PT>, P, gs, tile_rows,
                          tile_cols, stream);
 }
 
 }  // namespace cft
 
+#ifndef CFT_TILED_BF16
 extern "C" {
 
 int CFT_ENTRY(tiled_rv_step, f32)(
@@ -134,11 +159,37 @@ int CFT_ENTRY(tiled_rv_step, f64)(
 }
 int CFT_ENTRY(tiled_occupancy, f32)(int smem, int* out) {
   return cft::tile_kernel_occupancy(
-      cft::tiled_rv_step_kernel<float, cft::CFT_FLUX>, smem, out);
+      cft::tiled_rv_step_kernel<float, cft::CFT_FLUX, float>, smem, out);
 }
 int CFT_ENTRY(tiled_occupancy, f64)(int smem, int* out) {
   return cft::tile_kernel_occupancy(
-      cft::tiled_rv_step_kernel<double, cft::CFT_FLUX>, smem, out);
+      cft::tiled_rv_step_kernel<double, cft::CFT_FLUX, double>, smem, out);
 }
 
 }  // extern "C"
+#else
+// tiled_step_bf16.cu: the bf16-plane instance, KPP f32 alone; the
+// arguments of cft_tiled_rv_step_f32 with the bf16 mass planes (7, n1x,
+// plane_pitch) after Mc and the bf16 Jacobian region (as large) after the
+// work fields, which end at Field::JC.
+extern "C" {
+
+int cft_tiled_rv_step_bf16_f32(
+    const void* u, const void* uo, const void* uoo, const void* g,
+    const void* Mc, const void* mc16, void* out, void* work, void* jc16,
+    void* part, const void* abs_term, const void* consts, int n1x, int n1y,
+    int row0, int n_rows, int external, int tile_rows, int tile_cols,
+    int cg_iters, int newton_iters, int lin_iters, int bdf2, int rv,
+    int freeze, int cheby, void* stream) {
+  return cft::tiled_rv_step<float, cft::Kpp, __nv_bfloat16>(
+      u, uo, uoo, g, Mc, out, work, part, abs_term, consts, n1x, n1y, row0,
+      n_rows, external, tile_rows, tile_cols, cg_iters, newton_iters,
+      lin_iters, bdf2, rv, freeze, cheby, stream, mc16, jc16);
+}
+int cft_tiled_occupancy_bf16_f32(int smem, int* out) {
+  return cft::tile_kernel_occupancy(
+      cft::tiled_rv_step_kernel<float, cft::Kpp, __nv_bfloat16>, smem, out);
+}
+
+}  // extern "C"
+#endif

@@ -92,7 +92,9 @@ class HyperbolicConfig:
     newton_final_residual: bool = True
     cheby_mass_bounds: tuple = (0.5, 2.0)
     cheby_lin_bounds: tuple = (0.4, 2.2)
-    # bf16 operator-plane streams of the TPU kernels: not ported
+    # bf16 operator planes of the solver sweeps, f32 only: the tiled
+    # kernel's streams (tiled mode alone reads it) and the composed
+    # stencil step's fixed-iteration sweeps (structured.sweep_form)
     tiled_bf16_planes: bool = False
     xla_bf16_planes: bool = False
     # f64-accumulated dots in the ELL step's solvers (ops/precision
@@ -131,19 +133,13 @@ ELL_BACKENDS = ("gather", "lattice", "banded", "blocked", "blocked2d")
 
 
 def check_supported(cfg: HyperbolicConfig):
-    """Raise for the features this port does not have yet, naming the
-    ROADMAP item that brings each."""
-    todo = []
+    """Raise for an unknown stabilization or ELL backend (every option of
+    the JAX package's HyperbolicConfig is ported)."""
     if cfg.stabilization not in ("rv", "si", "gfem"):
         raise ValueError(f"unknown stabilization {cfg.stabilization!r}")
-    if cfg.tiled_bf16_planes or cfg.xla_bf16_planes:
-        todo.append("bf16 operator planes (ROADMAP queue 2 item 5c, only "
-                    "if the H100 measures a reason)")
     if cfg.ell_matvec_backend not in ELL_BACKENDS:
         raise ValueError(
             f"unknown ell_matvec_backend {cfg.ell_matvec_backend!r}")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
 class HyperbolicProblem:

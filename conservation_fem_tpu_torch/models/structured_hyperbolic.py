@@ -17,6 +17,13 @@ the counterpart of the kernel the JAX package launches: "single"
 (ops/fused_step.fused_rv_step_split, 1 + newton_iters launches) or
 "tiled" (ops/tiled_step.tiled_rv_step, one launch). With ``use_kernels``
 and adaptive solvers the mass solve is ops/stencil_kernels.cg_solve.
+
+bf16 operator planes, f32 only (f64 runs ignore both options, bit for
+bit): ``xla_bf16_planes`` makes the composed step's fixed-iteration mass
+solve and Newton inner solves read bf16 copies of their planes
+(``structured.sweep_form``), ``tiled_bf16_planes`` makes the tiled kernel
+stream its solver planes as bf16 (ops/tiled_step.py); the single and split
+kernels ignore it, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
         self._g_shape, self._g2 = self._shape2, None
         self._K_bc_coef = (st.stiffness_bc_coef(self.sd)
                            if self.cfg.stabilization == "si" else None)
+        self._mc16 = None   # the tiled bf16 instance's mass planes
         return self
 
     def _force_lazy_operators(self):
@@ -70,6 +78,11 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
         op = lambda x2: st.constrained_matvec(sd, sd.M_coef, x2)
         pre = jacobi_preconditioner(torch.where(sd.bc2, 1.0, sd.diagM2))
         if cfg.cg_iters is not None:
+            # only the fixed-iteration sweeps may read bf16 planes
+            # (xla_bf16_planes): the adaptive CG keeps the exact operator,
+            # which a perturbed one could keep from reaching its rtol
+            Mc = st.sweep_form(sd.M_coef, cfg.xla_bf16_planes)
+            op = lambda x2: st.constrained_matvec(sd, Mc, x2)
             if cfg.inner_solver == "cheby":
                 lo, hi = cfg.cheby_mass_bounds
                 return chebyshev_fixed(op, rhs, precond=pre,
@@ -99,7 +112,10 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
 
         def jacobian(v2):
             J = base + 0.5 * dt * st.flux_jacobian_coef(sd, v2, self.flux)
-            mv = lambda x2: st.constrained_matvec(sd, J, x2)
+            # the inner solve's sweeps alone read the (optionally bf16)
+            # copy; the Jacobi diagonal and the Newton residual stay exact
+            Js = st.sweep_form(J, cfg.xla_bf16_planes)
+            mv = lambda x2: st.constrained_matvec(sd, Js, x2)
             pre = jacobi_preconditioner(torch.where(sd.bc2, 1.0, J[0]))
             return mv, pre
 
@@ -177,10 +193,27 @@ class StructuredHyperbolicProblem(HyperbolicProblem):
         from conservation_fem_tpu_torch.ops.tiled_step import tiled_rv_step
 
         step_fn = fused_rv_step_split if mode == "split" else tiled_rv_step
+        # the tiled kernel alone reads tiled_bf16_planes, as in JAX
+        extra = {}
+        if mode == "tiled" and self.cfg.tiled_bf16_planes:
+            extra = dict(bf16_planes=True, mc16=self._mass_planes_bf16())
         u2, uo2, uoo2 = (v.reshape(self._shape2) for v in carry)
         uh = step_fn(u2, uo2, uoo2, g2, self.sd.M_coef,
-                     **self.fused_step_kwargs())
+                     **self.fused_step_kwargs(), **extra)
         return (uh.reshape(-1), carry[0], carry[1]), None
+
+    def _mass_planes_bf16(self):
+        """The bf16 mass planes of the tiled kernel's bf16 instance, made
+        once (M_coef never changes); None where the wrapper reads none
+        (the CPU, f64)."""
+        if self.sd.M_coef.device.type != "cuda" or self.dtype != torch.float32:
+            return None
+        if self._mc16 is None:
+            from conservation_fem_tpu_torch.ops.tiled_step import (
+                bf16_planes_of)
+
+            self._mc16 = bf16_planes_of(self.sd.M_coef)
+        return self._mc16
 
     def _fused_multistep_ok(self):
         """K steps per launch: the single kernel, time-independent

@@ -26,8 +26,11 @@ points are ``cft_<name>_f32`` / ``_f64``, the Burgers ones
 ``cft_<name>_burgers_f32`` / ``_f64``, built from ``csrc/*_burgers.cu``.
 ``launches`` counts kernel launches by wrapper name — the wrappers add one
 exactly where they launch (the tiled kernel's block-mode launches count
-as ``tiled_rv_step_block``, apart from its whole-grid ones), and a
-Burgers instance's launches under ``<name>/burgers`` (``launch_key``).
+as ``tiled_rv_step_block``, apart from its whole-grid ones, and those of
+its bf16-plane instance as ``tiled_rv_step_bf16`` and
+``tiled_rv_step_block_bf16``; that instance is KPP f32 alone,
+``F32_ENTRIES``), and a Burgers instance's launches under
+``<name>/burgers`` (``launch_key``).
 """
 
 from __future__ import annotations
@@ -95,6 +98,14 @@ FLUX_ENTRIES = frozenset(_SIGNATURES) - {"cft_stencil_matvec",
                                          "cft_cg_solve",
                                          "cft_cg_cluster_occupancy",
                                          "cft_ell_spmv", "cft_ell_assemble"}
+# entry points built for KPP in f32 alone: the tiled kernel's bf16-plane
+# instance (csrc/tiled_step_bf16.cu), whose arguments are the tiled
+# kernel's with the bf16 mass planes after Mc and the bf16 Jacobian
+# region after the work fields
+F32_ENTRIES = {
+    "cft_tiled_rv_step_bf16": [_P] * 12 + [_I] * 14 + [_P],
+    "cft_tiled_occupancy_bf16": [_I, _P],
+}
 # the entry points of the ablation library, KPP f32 alone: (design, the
 # arguments of the kernel's own entry point)
 _ABLATE_SIGNATURES = {
@@ -227,6 +238,10 @@ def lib():
                         fn = getattr(handle, base + infix + dt)
                         fn.argtypes = argtypes
                         fn.restype = ctypes.c_int
+            for base, argtypes in F32_ENTRIES.items():
+                fn = getattr(handle, base + "_f32")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = handle
         return _lib
 

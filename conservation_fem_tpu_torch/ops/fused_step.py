@@ -115,17 +115,29 @@ def _plain_data(u2, Mc2, s, bc2=None):
         diagM2=Mc2[0])
 
 
+def _solver_planes(coef, bf16_planes):
+    """(planes the solver sweeps read, their diagonal plane): with
+    bf16_planes at f32 a bf16 copy and its diagonal rounded the same way
+    (the tiled kernel's variant, pallas_tiled.tiled_rv_step ``rnd``), else
+    coef and coef[0] themselves."""
+    planes = st.sweep_form(coef, bf16_planes)
+    return planes, planes[0].to(coef.dtype)
+
+
 def _projection_plain(sd, u, uo, uoo, N_un, *, dt, cg_iters,
-                      residual_scheme, inner_solver, mass_bounds):
-    """RH with M RH = where(bc, 0, M du + N(u)), fixed CG or Chebyshev."""
+                      residual_scheme, inner_solver, mass_bounds,
+                      bf16_planes=False):
+    """RH with M RH = where(bc, 0, M du + N(u)), fixed CG or Chebyshev
+    (bf16_planes: the solve reads bf16 mass planes, _solver_planes)."""
     bc, Mc = sd.bc2, sd.M_coef
     if residual_scheme == "bdf1":
         du = (u - uo) / dt
     else:
         du = (3.0 * u - 4.0 * uo + uoo) / (2.0 * dt)
     rhs = torch.where(bc, 0.0, st.matvec(sd, Mc, du) + N_un)
-    mass_op = lambda v: st.constrained_matvec(sd, Mc, v)
-    pre = jacobi_preconditioner(torch.where(bc, 1.0, Mc[0]))
+    Ms, diag = _solver_planes(Mc, bf16_planes)
+    mass_op = lambda v: st.constrained_matvec(sd, Ms, v)
+    pre = jacobi_preconditioner(torch.where(bc, 1.0, diag))
     if inner_solver == "cheby":
         return chebyshev_fixed(mass_op, rhs, iters=cg_iters,
                                lmin=mass_bounds[0], lmax=mass_bounds[1],
@@ -148,41 +160,49 @@ def _residual_plain(sd, v, u, g, Kc, N_un, K_un, *, dt, flux):
     return torch.where(sd.bc2, v - g, F)
 
 
-def _linearize_plain(sd, Kc, w, *, dt, flux):
-    """(pinned J matvec, Jacobi preconditioner) of J = M + dt/2 (K + C(w))."""
+def _linearize_plain(sd, Kc, w, *, dt, flux, bf16_planes=False):
+    """(pinned J matvec, Jacobi preconditioner) of J = M + dt/2 (K + C(w));
+    bf16_planes: both from J's bf16 copy (_solver_planes)."""
     J = sd.M_coef + 0.5 * dt * (Kc + st.flux_jacobian_coef(sd, w, flux))
-    return ((lambda v: st.constrained_matvec(sd, J, v)),
-            jacobi_preconditioner(torch.where(sd.bc2, 1.0, J[0])))
+    Js, diag = _solver_planes(J, bf16_planes)
+    return ((lambda v: st.constrained_matvec(sd, Js, v)),
+            jacobi_preconditioner(torch.where(sd.bc2, 1.0, diag)))
 
 
 def _frozen_terms_plain(sd, u, uo, uoo, *, dt, Cvel, CRV, flux, cg_iters,
                         residual_scheme, stabilization, inner_solver,
-                        mass_bounds, abs_term=None, **_newton):
+                        mass_bounds, abs_term=None, bf16_planes=False,
+                        **_newton):
     """(Kc, N(u), K u) of a step: projection, RV epsilon (abs_term: see
     structured.rv_epsilon), eps planes."""
     N_un = st.nonlinear_rhs(sd, u, flux)
     RH = _projection_plain(sd, u, uo, uoo, N_un, dt=dt, cg_iters=cg_iters,
                            residual_scheme=residual_scheme,
                            inner_solver=inner_solver,
-                           mass_bounds=mass_bounds)
+                           mass_bounds=mass_bounds, bf16_planes=bf16_planes)
     eps = _eps_plain(sd, u, RH, Cvel=Cvel, CRV=CRV, flux=flux,
                      stabilization=stabilization, abs_term=abs_term)
     Kc = st.keps_coef(sd, eps)
     return Kc, N_un, st.matvec(sd, Kc, u)
 
 
-def _step_body_plain(sd, u, uo, uoo, g, **kw):
+def _step_body_plain(sd, u, uo, uoo, g, bf16_planes=False, **kw):
     """One stabilised step on whole (n1x, n1y) grids (JAX _step_body);
     ``kw``: the step arguments other than the geometry, and optionally
-    abs_term."""
+    abs_term. bf16_planes: the tiled kernel's variant — the mass solve and
+    the Newton inner solves read bf16 copies of their planes and Jacobi
+    diagonals rounded as those (_solver_planes); the rhs, the residuals
+    and the eps-stiffness keep f32 planes. A no-op at f64."""
     dt, flux = kw["dt"], kw["flux"]
-    Kc, N_un, K_un = _frozen_terms_plain(sd, u, uo, uoo, **kw)
+    Kc, N_un, K_un = _frozen_terms_plain(sd, u, uo, uoo,
+                                         bf16_planes=bf16_planes, **kw)
     return newton_fixed(
         lambda v: _residual_plain(sd, v, u, g, Kc, N_un, K_un, dt=dt,
                                   flux=flux),
         torch.where(sd.bc2, g, u), iters=kw["newton_iters"],
         linear_iters=kw["lin_iters"],
-        jacobian_fn=lambda w: _linearize_plain(sd, Kc, w, dt=dt, flux=flux),
+        jacobian_fn=lambda w: _linearize_plain(sd, Kc, w, dt=dt, flux=flux,
+                                               bf16_planes=bf16_planes),
         freeze_jacobian=kw["freeze_jacobian"],
         linear_solver=kw["inner_solver"], cheby_bounds=kw["lin_bounds"],
         final_residual=False).u
@@ -662,12 +682,14 @@ def block_step_args(name, u2, n_cols, step, **defaults):
     return step_args(name, {**step, "nx": B - 1, "ny": n1y - 1}, **defaults)
 
 
-def block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s):
+def block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s,
+                     bf16_planes=False):
     """The plain version of both block-mode kernels: ``_step_body_plain`` on
     the block cropped to its rows inside the grid, the Dirichlet mask taken
     from global rows (a crop edge that is a block edge is no Dirichlet row:
     the nodes beyond it are missing, as for the kernels), abs_term passed
-    in; pasted back into a zero block. s: block_step_args."""
+    in; pasted back into a zero block. s: block_step_args; bf16_planes: as
+    ``_step_body_plain`` (the tiled kernel's block mode)."""
     B, n1y = u2.shape
     row0 = int(row0)
     lo, hi = block_rows(B, row0, n_rows)
@@ -683,7 +705,7 @@ def block_step_plain(u2, uo2, uoo2, g2, Mc2, row0, abs_term, n_rows, s):
                                          device=u2.device).reshape(())
     out = torch.zeros_like(u2)
     out[lo:hi] = _step_body_plain(sd, crop(u2), crop(uo2), crop(uoo2),
-                                  crop(g2), **kw)
+                                  crop(g2), bf16_planes=bf16_planes, **kw)
     return out
 
 

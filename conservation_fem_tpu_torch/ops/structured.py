@@ -11,8 +11,7 @@ Triangles per quad (i,j):
 Neighbour offsets (self + 6): (0,0),(1,0),(-1,0),(0,1),(0,-1),(1,1),(-1,-1).
 
 Where the JAX package differentiates the flux with ``jax.jvp``, the port
-takes explicit derivative callables (``Flux.fprime2_xy``). The TPU-only
-bf16 ``sweep_form`` is not ported.
+takes explicit derivative callables (``Flux.fprime2_xy``).
 """
 
 from __future__ import annotations
@@ -152,6 +151,24 @@ def local_to_stencil(sd: StructuredData, loc):
             for b in range(3):
                 p = _PLANE[(cs[b][0] - dai, cs[b][1] - daj)]
                 coef[p, dai:dai + nx, daj:daj + ny] += loc[t, :, :, a, b]
+    return coef
+
+
+def sweep_form(coef, enable: bool):
+    """The operator planes a fixed-iteration solver sweep reads: a bfloat16
+    copy of f32 ``coef`` when ``enable``, else ``coef`` itself (f64 and
+    ``enable`` False leave it alone).
+
+    ``matvec`` on a bf16 copy promotes each plane to f32 before its product
+    (a bf16 tensor times an f32 tensor is f32 in PyTorch), so the sums stay
+    f32 and only the planes carry bf16 rounding (~4e-3 relative). The
+    residuals, quadratures and Jacobi diagonals keep the exact planes, so
+    the rounding perturbs the solve directions, not the Newton fixed
+    point. The composed step's ``xla_bf16_planes``; the tiled kernel's
+    ``bf16_planes`` streams such copies from device memory (ops/
+    tiled_step.py)."""
+    if enable and coef.dtype == torch.float32:
+        return coef.to(torch.bfloat16)
     return coef
 
 

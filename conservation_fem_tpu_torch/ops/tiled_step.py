@@ -30,8 +30,22 @@ a block may use (``smem_budget``); ``default_tile_rows`` weighs the rounds
 of tiles over the blocks that can be resident with that shared memory. The
 TPU kernel's Mosaic geometry (8-row halo alignment, 128-lane padding, HBM
 pad rows, the 24 MB VMEM budget of its default_tile_rows, the
-CFT_TILE_ROWS override) has no counterpart and is not ported. Not ported:
-``bf16_planes``.
+CFT_TILE_ROWS override) has no counterpart and is not ported.
+
+``bf16_planes`` (f32 only; at f64 the same launch, bit for bit): the
+kernel's bf16 instance (csrc/tiled_step_bf16.cu, KPP) streams the planes
+of its solver sweeps as bfloat16 — the mass solve reads a copy of Mc
+(``bf16_planes_of``; the model and ShardedFusedStructured make it once
+per solve), the linearisation writes the Jacobian only as bf16
+(no f32 Jacobian planes exist), the Newton inner solves read it back — and
+takes both Jacobi diagonals from the rounded planes; every product runs in
+f32, and the rhs, the eps-stiffness and the residuals read f32 planes
+(pallas_tiled.tiled_rv_step's variant; its plain version is
+fused_step._step_body_plain with bf16_planes). The bf16 planes are stored
+with an even row pitch (``plane_pitch``) and the tiles start at even
+columns, so cp.async copies them in 4-byte pairs. The stages stay the
+size of the f32 instance's: the largest is the update sweep's, whose mass
+and eps-stiffness planes stay f32.
 """
 
 from __future__ import annotations
@@ -70,8 +84,14 @@ TILE_SECTORS = 224
 TILE_ROWS = (64, 32, 16, 8)   # default_tile_rows' candidates, largest first
 # the kernels that run the tile pipeline: name -> C occupancy entry
 OCCUPANCY_ENTRIES = {"tiled": "cft_tiled_occupancy",
+                     "tiled_bf16": "cft_tiled_occupancy_bf16",
                      "split_setup": "cft_split_setup_occupancy",
                      "split_newton": "cft_split_newton_occupancy"}
+# the kernels whose solver sweeps read 2-byte planes
+PLANE_ITEMSIZE = {"tiled_bf16": 2}
+# work fields of the bf16 instance: csrc/fused_step.cuh's without the 7
+# f32 Jacobian planes (Field::JC), which live in a bf16 region of their own
+BF16_WORK_FIELDS = fs.N_WORK_FIELDS - 7
 
 
 def smem_budget(itemsize):
@@ -102,10 +122,20 @@ def smem_bytes(rows, cols, itemsize):
     return STAGES * stage_values(rows, cols) * itemsize
 
 
-def tile_geometry(n1x, n1y, itemsize, tile_rows):
+def plane_pitch(n1y, plane_itemsize):
+    """Values a row of the solver planes takes in device memory: n1y,
+    rounded up to even for 2-byte planes (csrc/tile_sweep.cuh
+    plane_pitch), so that each pair of columns starting at an even one is
+    one aligned 4-byte copy."""
+    return n1y + (n1y & 1) if plane_itemsize == 2 else n1y
+
+
+def tile_geometry(n1x, n1y, itemsize, tile_rows, plane_itemsize=None):
     """(rows, cols) of a tile: ``tile_rows`` rows by columns that split
     the row into equal tiles of at most MAX_TILE_COLS, fewer where two
-    stages would not fit ``smem_budget``."""
+    stages would not fit ``smem_budget``; an even number of columns where
+    the solver planes take ``plane_itemsize`` = 2 bytes (None: itemsize),
+    so that every tile starts at an even column."""
     rows = int(tile_rows)
     if rows < 1:
         raise ValueError(f"tile_rows must be positive, not {tile_rows}")
@@ -117,7 +147,13 @@ def tile_geometry(n1x, n1y, itemsize, tile_rows):
                          f"not fit {smem_budget(itemsize)} bytes of shared "
                          "memory")
     width = min(MAX_TILE_COLS, fit)
-    return rows, -(-n1y // -(-n1y // width))
+    cols = -(-n1y // -(-n1y // width))
+    if plane_itemsize == 2 and cols % 2:
+        if width < 2:
+            raise ValueError(f"tile_rows {rows}: two stages of two columns "
+                             "do not fit the shared memory")
+        cols = cols + 1 if cols < width else cols - 1
+    return rows, cols
 
 
 def tile_origins(lo, hi, n1y, rows, cols):
@@ -130,14 +166,16 @@ def tile_origins(lo, hi, n1y, rows, cols):
             for t in range(count)]
 
 
-def tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, blocks_per_sm):
+def tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, blocks_per_sm,
+              plane_itemsize=None):
     """The plan of a sweep over n1x rows: rows, cols, tiles, smem (bytes
     per block), resident (blocks on the card at once, blocks_per_sm(smem)
     on each of n_sm SMs), blocks (those launched: no more than tiles),
     rounds (tiles per block, at most) and staged (the busiest block's cost
     per sweep of the largest stage: the sectors it copies and TILE_SECTORS
-    per tile)."""
-    rows, cols = tile_geometry(n1x, n1y, itemsize, tile_rows)
+    per tile). plane_itemsize: as tile_geometry."""
+    rows, cols = tile_geometry(n1x, n1y, itemsize, tile_rows,
+                               plane_itemsize)
     tiles = -(-n1x // rows) * -(-n1y // cols)
     smem = smem_bytes(rows, cols, itemsize)
     resident = n_sm * int(blocks_per_sm(smem))
@@ -152,7 +190,8 @@ def tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, blocks_per_sm):
                                  + TILE_SECTORS))
 
 
-def default_tile_rows(n1x, n1y, itemsize, n_sm, blocks_per_sm):
+def default_tile_rows(n1x, n1y, itemsize, n_sm, blocks_per_sm,
+                      plane_itemsize=None):
     """Rows per tile over n1x rows on a card of n_sm SMs, where
     blocks_per_sm(smem) blocks fit an SM with smem bytes of dynamic shared
     memory: of TILE_ROWS, the one whose busiest block stages least —
@@ -160,9 +199,11 @@ def default_tile_rows(n1x, n1y, itemsize, n_sm, blocks_per_sm):
     sectors a stage's row segments touch, plus a tile's fixed cost (a
     sweep lasts as long as its busiest block; a smaller tile trades idle
     blocks in the last round for more halo and more tiles, a narrower one
-    for more partial sectors per value). Ties go to the larger tile."""
+    for more partial sectors per value). Ties go to the larger tile.
+    plane_itemsize: as tile_geometry."""
     return min(TILE_ROWS, key=lambda rows: tile_plan(
-        n1x, n1y, itemsize, rows, n_sm, blocks_per_sm)["staged"])
+        n1x, n1y, itemsize, rows, n_sm, blocks_per_sm,
+        plane_itemsize)["staged"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,9 +234,11 @@ def _card_plan(n1x, n1y, dtype, tile_rows, device_index, kernel, flux):
         return occupancy(dtype, smem, device_index,
                          _build.launch_key(kernel, flux))["blocks_per_sm"]
 
+    planes = PLANE_ITEMSIZE.get(kernel)
     if tile_rows is None:
-        tile_rows = default_tile_rows(n1x, n1y, itemsize, n_sm, per_sm)
-    return tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, per_sm)
+        tile_rows = default_tile_rows(n1x, n1y, itemsize, n_sm, per_sm,
+                                      planes)
+    return tile_plan(n1x, n1y, itemsize, tile_rows, n_sm, per_sm, planes)
 
 
 def card_plan(n1x, n1y, dtype, tile_rows=None, device_index=0,
@@ -215,14 +258,10 @@ def device_index(t):
         else t.device.index
 
 
-def _check_tiled_options(inner_solver, bf16_planes):
+def _check_tiled_options(inner_solver):
     if inner_solver not in ("cheby", "bicgstab"):
         raise NotImplementedError(
             "tiled_rv_step inner_solver must be 'cheby' or 'bicgstab'")
-    if bf16_planes:
-        raise NotImplementedError(
-            "tiled_rv_step bf16_planes is not ported (ROADMAP queue 2 item "
-            "5, only if the H100 measures a reason)")
 
 
 def _args(u2, step, inner_solver, row0_base, n_rows, abs_term):
@@ -242,20 +281,34 @@ def _args(u2, step, inner_solver, row0_base, n_rows, abs_term):
 
 def tiled_rv_step_plain(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
                         inner_solver="cheby", row0_base=None, n_rows=None,
-                        abs_term=None, **step):
+                        abs_term=None, bf16_planes=False, **step):
     """One stabilised step in plain PyTorch (tile_rows is ignored);
-    returns u_{n+1}, in block mode the whole block."""
+    returns u_{n+1}, in block mode the whole block. bf16_planes: the bf16
+    solver planes (fused_step._step_body_plain), f32 only."""
     s, n_rows = _args(u2, step, inner_solver, row0_base, n_rows, abs_term)
     if row0_base is not None:
         return fs.block_step_plain(u2, uo2, uoo2, g2, Mc2, row0_base,
-                                   abs_term, n_rows, s)
+                                   abs_term, n_rows, s,
+                                   bf16_planes=bf16_planes)
     return fs._step_body_plain(fs._plain_data(u2, Mc2, s), u2, uo2, uoo2,
-                               g2, **fs._body_kw(s))
+                               g2, bf16_planes=bf16_planes, **fs._body_kw(s))
+
+
+def bf16_planes_of(Mc2):
+    """The bf16 copy of the mass planes the bf16 instance's mass solve
+    reads: (7, n1x, plane_pitch(n1y, 2)), rounded to nearest even, zero
+    past column n1y."""
+    out = Mc2.to(torch.bfloat16)
+    n1y = Mc2.shape[-1]
+    pitch = plane_pitch(n1y, 2)
+    if pitch == n1y:
+        return out
+    return torch.nn.functional.pad(out, (0, pitch - n1y))
 
 
 def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
                   inner_solver="cheby", row0_base=None, n_rows=None,
-                  abs_term=None, bf16_planes=False, **step):
+                  abs_term=None, bf16_planes=False, mc16=None, **step):
     """One stabilised step, one launch; replaces pallas_tiled.tiled_rv_step.
 
     Arguments as ops/fused_step.fused_rv_step (``step``), plus tile_rows
@@ -263,13 +316,20 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
     row0_base (an int, the global row of block row 0), n_rows (rows of the
     whole grid) and abs_term (a one-element tensor, read on the device, or
     a float; not needed for gfem) as ops/fused_step.fused_rv_block_step;
-    nx, ny in ``step`` are the block's, (B - 1, n1y - 1)."""
-    _check_tiled_options(inner_solver, bf16_planes)
+    nx, ny in ``step`` are the block's, (B - 1, n1y - 1). bf16_planes: at
+    f32 the kernel's bf16 instance (KPP only; its launches count as
+    ``tiled_rv_step_bf16`` and ``tiled_rv_step_block_bf16``); at f64 the
+    flag changes nothing. mc16: the bf16 mass planes that instance reads,
+    ``bf16_planes_of(Mc2)``, which a caller stepping with one Mc2 makes
+    once (None: made here at each call, as JAX casts once per step; the
+    plain version and f64 ignore it)."""
+    _check_tiled_options(inner_solver)
     s, n_rows = _args(u2, step, inner_solver, row0_base, n_rows, abs_term)
     block = row0_base is not None
     if _build.on_cpu("tiled_rv_step", u2, uo2, uoo2, g2, Mc2):
         return tiled_rv_step_plain(u2, uo2, uoo2, g2, Mc2, row0_base=row0_base,
-                                   n_rows=n_rows, abs_term=abs_term, **s)
+                                   n_rows=n_rows, abs_term=abs_term,
+                                   bf16_planes=bf16_planes, **s)
     n1x, n1y = s["nx"] + 1, s["ny"] + 1
     dtype, consts = fs._launch_prep("tiled_rv_step", s,
                                     [u2, uo2, uoo2, g2, Mc2],
@@ -280,23 +340,53 @@ def tiled_rv_step(u2, uo2, uoo2, g2, Mc2, *, tile_rows=None,
     else:
         lo, hi = 0, n1x
     flux = s["flux"].name
+    bf16 = bool(bf16_planes) and dtype == torch.float32
+    if bf16 and flux != "kpp":
+        raise NotImplementedError(
+            f"tiled_rv_step: the bf16-plane instance is compiled for the KPP "
+            f"flux only (the JAX package's {flux!r} config has no "
+            "bf16_planes option)")
+    kernel = "tiled_bf16" if bf16 else "tiled"
     plan = card_plan(hi - lo, n1y, dtype, tile_rows, device_index(u2),
-                     flux=flux)
+                     kernel=kernel, flux=flux)
     out = torch.empty((n1x, n1y), dtype=dtype, device=dev)
-    work, part = fs.new_scratch(dtype, dev, n1x, n1y)
     keep, abs_ptr = (fs.abs_term_ptr(abs_term, s, dtype, dev) if block
                      else (None, 0))
     bdf2, rv, freeze, cheby = fs._flags(s)
-    with torch.cuda.device(dev):
-        code = _build.entry("cft_tiled_rv_step", dtype, flux)(
-            u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
-            Mc2.data_ptr(), out.data_ptr(), work.data_ptr(), part.data_ptr(),
-            abs_ptr, consts.data_ptr(), n1x, n1y,
+    head = (u2.data_ptr(), uo2.data_ptr(), uoo2.data_ptr(), g2.data_ptr(),
+            Mc2.data_ptr())
+    tail = (abs_ptr, consts.data_ptr(), n1x, n1y,
             int(row0_base) if block else 0, n_rows if block else n1x,
             int(block), plan["rows"], plan["cols"], int(s["cg_iters"]),
             int(s["newton_iters"]), int(s["lin_iters"]), bdf2, rv, freeze,
             cheby, _build.stream_ptr(u2))
-    _build.launches[_build.launch_key(
-        "tiled_rv_step_block" if block else "tiled_rv_step", flux)] += 1
-    _build.check(code, "tiled_rv_step")
+    name = "tiled_rv_step_block" if block else "tiled_rv_step"
+    with torch.cuda.device(dev):
+        if bf16:
+            pitch = plane_pitch(n1y, 2)
+            if mc16 is None:
+                mc16 = bf16_planes_of(Mc2)
+            elif (mc16.dtype != torch.bfloat16 or mc16.device != dev
+                  or tuple(mc16.shape) != (7, n1x, pitch)
+                  or not mc16.is_contiguous()):
+                raise ValueError(
+                    f"tiled_rv_step: mc16 must be bf16_planes_of(Mc2), a "
+                    f"contiguous (7, {n1x}, {pitch}) bfloat16 tensor on "
+                    f"{dev}")
+            jc16 = torch.empty((7, n1x, pitch), dtype=torch.bfloat16,
+                               device=dev)
+            work = torch.empty((BF16_WORK_FIELDS, n1x, n1y), dtype=dtype,
+                               device=dev)
+            part = torch.empty(_build.PART_SIZE, dtype=dtype, device=dev)
+            code = _build.entry("cft_tiled_rv_step_bf16", dtype)(
+                *head, mc16.data_ptr(), out.data_ptr(), work.data_ptr(),
+                jc16.data_ptr(), part.data_ptr(), *tail)
+            name += "_bf16"
+        else:
+            work, part = fs.new_scratch(dtype, dev, n1x, n1y)
+            code = _build.entry("cft_tiled_rv_step", dtype, flux)(
+                *head, out.data_ptr(), work.data_ptr(), part.data_ptr(),
+                *tail)
+    _build.launches[_build.launch_key(name, flux)] += 1
+    _build.check(code, name)
     return out

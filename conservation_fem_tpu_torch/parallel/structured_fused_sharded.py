@@ -32,7 +32,8 @@ import torch
 
 from conservation_fem_tpu_torch.ops.fused_step import (fused_rv_block_step,
                                                        required_halo)
-from conservation_fem_tpu_torch.ops.tiled_step import tiled_rv_step
+from conservation_fem_tpu_torch.ops.tiled_step import (bf16_planes_of,
+                                                       tiled_rv_step)
 from conservation_fem_tpu_torch.parallel.structured_sharded import RowBlocks
 
 BLOCK_KERNEL_BYTES = 270 * 2**10   # per field; the JAX class's VMEM gate
@@ -50,7 +51,8 @@ class ShardedFusedStructured(RowBlocks):
     mode) or "auto": the JAX class's rule, "block" while a field of the
     extended block is at most 270 KiB, kept so that both packages launch
     counterpart kernels. tile_rows: the tiled kernel's rows per tile (None:
-    its default).
+    its default). cfg.tiled_bf16_planes reaches the tiled kernel (its bf16
+    solver planes at f32), as in JAX; the block kernel ignores it.
     """
 
     def __init__(self, problem, blocks, kernel: str = "auto",
@@ -111,6 +113,12 @@ class ShardedFusedStructured(RowBlocks):
         p, cfg = self.p, self.p.cfg
         L, D, n1x, n1y = self.L, self.D, self.n1x, self.n1y
         kw = p.fused_step_kwargs()   # nx, ny: the kernels take the block's
+        # the bf16 instance's mass planes, made once per block
+        mc16 = [None] * len(self.blocks.ranks)
+        if (self.kernel == "tiled" and cfg.tiled_bf16_planes
+                and self.Mc_ext.is_cuda
+                and self.Mc_ext.dtype == torch.float32):
+            mc16 = [bf16_planes_of(m.contiguous()) for m in self.Mc_ext]
 
         def step(u, uo, uoo, g):
             abs_term = (self._abs_term(u) if cfg.stabilization == "rv"
@@ -126,7 +134,9 @@ class ShardedFusedStructured(RowBlocks):
                 else:
                     uh = tiled_rv_step(
                         *ext[k], self.Mc_ext[k], row0_base=row0, n_rows=n1x,
-                        abs_term=abs_term, tile_rows=self.tile_rows, **kw)
+                        abs_term=abs_term, tile_rows=self.tile_rows,
+                        bf16_planes=cfg.tiled_bf16_planes, mc16=mc16[k],
+                        **kw)
                 # both kernels return zeros on the rows outside the grid, so
                 # the padding rows of the last block stay zero and the next
                 # step's mean needs no mask

@@ -430,19 +430,22 @@ def test_tiled_kernel_tile_plans(cuda, name, mesh, tile_rows, dtype):
 
 
 def test_step_kernels_refuse_bad_arguments(cuda):
-    """On CUDA tensors: bf16 planes, block mode with BiCGStab or (rv)
-    without abs_term, a flux the step kernels do not compile in (neither
-    KPP nor Burgers) for every step kernel, and tiles of fewer than one row
-    for the split kernels raise before a launch."""
+    """On CUDA tensors: block mode with BiCGStab or (rv) without abs_term,
+    a flux the step kernels do not compile in (neither KPP nor Burgers) for
+    every step kernel, bf16 planes with the Burgers flux in f32 (that
+    instance is KPP only), and tiles of fewer than one row for the split
+    kernels raise before a launch."""
     p = _problem(cuda, 4, "float64", T=0.0)
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
     kw = p.fused_step_kwargs()
     before = sum(_build.launches.values())
-    for bad in (dict(row0_base=0, n_rows=17, abs_term=0.0),
-                dict(bf16_planes=True)):
-        with pytest.raises(NotImplementedError):
-            ts.tiled_rv_step(*args, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        ts.tiled_rv_step(*args, **kw, row0_base=0, n_rows=17, abs_term=0.0)
+    burgers = dict(kw, flux=kw["flux"]._replace(name="burgers"))
+    with pytest.raises(NotImplementedError, match="KPP flux only"):
+        ts.tiled_rv_step(*(a.float() for a in args), bf16_planes=True,
+                         **burgers)
     with pytest.raises(ValueError, match="abs_term"):
         ts.tiled_rv_step(*args, **dict(kw, inner_solver="cheby"),
                          row0_base=0, n_rows=17)
@@ -555,6 +558,68 @@ def test_tiled_block_mode_first_and_last_block(cuda, tile_rows):
         torch.testing.assert_close(got[own],
                                    whole[d * L:d * L + own.stop - D],
                                    rtol=0, atol=F64_TOL)
+
+
+@pytest.mark.parametrize("solver,frozen,tile_rows", [
+    ("bicgstab", True, 8), ("cheby", False, 1), ("cheby", True, None)])
+def test_tiled_bf16_kernel_matches_plain(cuda, solver, frozen, tile_rows):
+    """The tiled kernel's bf16-plane instance against its plain version, f32
+    mid-trajectory state at mesh 64 (257 columns: odd, so the bf16 planes'
+    rows are padded to 258), whole grid, then block mode on the first and
+    an interior block of 4 (Chebyshev); 1e-4 of max|plain|, one launch of
+    each bf16 key per call. At f64 the flag launches the f64 instance under
+    its own key, bit for bit the call without it."""
+    p, *f64 = _state(cuda, 64)
+    args = [a.float() for a in f64] + [p.sd.M_coef.float()]
+    kw = dict(p.fused_step_kwargs(), inner_solver=solver,
+              freeze_jacobian=frozen,
+              cg_iters=6 if solver == "bicgstab" else 10,
+              lin_iters=4 if solver == "bicgstab" else 16)
+    plan = ts.card_plan(257, 257, torch.float32, tile_rows,
+                        kernel="tiled_bf16")
+    assert plan["cols"] % 2 == 0
+    before = dict(_build.launches)
+    out = ts.tiled_rv_step(*args, tile_rows=tile_rows, bf16_planes=True,
+                           **kw)
+    assert _build.launches["tiled_rv_step_bf16"] == before.get(
+        "tiled_rv_step_bf16", 0) + 1
+    ref = ts.tiled_rv_step_plain(*args, bf16_planes=True, **kw)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    f32 = ts.tiled_rv_step(*args, tile_rows=tile_rows, **kw)
+    assert float((out - f32).abs().max()) > 0
+    # the bf16 mass planes made once by the caller: the same launch
+    torch.testing.assert_close(
+        ts.tiled_rv_step(*args, tile_rows=tile_rows, bf16_planes=True,
+                         mc16=ts.bf16_planes_of(args[4]), **kw),
+        out, rtol=0, atol=0)
+    f64_args = list(f64) + [p.sd.M_coef]
+    n = _build.launches["tiled_rv_step"]
+    torch.testing.assert_close(
+        ts.tiled_rv_step(*f64_args, tile_rows=tile_rows, bf16_planes=True,
+                         **kw),
+        ts.tiled_rv_step(*f64_args, tile_rows=tile_rows, **kw), rtol=0,
+        atol=0)
+    assert _build.launches["tiled_rv_step"] == n + 2
+    if solver != "cheby":
+        return
+    u2 = args[0]
+    abs_term = (u2 - u2.mean()).abs().max().reshape(1)
+    blocks, L, D = _blocks(p, args[:4], 4)
+    bkw = {k: v for k, v in kw.items() if k not in ("nx", "ny")}
+    for d in (0, 1):
+        row0, ext = blocks[d]
+        ext = [a.float() for a in ext]
+        got = ts.tiled_rv_step(*ext, row0_base=row0, n_rows=257,
+                               abs_term=abs_term, tile_rows=tile_rows,
+                               bf16_planes=True, **bkw)
+        want = ts.tiled_rv_step_plain(*ext, row0_base=row0, n_rows=257,
+                                      abs_term=abs_term, bf16_planes=True,
+                                      **bkw)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    assert _build.launches["tiled_rv_step_block_bf16"] == before.get(
+        "tiled_rv_step_block_bf16", 0) + 2
 
 
 @pytest.mark.parametrize("kernel,n_blocks", [("block", 2), ("tiled", 2),

@@ -206,15 +206,14 @@ def test_cli_runs_si_and_the_ell_backend(capsys):
     (dict(tiled_bf16_planes=True), "queue 2 item 5c"),
     (dict(backend="ell", ell_matvec_backend="banded"), "queue 1 item 13")])
 def test_unported_options_raise(over, item):
-    if item == "queue 1 item 13":
-        # ported since: the banded backend builds and steps (its run
-        # against the gather backend: tests/test_torch_blocked_model.py)
-        p = tkpp.build(tkpp.KPPConfig(mesh_size=2, T=0.02, **over),
-                       device="cpu")
-        assert bool(torch.isfinite(p.solve().u).all())
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tkpp.build(tkpp.KPPConfig(mesh_size=2, **over), device="cpu")
+    """Options the port once refused, each ported since under the ROADMAP
+    item named: they build and step a finite solution (f32, where the bf16
+    planes take effect). The banded backend's run against the gather
+    backend: tests/test_torch_blocked_model.py; the bf16 planes against
+    the JAX package: tests/test_torch_bf16_planes.py."""
+    p = tkpp.build(tkpp.KPPConfig(mesh_size=2, T=0.02, dtype="float32",
+                                  **over), device="cpu")
+    assert bool(torch.isfinite(p.solve().u).all())
 
 
 @pytest.mark.parametrize("over", [

@@ -249,17 +249,18 @@ def test_card_plan_takes_the_launched_kernels_occupancy(monkeypatch, kernel,
 
 
 def test_tiled_refuses_what_is_not_ported():
-    """bf16 planes raise, naming their ROADMAP item, before any device
-    dispatch; so do block mode with BiCGStab (its dots span the grid) or,
-    for rv, without abs_term, and an inner solver the TPU kernel does not
-    have. Block mode itself is ported: on the whole grid it is the step."""
+    """Block mode with BiCGStab (its dots span the grid) or, for rv,
+    without abs_term, and an inner solver the TPU kernel does not have
+    raise before any device dispatch. Block mode itself is ported: on the
+    whole grid it is the step; so are bf16 planes, which change nothing at
+    f64."""
     p = tkpp.build(tkpp.KPPConfig(mesh_size=2, cg_iters=6, newton_iters=2),
                    device="cpu")
     u2 = p.u0.reshape(p._shape2)
     args = (u2, u2, u2, u2, p.sd.M_coef)
     kw = p.fused_step_kwargs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.tiled_rv_step(*args, **kw, bf16_planes=True)
+    torch.testing.assert_close(ts.tiled_rv_step(*args, **kw, bf16_planes=True),
+                               ts.tiled_rv_step(*args, **kw), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="cheby"):
         ts.tiled_rv_step(*args, **kw, row0_base=0, n_rows=9, abs_term=0.0)
     cheby = dict(kw, inner_solver="cheby")
