@@ -285,15 +285,34 @@ exits non-zero:
      single-device run; (d) is phase 5's one-rank NCCL run, which also
      holds DistributedKPP over ProcessGroupBlocks to LocalBlocks(1) bit for
      bit. A JSON line {"unstructured_twins": ...} holds these readings.
+ 14. the blocked twins on the ELL kernels, the sharded reductions,
+     ShardedStokes and backend="grid" (blocked_twins_phase, in a process
+     of its own). A JSON line {"blocked_twins": ...} holds its readings.
+ 15. the example scripts (conservation_fem_tpu_torch/examples/, ROADMAP
+     queue 1 item 16) at the JAX scripts' own sizes, launching no
+     hand-written kernel (examples_phase, in a process of its own): the
+     tutorial's sections 1-4 and 6 (disk_mesh(1/16) and its Poisson solve:
+     49 CG iterations, L2 within 1e-10 relative; KPP mesh 8 with metrics:
+     100 steps, Newton converged every step, min and max of u within
+     1e-10; checkpoint/resume bit-exact; the run over 4 LocalBlocks within
+     1e-10 of the single one) and make_figures' computations 1-6 without
+     drawing (advection rv_node mesh 16 and gfem at mesh 4, 8, 16 within
+     1e-8 of the JAX package's errors, slope printed; KPP mesh 16 within
+     1e-10 L2rel of the JAX package's u; Burgers mesh 60's L2 error
+     within SPREAD_FACTOR x the JAX package's own spread of its; Sod nx
+     200's L1 density error within 1e-8 relative; the 8 frames of the
+     evolution GIF, the last one's min and max within 1e-10), each
+     against EXAMPLES_REFERENCE. A JSON line {"examples": ...} holds each
+     section's numbers and wall seconds and the card.
 From phase 6 (d) on, a run is timed on CUDA events around the one solve
 that is gated or counted, after two solves of its trajectory's first
 REPEAT_STEPS steps that must agree bit for bit (the repeat check, at that
 depth, and the warm-up); phase 10's turns start with the counted solve.
 Phase 7's Burgers SI runs, phase 8's (a) and (c), the whole of phase 9
-and the whole of phases 12 and 13 run in three processes of their own
+and the whole of phases 12-15 run in five processes of their own
 (SIDE_RUNS), on the card at once with the rest of phases 7 and 8 in this
 one, so that their µs/step and idle shares are read beside each other's;
-their log lines follow this process's, and phase 10 starts when all four
+their log lines follow this process's, and phase 10 starts when all six
 are done.
 The second-to-last line is the per-kernel JSON summary (the eight ported
 TPU kernels, the tiled kernel's two bf16-plane instances and the four ELL
@@ -360,15 +379,15 @@ SANITY_RANGE = (0.5, 12.0)   # u of a sane KPP run (bench.py)
 ADAPTIVE_TOL = 1e-9      # adaptive f64 solves to 1e-12 in two reduction orders
 ADAPTIVE_STEPS = 5
 # phase 7's Burgers SI runs, phase 8's (a) and (c), phase 9, and phases
-# 12, 13 and 14 (each tuple a process of its own, its functions in order)
-# run beside the rest of phases 7 and 8, all five processes on the card at
-# once (phase 13 after phase 12 in one process; phase 14, which launches
-# the ELL kernels, in one of its own); a process gets SIDE_TIMEOUT seconds
-# after the rest is done
+# 12, 13, 14 and 15 (each tuple a process of its own, its functions in
+# order) run beside the rest of phases 7 and 8, all six processes on the
+# card at once (phase 13 after phase 12 in one process; phase 14, which
+# launches the ELL kernels, and phase 15, the example scripts, each in one
+# of its own); a process gets SIDE_TIMEOUT seconds after the rest is done
 SIDE_RUNS = (("euler_stokes_phase",),
              ("run_advection_f64", "run_pk_advection", "run_burgers_si"),
              ("twins_phase", "unstructured_phase"),
-             ("blocked_twins_phase",))
+             ("blocked_twins_phase",), ("examples_phase",))
 SIDE_TIMEOUT = 600
 # a path timed on one solve first solves its trajectory's first
 # REPEAT_STEPS steps twice, bit-equal (_repeats): the repeat check at that
@@ -6148,6 +6167,209 @@ def blocked_twins_phase(card):
     return out
 
 
+# Phase 15, the example scripts at the JAX scripts' own sizes. The JAX
+# package's numbers, printed on the CPU by
+#   python3 scripts/examples_reference.py
+# (which also writes its KPP mesh-16 u to scripts/examples_reference_kpp16.npy);
+# make_figures' advection runs are ADVECTION_REFERENCE's sweep
+EXAMPLES_REFERENCE = {
+    "burgers60": {"l1": 0.03062670091817181, "l2": 0.1146828404034617,
+                  "steps": 61},
+    "gif": {"dt": 0.007033721219977391, "frames": 8,
+            "max": 0.8151656120895284, "min": -0.015522761603720429},
+    "kpp16": {"max": 11.10870837744607, "min": 0.6880508740068588,
+              "steps": 100},
+    "kpp8": {"converged": True, "max": 10.689062175211161,
+             "min": 0.6863768580181415, "steps": 100},
+    "mesh": {"boundary": 96, "cells": 1536, "nodes": 817},
+    "poisson": {"iters": 49, "l2": 0.0009614028601883906},
+    "sod200": {"dt": 0.0010564428184106232,
+               "l1_density": 0.008736580434692508, "steps": 190}}
+EXAMPLES_KPP16 = os.path.join("scripts", "examples_reference_kpp16.npy")
+# the f64 examples against the JAX package's numbers (Poisson L2 and KPP
+# min/max, relative and absolute), KPP mesh 16 L2rel, the sharded run's
+# max |diff| from the single one (the twins' f64 standard)
+EXAMPLES_F64_TOL = 1e-10
+EXAMPLES_SOD_RTOL = 1e-8   # the L1 density error, relative
+EXAMPLES_BLOCKS = 4        # the tutorial's --blocks default
+# Burgers mesh 60, the f64 reference config, grows roundoff ~1e6-fold over
+# its 61 steps: the JAX package's own scan solve and its step jitted and
+# chained end with L2 errors 0.1146828404034617 and 0.11468284040369141
+# against the exact solution (scripts/burgers_roundoff_growth.py 60, CPU
+# f64); the port's is held to the first within SPREAD_FACTOR x this spread
+EXAMPLES_BURGERS_SPREAD = abs(0.11468284040369141 - 0.1146828404034617)
+
+
+def _example_section(label, fn):
+    """(fn(), wall seconds), launching no hand-written kernel."""
+    t0 = time.perf_counter()
+    out = _no_launch(f"examples {label}", fn)
+    return out, time.perf_counter() - t0
+
+
+def _example_gate(label, ok, msg, card):
+    log(f"examples {label}: {msg} ({card})")
+    if not ok:
+        raise AssertionError(f"examples {label}: {msg}")
+
+
+def examples_phase(card, device="cuda"):
+    """Phase 15: the port's example scripts (conservation_fem_tpu_torch/
+    examples/) on ``device`` at the JAX scripts' own sizes, each section
+    called by name as main() calls it, none drawing (matplotlib, PIL and
+    h5py are not on the card's machine: the tutorial's section 5 and the
+    figures run on the CPU, tests/test_torch_examples.py). The tutorial's
+    sections 1-4 and 6 (over LocalBlocks(EXAMPLES_BLOCKS)) and
+    make_figures' computations 1-6, each gated against the JAX package's
+    numbers (EXAMPLES_REFERENCE, ADVECTION_REFERENCE) and launching no
+    hand-written kernel. The smoke run starts it in a process of its own
+    (SIDE_RUNS)."""
+    import torch
+
+    from conservation_fem_tpu_torch.examples import make_figures as mf
+    from conservation_fem_tpu_torch.examples import tutorial as tu
+    from conservation_fem_tpu_torch.models import burgers, euler
+
+    t_phase = time.perf_counter()
+    ref, tut, fig = EXAMPLES_REFERENCE, {}, {}
+
+    (mesh, m), s = _example_section("meshes", lambda: tu.meshes(device))
+    got = dict(nodes=mesh.n_nodes, cells=mesh.n_cells,
+               boundary=int(mesh.boundary_mask.sum()))
+    _example_gate("tutorial 1 meshes", got == ref["mesh"]
+                  and m.points.device.type == torch.device(device).type,
+                  f"{got} on {m.points.device} (the JAX package's "
+                  f"{ref['mesh']})", card)
+    tut["meshes"] = dict(got, seconds=s)
+
+    (sol, err), s = _example_section("poisson", lambda: tu.poisson(m))
+    got = dict(iters=int(sol.iters), l2=float(err))
+    r = _rel(got["l2"], ref["poisson"]["l2"])
+    _example_gate("tutorial 2 poisson",
+                  got["iters"] == ref["poisson"]["iters"]
+                  and r <= EXAMPLES_F64_TOL,
+                  f"CG iters {got['iters']}, L2 {got['l2']!r}; the JAX "
+                  f"package's {ref['poisson']} (relative {r:.3e}, gate "
+                  f"{EXAMPLES_F64_TOL})", card)
+    tut["poisson"] = dict(got, l2_rel_to_jax=r, seconds=s)
+
+    (cfg, problem, result), s = _example_section(
+        "stabilized run", lambda: tu.stabilized_run(device))
+    u = result.u
+    got = dict(steps=result.num_steps,
+               converged=bool(result.metrics["newton_converged"].all()),
+               min=float(u.min()), max=float(u.max()))
+    d = max(abs(got[k] - ref["kpp8"][k]) for k in ("min", "max"))
+    _example_gate("tutorial 3 KPP mesh 8",
+                  (got["steps"], got["converged"]) == (100, True)
+                  and d <= EXAMPLES_F64_TOL,
+                  f"{got}; the JAX package's {ref['kpp8']} (|diff| {d:.3e}, "
+                  f"gate {EXAMPLES_F64_TOL})", card)
+    tut["kpp_mesh8"] = dict(got, diff_to_jax=d, seconds=s)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (r1, r2), s = _example_section(
+            "checkpoint/resume", lambda: tu.checkpoint_resume(cfg, device,
+                                                              tmp))
+    same = bool(torch.equal(r1.u, u))
+    log(f"examples tutorial 4 checkpoint/resume: the resumed run bit-equal "
+        f"to the checkpointed one (checkpoint_resume raises otherwise); the "
+        f"checkpointed run bit-equal to section 3's: {same} ({card})")
+    tut["checkpoint_resume"] = dict(bit_exact=True,
+                                    equal_to_section3=same, seconds=s)
+
+    (u_sh, diff), s = _example_section(
+        "sharded", lambda: tu.sharded_solve(cfg, u, device, EXAMPLES_BLOCKS))
+    _example_gate(f"tutorial 6 sharded over {EXAMPLES_BLOCKS} blocks",
+                  diff <= EXAMPLES_F64_TOL,
+                  f"max |diff| vs single = {diff:.3e} (gate "
+                  f"{EXAMPLES_F64_TOL})", card)
+    tut["sharded"] = dict(blocks=EXAMPLES_BLOCKS, max_diff=diff, seconds=s)
+
+    adv = ADVECTION_REFERENCE["sweep"]
+    (p, res), s = _example_section("advection", lambda: mf.advection(device))
+    err, k = float(res.error_l2), ADV_SWEEP.index(16)
+    r = _rel(err, adv["rv_node"]["errors"][k])
+    _example_gate("figures 1 advection rv_node mesh 16",
+                  res.num_steps == adv["rv_node"]["steps"][k]
+                  and r <= ADV_ERR_RTOL,
+                  f"{res.num_steps} steps, L2 error {err!r}; the JAX "
+                  f"package's {adv['rv_node']['errors'][k]!r} (relative "
+                  f"{r:.3e}, gate {ADV_ERR_RTOL})", card)
+    fig["advection"] = dict(steps=res.num_steps, error=err, rel_to_jax=r,
+                            seconds=s)
+
+    conv, s = _example_section("convergence", lambda: mf.convergence(device))
+    want = adv["gfem"]["errors"][:3]
+    r = max(_rel(a, b) for a, b in zip(conv.errors, want))
+    _example_gate("figures 2 gfem convergence (4, 8, 16)",
+                  r <= ADV_ERR_RTOL,
+                  f"errors {[float(e) for e in conv.errors]}, slope "
+                  f"{conv.slope:.4f}; the JAX package's {want} (relative "
+                  f"{r:.3e}, gate {ADV_ERR_RTOL})", card)
+    fig["convergence"] = dict(errors=[float(e) for e in conv.errors],
+                              slope=conv.slope, rel_to_jax=r, seconds=s)
+
+    (p, res), s = _example_section("kpp", lambda: mf.kpp_wave(device))
+    uj = np.load(os.path.join(REPO, EXAMPLES_KPP16))
+    r = _l2rel(res.u.cpu().numpy(), uj)
+    _example_gate("figures 3 KPP mesh 16",
+                  res.num_steps == ref["kpp16"]["steps"]
+                  and r <= EXAMPLES_F64_TOL,
+                  f"{res.num_steps} steps, L2rel against the JAX "
+                  f"package's u {r:.3e} (gate {EXAMPLES_F64_TOL})", card)
+    fig["kpp_mesh16"] = dict(steps=res.num_steps, l2rel_to_jax=r, seconds=s)
+
+    (p, res, ex), s = _example_section(
+        "burgers", lambda: mf.burgers_riemann(device))
+    l2 = float(burgers.l2_error_vs_exact(p, res.u, 0.5))
+    d = abs(l2 - ref["burgers60"]["l2"])
+    gate = SPREAD_FACTOR * EXAMPLES_BURGERS_SPREAD
+    _example_gate("figures 4 Burgers mesh 60",
+                  p.num_steps == ref["burgers60"]["steps"] and d <= gate
+                  and ex.shape == res.u.shape
+                  and bool(torch.isfinite(ex).all()),
+                  f"{p.num_steps} steps, L2 error against the exact "
+                  f"solution {l2!r}; the JAX package's "
+                  f"{ref['burgers60']['l2']!r} (|diff| {d:.3e}, gate "
+                  f"{SPREAD_FACTOR} x its own spread "
+                  f"{EXAMPLES_BURGERS_SPREAD:.3e})", card)
+    fig["burgers_mesh60"] = dict(steps=p.num_steps, l2=l2, diff_to_jax=d,
+                                 gate=gate, seconds=s)
+
+    (p, res, x, t_end, rho_ex), s = _example_section(
+        "sod", lambda: mf.sod(device))
+    l1 = euler.sod_density_error(p, res.U, t_end)
+    r = _rel(l1, ref["sod200"]["l1_density"])
+    _example_gate("figures 5 Sod nx 200",
+                  (res.num_steps, res.dt) == (ref["sod200"]["steps"],
+                                              ref["sod200"]["dt"])
+                  and r <= EXAMPLES_SOD_RTOL and rho_ex.shape == x.shape,
+                  f"{res.num_steps} steps to t = {t_end!r}, L1 density "
+                  f"error {l1!r}; the JAX package's "
+                  f"{ref['sod200']['l1_density']!r} (relative {r:.3e}, gate "
+                  f"{EXAMPLES_SOD_RTOL})", card)
+    fig["sod_nx200"] = dict(steps=res.num_steps, l1_density=l1,
+                            rel_to_jax=r, seconds=s)
+
+    (p, us), s = _example_section("evolution", lambda: mf.evolution(device))
+    got = dict(frames=len(us), dt=p.dt, min=float(us[-1].min()),
+               max=float(us[-1].max()))
+    d = max(abs(got[k] - ref["gif"][k]) for k in ("min", "max"))
+    _example_gate("figures 6 evolution mesh 8",
+                  (got["frames"], got["dt"]) == (ref["gif"]["frames"],
+                                                 ref["gif"]["dt"])
+                  and d <= EXAMPLES_F64_TOL,
+                  f"{got}; the JAX package's {ref['gif']} (|diff| {d:.3e}, "
+                  f"gate {EXAMPLES_F64_TOL})", card)
+    fig["evolution"] = dict(got, diff_to_jax=d, seconds=s)
+
+    out = dict(tutorial=tut, make_figures=fig, card=card,
+               seconds=time.perf_counter() - t_phase)
+    log(f"examples phase: {out['seconds']:.0f} s ({card})")
+    return out
+
+
 def main(argv):
     card = phase_device()
     import torch
@@ -6207,10 +6429,11 @@ def smoke(card, regs):
     sharded_counts, sharded_runs = run_burgers_sharded()
     b_counts.update(sharded_counts)
     b_runs.update(sharded_runs)
-    # phases 7-9, 12 and 13 launch no hand-written kernel: the ELL backend
-    # and the stabilisation library (the JAX package runs them as XLA
-    # gathers), linear advection and the Pk layer, compressible Euler and
-    # Stokes/IPCS, the sharded and the unstructured twins; phase 14, the
+    # phases 7-9, 12, 13 and 15 launch no hand-written kernel: the ELL
+    # backend and the stabilisation library (the JAX package runs them as
+    # XLA gathers), linear advection and the Pk layer, compressible Euler
+    # and Stokes/IPCS, the sharded and the unstructured twins, the example
+    # scripts; phase 14, the
     # blocked twins, launches the ELL kernels in a process of its own (its
     # counts are its own, not the kernels line's); SIDE_RUNS run in
     # processes of their own beside the rest
@@ -6239,7 +6462,8 @@ def smoke(card, regs):
     twins = side["twins_phase"]
     unstructured = side["unstructured_phase"]
     blocked_twins = side["blocked_twins_phase"]
-    log(f"phases 7, 8, 9, 12, 13 and 14: "
+    examples = side["examples_phase"]
+    log(f"phases 7, 8, 9, 12, 13, 14 and 15: "
         f"{time.perf_counter() - t_side:.0f} s ({card})")
     # the unstructured fast path on the hand-written ELL kernels, on phase
     # 7's meshes
@@ -6308,6 +6532,7 @@ def smoke(card, regs):
     log(json.dumps({"unstructured_twins": unstructured}))
     log(json.dumps({"blocked_twins": blocked_twins}))
     log(json.dumps({"bf16_planes": bf16}))
+    log(json.dumps({"examples": examples}))
     log(card)
     log(json.dumps({"kernels": rows}))
 

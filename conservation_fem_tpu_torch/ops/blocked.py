@@ -115,11 +115,11 @@ def bandwidth(cols, pmask) -> int:
     return int(np.abs(offs[pmask]).max())
 
 
-def make_blocked_plan(mesh: Mesh, dtype=torch.float32, device="cpu",
+def make_blocked_plan(mesh: Mesh, dtype=torch.float32, device=None,
                       arrays=None) -> BlockedPlan:
     """The plan of an RCM-ordered mesh (ops/mesh.reorder_mesh(m,
     rcm_permutation(m))). arrays: the mesh's tensors when the caller has
-    them (made here otherwise)."""
+    them (made here on ``device`` otherwise: None is the card)."""
     if arrays is None:
         arrays = mesh.device_arrays(dtype, device)
     return BlockedPlan(n=mesh.n_nodes,
@@ -154,12 +154,12 @@ def _tiled_coverage(n_slots, cols, pmask, nb, T, k):
 
 
 def make_tiled_plan(mesh: Mesh, nb: int = 128, dtype=torch.float32,
-                    k: int | None = None, device="cpu",
+                    k: int | None = None, device=None,
                     arrays=None) -> BlockedPlan:
     """The plan of a tile-slot mesh (ops/tiling.tile_mesh): k, the tile
     neighbourhood halfwidth, raised 1 -> 3 until the JAX window covers
     every patch (or fixed by the caller); row_valid = the mesh's
-    slot_valid. The JAX package's need_patch_sum has no counterpart: the
+    slot_valid; arrays as for make_blocked_plan. The JAX package's need_patch_sum has no counterpart: the
     port's patch matrix is built on first use."""
     if not mesh.tile_T:
         raise ValueError("make_tiled_plan needs a tiling.tile_mesh mesh "

@@ -22,9 +22,10 @@ from conservation_fem_tpu_torch.ops.spaces import FunctionSpace
 
 
 def make_blocked_pk_plan(space: FunctionSpace, dtype=torch.float32,
-                         device="cpu", arrays=None) -> blocked.BlockedPlan:
+                         device=None, arrays=None) -> blocked.BlockedPlan:
     """The plan of an (RCM-permuted) space; arrays: the space's tensors
-    when the caller has them."""
+    when the caller has them (made here on ``device`` otherwise: None is
+    the card)."""
     if arrays is None:
         arrays = space.device_arrays(dtype, device)
     return blocked.BlockedPlan(

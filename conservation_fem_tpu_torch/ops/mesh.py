@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from conservation_fem_tpu_torch import get_device
+
 Array = np.ndarray
 
 
@@ -163,11 +165,13 @@ class Mesh:
     def max_patch(self) -> int:
         return self.patch_cols.shape[1]
 
-    def device_arrays(self, dtype=torch.float64, device="cpu") -> MeshArrays:
-        """The mesh as tensors on ``device``, floats in ``dtype``. A lean
+    def device_arrays(self, dtype=torch.float64, device=None) -> MeshArrays:
+        """The mesh as tensors on ``device`` (None: the card, raising
+        without one; "cpu" for the CPU), floats in ``dtype``. A lean
         mesh ships 1-element placeholders for the cell arrays and the ELL
         structure, as the JAX package does: the stencil path reads none of
         them, and a generic-path consumer fails loudly on their shapes."""
+        device = get_device(device)
         f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
                                       device=device)
         i = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from conservation_fem_tpu_torch import get_device
 from conservation_fem_tpu_torch.ops import lattice as lat
 
 # tent = bilinear interpolation weights on the 3x3 neighbourhood
@@ -130,7 +131,7 @@ def _csr_to_planes(A, nI, nJ, dtype, device):
 
 
 def build_mg(plan, patch_cols, patch_mask, blocks, bc_mask, *,
-             dtype=torch.float64, device="cpu", nu: int = 2,
+             dtype=torch.float64, device=None, nu: int = 2,
              omega: float = 1.2, coarse_max: int = 700):
     """A V-cycle hierarchy for a C x C block ELL operator whose dofs fill a
     lattice (ops/lattice.build_plan, plan.full).
@@ -139,10 +140,11 @@ def build_mg(plan, patch_cols, patch_mask, blocks, bc_mask, *,
     block); bc_mask: (N,) bool pinned rows, the same for every component.
     Coarsens while the grid stays odd-sized and holds more than
     ``coarse_max`` points; the last grid gets a dense f64 inverse, kept
-    in ``dtype`` on ``device``.
+    in ``dtype`` on ``device`` (None: the card, raising without one).
 
     Returns (MGStatic, {"planes": [level][s][d], "dinv": [level],
     "cinv": dense})."""
+    device = get_device(device)
     if not plan.full:
         raise NotImplementedError(
             "multigrid needs a full lattice (every grid point a dof); "

@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from conservation_fem_tpu_torch import get_device
+
 from conservation_fem_tpu_torch.ops.mesh import (Mesh, _build_cell_slots,
                                                  _build_patches,
                                                  _scatter_orderings,
@@ -203,9 +205,11 @@ class FunctionSpace:
     def nloc(self) -> int:
         return self.cell_dofs.shape[1]
 
-    def device_arrays(self, dtype=torch.float64, device="cpu") -> SpaceArrays:
-        """The space as tensors on ``device``, floats in ``dtype`` (the
+    def device_arrays(self, dtype=torch.float64, device=None) -> SpaceArrays:
+        """The space as tensors on ``device`` (None: the card, raising
+        without one; "cpu" for the CPU), floats in ``dtype`` (the
         geometry formed in f64 on the host, then cast)."""
+        device = get_device(device)
         f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
                                       device=device)
         i = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,

@@ -67,7 +67,7 @@ def rect():
     tm = tmesh.reorder_mesh(tm, tmesh.rcm_permutation(tm))
     assert np.array_equal(jm.cells, tm.cells)
     jp = jblk.make_blocked_plan(jm, dtype=jnp.float64)
-    tp = tblk.make_blocked_plan(tm, dtype=F64)
+    tp = tblk.make_blocked_plan(tm, dtype=F64, device="cpu")
     rng = np.random.default_rng(0)
     n = tm.n_nodes
     f = dict(x=rng.standard_normal(n), u=rng.uniform(0.5, 11.0, n),
@@ -113,9 +113,9 @@ def test_window_coverage_matches_jax(tiled, mesh, k):
         jp = jblk.make_tiled_plan(mjt, dtype=jnp.float64, k=k)
     except jblk.WindowCoverageError:
         with pytest.raises(tblk.WindowCoverageError):
-            tblk.make_tiled_plan(mt, dtype=F64, k=k)
+            tblk.make_tiled_plan(mt, dtype=F64, k=k, device="cpu")
         return
-    tp = tblk.make_tiled_plan(mt, dtype=F64, k=k)
+    tp = tblk.make_tiled_plan(mt, dtype=F64, k=k, device="cpu")
     assert (tp.B, tp.n) == (jp.B, jp.n)
     assert np.array_equal(tp.row_valid.numpy(), np.asarray(jp.row_valid))
 
@@ -285,7 +285,7 @@ def test_tiled_rv_epsilon_skips_phantom_slots(tiled):
     mean and max and eps 0 on them, as in the JAX package."""
     (mt, _), (mjt, _) = tiled[2], tiled[3]
     jp = jblk.make_tiled_plan(mjt, dtype=jnp.float64)
-    tp = tblk.make_tiled_plan(mt, dtype=F64)
+    tp = tblk.make_tiled_plan(mt, dtype=F64, device="cpu")
     rng = np.random.default_rng(1)
     u, rh, h = (rng.uniform(0.5, 11.0, mt.n_nodes),
                 rng.standard_normal(mt.n_nodes),

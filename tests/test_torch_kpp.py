@@ -273,7 +273,8 @@ def test_build_targets_the_card_by_default():
 def test_package_imports_without_jax():
     """In a fresh interpreter, importing every module of the port pulls in
     neither jax nor the JAX package nor triton nor h5py (nor matplotlib
-    nor PIL: the utilities import with the three blocked), and builds
+    nor PIL: the utilities and the example scripts import with the three
+    blocked), and builds
     nothing."""
     code = (
         "import sys\n"
@@ -295,6 +296,8 @@ def test_package_imports_without_jax():
         "from conservation_fem_tpu_torch.utils import baseline_proxy, "
         "checkpoint, guards, interpolate, io, metrics, plotting, "
         "streaming, sweeps\n"
+        "from conservation_fem_tpu_torch.examples import make_figures, "
+        "tutorial\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and "
         "m.split('.')[0] in ('jax', 'jaxlib', 'conservation_fem_tpu', "
         "'triton', 'h5py', 'matplotlib', 'PIL')]\n"

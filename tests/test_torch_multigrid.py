@@ -47,11 +47,11 @@ def _poisson(nx, coarse_max):
     plan = jlat.build_plan(np.asarray(jhost.points))
     tplan = tlat.build_plan(thost.points)
     out = [plan]
-    for lat_, mg, host, bcg, where, asarr in (
+    for lat_, mg, host, bcg, where, asarr, kw in (
             (jlat, jmg, jhost, jlat.to_grid(plan, jnp.asarray(bc)),
-             jnp.where, jnp.asarray),
+             jnp.where, jnp.asarray, {}),
             (tlat, tmg, thost, tlat.to_grid(tplan, torch.from_numpy(bc)),
-             torch.where, torch.from_numpy)):
+             torch.where, torch.from_numpy, {"device": "cpu"})):
         p = plan if lat_ is jlat else tplan
         op = lat_.lattice_op(p, host, K1)
 
@@ -60,7 +60,7 @@ def _poisson(nx, coarse_max):
             return where(bcg, x, op(where(bcg, 0.0, x))).reshape(-1)
 
         static, arrs = mg.build_mg(p, host.patch_cols, host.patch_mask,
-                                   [[K1]], bc, coarse_max=coarse_max)
+                                   [[K1]], bc, coarse_max=coarse_max, **kw)
         out.append((A, static, arrs))
     return tuple(out)
 
@@ -111,7 +111,7 @@ def test_stokes_momentum_hierarchy_and_vcycle_match_jax():
                                 tp.wall_mask.numpy(), coarse_max=30)
     tstat, tarrs = tmg.build_mg(tplan2, sp.patch_cols, sp.patch_mask,
                                 blocks(lambda a: a), tp.wall_mask,
-                                coarse_max=30)
+                                coarse_max=30, device="cpu")
     assert tstat == jstat and len(tstat.shapes) >= 2
     _arrays_match(tarrs, jarrs, tstat)
     b = np.random.default_rng(1).standard_normal((2, plan2.nI, plan2.nJ))
@@ -156,11 +156,11 @@ def test_mg_needs_a_full_lattice_and_odd_grids():
     holed = tlat.LatticePlan(plan.nI, plan.nJ, plan.idx, plan.dof_at, False)
     with pytest.raises(NotImplementedError, match="full lattice"):
         tmg.build_mg(holed, m.patch_cols, m.patch_mask, [[K1]],
-                     m.boundary_mask)
+                     m.boundary_mask, device="cpu")
     # an even grid (66 x 66 points) cannot coarsen, and its dense solve
     # would exceed the limit
     m = trect((0, 0), (1, 1), nx=65)
     K1 = tasm.assemble_stiffness(m.device_arrays(torch.float64, "cpu"))
     with pytest.raises(ValueError, match="odd"):
         tmg.build_mg(tlat.build_plan(m.points), m.patch_cols, m.patch_mask,
-                     [[K1]], m.boundary_mask)
+                     [[K1]], m.boundary_mask, device="cpu")

@@ -159,7 +159,7 @@ def test_sharded_spmv_matches_jax():
 
     pt = build_partition(mesh_t, 8)
     dt = DistributedELL(pt, LocalBlocks(8, "cpu"))
-    Kt = tasm.assemble_stiffness(pt.mesh.device_arrays(torch.float64))
+    Kt = tasm.assemble_stiffness(pt.mesh.device_arrays(torch.float64, "cpu"))
     y = dt.unpad_rows(dt.sharded_spmv(dt.pad_ell(Kt),
                                       dt.pad_rows(torch.tensor(x))))
     np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-13)
